@@ -26,7 +26,7 @@ from ..ops.embedding import Embedding
 from ..ops.interaction import DotInteraction
 from ..ops.kernels import resolve_use_pallas
 from ..ops.shape_ops import Concat
-from .graph import Graph, InputOp, Op, OpContext
+from .graph import Graph, InputOp, OpContext
 from .tensor import TensorSpec
 
 _TRAINING = "training is slice 2 of the port"
@@ -63,9 +63,6 @@ class FFModel:
         self.graph.add_op(op)
         return op.outputs[0]
 
-    def _add(self, op: Op) -> Op:
-        return self.graph.add_op(op)
-
     def dense(
         self,
         input: TensorSpec,
@@ -85,7 +82,7 @@ class FFModel:
             kernel_initializer,
             bias_initializer,
         )
-        return self._add(op).outputs[0]
+        return self.graph.add_op(op).outputs[0]
 
     def embedding(
         self,
@@ -104,7 +101,7 @@ class FFModel:
             aggr,
             kernel_initializer,
         )
-        return self._add(op).outputs[0]
+        return self.graph.add_op(op).outputs[0]
 
     def dot_interaction(
         self,
@@ -115,13 +112,13 @@ class FFModel:
         op = DotInteraction(
             self.graph.unique_name(name or "dot_interaction"), inputs, self_interaction
         )
-        return self._add(op).outputs[0]
+        return self.graph.add_op(op).outputs[0]
 
     def concat(
         self, tensors: Sequence[TensorSpec], axis: int, name: Optional[str] = None
     ) -> TensorSpec:
         op = Concat(self.graph.unique_name(name or "concat"), tensors, axis)
-        return self._add(op).outputs[0]
+        return self.graph.add_op(op).outputs[0]
 
     # ------------------------------------------------------------------ compile
     def compile(

@@ -21,7 +21,7 @@ from ..ffconst import OperatorType
 from ..core.graph import Op
 from ..core.tensor import TensorSpec
 from .kernels.dot_interaction import dot_interaction as dot_interaction_kernel
-from .kernels.dot_interaction import pair_indices
+from .kernels.dot_interaction import dot_interaction_reference
 
 
 def dot_interaction(
@@ -31,11 +31,7 @@ def dot_interaction(
 ) -> torch.Tensor:
     """vectors: [B, F, D] -> [B, F*(F-1)/2] pairwise dots (F*(F+1)/2 with
     self interaction), inputs rounded to `compute_dtype`, summed in f32."""
-    b, f, _ = vectors.shape
-    x = vectors.to(compute_dtype).float()
-    z = torch.bmm(x, x.transpose(1, 2))
-    rows, cols = pair_indices(f, self_interaction, vectors.device)
-    return z.reshape(b, f * f)[:, rows * f + cols]
+    return dot_interaction_reference(vectors.to(compute_dtype), self_interaction)
 
 
 class DotInteraction(Op):
