@@ -5,23 +5,37 @@
 Phases, each of which ends the run with a non-zero exit if it fails:
   1. device  - needs CUDA (else exits 1 and prints no result); prints the
                card's name and power limit as nvidia-smi gives them.
-  2. build   - builds every kernel under dlrm_flexflow_tpu_torch/csrc with nvcc.
+  2. build   - builds every kernel under dlrm_flexflow_tpu_torch/csrc with
+               nvcc, one process per source, all at once.
   3. kernels - holds each kernel against its plain PyTorch version on the
-               card, at the serving path's shapes and a ragged one, and
-               times kernel, plain version, a library call, and the bound.
+               card and times kernel, plain version, a library call and the
+               bound: the dot interaction at the serving shapes and a ragged
+               one; the row update in the K1 regime (65536 rows into the
+               10,131,227-row kaggle table, f32 and bf16 tables and
+               streams), on a Zipf(1.05) stream, in the K2 regime (16 rows),
+               with rows < 0 and >= V, and twice for bit-identical results.
   4. path    - serves mlperf-lite DLRM at full width (26 tables, D=128,
                vocabs capped at 2M, batch 16384) through make_dlrm_model ->
-               compile -> predict on 4 full requests and a ragged one; the
-               kernel launch counts are zeroed just before and read just
-               after, and must show every kernel of the path.
+               compile -> predict on 4 full requests and a ragged one.
   5. parity  - a D=128 DLRM with small vocabs: predict on CUDA (kernel path)
                against the CPU with the same weights (plain f32 versions).
-  6. summary - a {"kernels": [...]} line, then the last line
+  6. train   - trains the kaggle DLRM at full width (26 tables, 33,762,577
+               rows, 10 of them on the row-update kernel route in bf16,
+               bf16 compute, SGD, batch 65536) through make_dlrm_model ->
+               compile -> train_batch: 3 warm-up and 20 timed steps; then
+               5 steps under torch.profiler (kernel time per step, the
+               device's busy share) and one step's time by phase.
+  7. train parity - kaggle widths with vocabs capped at 20000: 5 SGD steps
+               on CUDA against the CPU from the same weights.
+  8. summary - a {"kernels": [...]} line, then the last line
                {"ok": true, "device": {...}}.
+Around each path (4 and 6) the kernel launch counts are zeroed just before
+and read just after, and must show every kernel of that path.
 The script imports nothing of JAX: it runs the port alone.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -32,6 +46,9 @@ import torch
 
 SEED = 0
 BATCH = 16384
+TRAIN_BATCH = 65536
+TRAIN_WARMUP, TRAIN_STEPS, PROFILED_STEPS = 3, 20, 5
+KAGGLE_BIG_TABLES = 10  # kaggle tables with more than 8192 rows
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 # K3 sums D products in f32 in another order than cuBLAS's bmm. Each result
@@ -39,10 +56,14 @@ F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 # D * 2^-24), so the two differ by at most twice that: the tolerance of an
 # element is 2 * D * 2^-24 times the same dot taken over |x|.
 F32_UNIT = 2.0**-24
+BF16_UNIT = 2.0**-8
 # CUDA-vs-CPU end to end: both round the MLP operands to bf16 and sum in f32;
 # the f32 sums differ in order only, but a difference that flips the bf16
 # rounding of an activation moves it by one bf16 step (2^-8 relative) and
-# that carries through the next layers. Bound on the sigmoid output:
+# that carries through the next layers. Bound on the sigmoid output, and in
+# training on the loss and on every weight after 5 steps (a flipped
+# rounding of a row delta moves a bf16 table entry by one bf16 step of a
+# value of about 0.02):
 E2E_ATOL = 2e-3
 
 
@@ -59,6 +80,31 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() in ms with the host out of the way: `reps`
+    calls captured in one CUDA graph, replayed between CUDA events. For a
+    kernel shorter than its host launch (Python, ctypes, the stream lookup),
+    `cuda_ms` measures the launch rate instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -145,6 +191,117 @@ def phase_kernels() -> dict:
     }
     log(f"[kernels] dot_interaction timing at [{b},{f},{d}] f32: {json.dumps(timing)}")
     return {"max_abs_err": max(e["max_abs_err"] for e in errs), **timing}
+
+
+def row_update_tolerance(table, rows, src, h, scale) -> torch.Tensor:
+    """The kernel sums each row's deltas in sorted order, the plain version
+    with index_add_'s atomics in any order: each within n * 2^-24 * (|t| +
+    sum |delta|) of the exact sum of n terms, so within twice that of each
+    other; a bf16 table adds one bf16 step of the sum and one of the result
+    (2^-8 relative each), where that difference flips a bf16 rounding."""
+    v, _ = table.shape
+    keep = (rows >= 0) & (rows < v)
+    k = torch.arange(rows.numel(), device=rows.device)[keep]
+    r = rows[keep]
+    mag = table.float().abs()
+    mag.index_add_(0, r, (scale * src[k // h]).abs())
+    n = torch.ones(v, device=rows.device)
+    n.index_add_(0, r, torch.ones(r.numel(), device=rows.device))
+    tol = 2.0 * n[:, None] * F32_UNIT * mag
+    if table.dtype == torch.bfloat16:
+        tol += 2.0 * BF16_UNIT * mag
+    return tol
+
+
+def check_row_update(name, table, rows, src, stream, timed: bool) -> dict:
+    """One row-update case: the kernel against its plain version from the
+    same table, a repeat for bit-identity, and (if timed) the times."""
+    from dlrm_flexflow_tpu_torch.ops.kernels.row_update import (
+        _launch, row_update, row_update_reference, sort_rows,
+    )
+
+    h = rows.numel() // src.shape[0]
+    scale = torch.tensor(-0.01, device="cuda")
+    want = table.clone()
+    row_update_reference(want, rows, (src, h), scale, stream)
+    got = table.clone()
+    row_update([got], [rows], [(src, h)], scale, stream)
+    again = table.clone()
+    row_update([again], [rows], [(src, h)], scale, stream)
+    tol = row_update_tolerance(table, rows, src, h, scale)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    keep = (rows >= 0) & (rows < table.shape[0])
+    uniq = torch.unique(rows[keep]).numel()
+    res = {
+        "case": name, "V": table.shape[0], "D": table.shape[1], "K": rows.numel(), "h": h,
+        "table": str(table.dtype).replace("torch.", ""),
+        "stream": str(stream).replace("torch.", ""),
+        "dropped": int((~keep).sum()), "unique_rows": uniq,
+        "max_abs_err": err.max().item(),
+        "max_err_over_tol": (err / tol.clamp_min(1e-30)).max().item(),
+        "bit_identical_repeat": bool(torch.equal(got.view(torch.uint8), again.view(torch.uint8))),
+    }
+    if not torch.isfinite(got.float()).all() or res["max_err_over_tol"] > 1.0:
+        raise AssertionError(f"row_update disagrees with its plain version: {res}")
+    if not res["bit_identical_repeat"]:
+        raise AssertionError(f"row_update is not bit-reproducible: {res}")
+    if timed:
+        rows_sorted, order = sort_rows([table], [rows])
+        t32 = table.to(torch.float32, copy=True)
+        k_ok = torch.arange(rows.numel(), device="cuda")[keep]
+        deltas = (scale * src[k_ok // h]).contiguous()
+        r_ok = rows[keep]
+        t_bytes = (rows.numel() * 8 + src.numel() * 4
+                   + uniq * table.shape[1] * 2 * table.element_size()) / HBM_BYTES_PER_S * 1e3
+        launch = lambda: _launch(got, rows_sorted[0], order[0], src, h, scale, stream)  # noqa: E731
+        res.update({
+            "ms": graph_ms(launch),
+            "eager_ms": cuda_ms(launch),  # one wrapper call after another: host-bound
+            "prep_ms": cuda_ms(lambda: sort_rows([table], [rows])),
+            # torch.unique syncs with the host, so no graph here
+            "plain_ms": cuda_ms(lambda: row_update_reference(want, rows, (src, h), scale, stream)),
+            # one library call that adds the same (pre-formed) deltas
+            "library_ms": graph_ms(lambda: t32.index_add_(0, r_ok, deltas)),
+            "bound_ms": t_bytes,
+            "bound_by": "bytes",
+        })
+        del t32
+    log(f"[kernels] row_update {json.dumps(res)}")
+    return res
+
+
+def phase_row_update() -> dict:
+    """Row-update cases at the shapes of the train path (K1: 65536 rows into
+    the largest kaggle table) and of K2's sparse regime (16 rows)."""
+    from dlrm_flexflow_tpu_torch.data.synthetic import zipf_indices
+
+    v, d, k = 10_131_227, 16, TRAIN_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    base = (torch.rand((v, d), generator=gen, device="cuda") - 0.5) * 0.02
+    src = torch.randn((k, d), generator=gen, device="cuda")
+    uniform = torch.randint(0, v, (k,), generator=gen, device="cuda")
+    rng = np.random.default_rng(SEED + 2)
+    zipf = torch.from_numpy(zipf_indices(rng, v, k, 1.05)).cuda()
+    dropped = uniform.clone()
+    dropped[: k // 16] = -1 - torch.arange(k // 16, device="cuda") % 7
+    dropped[k // 16 : k // 8] = v + torch.arange(k // 16, device="cuda") % 7
+    b16 = base.to(torch.bfloat16)
+    cases = {}
+    for table, stream in ((b16, torch.bfloat16), (b16, torch.float32),
+                          (base, torch.bfloat16), (base, torch.float32)):
+        name = f"a-k1-{str(table.dtype)[6:]}-table-{str(stream)[6:]}-stream"
+        cases[name] = check_row_update(name, table, uniform, src, stream, timed=True)
+    cases["b-zipf"] = check_row_update("b-zipf", b16, zipf, src, torch.bfloat16, timed=True)
+    cases["c-k2"] = check_row_update("c-k2", b16, uniform[:16], src[:16], torch.bfloat16, timed=True)
+    cases["d-dropped"] = check_row_update("d-dropped", b16, dropped, src, torch.bfloat16, timed=False)
+    # (e) every case above ran the kernel twice from the same table and
+    # compared the bits; a bag of 2 reads src through k // h
+    cases["e-bag2"] = check_row_update("e-bag2", b16, uniform, src[: k // 2], torch.bfloat16,
+                                      timed=False)
+    del base, b16
+    torch.cuda.empty_cache()
+    return cases
 
 
 def phase_path() -> int:
@@ -261,12 +418,211 @@ def phase_parity() -> None:
         raise AssertionError(f"CUDA and CPU predictions disagree: {res}")
 
 
+def kaggle_model(cfg, batch: int, seed: int, device="cuda", **ffkw):
+    from dlrm_flexflow_tpu_torch import FFConfig, LossType, MetricsType, SGDOptimizer
+    from dlrm_flexflow_tpu_torch.models.dlrm import make_dlrm_model
+
+    model = make_dlrm_model(cfg, FFConfig(
+        batch_size=batch, seed=seed, compute_dtype="bfloat16", table_dtype="bfloat16", **ffkw,
+    ), device=device)
+    model.compile(SGDOptimizer(lr=0.01), LossType.LOSS_BINARY_CROSSENTROPY,
+                  [MetricsType.METRICS_ACCURACY])
+    return model
+
+
+def phase_train() -> int:
+    from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
+    from dlrm_flexflow_tpu_torch.ops.kernels.dot_interaction import dot_interaction
+    from dlrm_flexflow_tpu_torch.ops.kernels.row_update import row_update
+
+    cfg = kaggle_config(batch_size=TRAIN_BATCH)
+    t0 = time.perf_counter()
+    model = kaggle_model(cfg, TRAIN_BATCH, SEED)
+    torch.cuda.synchronize()
+    routed = {op.name: str(model.get_parameters()[op.name]["weight"].dtype)
+              for op in model._sparse_ops if op.kernel_route}
+    big = {f"table_{i}" for i, v in enumerate(cfg.embedding_size) if v > 8192}
+    if set(routed) != big or len(big) != KAGGLE_BIG_TABLES or set(routed.values()) != {"torch.bfloat16"}:
+        raise AssertionError(f"kernel route {routed} is not the {KAGGLE_BIG_TABLES} large tables in bf16")
+    feeds, labels = random_batches(cfg, 4 * TRAIN_BATCH, seed=SEED, learnable=False)
+    batches = []
+    for i in range(4):
+        sl = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+        batches.append(({k: v[sl] for k, v in feeds.items()}, labels[sl]))
+    # host staging once per batch (the JAX package's bench pre-stages too);
+    # the first step feeds numpy, as a user would
+    staged = [(model._stage(f), model._stage_labels(lbl)) for f, lbl in batches]
+    log(f"[train] kaggle: {cfg.num_tables} tables, {sum(cfg.embedding_size)} rows, "
+        f"D={cfg.sparse_feature_size}, bot {cfg.mlp_bot}, top {cfg.mlp_top}, batch {TRAIN_BATCH}; "
+        f"kernel route {sorted(routed)}; set-up {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(model.train_batch(*batches[0]))]
+    for i in range(1, TRAIN_WARMUP):
+        model.train_batch(*staged[i % 4])
+    torch.cuda.synchronize()
+
+    row_update.launches = 0
+    dot_interaction.launches = 0
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        loss = model.train_batch(*staged[i % 4])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"row_update": row_update.launches, "dot_interaction": dot_interaction.launches}
+
+    losses.append(float(loss))
+    want = TRAIN_STEPS * KAGGLE_BIG_TABLES  # one launch per kernel-route table and step
+    if launches["row_update"] != want:
+        raise AssertionError(f"row_update launched {launches['row_update']} times, not {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train losses not finite: {losses}")
+    res = {
+        "steps": TRAIN_STEPS, "seconds": dt, "examples_per_s": TRAIN_STEPS * TRAIN_BATCH / dt,
+        "ms_per_step": dt / TRAIN_STEPS * 1e3, "launches": launches,
+        "first_loss": losses[0], "last_loss": losses[-1], "metrics": model.get_metrics(),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    log(f"[train] {json.dumps(res)}")
+    log(f"[train] device kernels over {PROFILED_STEPS} profiled steps: "
+        f"{json.dumps(train_profile(model, staged, res['ms_per_step']))}")
+    log(f"[train] device ms by phase, one step of {TRAIN_BATCH}: "
+        f"{json.dumps(train_breakdown(model, *staged[0]))}")
+    del model, staged
+    torch.cuda.empty_cache()
+    return launches["row_update"]
+
+
+def train_profile(model, staged, ms_per_step: float) -> dict:
+    """Kernel time per step on the device, from torch.profiler (CUPTI) over
+    a few steps, against the unprofiled step time: the device's busy share.
+    Sums kernel rows only (op rows carry their kernels' time again)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(PROFILED_STEPS):
+            model.train_batch(*staged[i % len(staged)])
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    per_step = {e.key: e.self_device_time_total / 1e3 / PROFILED_STEPS for e in kernels}
+    busy = sum(per_step.values())
+    if busy == 0.0:
+        return {"kernel_ms_per_step": "not measured (the profiler saw no device time)"}
+    row = [e for e in kernels if "row_update_kernel" in e.key]
+    top = sorted(per_step.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "kernel_ms_per_step": busy,
+        "busy_share_of_unprofiled_step": busy / ms_per_step,
+        "row_update_kernel_ms_per_launch": (
+            sum(e.self_device_time_total for e in row) / 1e3 / max(sum(e.count for e in row), 1)),
+        "top_kernels_ms_per_step": {k[:60]: v for k, v in top},
+    }
+
+
+def train_breakdown(model, feeds, labels) -> dict:
+    """One train step, phase by phase as FFModel.train_batch runs it, with
+    CUDA events around each phase (the span includes any time the card
+    waits for the host to launch the phase's work)."""
+    from dlrm_flexflow_tpu_torch.ops.embedding import bag_row_src
+    from dlrm_flexflow_tpu_torch.ops.kernels.row_update import _launch, sort_rows
+    from dlrm_flexflow_tpu_torch.training import losses as losses_lib
+
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    params, sparse_ops = model.get_parameters(), model._sparse_ops
+    names = {op.name for op in sparse_ops}
+    ctx = dataclasses.replace(model._ctx, training=True)
+    mark("start")
+    with torch.no_grad():
+        over = {
+            op.name: [y.requires_grad_(True) for y in op.forward(
+                params[op.name], [feeds[t.owner_op.name] for t in op.inputs], ctx)]
+            for op in sparse_ops
+        }
+    mark("sparse_lookups")
+    leaves = {n: {k: p.detach().requires_grad_(True) for k, p in sub.items()}
+              for n, sub in params.items() if n not in names}
+    ctx.overrides = over
+    (logits,) = model.graph.execute(leaves, feeds, ctx, fetch=[model._out_spec])
+    loss = losses_lib.compute_loss(model.loss_type, logits, labels)
+    mark("dense_forward_and_loss")
+    flat = [p for sub in leaves.values() for p in sub.values()]
+    grads = torch.autograd.grad(loss, flat + [y for v in over.values() for y in v],
+                                allow_unused=True, materialize_grads=True)
+    mark("backward")
+    it = iter(grads)
+    g_dense = {n: {k: next(it) for k in sub} for n, sub in leaves.items()}
+    g_over = {op.name: next(it) for op in sparse_ops}
+    st = model._opt_state
+    model.optimizer.update(g_dense, st["dense"], {n: params[n] for n in g_dense})
+    mark("dense_sgd")
+    with torch.no_grad():
+        ops = [op for op in sparse_ops if op.kernel_route]
+        prep = [bag_row_src(feeds[op.inputs[0].owner_op.name], g_over[op.name], op.aggr,
+                            op.num_entries) for op in ops]
+        tables = [params[op.name]["weight"] for op in ops]
+        rows_sorted, order = sort_rows(tables, [p[0] for p in prep])
+        scale = -st["dense"]["lr"]
+        mark("sort_prep")
+        for i, (t, (_, src, h)) in enumerate(zip(tables, prep)):
+            _launch(t, rows_sorted[i], order[i], src.contiguous(), h, scale, torch.bfloat16)
+        mark("row_update_kernel")
+    torch.cuda.synchronize()
+    out = {name: prev[1].elapsed_time(ev) for prev, (name, ev) in zip(marks, marks[1:])}
+    out["total"] = marks[0][1].elapsed_time(marks[-1][1])
+    return out
+
+
+def phase_train_parity() -> None:
+    from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
+    from dlrm_flexflow_tpu_torch.ops.kernels.row_update import row_update
+
+    bs, steps = 256, 5
+    # kaggle widths and depth, vocabs capped at 20000 rows: 16 tables take
+    # the one-hot path (<= 8192 rows), 10 the row-update kernel route
+    cfg = kaggle_config(batch_size=bs)
+    cfg.embedding_size = [min(v, 20_000) for v in cfg.embedding_size]
+    gpu = kaggle_model(cfg, bs, SEED + 3, packed_tables="on")
+    cpu = kaggle_model(cfg, bs, SEED + 3, device="cpu", packed_tables="on")
+    cpu.set_parameters({name: gpu.get_weights(name) for name in gpu.get_parameters()})
+    feeds, labels = random_batches(cfg, steps * bs, seed=SEED + 3)
+    errs, launches = [], 0
+    for i in range(steps):
+        sl = slice(i * bs, (i + 1) * bs)
+        batch = {k: v[sl] for k, v in feeds.items()}
+        before = row_update.launches
+        loss_gpu = float(gpu.train_batch(batch, labels[sl]))
+        launches += row_update.launches - before
+        errs.append(abs(loss_gpu - float(cpu.train_batch(batch, labels[sl]))))
+    w_err = max(
+        float(np.abs(w - cpu.get_weights(name)[k]).max())
+        for name in gpu.get_parameters() for k, w in gpu.get_weights(name).items()
+    )
+    res = {"steps": steps, "batch": bs, "gpu_launches": launches,
+           "max_loss_err": max(errs), "max_weight_err": w_err, "atol": E2E_ATOL}
+    log(f"[train-parity] CUDA kernel route vs CPU plain: {json.dumps(res)}")
+    if launches != steps * KAGGLE_BIG_TABLES:
+        raise AssertionError(f"CUDA parity model launched row_update {launches} times")
+    if max(errs) > E2E_ATOL or w_err > E2E_ATOL:
+        raise AssertionError(f"CUDA and CPU training disagree: {res}")
+
+
 def main() -> None:
     phase_device()
     phase_build()
     k3 = phase_kernels()
+    rows = phase_row_update()
     launches = phase_path()
     phase_parity()
+    train_launches = phase_train()
+    phase_train_parity()
     kernel = {
         "name": "dot_interaction",
         "route": "cuda",
@@ -281,7 +637,24 @@ def main() -> None:
         "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
     }
-    log(json.dumps({"kernels": [kernel]}))
+    row_err = max(c["max_abs_err"] for c in rows.values())
+    entries = [kernel]
+    for case, replaces in (("a-k1-bfloat16-table-bfloat16-stream", 487), ("c-k2", 750)):
+        c = rows[case]
+        entries.append({
+            "name": f"row_update ({case})",
+            "route": "cuda",
+            "source": "dlrm_flexflow_tpu_torch/csrc/row_update.cu",
+            "replaces": f"dlrm_flexflow_tpu/ops/pallas/packed_update.py:{replaces}",
+            "launches": train_launches,
+            "max_abs_err": row_err,
+            "ms": c["ms"],
+            "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"],
+        })
+    log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

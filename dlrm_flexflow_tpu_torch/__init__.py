@@ -3,8 +3,9 @@
 The same graph-builder API, configs and parameter layout as the JAX package,
 running on one NVIDIA H100 (or on the CPU when asked). Its kernels are
 written by hand for Hopper (`csrc/`), each beside its plain PyTorch version
-(`ops/kernels/`). This part of the port serves DLRM: build, compile,
-predict, and carry weights over from the JAX package (`convert.py`).
+(`ops/kernels/`). This part of the port serves DLRM (build, compile,
+predict), trains it on one device with SGD (train_batch, fit, evaluate),
+and carries weights over from the JAX package (`convert.py`).
 """
 
 from .config import FFConfig, FFIterationConfig
@@ -28,6 +29,7 @@ from .core.initializers import (
     ZeroInitializer,
 )
 from .core.tensor import ParameterSpec, TensorSpec
+from .training.optimizer import AdamOptimizer, RowWiseAdagradOptimizer, SGDOptimizer
 
 __version__ = "0.1.0"
 
@@ -51,4 +53,7 @@ __all__ = [
     "UniformInitializer",
     "NormInitializer",
     "ConstantInitializer",
+    "SGDOptimizer",
+    "AdamOptimizer",
+    "RowWiseAdagradOptimizer",
 ]

@@ -21,6 +21,7 @@ from .tensor import ParameterSpec, TensorSpec
 class OpContext:
     """Per-call execution context threaded through every Op.forward."""
 
+    training: bool = True
     compute_dtype: torch.dtype = torch.float32
     # vocab size at or below which embedding ops take the one-hot path
     # (0 disables)
@@ -31,6 +32,10 @@ class OpContext:
     device: torch.device = dataclasses.field(
         default_factory=lambda: torch.device("cpu")
     )
+    # op name -> precomputed output list; execute() uses these instead of
+    # calling op.forward (the train step looks the sparse tables up outside
+    # autograd and injects their pooled outputs here)
+    overrides: Optional[Dict[str, List[torch.Tensor]]] = None
 
 
 class Op:
@@ -153,8 +158,11 @@ class Graph:
         for iop in self.inputs:
             env[(iop.guid, 0)] = feeds[iop.name]
         for op in self.compute_ops:
-            xs = [env[(t.owner_op.guid, t.owner_idx)] for t in op.inputs]
-            ys = op.forward(params.get(op.name, {}), xs, ctx)
+            if ctx.overrides is not None and op.name in ctx.overrides:
+                ys = list(ctx.overrides[op.name])
+            else:
+                xs = [env[(t.owner_op.guid, t.owner_idx)] for t in op.inputs]
+                ys = op.forward(params.get(op.name, {}), xs, ctx)
             for i, y in enumerate(ys):
                 env[(op.guid, i)] = y
         if fetch is None:

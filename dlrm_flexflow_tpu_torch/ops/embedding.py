@@ -14,8 +14,16 @@ paths, chosen as the JAX package chooses them:
   NaN rows, as `jnp.take`'s fill mode does.
 Both count every index >= 0 toward the AVG divisor, as the JAX package does.
 
-The JAX package's packed-table, host-tail and int8 branches belong to later
-slices. So do its force-only Pallas lookups (`use_pallas="on"`:
+Training (`bag_row_grads`, `bag_row_src`, `Embedding.sparse_update`): a
+table on the sparse path gets its pooled-output gradient turned into row
+updates, never a dense [V, D] gradient. Tables stay [V, D]: the JAX
+package's packed [V*D/128, 128] layout exists to fill TPU lanes. A table
+that FFModel.compile puts on the row-update kernel route
+(`kernel_route`, updated by training/sparse_engine.py) may be stored in
+`table_dtype` (bf16); every other table stays f32.
+
+The JAX package's host-tail and int8 branches belong to later slices. So
+do its force-only Pallas lookups (`use_pallas="on"`:
 `onehot_embedding_pallas`, `embedding_bag_pallas`); until they are ported,
 "on" leaves the lookup on these plain paths, which compute the same pooled
 sums.
@@ -71,9 +79,60 @@ def embedding_bag_onehot(
     idx, _ = _as_bags(idx)
     hit = (idx >= 0) & (idx < table.shape[0])
     safe = torch.where(hit, idx, torch.zeros_like(idx))
-    rows = table[safe].to(compute_dtype).float()
+    rows = _OnehotRows.apply(table, safe, compute_dtype)
     rows = torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
     return _pool(rows, idx, aggr).to(table.dtype)
+
+
+class _OnehotRows(torch.autograd.Function):
+    """table[idx] rounded to the compute dtype, as f32. Its backward sums
+    each row's gradient in f32 and rounds the sum to the compute dtype
+    once, as the transpose of the JAX package's one-hot einsum over
+    `table.astype(compute_dtype)` does; autograd through `.to(bf16)` would
+    round every lookup's gradient before the sum instead."""
+
+    @staticmethod
+    def forward(ctx, table, idx, compute_dtype):
+        ctx.save_for_backward(idx)
+        ctx.shape, ctx.dtype, ctx.compute_dtype = table.shape, table.dtype, compute_dtype
+        return table[idx].to(compute_dtype).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        acc = torch.zeros(ctx.shape, dtype=torch.float32, device=g.device)
+        acc.index_add_(0, idx.reshape(-1), g.reshape(-1, ctx.shape[1]).float())
+        return acc.to(ctx.compute_dtype).to(ctx.dtype), None, None
+
+
+def bag_row_grads(idx: torch.Tensor, g_pooled: torch.Tensor, aggr: AggrMode, num_entries: int):
+    """Expand a pooled-output gradient [B, D] into per-row scatter operands:
+    rows [B*H] (padding marked num_entries, to be dropped) and row_grads
+    [B*H, D] f32. For AVG pooling each member gets g/count."""
+    rows, src, h = bag_row_src(idx, g_pooled, aggr, num_entries)
+    if h == 1:
+        return rows, src
+    b, d = src.shape
+    return rows, src[:, None, :].expand(b, h, d).reshape(b * h, d)
+
+
+def bag_row_src(idx: torch.Tensor, g_pooled: torch.Tensor, aggr: AggrMode, num_entries: int):
+    """Like bag_row_grads but unexpanded: (rows [B*H], src [B, D] f32, h)
+    with row k's gradient src[k // h]. The row-update kernel reads the
+    pooled gradient through k // h, so the [B*H, D] expansion is never
+    made."""
+    idx, _ = _as_bags(idx)
+    b, h = idx.shape
+    valid = idx >= 0
+    g = g_pooled.float()
+    rows = torch.where(valid, idx, torch.full_like(idx, num_entries)).reshape(b * h)
+    if aggr is AggrMode.AGGR_MODE_NONE:
+        # per-token grads: no bag broadcast
+        return rows, g.reshape(b * h, -1), 1
+    if aggr is AggrMode.AGGR_MODE_AVG:
+        count = valid.sum(dim=1, keepdim=True).clamp_min(1)
+        g = g / count.to(g.dtype)
+    return rows, g, h
 
 
 class Embedding(Op):
@@ -105,6 +164,10 @@ class Embedding(Op):
             (self.num_entries, self.out_dim),
             kernel_initializer or GlorotUniform(),
         )
+        # set by FFModel.compile: the sparse-update route of this table and
+        # its storage dtype there (None: the parameter's f32)
+        self.kernel_route = False
+        self.table_dtype = None
 
     def forward(self, params, inputs, ctx):
         (idx,) = inputs
@@ -115,3 +178,15 @@ class Embedding(Op):
         ):
             return [embedding_bag_onehot(table, idx, self.aggr, ctx.compute_dtype)]
         return [embedding_bag(table, idx, self.aggr)]
+
+    # ---- sparse-gradient path (see FFModel.compile) -------------------------
+    def sparse_update(self, params, inputs, g_out_list, optimizer, sstate, ctx, lr=None):
+        """Apply the pooled-output gradient to the touched rows through the
+        optimizer's row rule (the scatter route), in place; returns the new
+        slot state. Tables on the kernel route go through
+        training/sparse_engine.py instead."""
+        rows, grads = bag_row_grads(inputs[0], g_out_list[0], self.aggr, self.num_entries)
+        return optimizer.sparse_row_update(params["weight"], sstate, rows, grads, lr=lr)
+
+    def sparse_state_init(self, optimizer):
+        return optimizer.sparse_init((self.num_entries, self.out_dim))

@@ -1,0 +1,92 @@
+"""Sparse embedding-update engine.
+
+PyTorch counterpart of `dlrm_flexflow_tpu/training/sparse_engine.py`, SGD
+part: routes the pooled-output gradients of the sparse embedding ops into
+row updates, in place. Tables on the kernel route (`op.kernel_route`, set
+by FFModel.compile) are grouped by (K, D) and go to the row-update kernel
+(`ops/kernels/row_update.py`), one sort per group; every other table goes
+to `op.sparse_update`, the optimizer's scatter rule.
+
+The two routes round differently, as in the JAX package: the kernel route
+rounds each delta -lr * g to the stream dtype (bf16) before it sums them
+in f32; the scatter route adds f32 deltas.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+from ..ops.embedding import bag_row_src
+from ..ops.kernels.row_update import row_update
+from .optimizer import LATER_SLICE, SGDOptimizer
+
+
+def _expand(src: torch.Tensor, h: int) -> torch.Tensor:
+    """[B, D] pooled source -> [B*h, D] per-member rows (only the
+    weight-decay payload needs the expansion)."""
+    if h == 1:
+        return src
+    b, d = src.shape
+    return src[:, None, :].expand(b, h, d).reshape(b * h, d)
+
+
+@torch.no_grad()
+def apply_sparse_updates(
+    sparse_ops,
+    params: Dict[str, Dict[str, torch.Tensor]],
+    sparse_xs: Dict[str, list],
+    g_over: Dict[str, list],
+    opt,
+    sstates: Dict[str, object],
+    ctx,
+    lr=None,
+) -> Dict[str, object]:
+    """Update the sparse ops' tables in place; returns the new slot states.
+    `g_over[op]` is the list of pooled-output gradients of op, `sparse_xs[op]`
+    its index inputs, `lr` the rate of this step (default: opt's own)."""
+    new_sstates = dict(sstates)
+    kernel_ops = [op for op in sparse_ops if op.kernel_route]
+    for op in sparse_ops:
+        if not op.kernel_route:
+            new_sstates[op.name] = op.sparse_update(
+                params[op.name], sparse_xs[op.name], g_over[op.name], opt,
+                sstates[op.name], ctx, lr=lr,
+            )
+    if not kernel_ops:
+        return new_sstates
+    if not isinstance(opt, SGDOptimizer) or opt.momentum != 0.0:
+        raise NotImplementedError(
+            f"the row-update kernel route takes SGD without momentum; "
+            f"{type(opt).__name__} rows are {LATER_SLICE}"
+        )
+
+    groups: Dict[tuple, List] = {}
+    for op in kernel_ops:
+        rows, src, h = bag_row_src(sparse_xs[op.name][0], g_over[op.name][0], op.aggr, op.num_entries)
+        groups.setdefault((int(rows.shape[0]), op.out_dim), []).append((op, rows, src, h))
+
+    device = params[kernel_ops[0].name]["weight"].device
+    rate = torch.as_tensor(opt.lr if lr is None else lr, dtype=torch.float32, device=device)
+    for items in groups.values():
+        tables = [params[op.name]["weight"] for op, *_ in items]
+        rows_l = [rows for _, rows, _, _ in items]
+        if opt.weight_decay != 0.0:
+            # lazy decay on touched rows (duplicates decay once per
+            # occurrence, as on the scatter route). The decay term is taken
+            # in the table's dtype, as the JAX package's weakly typed
+            # `weight_decay * rows` is, and forces the expanded payload.
+            payloads = [
+                -rate * (
+                    _expand(src, h)
+                    + torch.full((), opt.weight_decay, dtype=t.dtype, device=device)
+                    * t[rows.clamp(0, t.shape[0] - 1)]
+                )
+                for (_, rows, src, h), t in zip(items, tables)
+            ]
+            scale = torch.ones((), dtype=torch.float32, device=device)
+        else:
+            payloads = [(src.contiguous(), h) for _, _, src, h in items]
+            scale = -rate
+        row_update(tables, rows_l, payloads, scale)
+    return new_sstates
