@@ -14,23 +14,39 @@ Phases, each of which ends the run with a non-zero exit if it fails:
                10,131,227-row kaggle table, f32 and bf16 tables and
                streams), on a Zipf(1.05) stream, in the K2 regime (16 rows),
                with rows < 0 and >= V, and twice for bit-identical results.
+               The fused dense layer, the embedding bag and the one-hot
+               lookup follow in phase 10.
   4. path    - serves mlperf-lite DLRM at full width (26 tables, D=128,
                vocabs capped at 2M, batch 16384) through make_dlrm_model ->
                compile -> predict on 4 full requests and a ragged one.
   5. parity  - a D=128 DLRM with small vocabs: predict on CUDA (kernel path)
-               against the CPU with the same weights (plain f32 versions).
-  6. train   - trains the kaggle DLRM at full width (26 tables, 33,762,577
+               against the CPU with the same weights, both on the routes of
+               use_pallas="auto".
+  6. path-on - the same serving path with every op on its forced kernel
+               (use_pallas="on", packed_tables="off"): 8 Dense layers on the
+               fused dense kernel, 13 small tables on the one-hot lookup, 13
+               large ones on the embedding bag, the interaction on its kernel.
+  7. parity-on - mlperf-lite widths with vocabs capped at 20000: predict
+               under "on" on CUDA against the CPU with the same weights.
+  8. train   - trains the kaggle DLRM at full width (26 tables, 33,762,577
                rows, 10 of them on the row-update kernel route in bf16,
                bf16 compute, SGD, batch 65536) through make_dlrm_model ->
                compile -> train_batch: 3 warm-up and 20 timed steps; then
                5 steps under torch.profiler (kernel time per step, the
                device's busy share) and one step's time by phase.
-  7. train parity - kaggle widths with vocabs capped at 20000: 5 SGD steps
+  9. train parity - kaggle widths with vocabs capped at 20000: 5 SGD steps
                on CUDA against the CPU from the same weights.
-  8. summary - a {"kernels": [...]} line, then the last line
+ 10. kernels, continued - as phase 3: the fused dense layer at the 8
+               mlperf-lite layer shapes at M = 16384 (bf16), at M = 1000, in
+               f32, without bias; the embedding bag at [16384, 1] into a
+               2,000,000 x 128 table, with bags of 4 (AVG, padding, a fully
+               padded bag), a bf16 table, indices past the table; the one-hot
+               lookup at V = 7424, D = 128, B = 16384 (SUM, AVG, duplicates,
+               indices >= V, f32 and bf16 compute).
+ 11. summary - a {"kernels": [...]} line, then the last line
                {"ok": true, "device": {...}}.
-Around each path (4 and 6) the kernel launch counts are zeroed just before
-and read just after, and must show every kernel of that path.
+Around each path (4, 6 and 8) the kernel launch counts are zeroed just
+before and read just after, and must show every kernel of that path.
 The script imports nothing of JAX: it runs the port alone.
 """
 from __future__ import annotations
@@ -51,6 +67,13 @@ TRAIN_WARMUP, TRAIN_STEPS, PROFILED_STEPS = 3, 20, 5
 KAGGLE_BIG_TABLES = 10  # kaggle tables with more than 8192 rows
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+# mlperf-lite's Dense layers as (K, N, activation): bottom 13-512-256-128,
+# top 479-1024-1024-512-256-1 with a sigmoid last
+MLPERF_LITE_LAYERS = [(13, 512, "relu"), (512, 256, "relu"), (256, 128, "relu"),
+                      (479, 1024, "relu"), (1024, 1024, "relu"), (1024, 512, "relu"),
+                      (512, 256, "relu"), (256, 1, "sigmoid")]
+MLPERF_LITE_TABLES = 13  # mlperf-lite tables on each forced lookup (<= 8192 rows, and more)
 # K3 sums D products in f32 in another order than cuBLAS's bmm. Each result
 # is within gamma_D * sum_d |x_r,d * x_c,d| of the exact dot (gamma_D ~
 # D * 2^-24), so the two differ by at most twice that: the tolerance of an
@@ -65,6 +88,10 @@ BF16_UNIT = 2.0**-8
 # rounding of a row delta moves a bf16 table entry by one bf16 step of a
 # value of about 0.02):
 E2E_ATOL = 2e-3
+# Under use_pallas="on" every layer's output, the sigmoid included, is
+# rounded to bf16: a flipped rounding of the output itself moves it by one
+# bf16 step, 2^-8 in [0.5, 1). Two steps:
+E2E_ON_ATOL = 2.0**-7
 
 
 def log(msg: str) -> None:
@@ -304,11 +331,231 @@ def phase_row_update() -> dict:
     return cases
 
 
+def randn(shape, gen, dtype=torch.float32, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def dense_tolerance(x, w, b, want, cdt) -> torch.Tensor:
+    """The tensor cores sum exact bf16 products in f32 in another order than
+    the plain f32 matmul and may truncate rather than round each addition:
+    each within K * 2^-23 * sum |term| of the exact sum, so within 4 * K *
+    2^-24 of each other (1.2 x that through a GELU); a result rounded to
+    bf16 may then land one bf16 step (2^-7 of its value, at most) away."""
+    k = x.shape[1]
+    mag = x.to(cdt).float().abs() @ w.to(cdt).float().abs().t()
+    if b is not None:
+        mag = mag + b.abs()
+    tol = 1.2 * 4 * k * F32_UNIT * mag + 4 * F32_UNIT * want.float().abs()
+    if cdt == torch.bfloat16:
+        tol = tol + 2.0 * BF16_UNIT * want.float().abs()
+    return tol
+
+
+def check_fused_dense(name, x, w, b, act, cdt) -> dict:
+    from dlrm_flexflow_tpu_torch.ops.kernels.fused_mlp import fused_dense, fused_dense_reference
+
+    got = fused_dense(x, w, b, act, cdt)
+    want = fused_dense_reference(x, w, b, act, cdt)
+    tol = dense_tolerance(x, w, b, want, cdt)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    res = {
+        "case": name, "M": x.shape[0], "K": x.shape[1], "N": w.shape[0], "act": act.name,
+        "bias": b is not None, "compute": str(cdt).replace("torch.", ""),
+        "max_abs_err": err.max().item(),
+        "max_err_over_tol": (err / tol.clamp_min(1e-30)).max().item(),
+        "rounded_to_compute_dtype": bool(torch.equal(got, got.to(cdt).to(got.dtype))),
+    }
+    log(f"[kernels] fused_dense {json.dumps(res)}")
+    if not torch.isfinite(got).all() or res["max_err_over_tol"] > 1.0 or not res["rounded_to_compute_dtype"]:
+        raise AssertionError(f"fused_dense disagrees with its plain version: {res}")
+    return res
+
+
+def phase_fused_dense() -> dict:
+    """K6 at the 8 mlperf-lite layer shapes at M = 16384 in bf16 (timed as
+    one forward's worth), then M = 1000, f32 compute, no bias."""
+    from dlrm_flexflow_tpu_torch import ActiMode
+    from dlrm_flexflow_tpu_torch.ops.kernels.fused_mlp import fused_dense, fused_dense_reference
+
+    acts = {"relu": ActiMode.AC_MODE_RELU, "sigmoid": ActiMode.AC_MODE_SIGMOID}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    errs, layers = [], []
+    for k, n, act in MLPERF_LITE_LAYERS:
+        x = randn((BATCH, k), gen)
+        w = randn((n, k), gen, scale=k**-0.5)
+        b = randn((n,), gen, scale=0.1)
+        errs.append(check_fused_dense("mlperf-lite", x, w, b, acts[act], torch.bfloat16))
+        layers.append((x, w, b, acts[act]))
+    x, w, b, act = layers[4]
+    errs.append(check_fused_dense("ragged-M", x[:1000].contiguous(), w, b, act, torch.bfloat16))
+    errs.append(check_fused_dense("f32", x[:1000].contiguous(), w, b, act, torch.float32))
+    x, w, b, act = layers[3]
+    errs.append(check_fused_dense("no-bias", x, w, None, act, torch.bfloat16))
+    x, w, b, act = layers[7]
+    errs.append(check_fused_dense("f32-sigmoid-N1", x, w, None, act, torch.float32))
+
+    per_layer, t_bytes, t_ops = [], 0.0, 0.0
+    for x, w, b, act in layers:
+        m, k = x.shape
+        n = w.shape[0]
+        xb, wb, bb = x.to(torch.bfloat16), w.to(torch.bfloat16).t(), b.to(torch.bfloat16)
+        lb = (m * k + n * k + n + m * n) * 4 / HBM_BYTES_PER_S * 1e3
+        lo = 2.0 * m * n * k / BF16_FLOP_PER_S * 1e3
+        t_bytes, t_ops = t_bytes + lb, t_ops + lo
+        per_layer.append({
+            "K": k, "N": n,
+            "ms": graph_ms(lambda: fused_dense(x, w, b, act, torch.bfloat16)),
+            "plain_ms": graph_ms(lambda: fused_dense_reference(x, w, b, act, torch.bfloat16)),
+            # one library call: bf16 operands cast beforehand, a bf16 result
+            "library_ms": graph_ms(lambda: torch.addmm(bb, xb, wb)),
+            "bound_ms": max(lb, lo), "bound_by": "bytes" if lb >= lo else "operations",
+        })
+        log(f"[kernels] fused_dense timing at M={m} K={k} N={n} bf16: {json.dumps(per_layer[-1])}")
+    timing = {key: sum(layer[key] for layer in per_layer)
+              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    timing["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"[kernels] fused_dense timing, the 8 mlperf-lite layers at M={BATCH} summed: "
+        f"{json.dumps(timing)}")
+    del layers
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max(e["max_abs_err"] for e in errs), **timing}
+
+
+def check_lookup(kind, name, table, idx, aggr, cdt=None) -> dict:
+    """One pooled-lookup case against its plain version. Both sum in f32,
+    in another order for bags of more than one: each within n * 2^-24 of
+    the sum of |terms|, so within twice that of each other; a bf16 output
+    may then land one bf16 step away."""
+    from dlrm_flexflow_tpu_torch.ops.kernels import embedding_bag as k4
+    from dlrm_flexflow_tpu_torch.ops.kernels import onehot_embedding as k5f
+
+    if kind == "embedding_bag":
+        run = lambda t: k4.embedding_bag(t, idx, aggr)  # noqa: E731
+        ref = lambda t: k4.embedding_bag_reference(t, idx, aggr)  # noqa: E731
+    else:
+        run = lambda t: k5f.onehot_embedding(t, idx, aggr, cdt)  # noqa: E731
+        ref = lambda t: k5f.onehot_embedding_reference(t, idx, aggr, cdt)  # noqa: E731
+    got = run(table).float()
+    want = ref(table).float()
+    h = idx.shape[1] if idx.dim() == 2 else 1
+    tol = 2.0 * h * F32_UNIT * ref(table.float().abs()).float()
+    if table.dtype == torch.bfloat16:
+        tol = tol + 2.0 * BF16_UNIT * want.abs()
+    torch.cuda.synchronize()
+    nan_same = bool(torch.equal(torch.isnan(got), torch.isnan(want)))
+    fin = torch.isfinite(want)
+    err = (got - want).abs()[fin]
+    res = {
+        "case": name, "rows": table.shape[0], "D": table.shape[1], "bags": idx.shape[0], "H": h,
+        "aggr": aggr.name, "table": str(table.dtype).replace("torch.", ""),
+        "compute": None if cdt is None else str(cdt).replace("torch.", ""),
+        "padded": int((idx < 0).sum()), "past_the_table": int((idx >= table.shape[0]).sum()),
+        "max_abs_err": err.max().item() if err.numel() else 0.0,
+        "max_err_over_tol": (err / tol[fin].clamp_min(1e-30)).max().item() if err.numel() else 0.0,
+        "nan_where_plain_is_nan": nan_same,
+    }
+    log(f"[kernels] {kind} {json.dumps(res)}")
+    if res["max_err_over_tol"] > 1.0 or not nan_same:
+        raise AssertionError(f"{kind} disagrees with its plain version: {res}")
+    return res
+
+
+def lookup_bound(table, idx) -> tuple:
+    """Bytes: the indices, the distinct rows they name, the output; operations:
+    one f32 add a member and column."""
+    rows = idx[(idx >= 0) & (idx < table.shape[0])]
+    d, item = table.shape[1], table.element_size()
+    t_bytes = (idx.numel() * idx.element_size() + torch.unique(rows).numel() * d * item
+               + idx.shape[0] * d * item) / HBM_BYTES_PER_S * 1e3
+    t_ops = rows.numel() * d / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_lookups() -> tuple:
+    """K4 at mlperf-lite's largest table shape and K5f at its largest small
+    table, each with its edge cases, then timed at the main-path shape."""
+    import torch.nn.functional as F
+
+    from dlrm_flexflow_tpu_torch import AggrMode
+    from dlrm_flexflow_tpu_torch.ops.kernels.embedding_bag import embedding_bag, embedding_bag_reference
+    from dlrm_flexflow_tpu_torch.ops.kernels.onehot_embedding import (
+        onehot_embedding, onehot_embedding_reference,
+    )
+
+    SUM, AVG = AggrMode.AGGR_MODE_SUM, AggrMode.AGGR_MODE_AVG
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    big = randn((2_000_000, 128), gen, scale=0.05)
+    main = torch.randint(0, big.shape[0], (BATCH, 1), generator=gen, device="cuda")
+    bags = torch.randint(0, big.shape[0], (BATCH, 4), generator=gen, device="cuda")
+    bags[::5, 2:] = -1  # padding
+    bags[7] = -1  # a fully padded bag
+    errs = [
+        check_lookup("embedding_bag", "mlperf-lite", big, main, SUM),
+        check_lookup("embedding_bag", "bag4-avg-padding", big, bags, AVG),
+        check_lookup("embedding_bag", "bf16-table", big.to(torch.bfloat16), bags, SUM),
+        check_lookup("embedding_bag", "past-the-table", big[:1000].contiguous(), bags % 1100, AVG),
+    ]
+    bound, bound_by = lookup_bound(big, main)
+    k4 = {
+        "max_abs_err": max(e["max_abs_err"] for e in errs),
+        "ms": graph_ms(lambda: embedding_bag(big, main, SUM)),
+        "plain_ms": graph_ms(lambda: embedding_bag_reference(big, main, SUM)),
+        "library_ms": graph_ms(lambda: F.embedding_bag(main, big, mode="sum")),
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+    log(f"[kernels] embedding_bag timing at [{BATCH}, 1] into {list(big.shape)} f32: {json.dumps(k4)}")
+    del big, bags
+
+    small = randn((7424, 128), gen, scale=0.05)
+    v = small.shape[0]
+    one = torch.randint(0, v, (BATCH, 1), generator=gen, device="cuda")
+    dup = torch.randint(0, v, (BATCH, 6), generator=gen, device="cuda")
+    dup[:, 1] = dup[:, 0]  # n_r >= 2
+    dup[::3, 2] = dup[::3, 0]  # n_r = 3
+    dup[::5, 3] = -1
+    dup[::4, 4] = v + 2  # matches no row, counts in AVG's divisor
+    errs = [
+        check_lookup("onehot_embedding", "mlperf-lite", small, one, SUM, torch.bfloat16),
+        check_lookup("onehot_embedding", "dup-sum-bf16", small, dup, SUM, torch.bfloat16),
+        check_lookup("onehot_embedding", "dup-avg-bf16", small, dup, AVG, torch.bfloat16),
+        check_lookup("onehot_embedding", "dup-avg-f32", small, dup, AVG, torch.float32),
+        check_lookup("onehot_embedding", "bf16-table", small.to(torch.bfloat16), dup, AVG, torch.bfloat16),
+    ]
+    bound, bound_by = lookup_bound(small, one)
+    small_c = small.to(torch.bfloat16)
+    k5f = {
+        "max_abs_err": max(e["max_abs_err"] for e in errs),
+        "ms": graph_ms(lambda: onehot_embedding(small, one, SUM, torch.bfloat16)),
+        "plain_ms": graph_ms(lambda: onehot_embedding_reference(small, one, SUM, torch.bfloat16)),
+        # one library call on a table cast to bf16 beforehand (a bf16 result)
+        "library_ms": graph_ms(lambda: F.embedding_bag(one, small_c, mode="sum")),
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+    log(f"[kernels] onehot_embedding timing at [{BATCH}, 1] into {list(small.shape)} f32, "
+        f"bf16 compute: {json.dumps(k5f)}")
+    del small, small_c
+    torch.cuda.empty_cache()
+    return k4, k5f
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper of the port, by name: each carries `launches`."""
+    from dlrm_flexflow_tpu_torch.ops.kernels.dot_interaction import dot_interaction
+    from dlrm_flexflow_tpu_torch.ops.kernels.embedding_bag import embedding_bag
+    from dlrm_flexflow_tpu_torch.ops.kernels.fused_mlp import fused_dense
+    from dlrm_flexflow_tpu_torch.ops.kernels.onehot_embedding import onehot_embedding
+    from dlrm_flexflow_tpu_torch.ops.kernels.row_update import row_update
+
+    return {"dot_interaction": dot_interaction, "fused_dense": fused_dense,
+            "embedding_bag": embedding_bag, "onehot_embedding": onehot_embedding,
+            "row_update": row_update}
+
+
 def phase_path() -> int:
     from dlrm_flexflow_tpu_torch import FFConfig, LossType, MetricsType
     from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
     from dlrm_flexflow_tpu_torch.models.dlrm import make_dlrm_model, mlperf_lite_config
-    from dlrm_flexflow_tpu_torch.ops.kernels.dot_interaction import dot_interaction
 
     cfg = mlperf_lite_config(batch_size=BATCH)
     t0 = time.perf_counter()
@@ -325,19 +572,23 @@ def phase_path() -> int:
         f"set-up {time.perf_counter() - t0:.3f} s")
     torch.cuda.reset_peak_memory_stats()
 
-    dot_interaction.launches = 0
+    counts = launch_counts()
+    for fn in counts.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     out = model.predict(feeds)
     first_s = time.perf_counter() - t0
-    launches = {"dot_interaction": dot_interaction.launches}
+    launches = {name: fn.launches for name, fn in counts.items()}
 
     chunks = -(-n // BATCH)
     if out.shape != (n, 1):
         raise AssertionError(f"predict shape {out.shape} != {(n, 1)}")
     if not np.isfinite(out).all() or out.min() < 0.0 or out.max() > 1.0:
         raise AssertionError("predict gave values outside [0, 1] or not finite")
-    if launches["dot_interaction"] != chunks:
-        raise AssertionError(f"dot_interaction launched {launches} times for {chunks} chunks")
+    # "auto" keeps Dense and the lookups on their plain paths, as the JAX
+    # package's "auto" does
+    if launches != {**{name: 0 for name in counts}, "dot_interaction": chunks}:
+        raise AssertionError(f"the auto path launched {launches} for {chunks} chunks")
 
     warm_s = []
     for _ in range(3):
@@ -397,11 +648,13 @@ def phase_parity() -> None:
     # 13 tables take the one-hot path (<= 8192 rows), 13 the gather
     cfg = mlperf_lite_config(batch_size=bs, vocab_cap=20_000)
     gpu = make_dlrm_model(cfg, FFConfig(batch_size=bs, seed=SEED + 1))
-    cpu = make_dlrm_model(
-        cfg, FFConfig(batch_size=bs, seed=SEED + 1, use_pallas="on"), device="cpu"
-    )
+    cpu = make_dlrm_model(cfg, FFConfig(batch_size=bs, seed=SEED + 1), device="cpu")
     for m in (gpu, cpu):
         m.compile(loss_type=LossType.LOSS_BINARY_CROSSENTROPY)
+    # like with like: "auto" resolves to "off" on the CPU; set it back so that
+    # the CPU model takes the CUDA model's routes (the interaction's f32
+    # kernel path, plain Dense and lookups)
+    cpu._ctx.use_pallas = "auto"
     cpu.set_parameters({name: gpu.get_weights(name) for name in gpu.get_parameters()})
     n = 2 * bs + 37
     feeds, _ = random_batches(cfg, n, seed=SEED + 1)
@@ -411,11 +664,111 @@ def phase_parity() -> None:
     y_cpu = cpu.predict(feeds)
     err = float(np.abs(y_gpu - y_cpu).max())
     res = {"examples": n, "gpu_launches": gpu_launches, "max_abs_err": err, "atol": E2E_ATOL}
-    log(f"[parity] CUDA kernel path vs CPU plain f32: {json.dumps(res)}")
+    log(f"[parity] CUDA vs CPU under auto (the interaction kernel and its plain f32 version): "
+        f"{json.dumps(res)}")
     if gpu_launches != 3:
         raise AssertionError(f"CUDA parity model launched the kernel {gpu_launches} times, not 3")
     if not np.isfinite(y_gpu).all() or err > E2E_ATOL:
         raise AssertionError(f"CUDA and CPU predictions disagree: {res}")
+
+
+def forced_model(cfg, batch: int, seed: int, device="cuda"):
+    from dlrm_flexflow_tpu_torch import FFConfig, LossType
+    from dlrm_flexflow_tpu_torch.models.dlrm import make_dlrm_model
+
+    model = make_dlrm_model(cfg, FFConfig(batch_size=batch, seed=seed, use_pallas="on",
+                                          packed_tables="off"), device=device)
+    model.compile(loss_type=LossType.LOSS_BINARY_CROSSENTROPY)
+    return model
+
+
+def forced_launches(chunks: int) -> dict:
+    """Launches of one forced-kernel mlperf-lite predict of `chunks` chunks."""
+    return {"dot_interaction": chunks, "fused_dense": len(MLPERF_LITE_LAYERS) * chunks,
+            "embedding_bag": MLPERF_LITE_TABLES * chunks,
+            "onehot_embedding": MLPERF_LITE_TABLES * chunks, "row_update": 0}
+
+
+def phase_path_on() -> dict:
+    """mlperf-lite serving at full width with every op on its forced kernel."""
+    from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
+    from dlrm_flexflow_tpu_torch.models.dlrm import mlperf_lite_config
+
+    cfg = mlperf_lite_config(batch_size=BATCH)
+    small = sum(1 for v in cfg.embedding_size if v <= 8192)
+    if small != MLPERF_LITE_TABLES or cfg.num_tables != 2 * MLPERF_LITE_TABLES:
+        raise AssertionError(f"mlperf-lite has {small} of {cfg.num_tables} tables at <= 8192 rows")
+    t0 = time.perf_counter()
+    model = forced_model(cfg, BATCH, SEED)
+    torch.cuda.synchronize()
+    n = 4 * BATCH + 1000
+    feeds, _ = random_batches(cfg, n, seed=SEED)
+    log(f"[path-on] mlperf-lite under use_pallas='on', packed_tables='off'; "
+        f"set-up {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+
+    counts = launch_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = model.predict(feeds)
+    first_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counts.items()}
+
+    chunks = -(-n // BATCH)
+    if out.shape != (n, 1):
+        raise AssertionError(f"predict shape {out.shape} != {(n, 1)}")
+    if not np.isfinite(out).all() or out.min() < 0.0 or out.max() > 1.0:
+        raise AssertionError("predict gave values outside [0, 1] or not finite")
+    if launches != forced_launches(chunks):
+        raise AssertionError(f"the forced path launched {launches}, not {forced_launches(chunks)}")
+
+    warm_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = model.predict(feeds)
+        warm_s.append(time.perf_counter() - t0)
+    path = {
+        "examples": n, "chunks": chunks, "launches": launches,
+        "first_predict_s": first_s, "warm_predict_s": warm_s,
+        "warm_examples_per_s": n / float(np.median(warm_s)),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "repeat_max_abs_diff": float(np.abs(again - out).max()),
+        "mean_score": float(out.mean()),
+    }
+    log(f"[path-on] {json.dumps(path)}")
+    log(f"[path-on] device ms by op kind, one warm batch of {BATCH}: "
+        f"{json.dumps(op_breakdown(model, feeds))}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_parity_on() -> None:
+    from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
+    from dlrm_flexflow_tpu_torch.models.dlrm import mlperf_lite_config
+
+    bs = 256
+    # mlperf-lite widths, vocabs capped at 20000 rows: 13 tables take the
+    # one-hot kernel (<= 8192 rows), 13 the embedding-bag kernel
+    cfg = mlperf_lite_config(batch_size=bs, vocab_cap=20_000)
+    gpu = forced_model(cfg, bs, SEED + 6)
+    cpu = forced_model(cfg, bs, SEED + 6, device="cpu")
+    cpu.set_parameters({name: gpu.get_weights(name) for name in gpu.get_parameters()})
+    n = 2 * bs + 37
+    feeds, _ = random_batches(cfg, n, seed=SEED + 6)
+    counts = launch_counts()
+    before = {name: fn.launches for name, fn in counts.items()}
+    y_gpu = gpu.predict(feeds)
+    launches = {name: fn.launches - before[name] for name, fn in counts.items()}
+    y_cpu = cpu.predict(feeds)
+    err = float(np.abs(y_gpu - y_cpu).max())
+    res = {"examples": n, "gpu_launches": launches, "max_abs_err": err, "atol": E2E_ON_ATOL}
+    log(f"[parity-on] CUDA forced kernels vs CPU plain versions: {json.dumps(res)}")
+    if launches != forced_launches(-(-n // bs)):
+        raise AssertionError(f"CUDA parity model launched {launches}")
+    if not np.isfinite(y_gpu).all() or err > E2E_ON_ATOL:
+        raise AssertionError(f"CUDA and CPU predictions under 'on' disagree: {res}")
 
 
 def kaggle_model(cfg, batch: int, seed: int, device="cuda", **ffkw):
@@ -433,8 +786,6 @@ def kaggle_model(cfg, batch: int, seed: int, device="cuda", **ffkw):
 def phase_train() -> int:
     from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
     from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
-    from dlrm_flexflow_tpu_torch.ops.kernels.dot_interaction import dot_interaction
-    from dlrm_flexflow_tpu_torch.ops.kernels.row_update import row_update
 
     cfg = kaggle_config(batch_size=TRAIN_BATCH)
     t0 = time.perf_counter()
@@ -462,19 +813,22 @@ def phase_train() -> int:
         model.train_batch(*staged[i % 4])
     torch.cuda.synchronize()
 
-    row_update.launches = 0
-    dot_interaction.launches = 0
+    counts = launch_counts()
+    for fn in counts.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     for i in range(TRAIN_STEPS):
         loss = model.train_batch(*staged[i % 4])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"row_update": row_update.launches, "dot_interaction": dot_interaction.launches}
+    launches = {name: fn.launches for name, fn in counts.items()}
 
     losses.append(float(loss))
-    want = TRAIN_STEPS * KAGGLE_BIG_TABLES  # one launch per kernel-route table and step
-    if launches["row_update"] != want:
-        raise AssertionError(f"row_update launched {launches['row_update']} times, not {want}")
+    # one launch per kernel-route table and step; kaggle's cat interaction
+    # and "auto" reach no other kernel
+    want = {**{name: 0 for name in counts}, "row_update": TRAIN_STEPS * KAGGLE_BIG_TABLES}
+    if launches != want:
+        raise AssertionError(f"the train path launched {launches}, not {want}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"train losses not finite: {losses}")
     res = {
@@ -621,8 +975,14 @@ def main() -> None:
     rows = phase_row_update()
     launches = phase_path()
     phase_parity()
+    on_launches = phase_path_on()
+    phase_parity_on()
     train_launches = phase_train()
     phase_train_parity()
+    # after the paths: run before them, these cases left about 0.5 GB
+    # allocated, which showed in the paths' peak memory
+    k6 = phase_fused_dense()
+    k4, k5f = phase_lookups()
     kernel = {
         "name": "dot_interaction",
         "route": "cuda",
@@ -653,6 +1013,20 @@ def main() -> None:
             "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"],
             "library_ms": c["library_ms"],
+        })
+    for name, src, replaces, res in (
+        ("fused_dense", "fused_mlp.cu", "fused_mlp.py:31", k6),
+        ("embedding_bag", "embedding_bag.cu", "embedding_bag.py:38", k4),
+        ("onehot_embedding", "onehot_embedding.cu", "onehot_embedding.py:55", k5f),
+    ):
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"dlrm_flexflow_tpu_torch/csrc/{src}",
+            "replaces": f"dlrm_flexflow_tpu/ops/pallas/{replaces}",
+            "launches": on_launches[name],
+            **{key: res[key] for key in
+               ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

@@ -17,6 +17,10 @@ leaves; dense SGD runs in place; the leaves' gradients become row updates
 (training/sparse_engine.py). Tables on the row-update kernel route may be
 stored in `table_dtype`.
 
+Under use_pallas="on" every op takes its forced kernel (Dense, the pooled
+lookups, the interaction), as in the JAX package; such a model serves
+(`forward`, `predict`, `eval_batch`, `evaluate`) but does not train.
+
 A model lives on one device, given at construction and "cuda" by default.
 It never moves to another: with no CUDA device a "cuda" model raises.
 """
@@ -45,13 +49,17 @@ from ..training.sparse_engine import apply_sparse_updates
 from .graph import Graph, InputOp, OpContext
 from .tensor import TensorSpec
 
-_HOST_ROUTING = "host routing (config.host_routing) is slice 3 of the port (data and host routing)"
+_HOST_ROUTING = "host routing (config.host_routing) is slice 4 of the port (data and host routing)"
 _MID_BAND = ("the mid-band packed one-hot tables (config.onehot_packed_threshold) are "
              "a later slice of the port")
 _HOST_TAIL = ("host-tail offload (config.host_tail_threshold) is a later slice of the port "
               "(beyond HBM)")
 _PROFILING = ("per-op profiling (config.profiling, utils/profiling.py) is a later slice of "
               "the port (autotune and profiling)")
+_FORCED_TRAINING = ("training under use_pallas='on' is a later slice of the port: the JAX "
+                    "package's forced Dense kernel (dense_pallas) has no gradient, and the "
+                    "one-hot embedding kernel's backward (K5b) is not ported yet; use "
+                    "use_pallas='auto' or 'off' to train")
 
 
 class FFModel:
@@ -274,6 +282,11 @@ class FFModel:
         if not self._compiled:
             raise RuntimeError("FFModel: call compile() first")
 
+    def _require_trainable(self) -> None:
+        self._require_compiled()
+        if self._ctx.use_pallas == "on":
+            raise NotImplementedError(_FORCED_TRAINING)
+
     def _stage(self, feeds: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Host -> device batch staging; every graph input must be fed.
         Tensors already on the model's device pass through."""
@@ -303,8 +316,9 @@ class FFModel:
     def train_batch(self, feeds: Dict[str, Any], labels) -> torch.Tensor:
         """One step: forward, loss and metrics, backward, dense SGD in
         place, sparse row updates. Returns the loss as a 0-d tensor on the
-        model's device (the JAX package returns a 0-d array)."""
-        self._require_compiled()
+        model's device (the JAX package returns a 0-d array). Raises
+        NotImplementedError under use_pallas="on"."""
+        self._require_trainable()
         staged = self._stage(feeds)
         labels = self._stage_labels(labels)
         opt = self.optimizer
@@ -401,7 +415,7 @@ class FFModel:
         package's history keys: the metrics, `epoch_time_s`, `throughput`,
         `first_epoch_time_s` and `val_*`. `steps_per_call` only sets how
         often a verbose run prints: PyTorch steps one batch per call."""
-        self._require_compiled()
+        self._require_trainable()
         if self.config.profiling:
             raise NotImplementedError(_PROFILING)
         epochs = epochs or self.config.epochs

@@ -9,6 +9,11 @@ the compute dtype and multiplied in f32: a product of two bf16 values is
 exact in f32, which reproduces the XLA result up to the order of the sum.
 On CUDA that needs full-f32 matmuls (`torch.backends.cuda.matmul.allow_tf32`
 False, PyTorch's default).
+
+Under use_pallas="on" a rank-2 input goes to the fused dense kernel
+(`ops/kernels/fused_mlp.py`), as the JAX package sends it to `dense_pallas`
+(`ops/dense.py:58-67`): that route also rounds the bias and the output to
+the compute dtype.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from ..core.graph import Op
 from ..core.initializers import DefaultBiasInit, DefaultWeightInit
 from ..core.tensor import TensorSpec
 from .common import apply_activation
+from .kernels.fused_mlp import fused_dense
 
 
 def dense(
@@ -69,6 +75,16 @@ class Dense(Op):
 
     def forward(self, params, inputs, ctx):
         (x,) = inputs
+        if ctx.use_pallas == "on" and x.dim() == 2:
+            return [
+                fused_dense(
+                    x.contiguous(),
+                    params["kernel"],
+                    params["bias"] if self.use_bias else None,
+                    self.activation,
+                    ctx.compute_dtype,
+                )
+            ]
         return [
             dense(
                 x,

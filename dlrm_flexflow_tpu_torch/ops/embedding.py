@@ -3,16 +3,25 @@
 PyTorch counterpart of `Embedding`, `embedding_bag` and
 `embedding_bag_onehot` in `dlrm_flexflow_tpu/ops/embedding.py`.
 
-Semantics: integer indices [B] or [B, bag]; entries < 0 are padding. Two
-paths, chosen as the JAX package chooses them:
+Semantics: integer indices [B] or [B, bag]; entries < 0 are padding. The
+paths, chosen as the JAX package chooses them (`ops/embedding.py:116-163`):
+- a table on the row-update kernel route (`kernel_route`, the JAX package's
+  packed tables): an exact gather in the table's dtype. Indices >= vocab
+  give zero rows, as the JAX package's packed lookup reads them from the
+  packed table's zero padding (`packed_embedding_bag`).
 - vocab <= ctx.onehot_threshold (and pooling): the JAX package multiplies a
   one-hot matrix by the table cast to the compute dtype, accumulating in
   f32. A one-hot product selects rows exactly, so this is a gather of rows
   rounded to the compute dtype, summed in f32. Indices >= vocab match no
-  row and add zero.
+  row and add zero. Under use_pallas="on" the one-hot kernel runs instead
+  (`ops/kernels/onehot_embedding.py`, the port of K5f): it rounds an AVG
+  weight per distinct row, as the TPU kernel does.
 - otherwise: an exact gather in the table's dtype. Indices >= vocab give
-  NaN rows, as `jnp.take`'s fill mode does.
-Both count every index >= 0 toward the AVG divisor, as the JAX package does.
+  NaN rows, as `jnp.take`'s fill mode does. Under use_pallas="on" a pooled
+  table with D % 128 == 0 takes the embedding-bag kernel instead
+  (`ops/kernels/embedding_bag.py`, the port of K4): the same rows, summed in
+  f32.
+All count every index >= 0 toward the AVG divisor, as the JAX package does.
 
 Training (`bag_row_grads`, `bag_row_src`, `Embedding.sparse_update`): a
 table on the sparse path gets its pooled-output gradient turned into row
@@ -22,11 +31,8 @@ that FFModel.compile puts on the row-update kernel route
 (`kernel_route`, updated by training/sparse_engine.py) may be stored in
 `table_dtype` (bf16); every other table stays f32.
 
-The JAX package's host-tail and int8 branches belong to later slices. So
-do its force-only Pallas lookups (`use_pallas="on"`:
-`onehot_embedding_pallas`, `embedding_bag_pallas`); until they are ported,
-"on" leaves the lookup on these plain paths, which compute the same pooled
-sums.
+The JAX package's host-tail, int8 and mid-band packed one-hot branches
+belong to later slices.
 """
 from __future__ import annotations
 
@@ -36,6 +42,8 @@ from ..ffconst import AggrMode, DataType, OperatorType
 from ..core.graph import Op
 from ..core.initializers import GlorotUniform
 from ..core.tensor import TensorSpec
+from .kernels.embedding_bag import embedding_bag as embedding_bag_kernel
+from .kernels.onehot_embedding import onehot_embedding
 
 
 def _as_bags(idx: torch.Tensor):
@@ -52,15 +60,20 @@ def _pool(rows: torch.Tensor, idx: torch.Tensor, aggr: AggrMode) -> torch.Tensor
     return pooled
 
 
-def embedding_bag(table: torch.Tensor, idx: torch.Tensor, aggr: AggrMode) -> torch.Tensor:
-    """Pooled lookup with negative-index padding, by exact gather."""
+def embedding_bag(
+    table: torch.Tensor, idx: torch.Tensor, aggr: AggrMode, out_of_range: float = float("nan")
+) -> torch.Tensor:
+    """Pooled lookup with negative-index padding, by exact gather. An index
+    >= vocab gives a row of `out_of_range`: NaN, as `jnp.take` fills it, or
+    0 for a kernel-route table, as the JAX package's packed lookup reads the
+    packed table's zero padding."""
     idx, squeeze_bag = _as_bags(idx)
     valid = idx >= 0
     oob = idx >= table.shape[0]
     safe = torch.where(valid & ~oob, idx, torch.zeros_like(idx))
     rows = table[safe]  # [B, bag, D]
     rows = torch.where(valid[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
-    rows = torch.where(oob[..., None], torch.full((), float("nan"), dtype=rows.dtype, device=rows.device), rows)
+    rows = torch.where(oob[..., None], torch.full((), out_of_range, dtype=rows.dtype, device=rows.device), rows)
     if aggr is AggrMode.AGGR_MODE_NONE:
         return rows[:, 0, :] if squeeze_bag else rows
     return _pool(rows, idx, aggr)
@@ -172,11 +185,16 @@ class Embedding(Op):
     def forward(self, params, inputs, ctx):
         (idx,) = inputs
         table = params["weight"]
-        if (
-            0 < self.num_entries <= ctx.onehot_threshold
-            and self.aggr is not AggrMode.AGGR_MODE_NONE
-        ):
+        pooled = self.aggr is not AggrMode.AGGR_MODE_NONE
+        forced = ctx.use_pallas == "on"
+        if self.kernel_route:
+            return [embedding_bag(table, idx, self.aggr, out_of_range=0.0)]
+        if 0 < self.num_entries <= ctx.onehot_threshold and pooled:
+            if forced:
+                return [onehot_embedding(table, idx.contiguous(), self.aggr, ctx.compute_dtype)]
             return [embedding_bag_onehot(table, idx, self.aggr, ctx.compute_dtype)]
+        if forced and pooled and self.out_dim % 128 == 0:
+            return [embedding_bag_kernel(table, idx.contiguous(), self.aggr)]
         return [embedding_bag(table, idx, self.aggr)]
 
     # ---- sparse-gradient path (see FFModel.compile) -------------------------

@@ -11,12 +11,18 @@ import numpy as np
 import pytest
 import torch
 
-from dlrm_flexflow_tpu_torch import FFConfig, LossType, MetricsType, SGDOptimizer
+from dlrm_flexflow_tpu_torch import ActiMode, AggrMode, FFConfig, LossType, MetricsType, SGDOptimizer
 from dlrm_flexflow_tpu_torch.data.synthetic import random_batches, zipf_indices
 from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config, make_dlrm_model, mlperf_lite_config
 from dlrm_flexflow_tpu_torch.ops.kernels.dot_interaction import (
     dot_interaction,
     dot_interaction_reference,
+)
+from dlrm_flexflow_tpu_torch.ops.kernels.embedding_bag import embedding_bag, embedding_bag_reference
+from dlrm_flexflow_tpu_torch.ops.kernels.fused_mlp import fused_dense, fused_dense_reference
+from dlrm_flexflow_tpu_torch.ops.kernels.onehot_embedding import (
+    onehot_embedding,
+    onehot_embedding_reference,
 )
 from dlrm_flexflow_tpu_torch.ops.kernels.row_update import row_update, row_update_reference
 
@@ -77,9 +83,13 @@ def test_predict_on_cuda_launches_kernel_and_matches_cpu(cuda):
     bs = 64
     cfg = mlperf_lite_config(batch_size=bs, vocab_cap=5_000)
     gpu = make_dlrm_model(cfg, FFConfig(batch_size=bs, seed=3), device=cuda)
-    cpu = make_dlrm_model(cfg, FFConfig(batch_size=bs, seed=3, use_pallas="on"), device="cpu")
+    cpu = make_dlrm_model(cfg, FFConfig(batch_size=bs, seed=3), device="cpu")
     for m in (gpu, cpu):
         m.compile(loss_type=LossType.LOSS_BINARY_CROSSENTROPY)
+    # like with like: "auto" resolves to "off" on the CPU; set it back so that
+    # the CPU model takes the CUDA model's routes (the interaction's f32
+    # kernel path, plain Dense and lookups)
+    cpu._ctx.use_pallas = "auto"
     cpu.set_parameters({name: gpu.get_weights(name) for name in gpu.get_parameters()})
     feeds, _ = random_batches(cfg, 2 * bs + 5, seed=3)
     before = dot_interaction.launches
@@ -194,3 +204,161 @@ def test_kaggle_shaped_training_on_cuda_tracks_the_cpu(cuda):
     for name in gpu.get_parameters():
         for k, w in gpu.get_weights(name).items():
             np.testing.assert_allclose(w, cpu.get_weights(name)[k], rtol=0, atol=2e-3)
+
+
+def _dense_tolerance(x, w, b, want, cdt):
+    """The tensor cores sum exact bf16 products in f32 in another order than
+    the plain f32 matmul and may truncate rather than round each addition:
+    each within K * 2^-23 * sum |term| of the exact sum, so within 4 * K *
+    2^-24 of each other; the activation is 1-Lipschitz but for GELU (1.13);
+    a result rounded to bf16 may then land one bf16 step (2^-7 of its
+    value, at most) away."""
+    k = x.shape[1]
+    mag = x.to(cdt).float().abs() @ w.to(cdt).float().abs().t()
+    if b is not None:
+        mag = mag + b.abs()
+    tol = 1.2 * 4 * k * 2.0**-24 * mag + 4 * 2.0**-24 * want.float().abs()
+    if cdt == torch.bfloat16:
+        tol = tol + 2.0**-7 * want.float().abs()
+    return tol
+
+
+@pytest.mark.parametrize(
+    "m, k, n, act, bias, cdt",
+    [
+        (16384, 13, 512, "AC_MODE_RELU", True, torch.bfloat16),
+        (16384, 479, 1024, "AC_MODE_RELU", True, torch.bfloat16),
+        (16384, 1024, 1024, "AC_MODE_RELU", True, torch.bfloat16),
+        (16384, 256, 1, "AC_MODE_SIGMOID", True, torch.bfloat16),
+        (1000, 512, 256, "AC_MODE_RELU", True, torch.bfloat16),
+        (77, 100, 130, "AC_MODE_NONE", False, torch.bfloat16),
+        (33, 64, 48, "AC_MODE_TANH", True, torch.bfloat16),
+        (40, 96, 72, "AC_MODE_GELU", True, torch.bfloat16),
+        (1000, 479, 1024, "AC_MODE_RELU", True, torch.float32),
+        (65, 13, 1, "AC_MODE_SIGMOID", False, torch.float32),
+    ],
+)
+def test_fused_dense_kernel_matches_plain_version(cuda, m, k, n, act, bias, cdt):
+    x = _x((m, k), torch.float32, 5, cuda)
+    w = _x((n, k), torch.float32, 6, cuda) * k**-0.5
+    b = _x((n,), torch.float32, 7, cuda) if bias else None
+    mode = getattr(ActiMode, act)
+    before = fused_dense.launches
+    got = fused_dense(x, w, b, mode, cdt)
+    assert fused_dense.launches == before + 1
+    want = fused_dense_reference(x, w, b, mode, cdt)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    if cdt == torch.bfloat16:
+        assert torch.equal(got, got.to(torch.bfloat16).float())  # the output is rounded to bf16
+    assert bool(((got - want).abs() <= _dense_tolerance(x, w, b, want, cdt)).all())
+
+
+def test_fused_dense_kernel_takes_bf16_input(cuda):
+    x = _x((300, 40), torch.bfloat16, 8, cuda)
+    w = _x((24, 40), torch.float32, 9, cuda)
+    got = fused_dense(x, w, None, ActiMode.AC_MODE_RELU, torch.bfloat16)
+    want = fused_dense_reference(x, w, None, ActiMode.AC_MODE_RELU, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert bool(((got.float() - want.float()).abs() <= _dense_tolerance(x, w, None, want, torch.bfloat16)).all())
+
+
+def _bag_idx(m, h, r, seed, device, past=0):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, r + past, size=(m, h))
+    if h > 1:
+        idx[:: 7, h // 2 :] = -1  # padding
+        idx[3] = -1  # a fully padded bag
+        idx[5, 1] = idx[5, 0]  # a duplicate
+    return torch.from_numpy(idx).to(device)
+
+
+@pytest.mark.parametrize(
+    "r, d, m, h, aggr, dtype, idx_dtype",
+    [
+        (2_000_000, 128, 16384, 1, "AGGR_MODE_SUM", torch.float32, torch.int64),
+        (100_000, 128, 4096, 4, "AGGR_MODE_AVG", torch.float32, torch.int64),
+        (100_000, 128, 4096, 4, "AGGR_MODE_SUM", torch.bfloat16, torch.int32),
+        (5000, 99, 777, 3, "AGGR_MODE_AVG", torch.float32, torch.int32),  # scalar loads
+        (5000, 256, 500, 9, "AGGR_MODE_SUM", torch.bfloat16, torch.int64),
+    ],
+)
+def test_embedding_bag_kernel_matches_plain_version(cuda, r, d, m, h, aggr, dtype, idx_dtype):
+    table = _x((r, d), dtype, 10, cuda)
+    idx = _bag_idx(m, h, r, 11, cuda).to(idx_dtype)
+    mode = getattr(AggrMode, aggr)
+    before = embedding_bag.launches
+    got = embedding_bag(table, idx, mode)
+    assert embedding_bag.launches == before + 1
+    want = embedding_bag_reference(table, idx, mode)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    # f32 sums of h rows in bag order against torch's sum order; a bf16
+    # table rounds the result once, possibly a bf16 step apart
+    rtol = 2.0**-7 if dtype == torch.bfloat16 else 2 * h * 2.0**-24
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=1e-6)
+
+
+def test_embedding_bag_kernel_gives_nan_past_the_table_and_reads_inside_it(cuda):
+    table = _x((1000, 128), torch.float32, 12, cuda)
+    idx = _bag_idx(2048, 2, 1000, 13, cuda, past=50)
+    got = embedding_bag(table, idx, AggrMode.AGGR_MODE_AVG)
+    want = embedding_bag_reference(table, idx, AggrMode.AGGR_MODE_AVG)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got).any())
+    torch.testing.assert_close(got, want, rtol=4 * 2.0**-24, atol=1e-6, equal_nan=True)
+
+
+@pytest.mark.parametrize(
+    "v, d, b, aggr, cdt, table_dtype",
+    [
+        (7424, 128, 16384, "AGGR_MODE_SUM", torch.bfloat16, torch.float32),
+        (7424, 128, 16384, "AGGR_MODE_AVG", torch.bfloat16, torch.float32),
+        (7424, 128, 4096, "AGGR_MODE_AVG", torch.float32, torch.float32),
+        (3, 128, 1000, "AGGR_MODE_SUM", torch.bfloat16, torch.bfloat16),
+        (500, 37, 999, "AGGR_MODE_AVG", torch.bfloat16, torch.float32),  # scalar loads
+    ],
+)
+def test_onehot_embedding_kernel_matches_plain_version(cuda, v, d, b, aggr, cdt, table_dtype):
+    """Bags of 6 with duplicates (n_r = 2 and 3), padding and indices >= V."""
+    rng = np.random.default_rng(14)
+    idx = rng.integers(0, v, size=(b, 6))
+    idx[:, 1] = idx[:, 0]  # n_r >= 2
+    idx[::3, 2] = idx[::3, 0]  # n_r = 3
+    idx[::5, 3] = -1
+    idx[::4, 4] = v + 2  # matches no row, counts in AVG's divisor
+    table = _x((v, d), table_dtype, 15, cuda)
+    idx = torch.from_numpy(idx).to(cuda)
+    mode = getattr(AggrMode, aggr)
+    before = onehot_embedding.launches
+    got = onehot_embedding(table, idx, mode, cdt)
+    assert onehot_embedding.launches == before + 1
+    want = onehot_embedding_reference(table, idx, mode, cdt)
+    torch.cuda.synchronize()
+    # exact products w_r * row summed in f32 over at most 6 distinct rows, in
+    # another order; a bf16 table rounds the result once
+    rtol = 2.0**-7 if table_dtype == torch.bfloat16 else 12 * 2.0**-24
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=1e-6)
+
+
+def test_predict_under_on_launches_every_forced_kernel_and_matches_cpu(cuda):
+    """mlperf-lite widths, vocabs capped at 20000 (13 tables take K5f, 13
+    K4), use_pallas="on" and packed_tables="off" on both devices: CUDA
+    launches K3, K6, K4 and K5f; the CPU runs their plain versions."""
+    bs = 64
+    cfg = mlperf_lite_config(batch_size=bs, vocab_cap=20_000)
+    kw = dict(batch_size=bs, seed=16, use_pallas="on", packed_tables="off")
+    gpu = make_dlrm_model(cfg, FFConfig(**kw), device=cuda)
+    cpu = make_dlrm_model(cfg, FFConfig(**kw), device="cpu")
+    for m in (gpu, cpu):
+        m.compile(loss_type=LossType.LOSS_BINARY_CROSSENTROPY)
+    cpu.set_parameters({name: gpu.get_weights(name) for name in gpu.get_parameters()})
+    feeds, _ = random_batches(cfg, 2 * bs + 5, seed=16)
+    counts = (dot_interaction, fused_dense, embedding_bag, onehot_embedding)
+    before = [f.launches for f in counts]
+    y_gpu = gpu.predict(feeds)
+    assert [f.launches - b for f, b in zip(counts, before)] == [3, 24, 39, 39]
+    # every layer's output is rounded to bf16 on both devices: a sum order
+    # that flips a rounding moves the output a bf16 step (2^-8 in [0.5, 1))
+    np.testing.assert_allclose(y_gpu, cpu.predict(feeds), rtol=0, atol=2.0**-7)
