@@ -36,23 +36,42 @@ Phases, each of which ends the run with a non-zero exit if it fails:
                device's busy share) and one step's time by phase.
   9. train parity - kaggle widths with vocabs capped at 20000: 5 SGD steps
                on CUDA against the CPU from the same weights.
- 10. kernels, continued - as phase 3: the fused dense layer at the 8
+ 10. train-adam - the train path of phase 8 with dense Adam and lazy sparse
+               Adam (alpha 0.001): the 10 route tables in bf16 with f32 m and
+               v pools on the row-update kernel's Adam mode; the same
+               timings, profile, breakdown and peak memory.
+ 11. train-optim - the same model a few steps each under sparse momentum,
+               Nesterov, row-wise AdaGrad, and Adam with a row-wise AdaGrad
+               sparse optimizer: launch counts, finite losses, step time.
+ 12. train-parity-optim - phase 9 once per rule: momentum 0.9, Nesterov,
+               Adam, and Adam with sparse row-wise AdaGrad.
+ 13. onehot-grad - the gradient of the one-hot lookup (K5f forward, K5b
+               backward) through torch.autograd at mlperf-lite's 13 tables
+               of at most 8192 rows, batch 16384.
+ 14. kernels, continued - as phase 3: the fused dense layer at the 8
                mlperf-lite layer shapes at M = 16384 (bf16), at M = 1000, in
                f32, without bias; the embedding bag at [16384, 1] into a
                2,000,000 x 128 table, with bags of 4 (AVG, padding, a fully
                padded bag), a bf16 table, indices past the table; the one-hot
                lookup at V = 7424, D = 128, B = 16384 (SUM, AVG, duplicates,
-               indices >= V, f32 and bf16 compute).
- 11. summary - a {"kernels": [...]} line, then the last line
+               indices >= V, f32 and bf16 compute) and its gradient (K5b) at
+               the same shape and with bags of 4; the row-update kernel's
+               optimizer modes at phase 3's K1 shape (momentum, Nesterov,
+               Adam with and without weight decay, row-wise AdaGrad; Adam on
+               a Zipf(1.05) stream; rows < 0 and >= V), each run twice for
+               bit-identical results.
+ 15. summary - a {"kernels": [...]} line, then the last line
                {"ok": true, "device": {...}}.
-Around each path (4, 6 and 8) the kernel launch counts are zeroed just
-before and read just after, and must show every kernel of that path.
+Around each path (4, 6, 8, 10, 11 and 13) the kernel launch counts are
+zeroed just before and read just after, and must show every kernel of that
+path.
 The script imports nothing of JAX: it runs the port alone.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -92,6 +111,26 @@ E2E_ATOL = 2e-3
 # rounded to bf16: a flipped rounding of the output itself moves it by one
 # bf16 step, 2^-8 in [0.5, 1). Two steps:
 E2E_ON_ATOL = 2.0**-7
+ADAM_ALPHA = 0.001
+# Adam moves a weight by alpha_t * m / (sqrt(v) + eps) a step, at most about
+# alpha * (1 - beta1) / sqrt(1 - beta2) = 3.2 alpha on the first step and a
+# few alpha after, whatever the gradient's size: where CUDA's and the CPU's
+# summation orders give a gradient component near 0 different signs, the two
+# weights move apart by up to that. Bound over the parity run's 5 steps (the
+# loss keeps E2E_ATOL: such a weight's gradient is near 0, so the loss does
+# not feel it to first order):
+ADAM_E2E_ATOL = 5 * 3.2 * ADAM_ALPHA + E2E_ATOL
+ADAGRAD_LR = 0.01
+# Row-wise AdaGrad moves a weight by lr * |g_d| * rsqrt(acc + eps), at most
+# lr * sqrt(D) = 4 lr a step at D = 16, since acc holds at least the step's
+# own mean over D of g^2: the same holds for a row whose gradient is near 0.
+# Both bounds are loose; the parity phase also asks that all but 1 in 1000
+# weights agree within E2E_ATOL.
+ADAGRAD_E2E_ATOL = 5 * 4 * ADAGRAD_LR + E2E_ATOL
+# the wrapper each sparse rule's kernel-route tables launch
+RULE_WRAPPER = {"sgd": "row_update", "momentum": "row_update_momentum",
+                "nesterov": "row_update_momentum", "adam": "row_update_adam",
+                "adagrad": "row_update_adagrad", "adam+adagrad": "row_update_adagrad"}
 
 
 def log(msg: str) -> None:
@@ -159,10 +198,14 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     logs = _build.build(_build.kernel_names())
     log(f"[build] {sorted(logs)} in {time.perf_counter() - t0:.3f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+    for name, text in sorted(logs.items()):
+        # ptxas -v: one "Used N registers" and one spill line per kernel instance
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(m) for m in re.findall(r"(\d+) bytes spill (?:stores|loads)", text)]
+        smem = [int(m) for m in re.findall(r"(\d+) bytes smem", text)] or [0]
+        log(f"[build] {name}: {len(regs)} kernel instances, {min(regs, default=0)}-"
+            f"{max(regs, default=0)} registers, {max(smem)} B shared memory at most, "
+            f"{max(spills, default=0)} B spilled at most")
 
 
 def check_dot_interaction(x: torch.Tensor, self_interaction: bool) -> dict:
@@ -544,12 +587,18 @@ def launch_counts() -> dict:
     from dlrm_flexflow_tpu_torch.ops.kernels.dot_interaction import dot_interaction
     from dlrm_flexflow_tpu_torch.ops.kernels.embedding_bag import embedding_bag
     from dlrm_flexflow_tpu_torch.ops.kernels.fused_mlp import fused_dense
-    from dlrm_flexflow_tpu_torch.ops.kernels.onehot_embedding import onehot_embedding
-    from dlrm_flexflow_tpu_torch.ops.kernels.row_update import row_update
+    from dlrm_flexflow_tpu_torch.ops.kernels.onehot_embedding import (
+        onehot_embedding, onehot_embedding_backward,
+    )
+    from dlrm_flexflow_tpu_torch.ops.kernels.row_update import (
+        row_update, row_update_adagrad, row_update_adam, row_update_momentum,
+    )
 
     return {"dot_interaction": dot_interaction, "fused_dense": fused_dense,
             "embedding_bag": embedding_bag, "onehot_embedding": onehot_embedding,
-            "row_update": row_update}
+            "onehot_embedding_backward": onehot_embedding_backward, "row_update": row_update,
+            "row_update_momentum": row_update_momentum, "row_update_adam": row_update_adam,
+            "row_update_adagrad": row_update_adagrad}
 
 
 def phase_path() -> int:
@@ -684,9 +733,10 @@ def forced_model(cfg, batch: int, seed: int, device="cuda"):
 
 def forced_launches(chunks: int) -> dict:
     """Launches of one forced-kernel mlperf-lite predict of `chunks` chunks."""
-    return {"dot_interaction": chunks, "fused_dense": len(MLPERF_LITE_LAYERS) * chunks,
+    return {**{name: 0 for name in launch_counts()},
+            "dot_interaction": chunks, "fused_dense": len(MLPERF_LITE_LAYERS) * chunks,
             "embedding_bag": MLPERF_LITE_TABLES * chunks,
-            "onehot_embedding": MLPERF_LITE_TABLES * chunks, "row_update": 0}
+            "onehot_embedding": MLPERF_LITE_TABLES * chunks}
 
 
 def phase_path_on() -> dict:
@@ -771,41 +821,77 @@ def phase_parity_on() -> None:
         raise AssertionError(f"CUDA and CPU predictions under 'on' disagree: {res}")
 
 
-def kaggle_model(cfg, batch: int, seed: int, device="cuda", **ffkw):
-    from dlrm_flexflow_tpu_torch import FFConfig, LossType, MetricsType, SGDOptimizer
+def optimizers(rule: str) -> tuple:
+    """(optimizer, sparse_optimizer or None) of a training rule."""
+    from dlrm_flexflow_tpu_torch import AdamOptimizer, RowWiseAdagradOptimizer, SGDOptimizer
+
+    return {
+        "sgd": (SGDOptimizer(lr=0.01), None),
+        "momentum": (SGDOptimizer(lr=0.01, momentum=0.9), None),
+        "nesterov": (SGDOptimizer(lr=0.01, momentum=0.9, nesterov=True), None),
+        "adam": (AdamOptimizer(alpha=ADAM_ALPHA), None),
+        "adagrad": (RowWiseAdagradOptimizer(lr=ADAGRAD_LR), None),
+        "adam+adagrad": (AdamOptimizer(alpha=ADAM_ALPHA), RowWiseAdagradOptimizer(lr=ADAGRAD_LR)),
+    }[rule]
+
+
+def compile_for(model, rule: str) -> None:
+    from dlrm_flexflow_tpu_torch import LossType, MetricsType
+
+    opt, sopt = optimizers(rule)
+    model.compile(opt, LossType.LOSS_BINARY_CROSSENTROPY, [MetricsType.METRICS_ACCURACY],
+                  sparse_optimizer=sopt)
+
+
+def kaggle_model(cfg, batch: int, seed: int, device="cuda", rule: str = "sgd", **ffkw):
+    from dlrm_flexflow_tpu_torch import FFConfig
     from dlrm_flexflow_tpu_torch.models.dlrm import make_dlrm_model
 
     model = make_dlrm_model(cfg, FFConfig(
         batch_size=batch, seed=seed, compute_dtype="bfloat16", table_dtype="bfloat16", **ffkw,
     ), device=device)
-    model.compile(SGDOptimizer(lr=0.01), LossType.LOSS_BINARY_CROSSENTROPY,
-                  [MetricsType.METRICS_ACCURACY])
+    compile_for(model, rule)
     return model
 
 
-def phase_train() -> int:
+def kaggle_batches(model, cfg) -> tuple:
+    """4 batches of uniform indices and noise labels: the first as numpy, as
+    a user feeds it, and all 4 staged on the card (the JAX package's bench
+    pre-stages too)."""
     from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
-    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
 
-    cfg = kaggle_config(batch_size=TRAIN_BATCH)
-    t0 = time.perf_counter()
-    model = kaggle_model(cfg, TRAIN_BATCH, SEED)
-    torch.cuda.synchronize()
-    routed = {op.name: str(model.get_parameters()[op.name]["weight"].dtype)
-              for op in model._sparse_ops if op.kernel_route}
-    big = {f"table_{i}" for i, v in enumerate(cfg.embedding_size) if v > 8192}
-    if set(routed) != big or len(big) != KAGGLE_BIG_TABLES or set(routed.values()) != {"torch.bfloat16"}:
-        raise AssertionError(f"kernel route {routed} is not the {KAGGLE_BIG_TABLES} large tables in bf16")
     feeds, labels = random_batches(cfg, 4 * TRAIN_BATCH, seed=SEED, learnable=False)
     batches = []
     for i in range(4):
         sl = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
         batches.append(({k: v[sl] for k, v in feeds.items()}, labels[sl]))
-    # host staging once per batch (the JAX package's bench pre-stages too);
-    # the first step feeds numpy, as a user would
-    staged = [(model._stage(f), model._stage_labels(lbl)) for f, lbl in batches]
-    log(f"[train] kaggle: {cfg.num_tables} tables, {sum(cfg.embedding_size)} rows, "
-        f"D={cfg.sparse_feature_size}, bot {cfg.mlp_bot}, top {cfg.mlp_top}, batch {TRAIN_BATCH}; "
+    return batches, [(model._stage(f), model._stage_labels(lbl)) for f, lbl in batches]
+
+
+def check_route(model, cfg) -> dict:
+    routed = {op.name: str(model.get_parameters()[op.name]["weight"].dtype)
+              for op in model._sparse_ops if op.kernel_route}
+    big = {f"table_{i}" for i, v in enumerate(cfg.embedding_size) if v > 8192}
+    if set(routed) != big or len(big) != KAGGLE_BIG_TABLES or set(routed.values()) != {"torch.bfloat16"}:
+        raise AssertionError(f"kernel route {routed} is not the {KAGGLE_BIG_TABLES} large tables in bf16")
+    return routed
+
+
+def phase_train(rule: str = "sgd") -> int:
+    """The kaggle train path at full width under `rule` ("sgd": phase 8,
+    "adam": phase 10). Returns the launches of the rule's kernel."""
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
+
+    tag = "[train]" if rule == "sgd" else f"[train-{rule}]"
+    cfg = kaggle_config(batch_size=TRAIN_BATCH)
+    t0 = time.perf_counter()
+    model = kaggle_model(cfg, TRAIN_BATCH, SEED, rule=rule)
+    torch.cuda.synchronize()
+    routed = check_route(model, cfg)
+    batches, staged = kaggle_batches(model, cfg)
+    log(f"{tag} kaggle: {cfg.num_tables} tables, {sum(cfg.embedding_size)} rows, "
+        f"D={cfg.sparse_feature_size}, bot {cfg.mlp_bot}, top {cfg.mlp_top}, batch {TRAIN_BATCH}, "
+        f"{type(model.optimizer).__name__} / {type(model.sparse_optimizer).__name__}; "
         f"kernel route {sorted(routed)}; set-up {time.perf_counter() - t0:.3f} s")
     torch.cuda.reset_peak_memory_stats()
     losses = [float(model.train_batch(*batches[0]))]
@@ -826,7 +912,7 @@ def phase_train() -> int:
     losses.append(float(loss))
     # one launch per kernel-route table and step; kaggle's cat interaction
     # and "auto" reach no other kernel
-    want = {**{name: 0 for name in counts}, "row_update": TRAIN_STEPS * KAGGLE_BIG_TABLES}
+    want = {**{name: 0 for name in counts}, RULE_WRAPPER[rule]: TRAIN_STEPS * KAGGLE_BIG_TABLES}
     if launches != want:
         raise AssertionError(f"the train path launched {launches}, not {want}")
     if not all(np.isfinite(losses)):
@@ -837,14 +923,14 @@ def phase_train() -> int:
         "first_loss": losses[0], "last_loss": losses[-1], "metrics": model.get_metrics(),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    log(f"[train] {json.dumps(res)}")
-    log(f"[train] device kernels over {PROFILED_STEPS} profiled steps: "
+    log(f"{tag} {json.dumps(res)}")
+    log(f"{tag} device kernels over {PROFILED_STEPS} profiled steps: "
         f"{json.dumps(train_profile(model, staged, res['ms_per_step']))}")
-    log(f"[train] device ms by phase, one step of {TRAIN_BATCH}: "
+    log(f"{tag} device ms by phase, one step of {TRAIN_BATCH}: "
         f"{json.dumps(train_breakdown(model, *staged[0]))}")
     del model, staged
     torch.cuda.empty_cache()
-    return launches["row_update"]
+    return launches[RULE_WRAPPER[rule]]
 
 
 def train_profile(model, staged, ms_per_step: float) -> dict:
@@ -863,7 +949,7 @@ def train_profile(model, staged, ms_per_step: float) -> dict:
     busy = sum(per_step.values())
     if busy == 0.0:
         return {"kernel_ms_per_step": "not measured (the profiler saw no device time)"}
-    row = [e for e in kernels if "row_update_kernel" in e.key]
+    row = [e for e in kernels if "row_update" in e.key]
     top = sorted(per_step.items(), key=lambda kv: -kv[1])[:8]
     return {
         "kernel_ms_per_step": busy,
@@ -879,7 +965,7 @@ def train_breakdown(model, feeds, labels) -> dict:
     CUDA events around each phase (the span includes any time the card
     waits for the host to launch the phase's work)."""
     from dlrm_flexflow_tpu_torch.ops.embedding import bag_row_src
-    from dlrm_flexflow_tpu_torch.ops.kernels.row_update import _launch, sort_rows
+    from dlrm_flexflow_tpu_torch.ops.kernels.row_update import sort_rows
     from dlrm_flexflow_tpu_torch.training import losses as losses_lib
 
     marks = []
@@ -914,18 +1000,22 @@ def train_breakdown(model, feeds, labels) -> dict:
     g_dense = {n: {k: next(it) for k in sub} for n, sub in leaves.items()}
     g_over = {op.name: next(it) for op in sparse_ops}
     st = model._opt_state
-    model.optimizer.update(g_dense, st["dense"], {n: params[n] for n in g_dense})
-    mark("dense_sgd")
+    dstate = model.optimizer.update(g_dense, st["dense"], {n: params[n] for n in g_dense})
+    mark("dense_update")
     with torch.no_grad():
         ops = [op for op in sparse_ops if op.kernel_route]
         prep = [bag_row_src(feeds[op.inputs[0].owner_op.name], g_over[op.name], op.aggr,
                             op.num_entries) for op in ops]
         tables = [params[op.name]["weight"] for op in ops]
         rows_sorted, order = sort_rows(tables, [p[0] for p in prep])
-        scale = -st["dense"]["lr"]
+        sopt = model.sparse_optimizer
+        rate = model._sparse_rate(dstate)
+        if rate is None:
+            rate = torch.tensor(sopt.lr, device="cuda")
         mark("sort_prep")
-        for i, (t, (_, src, h)) in enumerate(zip(tables, prep)):
-            _launch(t, rows_sorted[i], order[i], src.contiguous(), h, scale, torch.bfloat16)
+        for i, (op, t, (_, src, h)) in enumerate(zip(ops, tables, prep)):
+            launch_rule(sopt, t, st["sparse"][op.name], rows_sorted[i], order[i],
+                        src.contiguous(), h, rate)
         mark("row_update_kernel")
     torch.cuda.synchronize()
     out = {name: prev[1].elapsed_time(ev) for prev, (name, ev) in zip(marks, marks[1:])}
@@ -933,39 +1023,437 @@ def train_breakdown(model, feeds, labels) -> dict:
     return out
 
 
-def phase_train_parity() -> None:
+def launch_rule(sopt, table, state, rows_sorted, order, src, h, rate) -> None:
+    """One table's kernel launch of the sparse optimizer's rule, as
+    training/sparse_engine.py makes it (without weight decay)."""
+    from dlrm_flexflow_tpu_torch import AdamOptimizer, SGDOptimizer
+    from dlrm_flexflow_tpu_torch.ops.kernels import row_update as ru
+
+    if isinstance(sopt, AdamOptimizer):
+        ru._launch_adam(table, state["m"], state["v"], rows_sorted, order, src, h, rate,
+                        sopt.beta1, sopt.beta2, sopt.epsilon, sopt.weight_decay)
+    elif isinstance(sopt, SGDOptimizer) and sopt.momentum != 0.0:
+        ru._launch_momentum(table, state, rows_sorted, order, src, h, rate, sopt.momentum,
+                            sopt.nesterov, sopt.weight_decay)
+    elif isinstance(sopt, SGDOptimizer):
+        ru._launch(table, rows_sorted, order, src, h, -rate, torch.bfloat16)
+    else:
+        ru._launch_adagrad(table, state, rows_sorted, order, src, h, rate, sopt.epsilon)
+
+
+def phase_train_optims() -> dict:
+    """Phase 11: the full-width kaggle model a few steps under each other
+    sparse rule. Returns each rule's launches of its kernel."""
+    from dlrm_flexflow_tpu_torch import FFConfig
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config, make_dlrm_model
+
+    cfg = kaggle_config(batch_size=TRAIN_BATCH)
+    model = make_dlrm_model(cfg, FFConfig(batch_size=TRAIN_BATCH, seed=SEED, compute_dtype="bfloat16",
+                                          table_dtype="bfloat16"))
+    out = {}
+    for rule in ("momentum", "nesterov", "adagrad", "adam+adagrad"):
+        compile_for(model, rule)
+        check_route(model, cfg)
+        if rule == "momentum":
+            batches, staged = kaggle_batches(model, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(model.train_batch(*batches[0]))]  # warm-up, from numpy
+        counts = launch_counts()
+        for fn in counts.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        for i in range(3):
+            loss = model.train_batch(*staged[(i + 1) % 4])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counts.items()}
+        losses.append(float(loss))
+        want = {**{name: 0 for name in counts}, RULE_WRAPPER[rule]: 3 * KAGGLE_BIG_TABLES}
+        res = {"rule": rule, "steps": 3, "ms_per_step": dt / 3 * 1e3, "launches": launches,
+               "first_loss": losses[0], "last_loss": losses[-1],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"[train-optim] {json.dumps(res)}")
+        if launches != want:
+            raise AssertionError(f"the {rule} train path launched {launches}, not {want}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{rule} train losses not finite: {losses}")
+        out[rule] = launches[RULE_WRAPPER[rule]]
+    del model, staged
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_parity(rule: str = "sgd") -> None:
+    """Phase 9 (SGD) or 12 (the other rules): kaggle widths with vocabs
+    capped, 5 steps on CUDA against the CPU from the same weights."""
     from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
     from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
-    from dlrm_flexflow_tpu_torch.ops.kernels.row_update import row_update
 
+    tag = "[train-parity]" if rule == "sgd" else "[train-parity-optim]"
+    wrapper = launch_counts()[RULE_WRAPPER[rule]]
     bs, steps = 256, 5
     # kaggle widths and depth, vocabs capped at 20000 rows: 16 tables take
     # the one-hot path (<= 8192 rows), 10 the row-update kernel route
     cfg = kaggle_config(batch_size=bs)
     cfg.embedding_size = [min(v, 20_000) for v in cfg.embedding_size]
-    gpu = kaggle_model(cfg, bs, SEED + 3, packed_tables="on")
-    cpu = kaggle_model(cfg, bs, SEED + 3, device="cpu", packed_tables="on")
+    gpu = kaggle_model(cfg, bs, SEED + 3, rule=rule, packed_tables="on")
+    cpu = kaggle_model(cfg, bs, SEED + 3, device="cpu", rule=rule, packed_tables="on")
     cpu.set_parameters({name: gpu.get_weights(name) for name in gpu.get_parameters()})
     feeds, labels = random_batches(cfg, steps * bs, seed=SEED + 3)
     errs, launches = [], 0
     for i in range(steps):
         sl = slice(i * bs, (i + 1) * bs)
         batch = {k: v[sl] for k, v in feeds.items()}
-        before = row_update.launches
+        before = wrapper.launches
         loss_gpu = float(gpu.train_batch(batch, labels[sl]))
-        launches += row_update.launches - before
+        launches += wrapper.launches - before
         errs.append(abs(loss_gpu - float(cpu.train_batch(batch, labels[sl]))))
-    w_err = max(
-        float(np.abs(w - cpu.get_weights(name)[k]).max())
+    w_errs = np.concatenate([
+        np.abs(w - cpu.get_weights(name)[k]).reshape(-1)
         for name in gpu.get_parameters() for k, w in gpu.get_weights(name).items()
-    )
-    res = {"steps": steps, "batch": bs, "gpu_launches": launches,
-           "max_loss_err": max(errs), "max_weight_err": w_err, "atol": E2E_ATOL}
-    log(f"[train-parity] CUDA kernel route vs CPU plain: {json.dumps(res)}")
+    ])
+    w_atol = {"adam": ADAM_E2E_ATOL, "adam+adagrad": ADAGRAD_E2E_ATOL}.get(rule, E2E_ATOL)
+    res = {"rule": rule, "steps": steps, "batch": bs, "gpu_launches": launches,
+           "max_loss_err": max(errs), "max_weight_err": float(w_errs.max()),
+           "share_within_e2e_atol": float(np.mean(w_errs <= E2E_ATOL)),
+           "atol": E2E_ATOL, "weight_atol": w_atol}
+    log(f"{tag} CUDA kernel route vs CPU plain: {json.dumps(res)}")
     if launches != steps * KAGGLE_BIG_TABLES:
-        raise AssertionError(f"CUDA parity model launched row_update {launches} times")
-    if max(errs) > E2E_ATOL or w_err > E2E_ATOL:
+        raise AssertionError(f"CUDA parity model launched {RULE_WRAPPER[rule]} {launches} times")
+    if max(errs) > E2E_ATOL or res["max_weight_err"] > w_atol or res["share_within_e2e_atol"] < 0.999:
         raise AssertionError(f"CUDA and CPU training disagree: {res}")
+
+
+# ------------------------------------------------------------------ optimizer modes of K1
+
+OPTIM_RULES = {  # case -> (rule, weight decay)
+    "momentum": ("momentum", 0.0), "nesterov": ("nesterov", 0.0), "adam": ("adam", 0.0),
+    "adam-wd": ("adam", 0.01), "adagrad": ("adagrad", 0.0),
+}
+# bytes each touched row's pools move, read and written (D = the table's width)
+POOL_BYTES = {"momentum": lambda d: 2 * d * 4, "nesterov": lambda d: 2 * d * 4,
+              "adam": lambda d: 4 * d * 4, "adagrad": lambda d: 2 * 4}
+# operations an entry and lane, and a touched row and lane, of each rule
+RULE_OPS = {"momentum": (2, 4), "nesterov": (2, 8), "adam": (8, 8), "adagrad": (6, 4)}
+
+
+def case_optimizer(rule: str, wd: float):
+    """The sparse optimizer of a kernel case (its rate is passed apart)."""
+    from dlrm_flexflow_tpu_torch import AdamOptimizer, RowWiseAdagradOptimizer, SGDOptimizer
+
+    if rule in ("momentum", "nesterov"):
+        return SGDOptimizer(momentum=0.9, nesterov=rule == "nesterov", weight_decay=wd)
+    if rule == "adam":
+        return AdamOptimizer(weight_decay=wd)
+    return RowWiseAdagradOptimizer()
+
+
+def rule_pools(rule, v, d, gen) -> list:
+    """Optimizer pools as a few steps of training leave them."""
+    if rule in ("momentum", "nesterov"):
+        return [torch.randn((v, d), generator=gen, device="cuda") * 1e-3]
+    if rule == "adam":
+        return [torch.randn((v, d), generator=gen, device="cuda") * 1e-3,
+                torch.rand((v, d), generator=gen, device="cuda") * 1e-6]
+    return [torch.rand((v,), generator=gen, device="cuda") * 0.1]
+
+
+def pool_state(pools: list):
+    """The slot state of one kernel-route table, as the engine keeps it."""
+    return {"m": pools[0], "v": pools[1]} if len(pools) == 2 else pools[0]
+
+
+def rule_call(opt, table, pools, rows, src, h, rate, plain: bool) -> None:
+    """The optimizer's wrapper (plain=False) or plain version on one table."""
+    from dlrm_flexflow_tpu_torch import AdamOptimizer, SGDOptimizer
+    from dlrm_flexflow_tpu_torch.ops.kernels import row_update as ru
+
+    p = (src, h)
+    if isinstance(opt, SGDOptimizer):
+        args = (rate, opt.momentum, opt.nesterov, opt.weight_decay)
+        if plain:
+            ru.momentum_reference(table, pools[0], rows, p, *args)
+        else:
+            ru.row_update_momentum([table], [pools[0]], [rows], [p], *args)
+    elif isinstance(opt, AdamOptimizer):
+        args = (rate, opt.beta1, opt.beta2, opt.epsilon, opt.weight_decay)
+        if plain:
+            ru.adam_reference(table, pools[0], pools[1], rows, p, *args)
+        else:
+            ru.row_update_adam([table], [pools[0]], [pools[1]], [rows], [p], *args)
+    elif plain:
+        ru.adagrad_reference(table, pools[0], rows, p, rate, opt.epsilon)
+    else:
+        ru.row_update_adagrad([table], [pools[0]], [rows], [p], rate, opt.epsilon)
+
+
+def rule_tolerance(rule, table, pools, want_t, want_pools, rows, src, h, rate) -> tuple:
+    """Per element of the table and of each pool. The kernel sums a row's
+    entries in sorted order, the plain version with index_add_'s atomics in
+    any order: two f32 sums of n terms within 2 * n * 2^-24 * sum |term| of
+    each other (AdaGrad's mean over D adds 2 * D * 2^-24 of each term, and
+    the plain version's torch.rsqrt is CUDA's approximate one, within 2 ulp
+    of the kernel's correctly rounded __frsqrt_rn). The pools carry such a
+    difference into the weight's delta, and where it crosses a bf16 rounding
+    (each stream entry, the delta, the table's epilogue) the value moves by
+    one bf16 step, at most 2^-7 of its magnitude: the table's tolerance is
+    two such steps of |t| + |t'| + the sum of the row's |delta|. Adam near
+    v = 0 amplifies nothing: v sums positive terms, so its relative
+    difference stays 2 n 2^-24, and eps bounds 1 / (sqrt(v) + eps)."""
+    v, d = table.shape
+    keep = (rows >= 0) & (rows < v)
+    r = rows[keep]
+    x = src[torch.arange(rows.numel(), device="cuda")[keep] // h]
+
+    def rowsum(vals):
+        out = torch.zeros((v,) + tuple(vals.shape[1:]), device="cuda")
+        return out.index_add_(0, r, vals)
+
+    n = rowsum(torch.ones(r.numel(), device="cuda")) + 1.0
+    nd = n[:, None]
+    t0 = table.float().abs()
+    deltas = torch.zeros((v, 1), device="cuda")
+    if rule in ("momentum", "nesterov"):
+        pool_tols = [2 * nd * F32_UNIT * (pools[0].abs() + rowsum(x.abs() + t0[r] * 0.01))]
+    elif rule == "adam":
+        g = x.abs() + t0[r] * 0.01
+        pool_tols = [2 * nd * F32_UNIT * (pools[0].abs() + rowsum(0.1 * g)),
+                     2 * nd * F32_UNIT * (pools[1] + rowsum(1e-3 * g * g))]
+    else:
+        pool_tols = [2 * (n + d) * F32_UNIT * (pools[0] + rowsum((x * x).mean(dim=1)))]
+        deltas = (rate.abs() * torch.rsqrt(want_pools[0] + 1e-10))[:, None] * rowsum(x.abs())
+    mag = t0 + want_t.float().abs() + deltas
+    return 2.0 * 2.0**-7 * mag, pool_tols
+
+
+def check_rule(case, table, rows, src, timed: bool, gen) -> dict:
+    """One optimizer-mode case of the row-update kernel against its plain
+    version from the same table and pools, a repeat for bit-identity, the
+    rows it must leave as they were, and (if timed) the times and bound."""
+    from dlrm_flexflow_tpu_torch.ops.kernels.row_update import sort_rows
+
+    rule, wd = OPTIM_RULES.get(case.split(":")[0], (case.split(":")[0], 0.0))
+    opt = case_optimizer(rule, wd)
+    v, d = table.shape
+    h = rows.numel() // src.shape[0]
+    pools = rule_pools(rule, v, d, gen)
+    rate = torch.tensor(3e-3 if rule == "adam" else 0.01, device="cuda")
+    want_t, want_p = table.clone(), [p.clone() for p in pools]
+    rule_call(opt, want_t, want_p, rows, src, h, rate, plain=True)
+    runs = []
+    for _ in range(2):
+        t, ps = table.clone(), [p.clone() for p in pools]
+        rule_call(opt, t, ps, rows, src, h, rate, plain=False)
+        runs.append((t, ps))
+    torch.cuda.synchronize()
+    (got_t, got_p), (again_t, again_p) = runs
+    tol_t, tol_p = rule_tolerance(rule, table, pools, want_t, want_p, rows, src, h, rate)
+    err_t = (got_t.float() - want_t.float()).abs()
+    keep = (rows >= 0) & (rows < v)
+    touched = torch.zeros(v, dtype=torch.bool, device="cuda")
+    touched[rows[keep]] = True
+    same = lambda a, b: bool(torch.equal(a.view(torch.uint8), b.view(torch.uint8)))  # noqa: E731
+    res = {
+        "case": case, "V": v, "D": d, "K": rows.numel(), "h": h,
+        "table": str(table.dtype).replace("torch.", ""), "weight_decay": wd,
+        "dropped": int((~keep).sum()), "unique_rows": int(touched.sum()),
+        "max_abs_err": err_t.max().item(),
+        "max_err_over_tol": max([(err_t / tol_t.clamp_min(1e-30)).max().item()] + [
+            ((g - w).abs() / tl.clamp_min(1e-30)).max().item()
+            for g, w, tl in zip(got_p, want_p, tol_p)]),
+        "exact_share_touched": (got_t == want_t)[touched].float().mean().item(),
+        "untouched_unchanged": same(got_t[~touched], table[~touched]) and all(
+            same(g[~touched], p[~touched]) for g, p in zip(got_p, pools)),
+        "bit_identical_repeat": same(got_t, again_t) and all(same(a, b) for a, b in zip(got_p, again_p)),
+    }
+    finite = bool(torch.isfinite(got_t.float()).all()) and all(bool(torch.isfinite(g).all()) for g in got_p)
+    if not finite or res["max_err_over_tol"] > 1.0 or not res["untouched_unchanged"]:
+        raise AssertionError(f"row_update {rule} disagrees with its plain version: {res}")
+    if not res["bit_identical_repeat"]:
+        raise AssertionError(f"row_update {rule} is not bit-reproducible: {res}")
+    if timed:
+        rows_sorted, order = sort_rows([table], [rows])
+        uniq = res["unique_rows"]
+        t_bytes = (rows.numel() * 8 + src.numel() * 4 + uniq * (2 * d * table.element_size()
+                   + POOL_BYTES[rule](d))) / HBM_BYTES_PER_S * 1e3
+        per_entry, per_row = RULE_OPS[rule]
+        t_ops = (int(keep.sum()) * d * per_entry + uniq * d * per_row) / F32_FLOP_PER_S * 1e3
+        state = pool_state(got_p)
+        launch = lambda: launch_rule(opt, got_t, state, rows_sorted[0], order[0], src, h, rate)  # noqa: E731
+        res.update({
+            "ms": graph_ms(launch),
+            "eager_ms": cuda_ms(launch),
+            "prep_ms": cuda_ms(lambda: sort_rows([table], [rows])),
+            # torch.unique syncs with the host, so no graph here
+            "plain_ms": cuda_ms(lambda: rule_call(opt, want_t, want_p, rows, src, h, rate, True)),
+            "library_ms": None,  # no one PyTorch call does a lazy optimizer update
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        })
+    log(f"[kernels] row_update_{rule} {json.dumps(res)}")
+    del want_t, want_p, runs, got_t, got_p, again_t, again_p, pools
+    return res
+
+
+def phase_optim_kernels() -> dict:
+    """The row-update kernel's optimizer modes at the K1 shape of phase 3:
+    65536 rows into the 10,131,227-row bf16 kaggle table, f32 pools."""
+    from dlrm_flexflow_tpu_torch.data.synthetic import zipf_indices
+
+    v, d, k = 10_131_227, 16, TRAIN_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    table = ((torch.rand((v, d), generator=gen, device="cuda") - 0.5) * 0.02).to(torch.bfloat16)
+    src = torch.randn((k, d), generator=gen, device="cuda") * 1e-2
+    uniform = torch.randint(0, v, (k,), generator=gen, device="cuda")
+    zipf = torch.from_numpy(zipf_indices(np.random.default_rng(SEED + 7), v, k, 1.05)).cuda()
+    dropped = uniform.clone()
+    dropped[: k // 16] = -1 - torch.arange(k // 16, device="cuda") % 7
+    dropped[k // 16 : k // 8] = v + torch.arange(k // 16, device="cuda") % 7
+    cases = {}
+    for case in OPTIM_RULES:
+        cases[case] = check_rule(case, table, uniform, src, timed=True, gen=gen)
+    cases["adam:zipf"] = check_rule("adam:zipf", table, zipf, src, timed=True, gen=gen)
+    for rule in ("momentum", "adam", "adagrad"):
+        cases[f"{rule}:dropped"] = check_rule(f"{rule}:dropped", table, dropped, src, timed=False, gen=gen)
+    cases["adagrad:bag2"] = check_rule("adagrad:bag2", table, uniform, src[: k // 2].contiguous(),
+                                       timed=False, gen=gen)
+    del table
+    torch.cuda.empty_cache()
+    return cases
+
+
+# ------------------------------------------------------------------ K5b
+
+
+def check_onehot_backward(name, v, d, idx, g, aggr, cdt, gen) -> dict:
+    """K5b through torch.autograd.grad of the op against its plain version.
+    Both sum exact products (bf16) or f32 products rounded alike in f32 in
+    another order: within 2 * n * 2^-24 * sum |w * g| of each other, n the
+    row's weight sum (at least its bag count)."""
+    from dlrm_flexflow_tpu_torch import AggrMode
+    from dlrm_flexflow_tpu_torch.ops.kernels.onehot_embedding import (
+        onehot_embedding, onehot_embedding_backward_reference,
+    )
+
+    table = randn((v, d), gen, scale=0.05).requires_grad_(True)
+    grads = [torch.autograd.grad(onehot_embedding(table, idx, aggr, cdt), [table], grad_outputs=g)[0]
+             for _ in range(2)]
+    want = onehot_embedding_backward_reference(idx, g, v, aggr, cdt)
+    ones = torch.ones((idx.shape[0], 1), device="cuda")
+    n = onehot_embedding_backward_reference(idx, ones, v, AggrMode.AGGR_MODE_SUM, torch.float32)
+    tol = 2.0 * n * F32_UNIT * onehot_embedding_backward_reference(idx, g.float().abs(), v, aggr, cdt)
+    torch.cuda.synchronize()
+    got = grads[0]
+    err = (got - want).abs()
+    res = {
+        "case": name, "rows": v, "D": d, "bags": idx.shape[0], "H": idx.shape[1],
+        "aggr": aggr.name, "compute": str(cdt).replace("torch.", ""),
+        "g": str(g.dtype).replace("torch.", ""),
+        "padded": int((idx < 0).sum()), "past_the_table": int((idx >= v).sum()),
+        "rows_untouched": int((want == 0).all(dim=1).sum()),
+        "max_abs_err": err.max().item(),
+        "max_err_over_tol": (err / tol.clamp_min(1e-30)).max().item(),
+        "bit_identical_repeat": bool(torch.equal(grads[0], grads[1])),
+    }
+    log(f"[kernels] onehot_embedding_backward {json.dumps(res)}")
+    if (not torch.isfinite(got).all() or res["max_err_over_tol"] > 1.0
+            or not res["bit_identical_repeat"] or got.dtype != torch.float32):
+        raise AssertionError(f"onehot_embedding_backward disagrees with its plain version: {res}")
+    return res
+
+
+def phase_onehot_backward() -> dict:
+    """K5b at the largest mlperf-lite small table (V = 7424, D = 128, B =
+    16384, H = 1, SUM, bf16 compute), then bags of 4 with AVG, duplicates,
+    indices >= V, padding and a fully padded bag in f32 compute; timed at
+    the first shape."""
+    from dlrm_flexflow_tpu_torch import AggrMode
+    from dlrm_flexflow_tpu_torch.ops.kernels.onehot_embedding import (
+        _launch_backward, _onehot_weights, onehot_embedding_backward,
+        onehot_embedding_backward_reference, sort_members,
+    )
+
+    SUM, AVG = AggrMode.AGGR_MODE_SUM, AggrMode.AGGR_MODE_AVG
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    v, d = 7424, 128
+    one = torch.randint(0, v, (BATCH, 1), generator=gen, device="cuda")
+    g = randn((BATCH, d), gen)
+    bags = torch.randint(0, v, (BATCH, 4), generator=gen, device="cuda")
+    bags[:, 1] = bags[:, 0]  # n_r >= 2
+    bags[::3, 2] = bags[::3, 0]  # n_r = 3
+    bags[::5, 3] = -1
+    bags[::4, 2] = v + 2  # matches no row, counts in AVG's divisor
+    bags[7] = -1  # a fully padded bag
+    errs = [
+        check_onehot_backward("mlperf-lite", v, d, one, g, SUM, torch.bfloat16, gen),
+        check_onehot_backward("bag4-avg-f32", v, d, bags, g, AVG, torch.float32, gen),
+        check_onehot_backward("bag4-sum-bf16-g", v, d, bags, g.to(torch.bfloat16), SUM,
+                              torch.bfloat16, gen),
+        check_onehot_backward("bag4-avg-ragged-D", 500, 37, torch.where(bags >= 0, bags % 520, bags),
+                              g[:, :37].contiguous(), AVG, torch.bfloat16, gen),
+    ]
+    keys, order = sort_members(one, v)
+    w = _onehot_weights(one, v, SUM, torch.bfloat16)
+    b, m = torch.nonzero(w > 0, as_tuple=True)
+    rows_kept = one[b, m]
+    weighted = w[b, m][:, None] * g[b].to(torch.bfloat16).float()
+    dt0 = torch.zeros((v, d), device="cuda")
+    t_bytes = (one.numel() * one.element_size() + g.numel() * g.element_size() + v * d * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * rows_kept.numel() * d / F32_FLOP_PER_S * 1e3
+    k5b = {
+        "max_abs_err": max(e["max_abs_err"] for e in errs),
+        "ms": graph_ms(lambda: _launch_backward(keys, order, one, g, v, SUM, torch.bfloat16)),
+        "prep_ms": cuda_ms(lambda: sort_members(one, v)),
+        "call_ms": cuda_ms(lambda: onehot_embedding_backward(one, g, v, SUM, torch.bfloat16)),
+        "plain_ms": cuda_ms(lambda: onehot_embedding_backward_reference(one, g, v, SUM, torch.bfloat16)),
+        # one library call that adds the pre-weighted rows into zeros
+        "library_ms": graph_ms(lambda: dt0.index_add_(0, rows_kept, weighted)),
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    log(f"[kernels] onehot_embedding_backward timing at [{BATCH}, 1] into [{v}, {d}], "
+        f"f32 g, bf16 compute: {json.dumps(k5b)}")
+    del g, weighted, dt0
+    torch.cuda.empty_cache()
+    return k5b
+
+
+def phase_onehot_grad() -> int:
+    """Phase 13: the one-hot lookup's gradient through torch.autograd, as a
+    user differentiates the op, at mlperf-lite's 13 tables of at most 8192
+    rows (D = 128, batch 16384, SUM, bf16 compute). Returns K5b's launches."""
+    from dlrm_flexflow_tpu_torch import AggrMode
+    from dlrm_flexflow_tpu_torch.models.dlrm import mlperf_lite_config
+    from dlrm_flexflow_tpu_torch.ops.kernels.onehot_embedding import onehot_embedding
+
+    cfg = mlperf_lite_config(batch_size=BATCH)
+    vocabs = [v for v in cfg.embedding_size if v <= 8192]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    tables = [randn((v, cfg.sparse_feature_size), gen, scale=0.05).requires_grad_(True) for v in vocabs]
+    idx = [torch.randint(0, v, (BATCH, 1), generator=gen, device="cuda") for v in vocabs]
+    g = randn((BATCH, cfg.sparse_feature_size), gen)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    grads = [torch.autograd.grad(onehot_embedding(t, ix, AggrMode.AGGR_MODE_SUM, torch.bfloat16),
+                                 [t], grad_outputs=g)[0] for t, ix in zip(tables, idx)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counts.items()}
+    want = {**{name: 0 for name in counts}, "onehot_embedding": len(vocabs),
+            "onehot_embedding_backward": len(vocabs)}
+    res = {"tables": len(vocabs), "rows": sum(vocabs), "batch": BATCH, "seconds": dt,
+           "launches": launches}
+    log(f"[onehot-grad] {json.dumps(res)}")
+    if launches != want or len(vocabs) != MLPERF_LITE_TABLES:
+        raise AssertionError(f"the one-hot gradient launched {launches}, not {want}")
+    for t, gt in zip(tables, grads):
+        if gt.shape != t.shape or gt.dtype != torch.float32 or not torch.isfinite(gt).all():
+            raise AssertionError(f"one-hot gradient {tuple(gt.shape)} {gt.dtype} is not a finite "
+                                 f"f32 gradient of the {tuple(t.shape)} table")
+    return launches["onehot_embedding_backward"]
 
 
 def main() -> None:
@@ -979,10 +1467,17 @@ def main() -> None:
     phase_parity_on()
     train_launches = phase_train()
     phase_train_parity()
+    adam_launches = phase_train("adam")
+    optim_launches = {"adam": adam_launches, **phase_train_optims()}
+    for rule in ("momentum", "nesterov", "adam", "adam+adagrad"):
+        phase_train_parity(rule)
+    k5b_launches = phase_onehot_grad()
     # after the paths: run before them, these cases left about 0.5 GB
     # allocated, which showed in the paths' peak memory
     k6 = phase_fused_dense()
     k4, k5f = phase_lookups()
+    k5b = phase_onehot_backward()
+    modes = phase_optim_kernels()
     kernel = {
         "name": "dot_interaction",
         "route": "cuda",
@@ -1027,6 +1522,30 @@ def main() -> None:
             "launches": on_launches[name],
             **{key: res[key] for key in
                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        })
+    entries.append({
+        "name": "onehot_embedding_backward",
+        "route": "cuda",
+        "source": "dlrm_flexflow_tpu_torch/csrc/onehot_embedding.cu",
+        "replaces": "dlrm_flexflow_tpu/ops/pallas/onehot_embedding.py:62",
+        "launches": k5b_launches,
+        **{key: k5b[key] for key in
+           ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    })
+    # the optimizer modes replace K1's decay mode (packed_update.py:551-556
+    # in _update_kernel) and, for AdaGrad, its per-entry scale (:343-351)
+    for case, rule, replaces in (("momentum", "momentum", 487), ("nesterov", "nesterov", 487),
+                                 ("adam", "adam", 487), ("adagrad", "adagrad", 487)):
+        c = modes[case]
+        entries.append({
+            "name": f"row_update_{case}" if case != "nesterov" else "row_update_momentum (nesterov)",
+            "route": "cuda",
+            "source": "dlrm_flexflow_tpu_torch/csrc/row_update.cu",
+            "replaces": f"dlrm_flexflow_tpu/ops/pallas/packed_update.py:{replaces}",
+            "launches": optim_launches[rule],
+            "max_abs_err": max(m["max_abs_err"] for k, m in modes.items()
+                               if k.split(":")[0].split("-")[0] == case),
+            **{key: c[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

@@ -4,8 +4,10 @@ The same graph-builder API, configs and parameter layout as the JAX package,
 running on one NVIDIA H100 (or on the CPU when asked). Its kernels are
 written by hand for Hopper (`csrc/`), each beside its plain PyTorch version
 (`ops/kernels/`). This part of the port serves DLRM (build, compile,
-predict), trains it on one device with SGD (train_batch, fit, evaluate),
-and carries weights over from the JAX package (`convert.py`).
+predict), trains it on one device (train_batch, fit, evaluate) with SGD,
+momentum, Adam or row-wise AdaGrad, the tables optionally under a sparse
+optimizer of their own, and carries weights over from the JAX package
+(`convert.py`).
 """
 
 from .config import FFConfig, FFIterationConfig

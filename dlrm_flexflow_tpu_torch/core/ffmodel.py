@@ -13,9 +13,10 @@ ops whose indices come straight from the inputs and whose vocab is above
 `onehot_embedding_threshold` are sparse. Their lookups run outside
 autograd; their pooled outputs go into the graph as detached leaves that
 require grad; the loss's gradient reaches the dense parameters and those
-leaves; dense SGD runs in place; the leaves' gradients become row updates
-(training/sparse_engine.py). Tables on the row-update kernel route may be
-stored in `table_dtype`.
+leaves; the dense optimizer runs in place; the leaves' gradients become row
+updates under the sparse optimizer (training/sparse_engine.py), which is
+the dense one unless `compile` is given its own. Tables on the row-update
+kernel route may be stored in `table_dtype`.
 
 Under use_pallas="on" every op takes its forced kernel (Dense, the pooled
 lookups, the interaction), as in the JAX package; such a model serves
@@ -44,12 +45,17 @@ from ..ops.kernels import resolve_use_pallas
 from ..ops.shape_ops import Concat
 from ..training import losses as losses_lib
 from ..training import metrics as metrics_lib
-from ..training.optimizer import LATER_SLICE, Optimizer, SGDOptimizer
+from ..training.optimizer import (
+    AdamOptimizer,
+    Optimizer,
+    RowWiseAdagradOptimizer,
+    SGDOptimizer,
+)
 from ..training.sparse_engine import apply_sparse_updates
 from .graph import Graph, InputOp, OpContext
 from .tensor import TensorSpec
 
-_HOST_ROUTING = "host routing (config.host_routing) is slice 4 of the port (data and host routing)"
+_HOST_ROUTING = "host routing (config.host_routing) is slice 5 of the port (data and host routing)"
 _MID_BAND = ("the mid-band packed one-hot tables (config.onehot_packed_threshold) are "
              "a later slice of the port")
 _HOST_TAIL = ("host-tail offload (config.host_tail_threshold) is a later slice of the port "
@@ -57,8 +63,7 @@ _HOST_TAIL = ("host-tail offload (config.host_tail_threshold) is a later slice o
 _PROFILING = ("per-op profiling (config.profiling, utils/profiling.py) is a later slice of "
               "the port (autotune and profiling)")
 _FORCED_TRAINING = ("training under use_pallas='on' is a later slice of the port: the JAX "
-                    "package's forced Dense kernel (dense_pallas) has no gradient, and the "
-                    "one-hot embedding kernel's backward (K5b) is not ported yet; use "
+                    "package's forced Dense kernel (dense_pallas) has no gradient; use "
                     "use_pallas='auto' or 'off' to train")
 
 
@@ -79,6 +84,7 @@ class FFModel:
         self._out_spec: Optional[TensorSpec] = None
         self._compiled = False
         self.optimizer: Optional[Optimizer] = None
+        self.sparse_optimizer: Optional[Optimizer] = None
         self._sparse_ops: List[Embedding] = []
         self._opt_state: Any = None
         self._metrics_total: Dict[str, torch.Tensor] = {}
@@ -161,6 +167,7 @@ class FFModel:
         loss_type: LossType = LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE,
         metrics: Sequence[MetricsType] = (),
         seed: Optional[int] = None,
+        sparse_optimizer: Optional[Optimizer] = None,
     ) -> None:
         """reference: FFModel::compile (model.cc:1567). Makes the parameters
         on the model's device from `seed` (default config.seed), selects
@@ -168,17 +175,27 @@ class FFModel:
         optimizer state (default optimizer: SGD at config.learning_rate and
         config.weight_decay, as in the JAX package).
 
+        sparse_optimizer: an optimizer of its own for the embedding rows
+        (the JAX package's `compile(..., sparse_optimizer=)`, e.g. row-wise
+        AdaGrad on the tables and Adam on the dense towers); default
+        `optimizer`. Sparse Adam needs dense Adam: the bias correction's
+        step count lives in the dense state (ValueError otherwise).
+
         Raises NotImplementedError, naming the slice of the port that
-        brings it, for what this slice does not have: sparse rows under an
-        optimizer other than SGD without momentum, host routing, the
+        brings it, for what this slice does not have: host routing, the
         mid-band one-hot tables and host-tail offload."""
         cfg = self.config
         self.optimizer = optimizer or SGDOptimizer(
             lr=cfg.learning_rate, weight_decay=cfg.weight_decay
         )
-        opt = self.optimizer
-        if not isinstance(opt, Optimizer):
-            raise TypeError(f"compile: optimizer must be an Optimizer, got {type(opt).__name__}")
+        self.sparse_optimizer = sparse_optimizer or self.optimizer
+        opt, sopt = self.optimizer, self.sparse_optimizer
+        for o in (opt, sopt):
+            if not isinstance(o, Optimizer):
+                raise TypeError(f"compile: optimizer must be an Optimizer, got {type(o).__name__}")
+        if isinstance(sopt, AdamOptimizer) and not isinstance(opt, AdamOptimizer):
+            raise ValueError("compile: sparse Adam requires dense Adam (the bias correction's "
+                             "step count lives in the dense Adam state)")
         if cfg.host_tail_threshold > 0:
             raise NotImplementedError(_HOST_TAIL)
         self.loss_type = loss_type
@@ -199,7 +216,7 @@ class FFModel:
         # sparse ops (JAX package :753-775): indices straight from the
         # inputs, vocab above the one-hot threshold
         sparse_ops: List[Embedding] = []
-        if opt.supports_sparse:
+        if sopt.supports_sparse:
             for op in self.graph.compute_ops:
                 if not (
                     hasattr(op, "sparse_update") and op.inputs
@@ -211,19 +228,17 @@ class FFModel:
                 if self._onehot_packed_eligible(op):
                     raise NotImplementedError(_MID_BAND)
                 sparse_ops.append(op)
-        if sparse_ops and not (isinstance(opt, SGDOptimizer) and opt.momentum == 0.0):
-            raise NotImplementedError(
-                f"embedding rows under {type(opt).__name__}"
-                f"{' with momentum' if isinstance(opt, SGDOptimizer) else ''} are {LATER_SLICE}"
-            )
 
         # the row-update kernel route (JAX package :798-841, whose "auto"
-        # packs on a TPU; here "auto" takes the route on CUDA)
+        # packs on a TPU; here "auto" takes the route on CUDA). The kernels
+        # take exactly these sparse optimizers; any other (a custom
+        # Optimizer subclass) keeps its scatter rule (:803-809).
         route_enable = (
             cfg.packed_tables == "on"
             or (cfg.packed_tables == "auto" and cfg.use_pallas != "off"
                 and self.device.type == "cuda")
-        )
+        ) and (isinstance(sopt, (SGDOptimizer, AdamOptimizer))
+               or type(sopt) is RowWiseAdagradOptimizer)
         for op in self.graph.compute_ops:
             if isinstance(op, Embedding):
                 op.kernel_route, op.table_dtype = False, None
@@ -249,7 +264,7 @@ class FFModel:
             dense_init = {k: v for k, v in params.items() if k not in names}
             self._opt_state = {
                 "dense": opt.init(dense_init, self.device),
-                "sparse": {op.name: op.sparse_state_init(opt) for op in sparse_ops},
+                "sparse": {op.name: op.sparse_state_init(sopt, self.device) for op in sparse_ops},
             }
         else:
             self._opt_state = opt.init(params, self.device)
@@ -314,8 +329,8 @@ class FFModel:
         return out
 
     def train_batch(self, feeds: Dict[str, Any], labels) -> torch.Tensor:
-        """One step: forward, loss and metrics, backward, dense SGD in
-        place, sparse row updates. Returns the loss as a 0-d tensor on the
+        """One step: forward, loss and metrics, backward, the dense update
+        in place, sparse row updates. Returns the loss as a 0-d tensor on the
         model's device (the JAX package returns a 0-d array). Raises
         NotImplementedError under use_pallas="on"."""
         self._require_trainable()
@@ -365,8 +380,8 @@ class FFModel:
             st = self._opt_state
             dstate = opt.update(g_dense, st["dense"], dense_params)
             sstates = apply_sparse_updates(
-                sparse_ops, self._params, sparse_xs, g_over, opt, st["sparse"], ctx,
-                lr=dstate["lr"],
+                sparse_ops, self._params, sparse_xs, g_over, self.sparse_optimizer,
+                st["sparse"], ctx, lr=self._sparse_rate(dstate),
             )
             self._opt_state = {"dense": dstate, "sparse": sstates}
         else:
@@ -484,9 +499,22 @@ class FFModel:
             self.eval_batch({k: v[sl] for k, v in feeds.items()}, labels[sl])
         return self.get_metrics()
 
+    def _sparse_rate(self, dstate: dict):
+        """The rate of this step's row updates (JAX package :960-977): the
+        dense state's rate, unless a distinct sparse optimizer keeps its own
+        (None); for sparse Adam, that base times the bias correction at the
+        dense state's step count, taken after the dense update."""
+        sopt = self.sparse_optimizer
+        lr = dstate["lr"] if sopt is self.optimizer else None
+        if isinstance(sopt, AdamOptimizer):
+            lr = sopt.alpha_t(lr, dstate["step"], self.device)
+        return lr
+
     def set_learning_rate(self, lr: float) -> None:
         """reference: Optimizer::set_learning_rate. The rate lives in the
-        optimizer state on the device; the next step reads it."""
+        dense optimizer's state on the device; the next step reads it. The
+        embedding rows follow it unless compile was given a distinct
+        sparse optimizer, which keeps its own rate."""
         self._require_compiled()
         self._lr_tensor().fill_(float(lr))
 

@@ -23,13 +23,14 @@ paths, chosen as the JAX package chooses them (`ops/embedding.py:116-163`):
   f32.
 All count every index >= 0 toward the AVG divisor, as the JAX package does.
 
-Training (`bag_row_grads`, `bag_row_src`, `Embedding.sparse_update`): a
-table on the sparse path gets its pooled-output gradient turned into row
-updates, never a dense [V, D] gradient. Tables stay [V, D]: the JAX
-package's packed [V*D/128, 128] layout exists to fill TPU lanes. A table
-that FFModel.compile puts on the row-update kernel route
-(`kernel_route`, updated by training/sparse_engine.py) may be stored in
-`table_dtype` (bf16); every other table stays f32.
+Training (`bag_row_grads`, `bag_row_src`, `Embedding.sparse_update`,
+`sparse_state_init`): a table on the sparse path gets its pooled-output
+gradient turned into row updates, never a dense [V, D] gradient. Tables
+and optimizer pools stay [V, D] (or [V]): the JAX package's packed
+[V*D/128, 128] layout exists to fill TPU lanes. A table that
+FFModel.compile puts on the row-update kernel route (`kernel_route`,
+updated by training/sparse_engine.py) may be stored in `table_dtype`
+(bf16); every other table, and every optimizer pool, stays f32.
 
 The JAX package's host-tail, int8 and mid-band packed one-hot branches
 belong to later slices.
@@ -206,5 +207,15 @@ class Embedding(Op):
         rows, grads = bag_row_grads(inputs[0], g_out_list[0], self.aggr, self.num_entries)
         return optimizer.sparse_row_update(params["weight"], sstate, rows, grads, lr=lr)
 
-    def sparse_state_init(self, optimizer):
-        return optimizer.sparse_init((self.num_entries, self.out_dim))
+    def sparse_state_init(self, optimizer, device):
+        """The optimizer's slot state for this table (JAX
+        `sparse_state_init`, ops/embedding.py:183-212), f32 on `device`: a
+        [V, D] momentum velocity, Adam's m and v ([2, V, D] on the scatter
+        route; a dict {"m", "v"} of two [V, D] pools on the kernel route, as
+        the JAX package keeps them), a [V] AdaGrad accumulator (the JAX
+        package's packed copy replicates it over the row's D lanes), or
+        None."""
+        st = optimizer.sparse_init((self.num_entries, self.out_dim), device)
+        if st is not None and self.kernel_route and st.dim() == 3:
+            st = {"m": st[0], "v": st[1]}
+        return st

@@ -7,15 +7,17 @@ tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
 
   - dot_interaction.py  : pairwise-dot feature interaction (K3, replaces
                           `_interaction_kernel`, ops/pallas/dot_interaction.py)
-  - row_update.py       : sparse embedding row update (K1 + K2, replaces
-                          `_update_kernel` and `_update_kernel_manual`,
-                          ops/pallas/packed_update.py)
+  - row_update.py       : sparse embedding row updates, SGD, lazy momentum
+                          and Nesterov, lazy Adam, row-wise AdaGrad (K1 + K2
+                          in every mode, replaces `_update_kernel` and
+                          `_update_kernel_manual`, ops/pallas/packed_update.py)
   - fused_mlp.py        : fused dense layer (K6, replaces `_dense_kernel`,
                           ops/pallas/fused_mlp.py)
   - embedding_bag.py    : pooled embedding-bag lookup (K4, replaces
                           `_bag_kernel`, ops/pallas/embedding_bag.py)
-  - onehot_embedding.py : small-vocabulary pooled lookup, forward (K5f,
-                          replaces `_fwd_kernel`, ops/pallas/onehot_embedding.py)
+  - onehot_embedding.py : small-vocabulary pooled lookup and its gradient
+                          (K5f and K5b, replace `_fwd_kernel` and
+                          `_bwd_kernel`, ops/pallas/onehot_embedding.py)
 
 Routing mirrors the JAX package: FFConfig.use_pallas ->
 resolve_use_pallas() -> OpContext.use_pallas, read per op.

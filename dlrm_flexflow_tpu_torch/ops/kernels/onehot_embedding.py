@@ -1,5 +1,5 @@
-"""Small-vocabulary pooled lookup (the one-hot embedding's forward): CUDA
-kernel wrapper and plain version.
+"""Small-vocabulary pooled lookup (the one-hot embedding) and its gradient:
+CUDA kernel wrappers and plain versions.
 
 Replaces the Pallas TPU kernel `_fwd_kernel`
 (`dlrm_flexflow_tpu/ops/pallas/onehot_embedding.py:55`, launched by
@@ -21,9 +21,13 @@ weight is rounded per distinct row, which is not the plain one-hot path's
 differ. The kernel is `csrc/onehot_embedding.cu`; its source note gives the
 design and the bound.
 
-The backward (K5b, `_bwd_kernel`) is a later slice of the port: the JAX
-package reaches it only when training under use_pallas="on", where its
-forced Dense kernel has no gradient. This op's backward raises.
+The gradient replaces the Pallas TPU kernel `_bwd_kernel` (`:62`, launched
+by `_onehot_bwd` at `:138`; K5b), the VJP of `onehot_embedding_pallas`:
+dT [V, D] f32 = sum over bags b of w_{b,r} * cdt(g[b]), the transpose of the
+same weighted one-hot product, accumulated in f32. The op is differentiable
+with respect to the table, as `onehot_embedding_pallas` is; on CUDA its
+backward launches the kernel (`onehot_embedding_backward`), on the CPU its
+plain version (the weighted rows `index_add_`-ed into f32 zeros).
 """
 from __future__ import annotations
 
@@ -34,12 +38,6 @@ import torch
 
 from ... import _build
 from ...ffconst import AggrMode
-
-NO_BACKWARD = (
-    "the one-hot embedding kernel's backward (K5b, `_bwd_kernel`) is a later slice of the "
-    "port: training under use_pallas='on' is not ported yet"
-)
-
 
 def _onehot_weights(idx: torch.Tensor, v: int, aggr: AggrMode, compute_dtype: torch.dtype) -> torch.Tensor:
     """[B, H] f32 weight of each bag member: w_r at a row's first
@@ -71,6 +69,20 @@ def onehot_embedding_reference(
     return (w[..., None] * rows).sum(dim=1).to(table.dtype)
 
 
+def onehot_embedding_backward_reference(
+    idx: torch.Tensor, g: torch.Tensor, v: int, aggr: AggrMode, compute_dtype: torch.dtype
+) -> torch.Tensor:
+    """Plain version of the gradient: each kept member's weight times its
+    bag's gradient rounded to the compute dtype (an f32 product), summed
+    into f32 zeros by `index_add_`."""
+    w = _onehot_weights(idx, v, aggr, compute_dtype)
+    b, m = torch.nonzero(w > 0, as_tuple=True)
+    rows = idx.long().reshape(w.shape)[b, m]
+    weighted = w[b, m][:, None] * g[b].to(compute_dtype).float()
+    dt = torch.zeros((v, g.shape[1]), dtype=torch.float32, device=g.device)
+    return dt.index_add_(0, rows, weighted)
+
+
 @functools.lru_cache(maxsize=1)
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("onehot_embedding")
@@ -89,9 +101,32 @@ def _kernel_lib() -> ctypes.CDLL:
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.onehot_embedding_forward.restype = ctypes.c_int
+    lib.onehot_embedding_backward.argtypes = [
+        ctypes.c_void_p,  # keys_sorted int32
+        ctypes.c_void_p,  # order int32
+        ctypes.c_void_p,  # idx
+        ctypes.c_void_p,  # g
+        ctypes.c_void_p,  # dT f32
+        ctypes.c_longlong,  # B
+        ctypes.c_int,  # H
+        ctypes.c_int,  # V
+        ctypes.c_int,  # D
+        ctypes.c_int,  # g is bf16
+        ctypes.c_int,  # idx is int64
+        ctypes.c_int,  # AVG
+        ctypes.c_int,  # compute dtype is bf16
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.onehot_embedding_backward.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_if(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel failed: {msg} (cudaError {err})")
 
 
 def _launch(table, idx, aggr, compute_dtype) -> torch.Tensor:
@@ -111,11 +146,38 @@ def _launch(table, idx, aggr, compute_dtype) -> torch.Tensor:
             int(table.dtype == torch.bfloat16), int(idx.dtype == torch.int64),
             int(aggr is AggrMode.AGGR_MODE_AVG), int(compute_dtype == torch.bfloat16), stream,
         )
-    if err != 0:
-        msg = lib.cuda_error_string(err).decode()
-        raise RuntimeError(f"onehot_embedding kernel failed: {msg} (cudaError {err})")
+    _raise_if(lib, err, "onehot_embedding")
     onehot_embedding.launches += 1
     return out
+
+
+def sort_members(idx: torch.Tensor, v: int):
+    """The backward's prep: every bag member's row, or the sentinel v for
+    padding and rows >= v, sorted stably. Returns (keys_sorted, order), both
+    [B * H] int32."""
+    keys = idx.reshape(-1).to(torch.int32)
+    keys = torch.where((keys >= 0) & (keys < v), keys, torch.full_like(keys, v))
+    keys_sorted, order = torch.sort(keys, stable=True)
+    return keys_sorted, order.to(torch.int32)
+
+
+def _launch_backward(keys_sorted, order, idx, g, v, aggr, compute_dtype) -> torch.Tensor:
+    b, d = g.shape
+    h = 1 if idx.dim() == 1 else idx.shape[1]
+    dt = torch.empty((v, d), dtype=torch.float32, device=g.device)
+    if b == 0 or h == 0:
+        return dt.zero_()
+    lib = _kernel_lib()
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = lib.onehot_embedding_backward(
+            keys_sorted.data_ptr(), order.data_ptr(), idx.data_ptr(), g.data_ptr(), dt.data_ptr(),
+            b, h, v, d, int(g.dtype == torch.bfloat16), int(idx.dtype == torch.int64),
+            int(aggr is AggrMode.AGGR_MODE_AVG), int(compute_dtype == torch.bfloat16), stream,
+        )
+    _raise_if(lib, err, "onehot_embedding_backward")
+    onehot_embedding_backward.launches += 1
+    return dt
 
 
 def _check(table, idx, aggr, compute_dtype) -> None:
@@ -139,26 +201,52 @@ def _check(table, idx, aggr, compute_dtype) -> None:
                          f"device, got {table.device} and {idx.device}")
 
 
+def onehot_embedding_backward(
+    idx: torch.Tensor, g: torch.Tensor, v: int, aggr: AggrMode, compute_dtype: torch.dtype
+) -> torch.Tensor:
+    """The gradient of `onehot_embedding` with respect to a table of v rows:
+    idx [B, H] or [B] and the pooled output's gradient g [B, D] (f32 or
+    bf16) -> dT [v, D] f32. On CUDA it sorts the members and launches the
+    kernel (counted in `onehot_embedding_backward.launches`); on the CPU it
+    takes the plain version."""
+    if g.dim() != 2 or g.dtype not in (torch.float32, torch.bfloat16) or g.shape[0] != idx.shape[0]:
+        raise TypeError(f"onehot_embedding_backward takes a [B, D] float32 or bfloat16 gradient "
+                        f"of the {idx.shape[0]} bags, got {tuple(g.shape)} {g.dtype}")
+    if g.device != idx.device or not g.is_contiguous() or not 1 <= v < 2**31 - 1:
+        raise ValueError("onehot_embedding_backward needs a contiguous g on idx's device and "
+                         f"1 <= v < 2^31 - 1, got v = {v}")
+    if not g.is_cuda:
+        return onehot_embedding_backward_reference(idx, g, v, aggr, compute_dtype)
+    keys_sorted, order = sort_members(idx, v)
+    return _launch_backward(keys_sorted, order, idx, g, v, aggr, compute_dtype)
+
+
 class _OnehotEmbedding(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, idx, aggr, compute_dtype):
+        ctx.save_for_backward(idx)
+        ctx.v, ctx.dtype, ctx.aggr, ctx.compute_dtype = table.shape[0], table.dtype, aggr, compute_dtype
         if table.is_cuda:
             return _launch(table, idx, aggr, compute_dtype)
         return onehot_embedding_reference(table, idx, aggr, compute_dtype)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(NO_BACKWARD)
+        (idx,) = ctx.saved_tensors
+        dt = onehot_embedding_backward(idx, g.contiguous(), ctx.v, ctx.aggr, ctx.compute_dtype)
+        return dt.to(ctx.dtype), None, None, None
 
 
 def onehot_embedding(
     table: torch.Tensor, idx: torch.Tensor, aggr: AggrMode, compute_dtype: torch.dtype
 ) -> torch.Tensor:
     """Pooled small-vocabulary lookup table [V, D], idx [B, H] or [B] ->
-    [B, D] in the table's dtype. On CUDA it launches the kernel (counted in
-    `onehot_embedding.launches`); on the CPU it takes the plain version."""
+    [B, D] in the table's dtype, differentiable with respect to the table.
+    On CUDA it launches the kernel (counted in `onehot_embedding.launches`);
+    on the CPU it takes the plain version."""
     _check(table, idx, aggr, compute_dtype)
     return _OnehotEmbedding.apply(table, idx, aggr, compute_dtype)
 
 
 onehot_embedding.launches = 0
+onehot_embedding_backward.launches = 0

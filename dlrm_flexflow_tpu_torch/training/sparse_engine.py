@@ -1,15 +1,17 @@
 """Sparse embedding-update engine.
 
-PyTorch counterpart of `dlrm_flexflow_tpu/training/sparse_engine.py`, SGD
-part: routes the pooled-output gradients of the sparse embedding ops into
-row updates, in place. Tables on the kernel route (`op.kernel_route`, set
-by FFModel.compile) are grouped by (K, D) and go to the row-update kernel
-(`ops/kernels/row_update.py`), one sort per group; every other table goes
-to `op.sparse_update`, the optimizer's scatter rule.
+PyTorch counterpart of `dlrm_flexflow_tpu/training/sparse_engine.py`:
+routes the pooled-output gradients of the sparse embedding ops into row
+updates, in place. Tables on the kernel route (`op.kernel_route`, set by
+FFModel.compile) are grouped by (K, D) and go to the row-update kernels
+(`ops/kernels/row_update.py`), one sort per group and one launch per table:
+SGD, lazy momentum and Nesterov, lazy Adam (at the bias-corrected rate the
+caller passes as `lr`), row-wise AdaGrad. Every other table goes to
+`op.sparse_update`, the optimizer's scatter rule.
 
 The two routes round differently, as in the JAX package: the kernel route
-rounds each delta -lr * g to the stream dtype (bf16) before it sums them
-in f32; the scatter route adds f32 deltas.
+rounds each stream entry (-lr * g for SGD) to bf16 before it sums them in
+f32; the scatter route adds f32 deltas.
 """
 from __future__ import annotations
 
@@ -18,12 +20,17 @@ from typing import Dict, List
 import torch
 
 from ..ops.embedding import bag_row_src
-from ..ops.kernels.row_update import row_update
-from .optimizer import LATER_SLICE, SGDOptimizer
+from ..ops.kernels.row_update import (
+    row_update,
+    row_update_adagrad,
+    row_update_adam,
+    row_update_momentum,
+)
+from .optimizer import AdamOptimizer, RowWiseAdagradOptimizer, SGDOptimizer
 
 
 def _expand(src: torch.Tensor, h: int) -> torch.Tensor:
-    """[B, D] pooled source -> [B*h, D] per-member rows (only the
+    """[B, D] pooled source -> [B*h, D] per-member rows (only the SGD
     weight-decay payload needs the expansion)."""
     if h == 1:
         return src
@@ -42,9 +49,10 @@ def apply_sparse_updates(
     ctx,
     lr=None,
 ) -> Dict[str, object]:
-    """Update the sparse ops' tables in place; returns the new slot states.
-    `g_over[op]` is the list of pooled-output gradients of op, `sparse_xs[op]`
-    its index inputs, `lr` the rate of this step (default: opt's own)."""
+    """Update the sparse ops' tables and slot states in place; returns the
+    slot states. `g_over[op]` is the list of pooled-output gradients of op,
+    `sparse_xs[op]` its index inputs, `lr` the rate of this step (default:
+    opt's own; for Adam, the bias-corrected alpha_t)."""
     new_sstates = dict(sstates)
     kernel_ops = [op for op in sparse_ops if op.kernel_route]
     for op in sparse_ops:
@@ -55,38 +63,48 @@ def apply_sparse_updates(
             )
     if not kernel_ops:
         return new_sstates
-    if not isinstance(opt, SGDOptimizer) or opt.momentum != 0.0:
-        raise NotImplementedError(
-            f"the row-update kernel route takes SGD without momentum; "
-            f"{type(opt).__name__} rows are {LATER_SLICE}"
-        )
 
     groups: Dict[tuple, List] = {}
     for op in kernel_ops:
         rows, src, h = bag_row_src(sparse_xs[op.name][0], g_over[op.name][0], op.aggr, op.num_entries)
-        groups.setdefault((int(rows.shape[0]), op.out_dim), []).append((op, rows, src, h))
+        groups.setdefault((int(rows.shape[0]), op.out_dim), []).append((op, rows, src.contiguous(), h))
 
     device = params[kernel_ops[0].name]["weight"].device
-    rate = torch.as_tensor(opt.lr if lr is None else lr, dtype=torch.float32, device=device)
+    base = opt.alpha if isinstance(opt, AdamOptimizer) else getattr(opt, "lr", None)
+    rate = torch.as_tensor(base if lr is None else lr, dtype=torch.float32, device=device)
     for items in groups.values():
         tables = [params[op.name]["weight"] for op, *_ in items]
         rows_l = [rows for _, rows, _, _ in items]
-        if opt.weight_decay != 0.0:
-            # lazy decay on touched rows (duplicates decay once per
-            # occurrence, as on the scatter route). The decay term is taken
-            # in the table's dtype, as the JAX package's weakly typed
-            # `weight_decay * rows` is, and forces the expanded payload.
-            payloads = [
-                -rate * (
-                    _expand(src, h)
-                    + torch.full((), opt.weight_decay, dtype=t.dtype, device=device)
-                    * t[rows.clamp(0, t.shape[0] - 1)]
-                )
-                for (_, rows, src, h), t in zip(items, tables)
-            ]
-            scale = torch.ones((), dtype=torch.float32, device=device)
-        else:
-            payloads = [(src.contiguous(), h) for _, _, src, h in items]
-            scale = -rate
-        row_update(tables, rows_l, payloads, scale)
+        payloads = [(src, h) for _, _, src, h in items]
+        states = [sstates[op.name] for op, *_ in items]
+        if isinstance(opt, AdamOptimizer):
+            row_update_adam(tables, [s["m"] for s in states], [s["v"] for s in states], rows_l,
+                            payloads, rate, opt.beta1, opt.beta2, opt.epsilon, opt.weight_decay)
+        elif isinstance(opt, SGDOptimizer) and opt.momentum != 0.0:
+            row_update_momentum(tables, states, rows_l, payloads, rate, opt.momentum,
+                                opt.nesterov, opt.weight_decay)
+        elif isinstance(opt, SGDOptimizer):
+            if opt.weight_decay != 0.0:
+                # lazy decay on touched rows (duplicates decay once per
+                # occurrence, as on the scatter route). The decay term is
+                # taken in the table's dtype, as the JAX package's weakly
+                # typed `weight_decay * rows` is, and forces the expanded
+                # payload.
+                payloads = [
+                    -rate * (
+                        _expand(src, h)
+                        + torch.full((), opt.weight_decay, dtype=t.dtype, device=device)
+                        * t[rows.clamp(0, t.shape[0] - 1)]
+                    )
+                    for (_, rows, src, h), t in zip(items, tables)
+                ]
+                scale = torch.ones((), dtype=torch.float32, device=device)
+            else:
+                scale = -rate
+            row_update(tables, rows_l, payloads, scale)
+        elif type(opt) is RowWiseAdagradOptimizer:
+            row_update_adagrad(tables, states, rows_l, payloads, rate, opt.epsilon)
+        else:  # FFModel.compile keeps other optimizers off the kernel route
+            raise TypeError(f"the row-update kernel route takes SGD (with momentum), Adam and "
+                            f"row-wise AdaGrad, not {type(opt).__name__}")
     return new_sstates

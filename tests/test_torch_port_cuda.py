@@ -11,7 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from dlrm_flexflow_tpu_torch import ActiMode, AggrMode, FFConfig, LossType, MetricsType, SGDOptimizer
+from dlrm_flexflow_tpu_torch import (
+    ActiMode,
+    AdamOptimizer,
+    AggrMode,
+    FFConfig,
+    LossType,
+    MetricsType,
+    RowWiseAdagradOptimizer,
+    SGDOptimizer,
+)
 from dlrm_flexflow_tpu_torch.data.synthetic import random_batches, zipf_indices
 from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config, make_dlrm_model, mlperf_lite_config
 from dlrm_flexflow_tpu_torch.ops.kernels.dot_interaction import (
@@ -20,8 +29,11 @@ from dlrm_flexflow_tpu_torch.ops.kernels.dot_interaction import (
 )
 from dlrm_flexflow_tpu_torch.ops.kernels.embedding_bag import embedding_bag, embedding_bag_reference
 from dlrm_flexflow_tpu_torch.ops.kernels.fused_mlp import fused_dense, fused_dense_reference
+from dlrm_flexflow_tpu_torch.ops.kernels import row_update as ru
 from dlrm_flexflow_tpu_torch.ops.kernels.onehot_embedding import (
     onehot_embedding,
+    onehot_embedding_backward,
+    onehot_embedding_backward_reference,
     onehot_embedding_reference,
 )
 from dlrm_flexflow_tpu_torch.ops.kernels.row_update import row_update, row_update_reference
@@ -362,3 +374,183 @@ def test_predict_under_on_launches_every_forced_kernel_and_matches_cpu(cuda):
     # every layer's output is rounded to bf16 on both devices: a sum order
     # that flips a rounding moves the output a bf16 step (2^-8 in [0.5, 1))
     np.testing.assert_allclose(y_gpu, cpu.predict(feeds), rtol=0, atol=2.0**-7)
+
+
+def _pools(rule, v, d, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if rule in ("momentum", "nesterov"):
+        return [torch.randn((v, d), generator=gen, device=device) * 1e-3]
+    if rule == "adam":
+        return [torch.randn((v, d), generator=gen, device=device) * 1e-3,
+                torch.rand((v, d), generator=gen, device=device) * 1e-6]
+    return [torch.rand((v,), generator=gen, device=device) * 0.1]
+
+
+def _rule(rule, wd, table, pools, rows, src, h, plain):
+    rate = torch.tensor(3e-3 if rule == "adam" else 0.01, device=table.device)
+    p = (src, h)
+    if rule in ("momentum", "nesterov"):
+        args = (rate, 0.9, rule == "nesterov", wd)
+        if plain:
+            ru.momentum_reference(table, pools[0], rows, p, *args)
+        else:
+            ru.row_update_momentum([table], [pools[0]], [rows], [p], *args)
+    elif rule == "adam":
+        args = (rate, 0.9, 0.999, 1e-8, wd)
+        if plain:
+            ru.adam_reference(table, pools[0], pools[1], rows, p, *args)
+        else:
+            ru.row_update_adam([table], [pools[0]], [pools[1]], [rows], [p], *args)
+    elif plain:
+        ru.adagrad_reference(table, pools[0], rows, p, rate, 1e-10)
+    else:
+        ru.row_update_adagrad([table], [pools[0]], [rows], [p], rate, 1e-10)
+
+
+@pytest.mark.parametrize(
+    "rule, wd, d, table_dtype, h, k, v, zipf",
+    [
+        ("momentum", 0.0, 16, torch.bfloat16, 1, 65536, 1_000_000, False),
+        ("nesterov", 0.0, 16, torch.bfloat16, 1, 65536, 1_000_000, False),
+        ("momentum", 0.01, 8, torch.float32, 2, 4000, 500, False),
+        ("adam", 0.0, 16, torch.bfloat16, 1, 65536, 1_000_000, False),
+        ("adam", 0.01, 16, torch.bfloat16, 1, 65536, 1_000_000, True),
+        ("adam", 0.0, 128, torch.float32, 3, 3000, 2000, False),
+        ("adagrad", 0.0, 16, torch.bfloat16, 1, 65536, 1_000_000, False),
+        ("adagrad", 0.0, 64, torch.bfloat16, 2, 4096, 300, True),
+        ("adagrad", 0.0, 4, torch.float32, 4, 4096, 300, False),
+    ],
+)
+def test_optimizer_mode_kernels_match_plain_versions(cuda, rule, wd, d, table_dtype, h, k, v, zipf):
+    """Each rule's kernel against its plain version from the same table and
+    pools: the pools within the sum-order bound (2 n 2^-24 of the summed
+    magnitudes; AdaGrad's mean over D adds 2 D 2^-24), the table within two
+    bf16 steps (2^-6) of |t| + |t'| + the row's summed |delta| (a flipped
+    rounding of an entry, the delta or the epilogue); rows < 0 and >= V, and
+    rows the stream does not touch, unchanged; a second run bit-identical."""
+    table, rows, src = _row_case(d, table_dtype, h, k, v, 20, cuda, zipf)
+    src = src * 1e-2
+    pools = _pools(rule, v, d, 21, cuda)
+    want_t, want_p = table.clone(), [p.clone() for p in pools]
+    _rule(rule, wd, want_t, want_p, rows, src, h, plain=True)
+    got = []
+    for _ in range(2):
+        t, ps = table.clone(), [p.clone() for p in pools]
+        _rule(rule, wd, t, ps, rows, src, h, plain=False)
+        got.append((t, ps))
+    torch.cuda.synchronize()
+    keep = (rows >= 0) & (rows < v)
+    r = rows[keep]
+    x = src[torch.arange(k, device=cuda)[keep] // h]
+    rowsum = lambda a: torch.zeros((v,) + tuple(a.shape[1:]), device=cuda).index_add_(0, r, a)  # noqa: E731
+    n = rowsum(torch.ones(r.numel(), device=cuda)) + 1
+    terms = {"momentum": [x.abs() + 0.1], "nesterov": [x.abs()], "adam": [0.1 * (x.abs() + 0.1),
+             1e-3 * (x.abs() + 0.1) ** 2], "adagrad": [(x * x).mean(dim=1)]}[rule]
+    for i, (g_p, w_p) in enumerate(zip(got[0][1], want_p)):
+        nn = n + d if rule == "adagrad" else n[:, None]
+        tol = 2 * nn * 2.0**-24 * (pools[i].abs() + rowsum(terms[i]))
+        assert bool(((g_p - w_p).abs() <= tol).all())
+    deltas = 0.0
+    if rule == "adagrad":
+        deltas = (0.01 * torch.rsqrt(want_p[0] + 1e-10))[:, None] * rowsum(x.abs())
+    tol_t = 2.0**-6 * (table.float().abs() + want_t.float().abs() + deltas)
+    assert bool(((got[0][0].float() - want_t.float()).abs() <= tol_t).all())
+    touched = torch.zeros(v, dtype=torch.bool, device=cuda)
+    touched[r] = True
+    assert torch.equal(got[0][0][~touched], table[~touched])
+    for g_p, p in zip(got[0][1], pools):
+        assert torch.equal(g_p[~touched], p[~touched])
+    (a_t, a_p), (b_t, b_p) = got
+    assert torch.equal(a_t.view(torch.uint8), b_t.view(torch.uint8))
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(a_p, b_p))
+
+
+def test_optimizer_mode_wrappers_count_one_launch_per_table_and_refuse_bad_pools(cuda):
+    tables, rows, srcs = zip(*[_row_case(16, torch.bfloat16, 1, 1024, v, s, cuda) for s, v in ((1, 500), (2, 900))])
+    vels = [torch.zeros_like(t, dtype=torch.float32) for t in tables]
+    before = ru.row_update_momentum.launches
+    ru.row_update_momentum(list(tables), vels, rows, srcs, torch.tensor(0.1, device=cuda), 0.9)
+    assert ru.row_update_momentum.launches == before + 2
+    with pytest.raises(ValueError):  # the rate on the CPU
+        ru.row_update_momentum(list(tables), vels, rows, srcs, torch.tensor(0.1), 0.9)
+    with pytest.raises(ValueError):  # a [V, D] pool where AdaGrad keeps [V]
+        ru.row_update_adagrad([tables[0]], [vels[0]], [rows[0]], [srcs[0]],
+                              torch.tensor(0.1, device=cuda), 1e-10)
+
+
+@pytest.mark.parametrize(
+    "v, d, b, h, aggr, cdt, g_dtype",
+    [
+        (7424, 128, 16384, 1, "AGGR_MODE_SUM", torch.bfloat16, torch.float32),
+        (7424, 128, 4096, 6, "AGGR_MODE_AVG", torch.float32, torch.float32),
+        (3, 128, 1000, 6, "AGGR_MODE_SUM", torch.bfloat16, torch.bfloat16),
+        (500, 37, 999, 6, "AGGR_MODE_AVG", torch.bfloat16, torch.float32),  # scalar loads
+    ],
+)
+def test_onehot_backward_kernel_matches_plain_version(cuda, v, d, b, h, aggr, cdt, g_dtype):
+    """K5b, through the op's autograd, against its plain version: bags with
+    duplicates (n_r = 2 and 3), padding and indices >= V; sums of exact (bf16)
+    or alike-rounded (f32) products in another order, within 2 n 2^-24 of
+    the summed magnitudes; a second run bit-identical."""
+    rng = np.random.default_rng(22)
+    idx = rng.integers(0, v, size=(b, h))
+    if h > 1:
+        idx[:, 1] = idx[:, 0]
+        idx[::3, 2] = idx[::3, 0]
+        idx[::5, 3] = -1
+        idx[::4, 4] = v + 2
+    idx = torch.from_numpy(idx).to(cuda)
+    mode = getattr(AggrMode, aggr)
+    g = _x((b, d), g_dtype, 23, cuda)
+    table = _x((v, d), g_dtype, 24, cuda).requires_grad_(True)
+    before = onehot_embedding_backward.launches
+    grads = [torch.autograd.grad(onehot_embedding(table, idx, mode, cdt), [table], grad_outputs=g)[0]
+             for _ in range(2)]
+    got = onehot_embedding_backward(idx, g, v, mode, cdt)
+    assert onehot_embedding_backward.launches == before + 3
+    want = onehot_embedding_backward_reference(idx, g, v, mode, cdt)
+    n = onehot_embedding_backward_reference(idx, torch.ones((b, 1), device=cuda), v,
+                                            AggrMode.AGGR_MODE_SUM, torch.float32)
+    mag = onehot_embedding_backward_reference(idx, g.float().abs(), v, mode, cdt)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert bool(((got - want).abs() <= 2 * n * 2.0**-24 * mag).all())
+    # autograd hands the table its gradient in the table's dtype
+    assert torch.equal(grads[0], got.to(table.dtype)) and torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.parametrize("rule", ["adam", "momentum", "adam+adagrad"])
+def test_kaggle_shaped_training_under_each_rule_tracks_the_cpu(cuda, rule):
+    """As the SGD test above, under Adam, momentum and Adam with a row-wise
+    AdaGrad sparse optimizer: 3 steps, 10 kernel launches a step. Where the
+    two devices' summation orders leave a gradient near 0 with other signs,
+    Adam moves a weight by up to about 3.2 alpha a step and row-wise AdaGrad
+    by up to lr * sqrt(D) = 4 lr on one device and not the other; all but 1
+    in 1000 weights agree within 2e-3."""
+    bs = 128
+    cfg = kaggle_config(batch_size=bs)
+    cfg.embedding_size = [min(v, 20_000) for v in cfg.embedding_size]
+    kw = dict(batch_size=bs, compute_dtype="bfloat16", table_dtype="bfloat16", packed_tables="on", seed=5)
+    opt = {"adam": lambda: (AdamOptimizer(alpha=1e-3), None),
+           "momentum": lambda: (SGDOptimizer(lr=0.05, momentum=0.9), None),
+           "adam+adagrad": lambda: (AdamOptimizer(alpha=1e-3), RowWiseAdagradOptimizer(lr=0.01))}[rule]
+    gpu = make_dlrm_model(cfg, FFConfig(**kw), device=cuda)
+    cpu = make_dlrm_model(cfg, FFConfig(**kw), device="cpu")
+    for m in (gpu, cpu):
+        o, so = opt()
+        m.compile(o, LossType.LOSS_BINARY_CROSSENTROPY, [MetricsType.METRICS_ACCURACY], sparse_optimizer=so)
+    cpu.set_parameters({name: gpu.get_weights(name) for name in gpu.get_parameters()})
+    wrapper = {"adam": ru.row_update_adam, "momentum": ru.row_update_momentum,
+               "adam+adagrad": ru.row_update_adagrad}[rule]
+    feeds, labels = random_batches(cfg, 3 * bs, seed=5)
+    before = wrapper.launches
+    for i in range(3):
+        sl = slice(i * bs, (i + 1) * bs)
+        batch = {k: v[sl] for k, v in feeds.items()}
+        assert abs(float(gpu.train_batch(batch, labels[sl])) - float(cpu.train_batch(batch, labels[sl]))) <= 2e-3
+    assert wrapper.launches == before + 30
+    atol = {"adam": 3 * 3.2 * 1e-3, "adam+adagrad": 3 * 4 * 0.01}.get(rule, 0.0) + 2e-3
+    errs = np.concatenate([np.abs(w - cpu.get_weights(name)[k]).reshape(-1)
+                           for name in gpu.get_parameters() for k, w in gpu.get_weights(name).items()])
+    share = np.mean(errs <= 2e-3)
+    assert errs.max() <= atol and share >= 0.999, (errs.max(), share)

@@ -164,16 +164,23 @@ def test_set_parameters_rejects_wrong_shape_and_names():
     m.set_parameters(params)
 
 
-def test_training_verbs_raise_not_implemented():
-    """Training that this part of the port does not have yet (embedding rows
-    under Adam or momentum) raises, naming the slice that brings it; an
-    object that is no optimizer is refused."""
+def test_compile_takes_every_sparse_optimizer_and_refuses_what_is_none():
+    """Embedding rows train under Adam, row-wise AdaGrad and momentum, and
+    under a sparse optimizer of their own; sparse Adam needs dense Adam (the
+    step count of its bias correction); an object that is no optimizer is
+    refused."""
     m = port_dlrm.make_dlrm_model(_small_dot_config(port_dlrm), port.FFConfig(batch_size=8), device="cpu")
     for opt in (port.AdamOptimizer(), port.RowWiseAdagradOptimizer(), port.SGDOptimizer(momentum=0.9)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            m.compile(opt)
+        m.compile(opt)
+        assert m._sparse_ops and m.sparse_optimizer is opt
+    m.compile(port.AdamOptimizer(), sparse_optimizer=port.RowWiseAdagradOptimizer())
+    assert isinstance(m.sparse_optimizer, port.RowWiseAdagradOptimizer)
+    with pytest.raises(ValueError, match="dense Adam"):
+        m.compile(port.SGDOptimizer(), sparse_optimizer=port.AdamOptimizer())
     with pytest.raises(TypeError):
         port.FFModel(device="cpu").compile(optimizer=object())
+    with pytest.raises(TypeError):
+        m.compile(port.SGDOptimizer(), sparse_optimizer=object())
 
 
 def test_model_made_on_cpu_from_seed_is_deterministic():

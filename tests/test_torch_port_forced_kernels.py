@@ -227,11 +227,28 @@ def test_onehot_avg_weight_is_rounded_per_row_unlike_the_plain_onehot_path():
     assert (k5f - plain).abs().max() > 1e-4
 
 
-def test_onehot_embedding_backward_raises_naming_the_later_slice():
-    table = torch.from_numpy(_np((6, 8), 16)).requires_grad_(True)
-    y = onehot_embedding(table, torch.tensor([[1, 2]]), SUM, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="K5b"):
-        y.sum().backward()
+def test_onehot_embedding_backward_matches_jax_grad():
+    """K5b: the op is differentiable as `onehot_embedding_pallas` is; its
+    plain gradient against `jax.grad` through the interpreted `_bwd_kernel`,
+    on the trap bags (duplicates, padding, indices >= V, an empty bag)."""
+    import jax
+
+    v, d = 11, 16
+    table = _np((v, d), 16)
+    idx = _onehot_bags(v)
+    g = _np((idx.shape[0], d), 17)
+
+    def f(t):
+        y = onehot_embedding_pallas(t, jnp.asarray(idx), ref.AggrMode.AGGR_MODE_AVG, 8, True, jnp.bfloat16)
+        return jnp.sum(y * g)
+
+    want = np.asarray(jax.grad(f)(jnp.asarray(table)))
+    tt = torch.from_numpy(table).requires_grad_(True)
+    (onehot_embedding(tt, torch.from_numpy(idx), AVG, torch.bfloat16) * torch.from_numpy(g)).sum().backward()
+    assert tt.grad.dtype == torch.float32
+    # exact bf16 products summed in f32 over at most 7 bags, in another order
+    np.testing.assert_allclose(tt.grad.numpy(), want, rtol=14 * F32_UNIT, atol=1e-6)
+    assert not tt.grad[v - 1 :].eq(0).all() and tt.grad[8].eq(0).all()  # row 8: no bag holds it
 
 
 # -------------------------------------------------------------- routing

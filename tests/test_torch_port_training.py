@@ -564,19 +564,33 @@ def test_kernel_route_gate_follows_the_config_on_the_cpu():
                                           "table_2": (True, torch.bfloat16)}
 
 
-@pytest.mark.parametrize(
-    "what", ["adam", "adagrad", "momentum", "host_routing", "mid_band", "host_tail", "profiling"]
-)
+@pytest.mark.parametrize("what", ["adam", "adagrad", "momentum"])
+def test_ported_sparse_optimizers_train_on_the_kernel_route(what):
+    """Adam, row-wise AdaGrad and momentum train the tables of the kernel
+    route (tests/test_torch_port_sparse_optim.py holds each rule against the
+    JAX package); their slot state has the kernel route's shapes."""
+    opt = {"adam": port.AdamOptimizer(alpha=0.01), "adagrad": port.RowWiseAdagradOptimizer(lr=0.1),
+           "momentum": port.SGDOptimizer(lr=0.1, momentum=0.9)}[what]
+    m = port_dlrm.make_dlrm_model(_tiny(port_dlrm), port.FFConfig(
+        batch_size=32, onehot_embedding_threshold=100, packed_tables="on"), device="cpu")
+    m.compile(opt, port.LossType.LOSS_BINARY_CROSSENTROPY, [port.MetricsType.METRICS_ACCURACY])
+    assert [op.kernel_route for op in m._sparse_ops] == [True, True]
+    before = m.get_weights("table_0")["weight"].copy()
+    feeds, labels = ref_synthetic.random_batches(_tiny(ref_dlrm), 64, seed=1)
+    hist = m.fit(feeds, labels, epochs=1, verbose=False)
+    assert np.isfinite(hist["accuracy"]) and not np.array_equal(m.get_weights("table_0")["weight"], before)
+    st = m._opt_state["sparse"]["table_0"]
+    if what == "adam":
+        assert set(st) == {"m", "v"} and st["m"].shape == st["v"].shape == (120, 8)
+    else:
+        assert st.shape == ((120,) if what == "adagrad" else (120, 8)) and st.dtype == torch.float32
+
+
+@pytest.mark.parametrize("what", ["host_routing", "mid_band", "host_tail", "profiling"])
 def test_unported_training_features_raise_with_their_slice(what):
     ffkw = dict(batch_size=32, onehot_embedding_threshold=100, packed_tables="on")
     opt = port.SGDOptimizer(lr=0.1)
-    if what == "adam":
-        opt = port.AdamOptimizer()
-    elif what == "adagrad":
-        opt = port.RowWiseAdagradOptimizer()
-    elif what == "momentum":
-        opt = port.SGDOptimizer(lr=0.1, momentum=0.9)
-    elif what == "host_routing":
+    if what == "host_routing":
         ffkw["host_routing"] = True
     elif what == "mid_band":
         ffkw["onehot_packed_threshold"] = 200
