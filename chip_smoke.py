@@ -48,7 +48,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
  13. onehot-grad - the gradient of the one-hot lookup (K5f forward, K5b
                backward) through torch.autograd at mlperf-lite's 13 tables
                of at most 8192 rows, batch 16384.
- 14. kernels, continued - as phase 3: the fused dense layer at the 8
+ 14. gather-probe - the forward-gather probe's port
+               (dlrm_flexflow_tpu_torch/tools/bench_gather_probe.py) at its
+               defaults (10 tables, V = 1,000,000, D = 16, packed [125952,
+               128], 65536 lookups) with a few steps, in-process: the torch
+               gathers, the row-gather kernel (K7) at each depth in f32 and
+               bf16, and K4 at H = 1; sums that must agree bit for bit.
+ 15. train-host - phase 8's kaggle model compiled with host_routing=True:
+               20 timed steps with the routes precomputed and staged as the
+               bench stages them, against host routing off, in turn; then
+               with the routes computed inside train_batch (from numpy
+               batches, then from batches on the card); no sort on the
+               card when host-routed; the time by phase both ways.
+ 16. train-parity-host - phase 9's model, host-routed against
+               device-sorted on CUDA (bit-identical losses and weights), and
+               against the CPU.
+ 17. bench   - python -m dlrm_flexflow_tpu_torch.bench --quick, as a
+               subprocess: kaggle training (host-routed) and mlperf-lite
+               serving.
+ 18. kernels, continued - as phase 3: the fused dense layer at the 8
                mlperf-lite layer shapes at M = 16384 (bf16), at M = 1000, in
                f32, without bias; the embedding bag at [16384, 1] into a
                2,000,000 x 128 table, with bags of 4 (AVG, padding, a fully
@@ -59,22 +77,28 @@ Phases, each of which ends the run with a non-zero exit if it fails:
                optimizer modes at phase 3's K1 shape (momentum, Nesterov,
                Adam with and without weight decay, row-wise AdaGrad; Adam on
                a Zipf(1.05) stream; rows < 0 and >= V), each run twice for
-               bit-identical results.
- 15. summary - a {"kernels": [...]} line, then the last line
+               bit-identical results; the row-gather kernel (K7) bit for bit
+               at the probe's shape in f32 and bf16 at every depth, at a
+               ragged K, on the narrow [1000000, 16] table, at widths of 5
+               and 6 chunks, with indices < 0 and >= P, twice.
+ 19. summary - a {"kernels": [...]} line, then the last line
                {"ok": true, "device": {...}}.
-Around each path (4, 6, 8, 10, 11 and 13) the kernel launch counts are
-zeroed just before and read just after, and must show every kernel of that
-path.
+Around each path (4, 6, 8, 10, 11, 13, 14 and 15) the kernel launch counts
+are zeroed just before and read just after, and must show every kernel of
+that path.
 The script imports nothing of JAX: it runs the port alone.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
+import math
 import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -131,6 +155,9 @@ ADAGRAD_E2E_ATOL = 5 * 4 * ADAGRAD_LR + E2E_ATOL
 RULE_WRAPPER = {"sgd": "row_update", "momentum": "row_update_momentum",
                 "nesterov": "row_update_momentum", "adam": "row_update_adam",
                 "adagrad": "row_update_adagrad", "adam+adagrad": "row_update_adagrad"}
+PROBE_STEPS = 5  # the gather probe's captured steps (its default is 20)
+PROBE_TABLES = 10
+BENCH_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -590,6 +617,7 @@ def launch_counts() -> dict:
     from dlrm_flexflow_tpu_torch.ops.kernels.onehot_embedding import (
         onehot_embedding, onehot_embedding_backward,
     )
+    from dlrm_flexflow_tpu_torch.ops.kernels.row_gather import row_gather
     from dlrm_flexflow_tpu_torch.ops.kernels.row_update import (
         row_update, row_update_adagrad, row_update_adam, row_update_momentum,
     )
@@ -598,7 +626,7 @@ def launch_counts() -> dict:
             "embedding_bag": embedding_bag, "onehot_embedding": onehot_embedding,
             "onehot_embedding_backward": onehot_embedding_backward, "row_update": row_update,
             "row_update_momentum": row_update_momentum, "row_update_adam": row_update_adam,
-            "row_update_adagrad": row_update_adagrad}
+            "row_update_adagrad": row_update_adagrad, "row_gather": row_gather}
 
 
 def phase_path() -> int:
@@ -877,9 +905,10 @@ def check_route(model, cfg) -> dict:
     return routed
 
 
-def phase_train(rule: str = "sgd") -> int:
+def phase_train(rule: str = "sgd") -> tuple:
     """The kaggle train path at full width under `rule` ("sgd": phase 8,
-    "adam": phase 10). Returns the launches of the rule's kernel."""
+    "adam": phase 10). Returns the launches of the rule's kernel and the
+    ms a step."""
     from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
 
     tag = "[train]" if rule == "sgd" else f"[train-{rule}]"
@@ -930,7 +959,7 @@ def phase_train(rule: str = "sgd") -> int:
         f"{json.dumps(train_breakdown(model, *staged[0]))}")
     del model, staged
     torch.cuda.empty_cache()
-    return launches[RULE_WRAPPER[rule]]
+    return launches[RULE_WRAPPER[rule]], res["ms_per_step"]
 
 
 def train_profile(model, staged, ms_per_step: float) -> dict:
@@ -960,10 +989,12 @@ def train_profile(model, staged, ms_per_step: float) -> dict:
     }
 
 
-def train_breakdown(model, feeds, labels) -> dict:
+def train_breakdown(model, feeds, labels, routes=None) -> dict:
     """One train step, phase by phase as FFModel.train_batch runs it, with
     CUDA events around each phase (the span includes any time the card
-    waits for the host to launch the phase's work)."""
+    waits for the host to launch the phase's work). With `routes` ({op:
+    (rows_sorted, order)} on the card, host routing) the row-update prep
+    sorts nothing: its phase is "route_prep"."""
     from dlrm_flexflow_tpu_torch.ops.embedding import bag_row_src
     from dlrm_flexflow_tpu_torch.ops.kernels.row_update import sort_rows
     from dlrm_flexflow_tpu_torch.training import losses as losses_lib
@@ -1007,12 +1038,15 @@ def train_breakdown(model, feeds, labels) -> dict:
         prep = [bag_row_src(feeds[op.inputs[0].owner_op.name], g_over[op.name], op.aggr,
                             op.num_entries) for op in ops]
         tables = [params[op.name]["weight"] for op in ops]
-        rows_sorted, order = sort_rows(tables, [p[0] for p in prep])
+        if routes is None:
+            rows_sorted, order = sort_rows(tables, [p[0] for p in prep])
+        else:
+            rows_sorted, order = zip(*(routes[op.name] for op in ops))
         sopt = model.sparse_optimizer
         rate = model._sparse_rate(dstate)
         if rate is None:
             rate = torch.tensor(sopt.lr, device="cuda")
-        mark("sort_prep")
+        mark("sort_prep" if routes is None else "route_prep")
         for i, (op, t, (_, src, h)) in enumerate(zip(ops, tables, prep)):
             launch_rule(sopt, t, st["sparse"][op.name], rows_sorted[i], order[i],
                         src.contiguous(), h, rate)
@@ -1456,6 +1490,302 @@ def phase_onehot_grad() -> int:
     return launches["onehot_embedding_backward"]
 
 
+# ------------------------------------------------------------------ K7, host routing, the bench
+
+
+def bits(x: torch.Tensor) -> torch.Tensor:
+    """The bit pattern of a float tensor (NaN rows compare too)."""
+    return x.view(torch.int32 if x.element_size() == 4 else torch.int16)
+
+
+def check_gather(name, table, rows) -> dict:
+    """K7 at each depth against its plain version, bit for bit, run twice."""
+    from dlrm_flexflow_tpu_torch.ops.kernels.row_gather import DEPTHS, row_gather, row_gather_reference
+
+    want = row_gather_reference(table, rows)
+    res = {"case": name, "rows": table.shape[0], "W": table.shape[1],
+           "table": str(table.dtype).replace("torch.", ""), "K": rows.numel(),
+           "out_of_range": int(((rows < 0) | (rows >= table.shape[0])).sum())}
+    same = True
+    for depth in DEPTHS:
+        got, again = row_gather(table, rows, depth), row_gather(table, rows, depth)
+        torch.cuda.synchronize()
+        same = same and bool(torch.equal(bits(got), bits(want))) and bool(torch.equal(bits(again), bits(got)))
+    fin = torch.isfinite(want)
+    res["bit_exact_and_repeatable"] = same
+    res["max_abs_err"] = (got.float() - want.float()).abs()[fin].max().item() if fin.any() else 0.0
+    log(f"[kernels] row_gather {json.dumps(res)}")
+    if not same:
+        raise AssertionError(f"row_gather disagrees with its plain version: {res}")
+    return res
+
+
+def phase_gather() -> dict:
+    """K7 at the probe's shape (K = 65536 rows of a [125952, 128] table, f32
+    and bf16, every depth), at a ragged K, on the narrow [1000000, 16]
+    table, at widths of 5 and 6 chunks, with indices < 0 and >= P; timed at
+    the probe's shape."""
+    from dlrm_flexflow_tpu_torch.ops.kernels.row_gather import DEPTHS, row_gather, row_gather_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    packed = randn((125952, 128), gen, scale=0.01)
+    narrow = randn((1_000_000, 16), gen, scale=0.01)
+    idx = torch.randint(0, 1_000_000, (TRAIN_BATCH,), generator=gen, device="cuda", dtype=torch.int32)
+    rows = idx // 8  # the probe's packed rows
+    bad = rows.clone()
+    bad[::7] = -1 - bad[::7] % 5
+    bad[3::11] = packed.shape[0] + bad[3::11] % 5
+    cases = []
+    for table in (packed, packed.to(torch.bfloat16)):
+        cases.append(check_gather("probe", table, rows))
+        cases.append(check_gather("ragged-K", table, rows[:TRAIN_BATCH - 37].contiguous()))
+        cases.append(check_gather("out-of-range", table, bad))
+    for table in (narrow, narrow.to(torch.bfloat16)):
+        cases.append(check_gather("narrow", table, idx))
+        cases.append(check_gather("narrow-ragged-out-of-range", table, torch.cat([idx[:999], bad[:18] * 8])))
+    # a row of 96 or 80 bytes: 6 or 5 chunks, the divide instance
+    for table in (randn((5000, 24), gen), randn((5000, 40), gen, dtype=torch.bfloat16)):
+        cases.append(check_gather("odd-width", table, torch.cat([idx[:4000] % 5000, bad[:11]])))
+
+    # bytes: the indices, the distinct rows they name, the output. The calls
+    # of a timing go round 4 copies of the table (258 MB f32, 129 MB bf16),
+    # so that each finds its table cold in the 50 MB L2, as each of the
+    # probe's 10 tables is; "same_table" repeats one table (the bf16 one
+    # fits in L2)
+    timing = {}
+    for table in (packed, packed.to(torch.bfloat16)):
+        dt = str(table.dtype).replace("torch.", "")
+        copies = itertools.cycle([table] + [table.clone() for _ in range(3)])
+        row_b = table.shape[1] * table.element_size()
+        t_bytes = (rows.numel() * 4 + torch.unique(rows).numel() * row_b
+                   + rows.numel() * row_b) / HBM_BYTES_PER_S * 1e3
+        timing[dt] = {
+            **{f"ms_depth{d}": graph_ms(lambda d=d: row_gather(next(copies), rows, d)) for d in DEPTHS},
+            "ms_depth4_same_table": graph_ms(lambda: row_gather(table, rows, 4)),
+            "plain_ms": graph_ms(lambda: row_gather_reference(next(copies), rows)),
+            # one library call, the gather alone (no out-of-range handling)
+            "library_ms": graph_ms(lambda: torch.index_select(next(copies), 0, rows)),
+            "bound_ms": t_bytes, "bound_by": "bytes",
+        }
+        log(f"[kernels] row_gather timing at K={rows.numel()} into {list(table.shape)} {dt}: "
+            f"{json.dumps(timing[dt])}")
+        del copies
+    del packed, narrow
+    torch.cuda.empty_cache()
+    f32 = timing["float32"]
+    return {"max_abs_err": max(c["max_abs_err"] for c in cases), "ms": f32["ms_depth4"],
+            **{k: f32[k] for k in ("plain_ms", "library_ms", "bound_ms", "bound_by")}}
+
+
+def phase_gather_probe() -> int:
+    """The forward-gather probe's port at its defaults with a few steps:
+    every variant's launches (K7: 10 a step in each of its 8 variants, K4:
+    10 a step in E, none elsewhere) and its sums. Returns K7's launches."""
+    from dlrm_flexflow_tpu_torch.tools import bench_gather_probe as probe
+
+    counts = launch_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    out = probe.run(steps=PROBE_STEPS, log=lambda m: log(f"[gather-probe] {m}" if m.strip() else m))
+    launches = {name: fn.launches for name, fn in counts.items()}
+    res = out["results"]
+    for key, r in res.items():
+        kernel = key.startswith("k7_") or key.startswith("k4_")
+        if r["launches"] != (PROBE_TABLES * r["steps_issued"] if kernel else 0):
+            raise AssertionError(f"gather-probe variant {key} launched {r['launches']} for "
+                                 f"{r['steps_issued']} steps")
+    k7 = [k for k in res if k.startswith("k7_")]
+    issued = {k: res[k]["steps_issued"] for k in res}
+    want = {**{name: 0 for name in counts},
+            "row_gather": sum(PROBE_TABLES * issued[k] for k in k7),
+            "embedding_bag": PROBE_TABLES * issued["k4_h1_f32"]}
+    if launches != want or len(k7) != 8:
+        raise AssertionError(f"the gather probe launched {launches}, not {want}")
+    for dt, same in (("f32", ["packed_f32", "k4_h1_f32"] + [k for k in k7 if k.endswith("_f32")]),
+                     ("bf16", ["packed_bf16"] + [k for k in k7 if k.endswith("_bf16")])):
+        sums = {k: res[k]["sum"] for k in same}
+        if len(set(sums.values())) != 1 or not all(math.isfinite(v) for v in sums.values()):
+            raise AssertionError(f"gather-probe {dt} variants disagree: {sums}")
+    summary = {k: {"us_per_step": r["us_per_step"], "device_us_per_step": r.get("device_us_per_step"),
+                   "ns_per_row": r["ns_per_row"], "launches": r["launches"]} for k, r in res.items()}
+    log(f"[gather-probe] {json.dumps({'shapes': out['shapes'], 'launches': launches, 'results': summary})}")
+    return launches["row_gather"]
+
+
+def phase_train_host(train_ms: float) -> None:
+    """Phase 8's kaggle model compiled with host_routing=True. Runs of 20
+    timed steps, each after 3 warm-up steps, on the one model: with the
+    routes precomputed and staged with the batches as the bench does, and
+    with host routing off (sorted on the card), in turn (off, on, on, off,
+    twice);
+    then with the routes computed inside train_batch, from the numpy
+    batches and from batches on the card (a readback). Each host-routed run
+    must launch the row update 10 times a step and sort nothing on the
+    card."""
+    import os
+
+    from dlrm_flexflow_tpu_torch.data import native_batcher
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
+    from dlrm_flexflow_tpu_torch.ops.kernels.row_update import sort_rows
+
+    cfg = kaggle_config(batch_size=TRAIN_BATCH)
+    t0 = time.perf_counter()
+    model = kaggle_model(cfg, TRAIN_BATCH, SEED, host_routing=True)
+    torch.cuda.synchronize()
+    check_route(model, cfg)
+    batches, staged = kaggle_batches(model, cfg)
+    route_ops = [op for op in model._sparse_ops if op.kernel_route]
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native_batcher.get_lib()  # on a fresh checkout, g++ builds native/ffdata here: set-up
+    lib_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    routes = [model.compute_routes(f) for f, _ in batches]
+    compute_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    keys = np.stack([np.asarray(batches[0][0][op.inputs[0].owner_op.name], np.int64).reshape(-1)
+                     for op in route_ops])
+    t0 = time.perf_counter()
+    for _ in range(4):
+        native_batcher.argsort_i64_batch(keys)
+    sort_ms = (time.perf_counter() - t0) / 4 * 1e3
+    t0 = time.perf_counter()
+    routed = [({**f, **model.stage_routes(r)}, lbl) for (f, lbl), r in zip(staged, routes)]
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    setup = {"batch": TRAIN_BATCH, "route_tables": len(route_ops), "set_up_s": setup_s,
+             "ffdata_build_or_load_s": lib_s, "compute_routes_ms_per_batch": compute_ms, "native_sort_ms_per_batch": sort_ms,
+             "stage_routes_ms_per_batch": stage_ms, "cpu_count": os.cpu_count(),
+             "cpus_usable": len(os.sched_getaffinity(0))}
+    log(f"[train-host] kaggle, host_routing=True: {json.dumps(setup)}")
+    counts = launch_counts()
+    runs = {}
+    abba = [("device-sorted", staged, False), ("routes-precomputed", routed, True),
+            ("routes-precomputed", routed, True), ("device-sorted", staged, False)]
+    for variant, feeds, host_routing in abba + abba + [
+        ("routes-inside-numpy", batches, True), ("routes-inside-staged", staged, True),
+    ]:
+        model.config.host_routing = host_routing
+        losses = [float(model.train_batch(*feeds[i % 4])) for i in range(TRAIN_WARMUP)]
+        torch.cuda.synchronize()
+        for fn in counts.values():
+            fn.launches = 0
+        sort_rows.calls = 0
+        t0 = time.perf_counter()
+        for i in range(TRAIN_STEPS):
+            loss = model.train_batch(*feeds[i % 4])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counts.items()}
+        losses.append(float(loss))
+        res = {"variant": variant, "steps": TRAIN_STEPS, "ms_per_step": dt / TRAIN_STEPS * 1e3,
+               "examples_per_s": TRAIN_STEPS * TRAIN_BATCH / dt, "launches": launches,
+               "sort_rows_calls": sort_rows.calls, "first_loss": losses[0], "last_loss": losses[-1]}
+        log(f"[train-host] {json.dumps(res)}")
+        runs.setdefault(variant, []).append(res["ms_per_step"])
+        want = {**{name: 0 for name in counts}, "row_update": TRAIN_STEPS * KAGGLE_BIG_TABLES}
+        want_sorts = 0 if host_routing else TRAIN_STEPS
+        if launches != want or sort_rows.calls != want_sorts:
+            raise AssertionError(f"the {variant} train path launched {launches} and sorted "
+                                 f"{sort_rows.calls} times on the card")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{variant} train losses not finite: {losses}")
+    log(f"[train-host] ms a step by variant (train: {train_ms}): {json.dumps(runs)}")
+    model.config.host_routing = True
+    feeds, labels = routed[0]
+    step_routes = {op.name: (feeds[f"_route:{op.name}:rows"], feeds[f"_route:{op.name}:order"])
+                   for op in route_ops}
+    log(f"[train-host] device ms by phase, one step of {TRAIN_BATCH} with staged routes: "
+        f"{json.dumps(train_breakdown(model, feeds, labels, step_routes))}")
+    log(f"[train-host] device ms by phase, one step of {TRAIN_BATCH} sorted on the card: "
+        f"{json.dumps(train_breakdown(model, *staged[0]))}")
+    del model, staged, routed
+    torch.cuda.empty_cache()
+
+
+def phase_train_parity_host() -> None:
+    """Kaggle widths with vocabs capped at 20000, 5 SGD steps on CUDA:
+    host-routed against device-sorted, which must be bit-identical (both
+    kernels read the same order; torch's deterministic algorithms keep the
+    one-hot lookups' index_add_ in one order), and host-routed against the
+    CPU within E2E_ATOL."""
+    from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
+    from dlrm_flexflow_tpu_torch.ops.kernels.row_update import row_update, sort_rows
+
+    bs, steps = 256, 5
+    cfg = kaggle_config(batch_size=bs)
+    cfg.embedding_size = [min(v, 20_000) for v in cfg.embedding_size]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        host = kaggle_model(cfg, bs, SEED + 10, packed_tables="on", host_routing=True)
+        dev = kaggle_model(cfg, bs, SEED + 10, packed_tables="on")
+        cpu = kaggle_model(cfg, bs, SEED + 10, device="cpu", packed_tables="on", host_routing=True)
+        cpu.set_parameters({name: host.get_weights(name) for name in host.get_parameters()})
+        feeds, labels = random_batches(cfg, steps * bs, seed=SEED + 10)
+        feeds["sparse_20"][:9] = -1  # padding, dropped from the update stream
+        losses = {"host": [], "device": [], "cpu": []}
+        launches, sorts = {"host": 0, "device": 0}, {"host": 0, "device": 0}
+        for i in range(steps):
+            sl = slice(i * bs, (i + 1) * bs)
+            batch = {k: v[sl] for k, v in feeds.items()}
+            for name, model in (("host", host), ("device", dev)):
+                l0, s0 = row_update.launches, sort_rows.calls
+                losses[name].append(float(model.train_batch(batch, labels[sl])))
+                launches[name] += row_update.launches - l0
+                sorts[name] += sort_rows.calls - s0
+            losses["cpu"].append(float(cpu.train_batch(batch, labels[sl])))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    names = list(host.get_parameters())
+    same_w = all(np.array_equal(w, dev.get_weights(n)[k]) for n in names
+                 for k, w in host.get_weights(n).items())
+    cpu_err = float(max(np.abs(w - cpu.get_weights(n)[k]).max() for n in names
+                        for k, w in host.get_weights(n).items()))
+    res = {"steps": steps, "batch": bs, "launches": launches, "sort_rows_calls": sorts,
+           "losses_bit_identical": losses["host"] == losses["device"], "weights_bit_identical": same_w,
+           "max_loss_err_vs_cpu": max(abs(a - b) for a, b in zip(losses["host"], losses["cpu"])),
+           "max_weight_err_vs_cpu": cpu_err, "atol": E2E_ATOL}
+    log(f"[train-parity-host] host-routed vs device-sorted on CUDA, and vs the CPU: {json.dumps(res)}")
+    if launches != {"host": steps * KAGGLE_BIG_TABLES, "device": steps * KAGGLE_BIG_TABLES} \
+            or sorts != {"host": 0, "device": steps}:
+        raise AssertionError(f"train-parity-host launched {launches} and sorted {sorts}")
+    if not (res["losses_bit_identical"] and same_w):
+        raise AssertionError(f"host-routed and device-sorted training differ: {res}")
+    if res["max_loss_err_vs_cpu"] > E2E_ATOL or cpu_err > E2E_ATOL or not all(np.isfinite(losses["host"])):
+        raise AssertionError(f"host-routed CUDA and CPU training disagree: {res}")
+
+
+def phase_bench() -> dict:
+    """The port's bench as a user runs it, in a subprocess with a time
+    limit: kaggle training (its default: batch 65536, host-routed) and
+    mlperf-lite serving, --quick. Each must print bench.py's keys with
+    finite numbers; kaggle must take the row-update route."""
+    out = {}
+    for name, extra in (("kaggle-train", []), ("mlperf-lite-infer", ["--config", "mlperf-lite", "--mode", "infer"])):
+        cmd = [sys.executable, "-m", "dlrm_flexflow_tpu_torch.bench", "--quick", *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                              timeout=BENCH_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"bench {name} exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr[-4000:]}")
+        notes = [line for line in proc.stderr.splitlines() if line.startswith("#")]
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        log(f"[bench] {name}: {' '.join(cmd[1:])} ({wall:.3f} s wall)")
+        for line in notes:
+            log(f"[bench] {line}")
+        log(f"[bench] {json.dumps(res)}")
+        keys = {"metric", "value", "unit", "examples_per_sec_per_chip", "devices", "table_dtype",
+                "packed_engaged", "loss"}
+        if set(res) != keys or not (math.isfinite(res["value"]) and res["value"] > 0
+                                    and math.isfinite(res["loss"])):
+            raise AssertionError(f"bench {name} printed {res}")
+        if name == "kaggle-train" and not (res["packed_engaged"] and res["table_dtype"] == "bfloat16"):
+            raise AssertionError(f"bench kaggle did not take the bf16 row-update route: {res}")
+        out[name] = res
+    return out
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -1465,19 +1795,24 @@ def main() -> None:
     phase_parity()
     on_launches = phase_path_on()
     phase_parity_on()
-    train_launches = phase_train()
+    train_launches, train_ms = phase_train()
     phase_train_parity()
-    adam_launches = phase_train("adam")
+    adam_launches, _ = phase_train("adam")
     optim_launches = {"adam": adam_launches, **phase_train_optims()}
     for rule in ("momentum", "nesterov", "adam", "adam+adagrad"):
         phase_train_parity(rule)
     k5b_launches = phase_onehot_grad()
+    k7_launches = phase_gather_probe()
+    phase_train_host(train_ms)
+    phase_train_parity_host()
+    phase_bench()
     # after the paths: run before them, these cases left about 0.5 GB
     # allocated, which showed in the paths' peak memory
     k6 = phase_fused_dense()
     k4, k5f = phase_lookups()
     k5b = phase_onehot_backward()
     modes = phase_optim_kernels()
+    k7 = phase_gather()
     kernel = {
         "name": "dot_interaction",
         "route": "cuda",
@@ -1547,6 +1882,17 @@ def main() -> None:
                                if k.split(":")[0].split("-")[0] == case),
             **{key: c[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
+    entries.append({
+        "name": "row_gather",
+        "route": "cuda",
+        "source": "dlrm_flexflow_tpu_torch/csrc/row_gather.cu",
+        "replaces": "scripts/bench_gather_probe.py:78",
+        "launches": k7_launches,
+        # f32 at the probe's shape, the wrapper's default depth 4
+        **{key: k7[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    })
+    if len(entries) != 12:
+        raise AssertionError(f"{len(entries)} kernel entries, not 12")
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

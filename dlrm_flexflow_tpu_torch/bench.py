@@ -1,0 +1,227 @@
+"""The PyTorch port's benchmark: DLRM training or serving examples/s.
+
+    python -m dlrm_flexflow_tpu_torch.bench                      # kaggle training, batch 65536, host-routed
+    python -m dlrm_flexflow_tpu_torch.bench --config mlperf-lite --mode infer
+    python -m dlrm_flexflow_tpu_torch.bench --device cpu --config tiny --batch-size 64 --quick
+
+The port of the root `bench.py`, with its flags, defaults and protocol
+(`bench.py:245-375`): 4 batches from `random_batches` (indices Zipf with
+`--zipf`); under `--host-routing` (the default) each batch's routes are
+computed by `FFModel.compute_routes` before any timing; batches and routes
+are staged on the device; `--warmup` steps run first; the timed window runs
+from `torch.cuda.synchronize()` through `--steps` steps on the staged
+batches, round robin, to the host readback of the loss (train:
+`train_batch`) or of the summed outputs (infer: `forward`). PyTorch runs
+eagerly: where the JAX bench scans its steps inside one compiled call, each
+step here is its own call, so the host's time to issue a step is in the
+number. The entry runs on CUDA unless `--device cpu` is given; a CUDA run
+without a card fails.
+
+Prints one JSON line with `bench.py`'s keys (metric, value, unit,
+examples_per_sec_per_chip, devices, table_dtype, packed_engaged: an op took
+the row-update kernel route, loss) and a `#` line on stderr that names the
+card and its power limit. The TPU anchors (vs_baseline) and the mesh's
+all_to_all_gbps are a TPU's numbers and are not printed.
+
+Flags without a counterpart in the port yet raise NotImplementedError,
+naming their ROADMAP.md item: --mesh (Queue 1 item 7), --config mlperf-full
+or --host-tail-threshold > 0 (item 8), --onehot-packed-threshold > 0 (item
+5), --mode infer with a --table-dtype other than float32 (item 6,
+quantize_embeddings). --packed-gather-mode, --packed-stream-mode and
+--packed-selective choose among the JAX package's packed-layout variants;
+the port keeps [V, D] tables with one gather and one update stream, so they
+are taken and change nothing.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+from . import AdamOptimizer, FFConfig, LossType, MetricsType, SGDOptimizer
+from .data.synthetic import random_batches
+from .models.dlrm import (
+    kaggle_config,
+    make_dlrm_model,
+    mlperf_config,
+    mlperf_lite_config,
+    summit_config,
+    summit_large_config,
+    tiny_config,
+)
+
+CONFIGS = {
+    "tiny": tiny_config,
+    "kaggle": kaggle_config,
+    "mlperf": lambda batch_size: mlperf_config(batch_size=batch_size, num_tables=8),
+    "mlperf-lite": mlperf_lite_config,
+    "mlperf-full": mlperf_config,
+    "summit": summit_config,
+    "summit-large": summit_large_config,
+}
+N_BATCHES = 4
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", default="kaggle", choices=list(CONFIGS))
+    ap.add_argument("--host-tail-threshold", type=int, default=0,
+                    help="host-tail offload (ROADMAP.md Queue 1 item 8): > 0 raises")
+    ap.add_argument("--batch-size", type=int, default=65536)
+    ap.add_argument("--packed-tables", default="auto", choices=["auto", "on", "off"],
+                    help="the row-update kernel route (auto: on CUDA)")
+    ap.add_argument("--packed-gather-mode", default="auto", choices=["auto", "pack", "subpack"],
+                    help="the JAX package's packed gather variants; no effect in the port")
+    ap.add_argument("--packed-stream-mode", default="auto", choices=["auto", "expanded", "compact"],
+                    help="the JAX package's packed update-stream formats; no effect in the port")
+    ap.add_argument("--host-routing", action=argparse.BooleanOptionalAction, default=True,
+                    help="sort each batch's row-update streams on the host before timing and "
+                         "stage them with the batch (--no-host-routing sorts on the device)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--warmup", type=int, default=10)
+    ap.add_argument("--quick", action="store_true", help="10 steps, 3 warm-up")
+    ap.add_argument("--compute-dtype", default="bfloat16")
+    ap.add_argument("--zipf", type=float, default=0.0,
+                    help="Zipf exponent of the synthetic indices (0 = uniform)")
+    ap.add_argument("--packed-selective", default="on", choices=["on", "off"],
+                    help="the JAX package's touched-chunk dispatch; no effect in the port")
+    ap.add_argument("--optimizer", default="sgd", choices=["sgd", "adam"])
+    ap.add_argument("--mesh", action="store_true", help="multi-GPU (ROADMAP.md Queue 1 item 7): raises")
+    ap.add_argument("--mode", default="train", choices=["train", "infer"])
+    ap.add_argument("--onehot-threshold", type=int, default=8192,
+                    help="vocab bound of the one-hot lookup path")
+    ap.add_argument("--onehot-packed-threshold", type=int, default=0,
+                    help="the mid-band one-hot tables (ROADMAP.md Queue 1 item 5): > 0 raises")
+    ap.add_argument("--table-dtype", default="auto",
+                    choices=["auto", "float32", "bfloat16", "float16", "int8"],
+                    help="train: float32 or bfloat16 route tables (auto: bfloat16); infer: "
+                         "float32 (auto; quantized serving is ROADMAP.md Queue 1 item 6)")
+    ap.add_argument("--device", default="cuda", help="cuda, or cpu (plain versions, for tests)")
+    return ap
+
+
+def check_ported(ap: argparse.ArgumentParser, args) -> None:
+    """Resolve --table-dtype as bench.py does; raise for what the port has not."""
+    if args.mesh:
+        raise NotImplementedError("--mesh: multi-GPU is ROADMAP.md Queue 1 item 7, a later "
+                                  "slice of the port")
+    if args.config == "mlperf-full" or args.host_tail_threshold > 0:
+        raise NotImplementedError("--config mlperf-full and --host-tail-threshold: host-tail "
+                                  "offload is ROADMAP.md Queue 1 item 8, a later slice of the port")
+    if args.onehot_packed_threshold > 0:
+        raise NotImplementedError("--onehot-packed-threshold: the mid-band one-hot tables are "
+                                  "ROADMAP.md Queue 1 item 5, a later slice of the port")
+    if args.table_dtype == "auto":
+        args.table_dtype = "bfloat16" if args.mode == "train" else "float32"
+    if args.mode == "infer" and args.table_dtype != "float32":
+        raise NotImplementedError("--mode infer --table-dtype: quantize_embeddings is ROADMAP.md "
+                                  "Queue 1 item 6, a later slice of the port")
+    if args.mode == "train" and args.table_dtype not in ("float32", "bfloat16"):
+        ap.error("train supports --table-dtype float32|bfloat16")
+
+
+def card(device: torch.device) -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    if device.type != "cuda":
+        return "cpu"
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True, timeout=60).stdout
+        limit = smi.strip().splitlines()[device.index or 0].split(",")[-1].strip()
+    except (OSError, subprocess.SubprocessError, IndexError):
+        limit = "power limit not read"
+    return f"{torch.cuda.get_device_name(device)}, {limit}"
+
+
+def main(argv=None) -> dict:
+    ap = parser()
+    args = ap.parse_args(argv)
+    explicit_table_dtype = args.table_dtype != "auto"
+    if args.quick:
+        args.steps, args.warmup = 10, 3
+    if args.steps < 1 or args.warmup < 0:
+        ap.error("--steps must be at least 1 and --warmup at least 0")
+    check_ported(ap, args)
+    device = torch.device(args.device)
+    bs = args.batch_size
+
+    cfg = CONFIGS[args.config](batch_size=bs)
+    ffc = FFConfig(batch_size=bs, compute_dtype=args.compute_dtype, packed_tables=args.packed_tables,
+                   packed_gather_mode=args.packed_gather_mode,
+                   packed_stream_mode=args.packed_stream_mode,
+                   packed_selective=args.packed_selective,
+                   onehot_embedding_threshold=args.onehot_threshold,
+                   host_routing=args.host_routing)
+    if args.mode == "train" and args.table_dtype != "float32":
+        ffc.table_dtype = args.table_dtype
+    model = make_dlrm_model(cfg, ffc, device=device)
+    optimizer = AdamOptimizer(alpha=0.001) if args.optimizer == "adam" else SGDOptimizer(lr=0.01)
+    model.compile(optimizer, LossType.LOSS_BINARY_CROSSENTROPY, [MetricsType.METRICS_ACCURACY])
+
+    # what engaged (bench.py:213-237): bf16 storage exists only on the route
+    packed_engaged = any(op.kernel_route for op in model._sparse_ops)
+    effective_table_dtype = args.table_dtype
+    if args.mode == "train" and args.table_dtype == "bfloat16" and not any(
+            op.table_dtype is not None for op in model._sparse_ops):
+        msg = ("--table-dtype bfloat16 requested but no op engaged bf16 table storage (the "
+               "row-update route is off: device, --packed-tables, batch volume or optimizer); "
+               "measuring f32 tables")
+        if explicit_table_dtype:
+            ap.error(msg)
+        print(f"# WARNING: {msg}", file=sys.stderr)
+        effective_table_dtype = "float32"
+
+    feeds_np, labels_np = random_batches(cfg, bs * N_BATCHES, seed=0, learnable=False, zipf=args.zipf)
+    routed = args.mode == "train" and args.host_routing and packed_engaged
+    batches = []
+    for j in range(N_BATCHES):
+        feeds = {k: v[j * bs:(j + 1) * bs] for k, v in feeds_np.items()}
+        staged = model._stage(feeds)
+        if routed:
+            staged.update(model.stage_routes(model.compute_routes(feeds)))
+        batches.append((staged, model._stage_labels(labels_np[j * bs:(j + 1) * bs])))
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+    def step(i: int) -> torch.Tensor:
+        feeds, labels = batches[i % N_BATCHES]
+        if args.mode == "train":
+            return model.train_batch(feeds, labels)
+        return model.forward(feeds).float().sum()
+
+    for i in range(args.warmup):
+        out = step(i)
+    sync()
+    t0 = time.perf_counter()
+    acc = torch.zeros((), dtype=torch.float32, device=device)
+    for i in range(args.steps):
+        out = step(i)
+        if args.mode == "infer":
+            acc += out
+    value = float(out if args.mode == "train" else acc)
+    dt = time.perf_counter() - t0
+    examples_per_sec = args.steps * bs / dt
+    loss = value if args.mode == "train" else 0.0  # infer: no loss, as bench.py
+    print(f"# config={args.config} mode={args.mode} bs={bs} steps={args.steps} dt={dt}s "
+          f"device={card(device)} host_routing={'yes' if routed else 'no'} "
+          f"table_dtype={effective_table_dtype} packed={'yes' if packed_engaged else 'no'} "
+          f"examples/s={examples_per_sec} loss={loss}", file=sys.stderr)
+    result = {
+        "metric": f"dlrm_{args.config}_{args.mode}_examples_per_sec",
+        "value": examples_per_sec,
+        "unit": "examples/s",
+        "examples_per_sec_per_chip": examples_per_sec,
+        "devices": 1,
+        "table_dtype": effective_table_dtype,
+        "packed_engaged": packed_engaged,
+        "loss": loss,
+    }
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main()

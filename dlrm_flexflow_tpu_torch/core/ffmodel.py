@@ -16,7 +16,11 @@ require grad; the loss's gradient reaches the dense parameters and those
 leaves; the dense optimizer runs in place; the leaves' gradients become row
 updates under the sparse optimizer (training/sparse_engine.py), which is
 the dense one unless `compile` is given its own. Tables on the row-update
-kernel route may be stored in `table_dtype`.
+kernel route may be stored in `table_dtype`. Under `config.host_routing`
+the sort of each route table's update stream is taken off the device:
+`compute_routes` sorts the batch's indices on the host (native/ffdata's
+threaded radix sort) and `train_batch` hands the sorted streams to the
+row-update kernel, as the JAX package's host routing does.
 
 Under use_pallas="on" every op takes its forced kernel (Dense, the pooled
 lookups, the interaction), as in the JAX package; such a model serves
@@ -36,6 +40,7 @@ import torch
 
 from ..config import FFConfig
 from ..convert import to_torch
+from ..data import native_batcher
 from ..data.loader import DataLoader
 from ..ffconst import ActiMode, AggrMode, DataType, LossType, MetricsType
 from ..ops.dense import Dense
@@ -55,7 +60,9 @@ from ..training.sparse_engine import apply_sparse_updates
 from .graph import Graph, InputOp, OpContext
 from .tensor import TensorSpec
 
-_HOST_ROUTING = "host routing (config.host_routing) is slice 5 of the port (data and host routing)"
+# the batch keys of host-computed routes, "_route:<op>:<field>" (the JAX
+# package's reserved feed keys)
+ROUTE_FIELDS = ("rows", "order")
 _MID_BAND = ("the mid-band packed one-hot tables (config.onehot_packed_threshold) are "
              "a later slice of the port")
 _HOST_TAIL = ("host-tail offload (config.host_tail_threshold) is a later slice of the port "
@@ -182,8 +189,8 @@ class FFModel:
         step count lives in the dense state (ValueError otherwise).
 
         Raises NotImplementedError, naming the slice of the port that
-        brings it, for what this slice does not have: host routing, the
-        mid-band one-hot tables and host-tail offload."""
+        brings it, for what this slice does not have: the mid-band one-hot
+        tables and host-tail offload."""
         cfg = self.config
         self.optimizer = optimizer or SGDOptimizer(
             lr=cfg.learning_rate, weight_decay=cfg.weight_decay
@@ -255,8 +262,6 @@ class FFModel:
                     params[op.name] = {
                         **params[op.name], "weight": params[op.name]["weight"].to(op.table_dtype)
                     }
-        if cfg.host_routing and any(op.kernel_route for op in sparse_ops):
-            raise NotImplementedError(_HOST_ROUTING)
         self._sparse_ops = sparse_ops
 
         if sparse_ops:
@@ -332,8 +337,20 @@ class FFModel:
         """One step: forward, loss and metrics, backward, the dense update
         in place, sparse row updates. Returns the loss as a 0-d tensor on the
         model's device (the JAX package returns a 0-d array). Raises
-        NotImplementedError under use_pallas="on"."""
+        NotImplementedError under use_pallas="on".
+
+        Under config.host_routing the row-update route's sorted streams come
+        from the host (JAX package: ffmodel.py:1359-1360): feeds that carry
+        every `_route:<op>:rows` and `_route:<op>:order` key (from
+        `compute_routes` of this same batch, staged or not) are used as they
+        are; otherwise `compute_routes(feeds)` makes them. Index feeds that
+        already lie on the device then cost a device-to-host copy, which
+        waits for the device, as the JAX package's `np.asarray` does; a
+        caller that wants no such wait (bench.py) computes the routes from
+        the host arrays beforehand and stages them with the batch."""
         self._require_trainable()
+        route_ops = [op for op in self._sparse_ops if op.kernel_route]
+        routes = self._routes_for(feeds, route_ops) if self.config.host_routing and route_ops else None
         staged = self._stage(feeds)
         labels = self._stage_labels(labels)
         opt = self.optimizer
@@ -381,13 +398,87 @@ class FFModel:
             dstate = opt.update(g_dense, st["dense"], dense_params)
             sstates = apply_sparse_updates(
                 sparse_ops, self._params, sparse_xs, g_over, self.sparse_optimizer,
-                st["sparse"], ctx, lr=self._sparse_rate(dstate),
+                st["sparse"], ctx, lr=self._sparse_rate(dstate), routes=routes,
             )
             self._opt_state = {"dense": dstate, "sparse": sstates}
         else:
             self._opt_state = opt.update(g_dense, self._opt_state, dense_params)
         return loss.detach()
 
+    # ------------------------------------------------------------------ host routing
+    def compute_routes(self, feeds: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        """The sorted update stream of each row-update-route table, computed
+        on the host from the batch's indices (JAX package: `compute_routes`,
+        ffmodel.py:1924-1946, and `host_pack_routes`, packed_update.py:
+        1241-1269). Rows are keyed as `sort_rows` keys them (outside [0, V)
+        -> V) and sorted stably by native/ffdata's radix sort, one thread a
+        table; every dropped entry comes last. Returns numpy arrays under
+        `_route:<op>:order` ([K] int32, the stable order: the JAX package's
+        `order` and torch.sort(stable=True)'s) and `_route:<op>:rows` (the
+        sorted keys, [K] int32), which the port's [V, D] kernel reads in
+        place of the JAX package's pack fields (`enc`, `starts`).
+
+        A device tensor among the index feeds is copied to the host first,
+        which waits for the device."""
+        self._require_compiled()
+        by_k: Dict[int, List] = {}
+        for op in self._sparse_ops:
+            if op.kernel_route:
+                idx = feeds[op.inputs[0].owner_op.name]
+                if isinstance(idx, torch.Tensor):
+                    idx = idx.cpu().numpy()
+                rows = np.asarray(idx, np.int64).reshape(-1)
+                by_k.setdefault(rows.shape[0], []).append((op, rows))
+        out: Dict[str, np.ndarray] = {}
+        for k, group in by_k.items():
+            keys = np.empty((len(group), k), np.int64)
+            for i, (op, rows) in enumerate(group):
+                # one pass: as unsigned, a row < 0 is above V too
+                np.minimum(rows.view(np.uint64), np.uint64(op.num_entries), out=keys[i].view(np.uint64))
+            order = native_batcher.argsort_i64_batch(keys)
+            for i, (op, _) in enumerate(group):
+                rows_sorted = np.empty(k, np.int32)
+                np.take(keys[i], order[i], out=rows_sorted, mode="clip")
+                out[f"_route:{op.name}:order"] = order[i]
+                out[f"_route:{op.name}:rows"] = rows_sorted
+        return out
+
+    def stage_routes(self, routes: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """Route arrays (`compute_routes`' output) as int32 tensors on the
+        model's device. Host arrays go in one copy: on CUDA from pinned
+        memory, without waiting (PyTorch's pinned-memory allocator keeps the
+        buffer until the copy has run on the stream). Tensors already on the
+        device pass through."""
+        out = {k: v for k, v in routes.items()
+               if isinstance(v, torch.Tensor) and self._on_device(v) and v.dtype == torch.int32}
+        host = {k: np.ascontiguousarray(torch.as_tensor(v).cpu().numpy(), np.int32).reshape(-1)
+                for k, v in routes.items() if k not in out}
+        if host:
+            flat = torch.from_numpy(np.concatenate(list(host.values())))
+            if self.device.type == "cuda":
+                flat = flat.pin_memory().to(self.device, non_blocking=True)
+            out.update(zip(host, torch.split(flat, [a.size for a in host.values()])))
+        return out
+
+    def _on_device(self, t: torch.Tensor) -> bool:
+        """Whether t lies on the model's device ("cuda" is the current card)."""
+        dev = self.device
+        if t.device.type != dev.type:
+            return False
+        if dev.type != "cuda" or t.device.index == dev.index:
+            return True
+        return dev.index is None and t.device.index == torch.cuda.current_device()
+
+    def _routes_for(self, feeds: Dict[str, Any], route_ops) -> Dict[str, tuple]:
+        """{op name: (rows_sorted, order)} on the device for this batch: the
+        feeds' own `_route:` keys where all are there, else computed."""
+        keys = [f"_route:{op.name}:{f}" for op in route_ops for f in ROUTE_FIELDS]
+        given = {k: feeds[k] for k in keys if k in feeds}
+        staged = self.stage_routes(given if len(given) == len(keys) else self.compute_routes(feeds))
+        return {op.name: tuple(staged[f"_route:{op.name}:{f}"] for f in ROUTE_FIELDS)
+                for op in route_ops}
+
+    # ------------------------------------------------------------------ eval
     def eval_batch(self, feeds: Dict[str, Any], labels) -> torch.Tensor:
         """Forward, loss and metrics of one batch; returns the loss."""
         self._require_compiled()

@@ -18,6 +18,9 @@ tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
   - onehot_embedding.py : small-vocabulary pooled lookup and its gradient
                           (K5f and K5b, replace `_fwd_kernel` and
                           `_bwd_kernel`, ops/pallas/onehot_embedding.py)
+  - row_gather.py       : the forward-gather probe's row gather (K7,
+                          replaces `_dma_gather_kernel`,
+                          scripts/bench_gather_probe.py)
 
 Routing mirrors the JAX package: FFConfig.use_pallas ->
 resolve_use_pallas() -> OpContext.use_pallas, read per op.

@@ -27,11 +27,16 @@ in place.
 On CUDA the rows are prepared in torch, as the JAX package prepares its
 stream outside Pallas (`prep_sorted_routes`, `:238`): dropped rows map to
 the sentinel V, and one stable sort over the group's [T, K] rows gives
-`rows_sorted, order`. Then one kernel launch per table sums each run of
-equal rows in sorted order and writes the row and its pool rows once: no
-atomics, the same bits on every run. On the CPU the plain version runs:
-dropped-row mask, `torch.unique`, `index_add_` of the rounded entries into
-f32 zeros, then the rule's epilogue.
+`rows_sorted, order` (`sort_rows`, which counts its calls in
+`sort_rows.calls`). Under host routing the caller passes those two per
+table instead (`routes`, from `FFModel.compute_routes`: the same keys
+sorted stably on the host, so the same order), and nothing is sorted on
+the device. Then one kernel launch per table sums each run of equal rows
+in sorted order and writes the row and its pool rows once: no atomics,
+the same bits on every run. On the CPU the plain version runs (given
+routes are checked, then not needed): dropped-row mask, `torch.unique`,
+`index_add_` of the rounded entries into f32 zeros, then the rule's
+epilogue.
 """
 from __future__ import annotations
 
@@ -199,7 +204,10 @@ def _kernel_lib() -> ctypes.CDLL:
 def sort_rows(tables: Sequence[torch.Tensor], rows_list: Sequence[torch.Tensor]):
     """The stream prep: rows out of [0, V) map to the sentinel V of their
     table; one stable sort over the group's [T, K] rows. Returns
-    (rows_sorted, order), both [T, K] int32."""
+    (rows_sorted, order), both [T, K] int32. Counts its calls in
+    `sort_rows.calls`, so that a host-routed path can show it sorted
+    nothing on the device."""
+    sort_rows.calls += 1
     keyed = []
     for table, rows in zip(tables, rows_list):
         v = table.shape[0]
@@ -257,10 +265,12 @@ def _launch_adagrad(table, accum, rows_sorted, order, src, h, lr, epsilon) -> No
     row_update_adagrad.launches += 1
 
 
-def _check(tables, rows_list, payloads, rate, pools=()) -> None:
+def _check(tables, rows_list, payloads, rate, pools=(), routes=None) -> None:
     """Shapes, dtypes, devices and contiguity of one grouped call. `rate` is
     the one f32 value on the device (scale, lr or alpha_t); `pools` a list
-    of (per-table pools, shape of one: "row" [V, D] or "scalar" [V])."""
+    of (per-table pools, shape of one: "row" [V, D] or "scalar" [V]);
+    `routes` None or one (rows_sorted, order) per table, each [K] int32,
+    contiguous, on the table's device."""
     if not (len(tables) == len(rows_list) == len(payloads)) or not tables:
         raise ValueError("row_update takes equal, non-empty lists of tables, rows and payloads")
     dev = tables[0].device
@@ -296,14 +306,28 @@ def _check(tables, rows_list, payloads, rate, pools=()) -> None:
                 raise ValueError(f"row_update: an optimizer pool must be a contiguous float32 "
                                  f"{list(want)} on the table's device, got {tuple(pool.shape)} "
                                  f"{pool.dtype} on {pool.device}")
+    if routes is None:
+        return
+    if len(routes) != len(tables):
+        raise ValueError(f"row_update: {len(routes)} routes for {len(tables)} tables")
+    for route in routes:
+        if len(route) != 2 or any(
+            r.dim() != 1 or r.shape != k or r.dtype != torch.int32 or r.device != dev
+            or not r.is_contiguous() for r in route
+        ):
+            raise ValueError(f"row_update: a route is (rows_sorted, order), each a contiguous "
+                             f"[{k[0]}] int32 on {dev}, one per table")
 
 
-def _grouped(tables, rows_list, payloads):
-    """On CUDA: the group's sorted stream, then (i, src, h) per table."""
-    rows_sorted, order = sort_rows(tables, rows_list)
+def _grouped(tables, rows_list, payloads, routes=None):
+    """On CUDA: each table's sorted stream, the given routes or one sort of
+    the group's rows, with (src, h, i)."""
+    if routes is None:
+        rows_sorted, order = sort_rows(tables, rows_list)
+        routes = list(zip(rows_sorted, order))
     for i, payload in enumerate(payloads):
         src, h = _src_h(payload)
-        yield rows_sorted[i], order[i], src, h, i
+        yield routes[i][0], routes[i][1], src, h, i
 
 
 def row_update(
@@ -312,12 +336,14 @@ def row_update(
     payloads: Sequence[Payload],
     scale: torch.Tensor,
     stream_dtype: torch.dtype = BF16,
+    routes=None,
 ) -> None:
     """table[rows] += round_s(scale * payload) for each table of a group,
     in place; every table shares K and the scale. On CUDA it sorts the
-    group's rows once and launches the kernel once per table (counted in
+    group's rows once (or takes the given `routes`, one (rows_sorted,
+    order) a table) and launches the kernel once per table (counted in
     `row_update.launches`); on the CPU it takes the plain version."""
-    _check(tables, rows_list, payloads, scale)
+    _check(tables, rows_list, payloads, scale, routes=routes)
     if stream_dtype not in (BF16, F32):
         raise TypeError(f"row_update streams bfloat16 or float32, got {stream_dtype}")
     if not tables[0].is_cuda:
@@ -326,58 +352,60 @@ def row_update(
         return
     if rows_list[0].numel() == 0:
         return
-    for rows_s, order, src, h, i in _grouped(tables, rows_list, payloads):
+    for rows_s, order, src, h, i in _grouped(tables, rows_list, payloads, routes):
         _launch(tables[i], rows_s, order, src, h, scale, stream_dtype)
 
 
 def row_update_momentum(tables, vels, rows_list, payloads, lr: torch.Tensor, momentum: float,
-                        nesterov: bool = False, weight_decay: float = 0.0) -> None:
+                        nesterov: bool = False, weight_decay: float = 0.0, routes=None) -> None:
     """Lazy momentum (or Nesterov) SGD on each table of a group and its
     [V, D] f32 velocity, in place; one launch per table on CUDA (counted in
-    `row_update_momentum.launches`), the plain version on the CPU."""
-    _check(tables, rows_list, payloads, lr, [(vels, "row")])
+    `row_update_momentum.launches`), the plain version on the CPU; `routes`
+    as for `row_update`."""
+    _check(tables, rows_list, payloads, lr, [(vels, "row")], routes)
     if not tables[0].is_cuda:
         for t, vel, rows, p in zip(tables, vels, rows_list, payloads):
             momentum_reference(t, vel, rows, p, lr, momentum, nesterov, weight_decay)
         return
     if rows_list[0].numel() == 0:
         return
-    for rows_s, order, src, h, i in _grouped(tables, rows_list, payloads):
+    for rows_s, order, src, h, i in _grouped(tables, rows_list, payloads, routes):
         _launch_momentum(tables[i], vels[i], rows_s, order, src, h, lr, momentum, nesterov,
                          weight_decay)
 
 
 def row_update_adam(tables, ms, vs, rows_list, payloads, alpha_t: torch.Tensor, beta1: float,
-                    beta2: float, epsilon: float, weight_decay: float = 0.0) -> None:
+                    beta2: float, epsilon: float, weight_decay: float = 0.0, routes=None) -> None:
     """Lazy Adam on each table of a group and its [V, D] f32 m and v pools,
     in place, at the bias-corrected rate `alpha_t`; one launch per table on
     CUDA (counted in `row_update_adam.launches`), the plain version on the
-    CPU."""
-    _check(tables, rows_list, payloads, alpha_t, [(ms, "row"), (vs, "row")])
+    CPU; `routes` as for `row_update`."""
+    _check(tables, rows_list, payloads, alpha_t, [(ms, "row"), (vs, "row")], routes)
     if not tables[0].is_cuda:
         for t, m, v, rows, p in zip(tables, ms, vs, rows_list, payloads):
             adam_reference(t, m, v, rows, p, alpha_t, beta1, beta2, epsilon, weight_decay)
         return
     if rows_list[0].numel() == 0:
         return
-    for rows_s, order, src, h, i in _grouped(tables, rows_list, payloads):
+    for rows_s, order, src, h, i in _grouped(tables, rows_list, payloads, routes):
         _launch_adam(tables[i], ms[i], vs[i], rows_s, order, src, h, alpha_t, beta1, beta2,
                      epsilon, weight_decay)
 
 
 def row_update_adagrad(tables, accums, rows_list, payloads, lr: torch.Tensor,
-                       epsilon: float) -> None:
+                       epsilon: float, routes=None) -> None:
     """Row-wise AdaGrad on each table of a group and its [V] f32
     accumulator, in place; one launch per table on CUDA (counted in
-    `row_update_adagrad.launches`), the plain version on the CPU."""
-    _check(tables, rows_list, payloads, lr, [(accums, "scalar")])
+    `row_update_adagrad.launches`), the plain version on the CPU; `routes`
+    as for `row_update`."""
+    _check(tables, rows_list, payloads, lr, [(accums, "scalar")], routes)
     if not tables[0].is_cuda:
         for t, a, rows, p in zip(tables, accums, rows_list, payloads):
             adagrad_reference(t, a, rows, p, lr, epsilon)
         return
     if rows_list[0].numel() == 0:
         return
-    for rows_s, order, src, h, i in _grouped(tables, rows_list, payloads):
+    for rows_s, order, src, h, i in _grouped(tables, rows_list, payloads, routes):
         _launch_adagrad(tables[i], accums[i], rows_s, order, src, h, lr, epsilon)
 
 
@@ -385,3 +413,4 @@ row_update.launches = 0
 row_update_momentum.launches = 0
 row_update_adam.launches = 0
 row_update_adagrad.launches = 0
+sort_rows.calls = 0

@@ -6,8 +6,10 @@ updates, in place. Tables on the kernel route (`op.kernel_route`, set by
 FFModel.compile) are grouped by (K, D) and go to the row-update kernels
 (`ops/kernels/row_update.py`), one sort per group and one launch per table:
 SGD, lazy momentum and Nesterov, lazy Adam (at the bias-corrected rate the
-caller passes as `lr`), row-wise AdaGrad. Every other table goes to
-`op.sparse_update`, the optimizer's scatter rule.
+caller passes as `lr`), row-wise AdaGrad. Under host routing the caller
+passes each route table's sorted stream (`routes`) and the group is not
+sorted on the device. Every other table goes to `op.sparse_update`, the
+optimizer's scatter rule.
 
 The two routes round differently, as in the JAX package: the kernel route
 rounds each stream entry (-lr * g for SGD) to bf16 before it sums them in
@@ -48,11 +50,14 @@ def apply_sparse_updates(
     sstates: Dict[str, object],
     ctx,
     lr=None,
+    routes=None,
 ) -> Dict[str, object]:
     """Update the sparse ops' tables and slot states in place; returns the
     slot states. `g_over[op]` is the list of pooled-output gradients of op,
     `sparse_xs[op]` its index inputs, `lr` the rate of this step (default:
-    opt's own; for Adam, the bias-corrected alpha_t)."""
+    opt's own; for Adam, the bias-corrected alpha_t), `routes` None or
+    {op name: (rows_sorted, order)} for every kernel-route op, computed
+    from this step's `sparse_xs` (FFModel.compute_routes)."""
     new_sstates = dict(sstates)
     kernel_ops = [op for op in sparse_ops if op.kernel_route]
     for op in sparse_ops:
@@ -63,6 +68,9 @@ def apply_sparse_updates(
             )
     if not kernel_ops:
         return new_sstates
+    if routes is not None and set(routes) != {op.name for op in kernel_ops}:
+        raise ValueError(f"routes for {sorted(routes)}, but the kernel route has "
+                         f"{sorted(op.name for op in kernel_ops)}")
 
     groups: Dict[tuple, List] = {}
     for op in kernel_ops:
@@ -77,12 +85,13 @@ def apply_sparse_updates(
         rows_l = [rows for _, rows, _, _ in items]
         payloads = [(src, h) for _, _, src, h in items]
         states = [sstates[op.name] for op, *_ in items]
+        rts = None if routes is None else [routes[op.name] for op, *_ in items]
         if isinstance(opt, AdamOptimizer):
             row_update_adam(tables, [s["m"] for s in states], [s["v"] for s in states], rows_l,
-                            payloads, rate, opt.beta1, opt.beta2, opt.epsilon, opt.weight_decay)
+                            payloads, rate, opt.beta1, opt.beta2, opt.epsilon, opt.weight_decay, rts)
         elif isinstance(opt, SGDOptimizer) and opt.momentum != 0.0:
             row_update_momentum(tables, states, rows_l, payloads, rate, opt.momentum,
-                                opt.nesterov, opt.weight_decay)
+                                opt.nesterov, opt.weight_decay, rts)
         elif isinstance(opt, SGDOptimizer):
             if opt.weight_decay != 0.0:
                 # lazy decay on touched rows (duplicates decay once per
@@ -101,9 +110,9 @@ def apply_sparse_updates(
                 scale = torch.ones((), dtype=torch.float32, device=device)
             else:
                 scale = -rate
-            row_update(tables, rows_l, payloads, scale)
+            row_update(tables, rows_l, payloads, scale, routes=rts)
         elif type(opt) is RowWiseAdagradOptimizer:
-            row_update_adagrad(tables, states, rows_l, payloads, rate, opt.epsilon)
+            row_update_adagrad(tables, states, rows_l, payloads, rate, opt.epsilon, rts)
         else:  # FFModel.compile keeps other optimizers off the kernel route
             raise TypeError(f"the row-update kernel route takes SGD (with momentum), Adam and "
                             f"row-wise AdaGrad, not {type(opt).__name__}")

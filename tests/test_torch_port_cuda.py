@@ -36,7 +36,8 @@ from dlrm_flexflow_tpu_torch.ops.kernels.onehot_embedding import (
     onehot_embedding_backward_reference,
     onehot_embedding_reference,
 )
-from dlrm_flexflow_tpu_torch.ops.kernels.row_update import row_update, row_update_reference
+from dlrm_flexflow_tpu_torch.ops.kernels.row_gather import DEPTHS, row_gather, row_gather_reference
+from dlrm_flexflow_tpu_torch.ops.kernels.row_update import row_update, row_update_reference, sort_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -554,3 +555,119 @@ def test_kaggle_shaped_training_under_each_rule_tracks_the_cpu(cuda, rule):
                            for name in gpu.get_parameters() for k, w in gpu.get_weights(name).items()])
     share = np.mean(errs <= 2e-3)
     assert errs.max() <= atol and share >= 0.999, (errs.max(), share)
+
+
+# ------------------------------------------------------------------ K7, host routing
+
+
+def _bits(x):
+    return x.view(torch.int32 if x.element_size() == 4 else torch.int16)
+
+
+@pytest.mark.parametrize("depth", DEPTHS)
+@pytest.mark.parametrize(
+    "p, w, k, dtype",
+    [
+        (125952, 128, 65536, torch.float32),  # the probe's packed table
+        (125952, 128, 65536, torch.bfloat16),
+        (20000, 16, 3001, torch.float32),  # narrow, ragged K
+        (20000, 16, 3001, torch.bfloat16),
+        (777, 24, 1000, torch.float32),  # 96-byte rows: 6 chunks, the divide instance
+        (777, 40, 999, torch.bfloat16),  # 80-byte rows: 5 chunks
+        (3, 8, 1, torch.bfloat16),  # one 16-byte chunk a row
+    ],
+)
+def test_row_gather_kernel_matches_plain_version_bit_for_bit(cuda, p, w, k, dtype, depth):
+    rng = np.random.default_rng(p + w + k)
+    table = _x((p, w), dtype, 5, cuda)
+    rows = rng.integers(0, p, k)
+    rows[::13] = -1 - rows[::13] % 3  # NaN rows
+    rows[5::17] = p + rows[5::17] % 3
+    rows = torch.from_numpy(rows.astype(np.int32)).to(cuda)
+    before = row_gather.launches
+    got = row_gather(table, rows, depth)
+    again = row_gather(table, rows, depth)
+    assert row_gather.launches == before + 2
+    want = row_gather_reference(table, rows)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (k, w)
+    assert torch.equal(_bits(got), _bits(want)) and torch.equal(_bits(again), _bits(got))
+
+
+def test_row_gather_kernel_refuses_what_it_cannot_take(cuda):
+    rows = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        row_gather(torch.zeros((8, 6), device=cuda), rows)  # 24-byte rows
+    with pytest.raises(ValueError, match="aligned"):  # a bf16 table that starts 2 bytes in
+        row_gather(torch.zeros(8 * 8 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(8, 8), rows)
+    with pytest.raises(TypeError):
+        row_gather(torch.zeros((8, 4), device=cuda), rows.long())
+    with pytest.raises(ValueError):
+        row_gather(torch.zeros((8, 4), device=cuda), rows.cpu())
+    with pytest.raises(ValueError):
+        row_gather(torch.zeros((8, 4), device=cuda), rows, depth=3)
+    assert row_gather(torch.zeros((8, 4), device=cuda), rows[:0]).shape == (0, 4)
+
+
+def test_compute_routes_on_card_feeds_equal_sort_rows(cuda):
+    """compute_routes reads index feeds that lie on the card back to the
+    host; its order and sorted rows equal sort_rows' on the card."""
+    bs = 512
+    cfg = kaggle_config(batch_size=bs)
+    cfg.embedding_size = [min(v, 20_000) for v in cfg.embedding_size]
+    m = make_dlrm_model(cfg, FFConfig(batch_size=bs, packed_tables="on", host_routing=True), device=cuda)
+    m.compile(SGDOptimizer(lr=0.05), LossType.LOSS_BINARY_CROSSENTROPY)
+    feeds, _ = random_batches(cfg, bs, seed=6)
+    feeds["sparse_2"][:7] = -1
+    staged = m._stage(feeds)
+    ops = [op for op in m._sparse_ops if op.kernel_route]
+    routes = m.compute_routes(staged)
+    assert routes.keys() == m.compute_routes(feeds).keys()
+    tables = [m.get_parameters()[op.name]["weight"] for op in ops]
+    rs, order = sort_rows(tables, [staged[op.inputs[0].owner_op.name].reshape(-1) for op in ops])
+    for i, op in enumerate(ops):
+        np.testing.assert_array_equal(routes[f"_route:{op.name}:order"], order[i].cpu().numpy())
+        np.testing.assert_array_equal(routes[f"_route:{op.name}:rows"], rs[i].cpu().numpy())
+    staged_routes = m.stage_routes(routes)
+    assert all(t.is_cuda and t.dtype == torch.int32 for t in staged_routes.values())
+    # routes already on the card pass through ("cuda" is the card of cuda:0)
+    assert all(m.stage_routes(staged_routes)[k] is t for k, t in staged_routes.items())
+
+
+def test_host_routed_training_on_cuda_is_bit_identical_to_device_sorted(cuda):
+    """The row-update kernel reads the same order from the host's radix sort
+    as from torch.sort: 4 SGD steps give the same bits, sorting nothing on
+    the card under host routing (deterministic algorithms keep the one-hot
+    lookups' index_add_ in one order on both)."""
+    bs = 256
+    cfg = kaggle_config(batch_size=bs)
+    cfg.embedding_size = [min(v, 20_000) for v in cfg.embedding_size]
+    models = {}
+    for hr in (True, False):
+        kw = dict(batch_size=bs, compute_dtype="bfloat16", table_dtype="bfloat16", packed_tables="on",
+                  seed=8, host_routing=hr)
+        models[hr] = make_dlrm_model(cfg, FFConfig(**kw), device=cuda)
+        models[hr].compile(SGDOptimizer(lr=0.05), LossType.LOSS_BINARY_CROSSENTROPY)
+    feeds, labels = random_batches(cfg, 4 * bs, seed=8)
+    losses = {True: [], False: []}
+    sorts = {True: 0, False: 0}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for i in range(4):
+            sl = slice(i * bs, (i + 1) * bs)
+            batch = {k: v[sl] for k, v in feeds.items()}
+            for hr, m in models.items():
+                before = sort_rows.calls
+                if hr and i % 2:  # routes computed beforehand and staged, as the bench does
+                    batch_hr = {**m._stage(batch), **m.stage_routes(m.compute_routes(batch))}
+                    losses[hr].append(float(m.train_batch(batch_hr, labels[sl])))
+                else:
+                    losses[hr].append(float(m.train_batch(batch, labels[sl])))
+                sorts[hr] += sort_rows.calls - before
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert sorts == {True: 0, False: 4}
+    assert losses[True] == losses[False]
+    for name in models[True].get_parameters():
+        for k, w in models[True].get_weights(name).items():
+            np.testing.assert_array_equal(w, models[False].get_weights(name)[k])

@@ -586,13 +586,11 @@ def test_ported_sparse_optimizers_train_on_the_kernel_route(what):
         assert st.shape == ((120,) if what == "adagrad" else (120, 8)) and st.dtype == torch.float32
 
 
-@pytest.mark.parametrize("what", ["host_routing", "mid_band", "host_tail", "profiling"])
+@pytest.mark.parametrize("what", ["mid_band", "host_tail", "profiling"])
 def test_unported_training_features_raise_with_their_slice(what):
     ffkw = dict(batch_size=32, onehot_embedding_threshold=100, packed_tables="on")
     opt = port.SGDOptimizer(lr=0.1)
-    if what == "host_routing":
-        ffkw["host_routing"] = True
-    elif what == "mid_band":
+    if what == "mid_band":
         ffkw["onehot_packed_threshold"] = 200
     elif what == "host_tail":
         ffkw["host_tail_threshold"] = 100
