@@ -64,8 +64,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
                device-sorted on CUDA (bit-identical losses and weights), and
                against the CPU.
  17. bench   - python -m dlrm_flexflow_tpu_torch.bench --quick, as a
-               subprocess: kaggle training (host-routed) and mlperf-lite
-               serving.
+               subprocess: kaggle training (host-routed), the same with
+               --zipf 1.05, and mlperf-lite serving.
  18. kernels, continued - as phase 3: the fused dense layer at the 8
                mlperf-lite layer shapes at M = 16384 (bf16), at M = 1000, in
                f32, without bias; the embedding bag at [16384, 1] into a
@@ -75,9 +75,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
                indices >= V, f32 and bf16 compute) and its gradient (K5b) at
                the same shape and with bags of 4; the row-update kernel's
                optimizer modes at phase 3's K1 shape (momentum, Nesterov,
-               Adam with and without weight decay, row-wise AdaGrad; Adam on
-               a Zipf(1.05) stream; rows < 0 and >= V), each run twice for
-               bit-identical results; the row-gather kernel (K7) bit for bit
+               Adam with and without weight decay, row-wise AdaGrad;
+               momentum, Adam and AdaGrad on a Zipf(1.05) stream, each timed
+               beside index_add_ on the same stream; rows < 0 and >= V),
+               each run twice for bit-identical results; the row-gather
+               kernel (K7) bit for bit
                at the probe's shape in f32 and bf16 at every depth, at a
                ragged K, on the narrow [1000000, 16] table, at widths of 5
                and 6 chunks, with indices < 0 and >= P, twice.
@@ -978,13 +980,14 @@ def train_profile(model, staged, ms_per_step: float) -> dict:
     busy = sum(per_step.values())
     if busy == 0.0:
         return {"kernel_ms_per_step": "not measured (the profiler saw no device time)"}
+    # a row-update wrapper launch runs 2 to 4 CUDA kernels, all named row_update_*
     row = [e for e in kernels if "row_update" in e.key]
     top = sorted(per_step.items(), key=lambda kv: -kv[1])[:8]
     return {
         "kernel_ms_per_step": busy,
         "busy_share_of_unprofiled_step": busy / ms_per_step,
         "row_update_kernel_ms_per_launch": (
-            sum(e.self_device_time_total for e in row) / 1e3 / max(sum(e.count for e in row), 1)),
+            sum(e.self_device_time_total for e in row) / 1e3 / (PROFILED_STEPS * KAGGLE_BIG_TABLES)),
         "top_kernels_ms_per_step": {k[:60]: v for k, v in top},
     }
 
@@ -1314,6 +1317,10 @@ def check_rule(case, table, rows, src, timed: bool, gen) -> dict:
         t_ops = (int(keep.sum()) * d * per_entry + uniq * d * per_row) / F32_FLOP_PER_S * 1e3
         state = pool_state(got_p)
         launch = lambda: launch_rule(opt, got_t, state, rows_sorted[0], order[0], src, h, rate)  # noqa: E731
+        t32 = table.to(torch.float32, copy=True)
+        k_ok = torch.arange(rows.numel(), device="cuda")[keep]
+        deltas = (rate * src[k_ok // h]).contiguous()
+        r_ok = rows[keep]
         res.update({
             "ms": graph_ms(launch),
             "eager_ms": cuda_ms(launch),
@@ -1321,9 +1328,13 @@ def check_rule(case, table, rows, src, timed: bool, gen) -> dict:
             # torch.unique syncs with the host, so no graph here
             "plain_ms": cuda_ms(lambda: rule_call(opt, want_t, want_p, rows, src, h, rate, True)),
             "library_ms": None,  # no one PyTorch call does a lazy optimizer update
+            # SGD's library call on this stream, for scale: the pre-formed
+            # deltas added into an f32 copy of the table
+            "index_add_ms": graph_ms(lambda: t32.index_add_(0, r_ok, deltas)),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         })
+        del t32, deltas, r_ok
     log(f"[kernels] row_update_{rule} {json.dumps(res)}")
     del want_t, want_p, runs, got_t, got_p, again_t, again_p, pools
     return res
@@ -1331,7 +1342,8 @@ def check_rule(case, table, rows, src, timed: bool, gen) -> dict:
 
 def phase_optim_kernels() -> dict:
     """The row-update kernel's optimizer modes at the K1 shape of phase 3:
-    65536 rows into the 10,131,227-row bf16 kaggle table, f32 pools."""
+    65536 rows into the 10,131,227-row bf16 kaggle table, f32 pools; on
+    uniform rows and on a Zipf(1.05) stream."""
     from dlrm_flexflow_tpu_torch.data.synthetic import zipf_indices
 
     v, d, k = 10_131_227, 16, TRAIN_BATCH
@@ -1346,7 +1358,8 @@ def phase_optim_kernels() -> dict:
     cases = {}
     for case in OPTIM_RULES:
         cases[case] = check_rule(case, table, uniform, src, timed=True, gen=gen)
-    cases["adam:zipf"] = check_rule("adam:zipf", table, zipf, src, timed=True, gen=gen)
+    for rule in ("momentum", "adam", "adagrad"):  # SGD's Zipf case is phase 3's b-zipf
+        cases[f"{rule}:zipf"] = check_rule(f"{rule}:zipf", table, zipf, src, timed=True, gen=gen)
     for rule in ("momentum", "adam", "adagrad"):
         cases[f"{rule}:dropped"] = check_rule(f"{rule}:dropped", table, dropped, src, timed=False, gen=gen)
     cases["adagrad:bag2"] = check_rule("adagrad:bag2", table, uniform, src[: k // 2].contiguous(),
@@ -1757,11 +1770,13 @@ def phase_train_parity_host() -> None:
 
 def phase_bench() -> dict:
     """The port's bench as a user runs it, in a subprocess with a time
-    limit: kaggle training (its default: batch 65536, host-routed) and
+    limit: kaggle training (its default: batch 65536, host-routed), the same
+    on Zipf(1.05) indices (frequency-skewed ids, as Criteo's are), and
     mlperf-lite serving, --quick. Each must print bench.py's keys with
     finite numbers; kaggle must take the row-update route."""
     out = {}
-    for name, extra in (("kaggle-train", []), ("mlperf-lite-infer", ["--config", "mlperf-lite", "--mode", "infer"])):
+    for name, extra in (("kaggle-train", []), ("kaggle-train-zipf", ["--zipf", "1.05"]),
+                        ("mlperf-lite-infer", ["--config", "mlperf-lite", "--mode", "infer"])):
         cmd = [sys.executable, "-m", "dlrm_flexflow_tpu_torch.bench", "--quick", *extra]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
@@ -1780,7 +1795,7 @@ def phase_bench() -> dict:
         if set(res) != keys or not (math.isfinite(res["value"]) and res["value"] > 0
                                     and math.isfinite(res["loss"])):
             raise AssertionError(f"bench {name} printed {res}")
-        if name == "kaggle-train" and not (res["packed_engaged"] and res["table_dtype"] == "bfloat16"):
+        if name.startswith("kaggle-train") and not (res["packed_engaged"] and res["table_dtype"] == "bfloat16"):
             raise AssertionError(f"bench kaggle did not take the bf16 row-update route: {res}")
         out[name] = res
     return out

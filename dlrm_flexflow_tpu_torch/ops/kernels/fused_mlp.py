@@ -10,9 +10,11 @@ at `:105`) as the JAX package's Dense calls it under use_pallas="on"
 then cast back to x's dtype. x is [M, K] (f32 or bf16), `kernel` the Dense
 parameter [N, K] = [out, in] in f32 (the JAX package passes its transpose
 to `dense_pallas`), `bias` [N] f32 or None, cdt bf16 or f32. The kernel is
-`csrc/fused_mlp.cu` (tensor cores for bf16, f32 FMAs for f32, the casts
-fused into its loads and its epilogue); its source note gives the design
-and the bound.
+`csrc/fused_mlp.cu` (bf16: `wgmma` fed by TMA through an mbarrier ring;
+f32: FMAs on the CUDA cores); its source note gives the design and the
+bound. For bf16 the wrapper allocates the kernel's scratch (`scratch_plan`):
+w rounded to bf16 as [N, Kp], and, where TMA cannot read x as it lies, x
+rounded to bf16 as [M, Kp] (Kp = K rounded up to 8).
 
 The JAX package's `dense_pallas` has no gradient (no VJP is defined, and
 `jax.grad` through it fails), so neither has this op: its backward raises.
@@ -41,6 +43,27 @@ NO_GRADIENT = (
     "the forced dense kernel has no gradient: the JAX package's dense_pallas "
     "defines none, so training under use_pallas='on' is a later slice of the port"
 )
+
+
+def padded_k(k: int) -> int:
+    """K rounded up to 8: a bf16 row of Kp values is a whole number of
+    16-byte units, as TMA needs."""
+    return -(-k // 8) * 8
+
+
+def x_goes_direct(k: int, dtype: torch.dtype, data_ptr: int) -> bool:
+    """Whether TMA reads x as it lies: a row pitch of whole 16-byte units
+    and a 16-byte aligned base (csrc `fused_dense_x_direct`, which the
+    launch checks)."""
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    return (k * itemsize) % 16 == 0 and data_ptr % 16 == 0
+
+
+def scratch_plan(m: int, n: int, k: int, dtype: torch.dtype, data_ptr: int) -> dict:
+    """The bf16 path's scratch: w in bf16 [N, Kp]; x in bf16 [M, Kp] where
+    TMA cannot read it as it lies, else None."""
+    kp = padded_k(k)
+    return {"w": (n, kp), "x": None if x_goes_direct(k, dtype, data_ptr) else (m, kp)}
 
 
 def fused_dense_reference(
@@ -74,6 +97,9 @@ def _kernel_lib() -> ctypes.CDLL:
         ctypes.c_int,  # activation code
         ctypes.c_int,  # x is bf16
         ctypes.c_int,  # compute dtype is bf16
+        ctypes.c_void_p,  # w in bf16 [N, Kp] (scratch), or NULL for f32 compute
+        ctypes.c_void_p,  # x in bf16 [M, Kp] (scratch), or NULL
+        ctypes.c_int,  # Kp
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.fused_dense_forward.restype = ctypes.c_int
@@ -89,12 +115,19 @@ def _launch(x, kernel, bias, activation, compute_dtype) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = _kernel_lib()
+    w16 = x16 = None
+    if compute_dtype == torch.bfloat16:
+        plan = scratch_plan(m, n, k, x.dtype, x.data_ptr())
+        w16 = torch.empty(plan["w"], dtype=torch.bfloat16, device=x.device)
+        if plan["x"] is not None:
+            x16 = torch.empty(plan["x"], dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_dense_forward(
             x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(),
             out.data_ptr(), m, n, k, ACT_CODES[activation], int(x.dtype == torch.bfloat16),
-            int(compute_dtype == torch.bfloat16), stream,
+            int(compute_dtype == torch.bfloat16), None if w16 is None else w16.data_ptr(),
+            None if x16 is None else x16.data_ptr(), padded_k(k), stream,
         )
     if err != 0:
         msg = lib.cuda_error_string(err).decode()

@@ -31,9 +31,13 @@ the sentinel V, and one stable sort over the group's [T, K] rows gives
 `sort_rows.calls`). Under host routing the caller passes those two per
 table instead (`routes`, from `FFModel.compute_routes`: the same keys
 sorted stably on the host, so the same order), and nothing is sorted on
-the device. Then one kernel launch per table sums each run of equal rows
-in sorted order and writes the row and its pool rows once: no atomics,
-the same bits on every run. On the CPU the plain version runs (given
+the device. Then the kernel updates each table (one wrapper launch,
+counted once, of two CUDA launches, four for AdaGrad): the sorted stream
+is cut into fixed chunks of `CHUNK` positions, each run piece is summed in
+sorted order, a run that crosses chunk edges is summed over its pieces in
+chunk order, and each row and its pool rows are written once: no atomics,
+the same bits on every run. The wrapper allocates the kernel's scratch
+(`scratch_floats`). On the CPU the plain version runs (given
 routes are checked, then not needed): dropped-row mask, `torch.unique`,
 `index_add_` of the rounded entries into f32 zeros, then the rule's
 epilogue.
@@ -50,6 +54,7 @@ import torch
 from ... import _build
 
 MAX_D = 128  # the kernel's limit on D (csrc/row_update.cu)
+CHUNK = 64  # sorted positions a chunk (csrc/row_update.cu kChunk; checked at launch)
 
 Payload = Union[torch.Tensor, Tuple[torch.Tensor, int]]
 
@@ -182,17 +187,29 @@ def adagrad_reference(table, accum, rows, payload, lr, epsilon: float) -> None:
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
+def scratch_floats(k: int, d: int, rule: str) -> int:
+    """Floats of f32 scratch one table's launch takes: the sums of the run
+    pieces at chunk edges, [n_chunks, 2, n_acc, D] (n_acc = 2 for Adam's m
+    and v, else 1), and for AdaGrad its mean-square partials and scales,
+    [n_chunks, 2] each. The same count as the kernel's
+    `row_update_scratch_floats`, which the launch checks."""
+    n = -(-k // CHUNK)
+    return n * 2 * (2 if rule == "adam" else 1) * d + (4 * n if rule == "adagrad" else 0)
+
+
 @functools.lru_cache(maxsize=1)
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("row_update")
     # (table, table is bf16, [pools], rows_sorted, order, src, rate ptr,
-    #  [rule constants], K, V, D, h, [stream is bf16], cudaStream_t)
-    lib.row_update.argtypes = [_P, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P]
+    #  [rule constants], K, V, D, h, [stream is bf16], scratch, its floats,
+    #  CHUNK, cudaStream_t)
+    tail = [_P, _LL, _I, _P]
+    lib.row_update.argtypes = [_P, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I] + tail
     lib.row_update_momentum.argtypes = [_P, _I, _P, _P, _P, _P, _P, _F, _F, _F, _I,
-                                        _LL, _I, _I, _I, _P]
+                                        _LL, _I, _I, _I] + tail
     lib.row_update_adam.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F,
-                                    _LL, _I, _I, _I, _P]
-    lib.row_update_adagrad.argtypes = [_P, _I, _P, _P, _P, _P, _P, _F, _LL, _I, _I, _I, _P]
+                                    _LL, _I, _I, _I] + tail
+    lib.row_update_adagrad.argtypes = [_P, _I, _P, _P, _P, _P, _P, _F, _LL, _I, _I, _I] + tail
     for fn in (lib.row_update, lib.row_update_momentum, lib.row_update_adam,
                lib.row_update_adagrad):
         fn.restype = ctypes.c_int
@@ -217,11 +234,13 @@ def sort_rows(tables: Sequence[torch.Tensor], rows_list: Sequence[torch.Tensor])
     return rows_sorted, order.to(torch.int32)
 
 
-def _call(name: str, table, *args) -> None:
+def _call(name: str, rule: str, table, rows_sorted, *args) -> None:
     lib = _kernel_lib()
+    n = scratch_floats(rows_sorted.numel(), table.shape[1], rule)
+    scratch = torch.empty(n, dtype=F32, device=table.device)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = getattr(lib, name)(*args, stream)
+        err = getattr(lib, name)(*args, scratch.data_ptr(), n, CHUNK, stream)
     if err != 0:
         msg = lib.cuda_error_string(err).decode()
         raise RuntimeError(f"{name} kernel failed: {msg} (cudaError {err})")
@@ -234,7 +253,7 @@ def _stream_args(table, rows_sorted, h):
 
 
 def _launch(table, rows_sorted, order, src, h, scale, stream_dtype) -> None:
-    _call("row_update", table, table.data_ptr(), int(table.dtype == BF16),
+    _call("row_update", "sgd", table, rows_sorted, table.data_ptr(), int(table.dtype == BF16),
           rows_sorted.data_ptr(), order.data_ptr(), src.data_ptr(), scale.data_ptr(),
           *_stream_args(table, rows_sorted, h), int(stream_dtype == BF16))
     row_update.launches += 1
@@ -242,26 +261,26 @@ def _launch(table, rows_sorted, order, src, h, scale, stream_dtype) -> None:
 
 def _launch_momentum(table, vel, rows_sorted, order, src, h, lr, momentum, nesterov,
                      weight_decay) -> None:
-    _call("row_update_momentum", table, table.data_ptr(), int(table.dtype == BF16),
-          vel.data_ptr(), rows_sorted.data_ptr(), order.data_ptr(), src.data_ptr(),
-          lr.data_ptr(), _keep(momentum), _f32(momentum), _f32(weight_decay), int(nesterov),
-          *_stream_args(table, rows_sorted, h))
+    _call("row_update_momentum", "momentum", table, rows_sorted, table.data_ptr(),
+          int(table.dtype == BF16), vel.data_ptr(), rows_sorted.data_ptr(), order.data_ptr(),
+          src.data_ptr(), lr.data_ptr(), _keep(momentum), _f32(momentum), _f32(weight_decay),
+          int(nesterov), *_stream_args(table, rows_sorted, h))
     row_update_momentum.launches += 1
 
 
 def _launch_adam(table, m, v, rows_sorted, order, src, h, alpha_t, beta1, beta2, epsilon,
                  weight_decay) -> None:
-    _call("row_update_adam", table, table.data_ptr(), int(table.dtype == BF16), m.data_ptr(),
-          v.data_ptr(), rows_sorted.data_ptr(), order.data_ptr(), src.data_ptr(),
+    _call("row_update_adam", "adam", table, rows_sorted, table.data_ptr(), int(table.dtype == BF16),
+          m.data_ptr(), v.data_ptr(), rows_sorted.data_ptr(), order.data_ptr(), src.data_ptr(),
           alpha_t.data_ptr(), _f32(1.0 - beta1), _f32(1.0 - beta2), _keep(beta1), _keep(beta2),
           _f32(epsilon), _f32(weight_decay), *_stream_args(table, rows_sorted, h))
     row_update_adam.launches += 1
 
 
 def _launch_adagrad(table, accum, rows_sorted, order, src, h, lr, epsilon) -> None:
-    _call("row_update_adagrad", table, table.data_ptr(), int(table.dtype == BF16),
-          accum.data_ptr(), rows_sorted.data_ptr(), order.data_ptr(), src.data_ptr(),
-          lr.data_ptr(), _f32(epsilon), *_stream_args(table, rows_sorted, h))
+    _call("row_update_adagrad", "adagrad", table, rows_sorted, table.data_ptr(),
+          int(table.dtype == BF16), accum.data_ptr(), rows_sorted.data_ptr(), order.data_ptr(),
+          src.data_ptr(), lr.data_ptr(), _f32(epsilon), *_stream_args(table, rows_sorted, h))
     row_update_adagrad.launches += 1
 
 

@@ -239,11 +239,15 @@ def _dense_tolerance(x, w, b, want, cdt):
 @pytest.mark.parametrize(
     "m, k, n, act, bias, cdt",
     [
-        (16384, 13, 512, "AC_MODE_RELU", True, torch.bfloat16),
+        (16384, 13, 512, "AC_MODE_RELU", True, torch.bfloat16),  # mlperf-lite's 8 layers
+        (16384, 512, 256, "AC_MODE_RELU", True, torch.bfloat16),
+        (16384, 256, 128, "AC_MODE_RELU", True, torch.bfloat16),
         (16384, 479, 1024, "AC_MODE_RELU", True, torch.bfloat16),
         (16384, 1024, 1024, "AC_MODE_RELU", True, torch.bfloat16),
+        (16384, 1024, 512, "AC_MODE_RELU", True, torch.bfloat16),
         (16384, 256, 1, "AC_MODE_SIGMOID", True, torch.bfloat16),
         (1000, 512, 256, "AC_MODE_RELU", True, torch.bfloat16),
+        (1000, 13, 512, "AC_MODE_RELU", True, torch.bfloat16),
         (77, 100, 130, "AC_MODE_NONE", False, torch.bfloat16),
         (33, 64, 48, "AC_MODE_TANH", True, torch.bfloat16),
         (40, 96, 72, "AC_MODE_GELU", True, torch.bfloat16),
@@ -275,6 +279,35 @@ def test_fused_dense_kernel_takes_bf16_input(cuda):
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16
     assert bool(((got.float() - want.float()).abs() <= _dense_tolerance(x, w, None, want, torch.bfloat16)).all())
+
+
+@pytest.mark.parametrize(
+    "m, k, n, x_kind",
+    [
+        (16384, 479, 1024, "bf16"),  # a pitch TMA cannot read: rounded into the padded scratch
+        (16384, 512, 256, "bf16"),  # read by TMA as it lies
+        (1000, 256, 1, "bf16"),  # the narrow tile
+        (1000, 1024, 1024, "misaligned"),  # an f32 x whose base is not 16-byte aligned
+    ],
+)
+def test_fused_dense_kernel_on_bf16_x_and_on_x_that_tma_cannot_read_as_it_lies(cuda, m, k, n, x_kind):
+    x = _x((m, k), torch.float32, 10, cuda)
+    if x_kind == "bf16":
+        x = x.to(torch.bfloat16)
+    else:
+        x = torch.empty(m * k + 1, device=cuda)[1:].view(m, k).copy_(x)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    w = _x((n, k), torch.float32, 11, cuda) * k**-0.5
+    b = _x((n,), torch.float32, 12, cuda)
+    before = fused_dense.launches
+    got = fused_dense(x, w, b, ActiMode.AC_MODE_RELU, torch.bfloat16)
+    assert fused_dense.launches == before + 1
+    want = fused_dense_reference(x, w, b, ActiMode.AC_MODE_RELU, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == (m, n)
+    assert torch.equal(got, got.to(torch.bfloat16).to(got.dtype))
+    tol = _dense_tolerance(x, w, b, want, torch.bfloat16)
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
 
 
 def _bag_idx(m, h, r, seed, device, past=0):
@@ -430,7 +463,12 @@ def test_optimizer_mode_kernels_match_plain_versions(cuda, rule, wd, d, table_dt
     rounding of an entry, the delta or the epilogue); rows < 0 and >= V, and
     rows the stream does not touch, unchanged; a second run bit-identical."""
     table, rows, src = _row_case(d, table_dtype, h, k, v, 20, cuda, zipf)
-    src = src * 1e-2
+    _check_rule(rule, wd, table, rows, src * 1e-2, h, cuda)
+
+
+def _check_rule(rule, wd, table, rows, src, h, cuda):
+    v, d = table.shape
+    k = rows.numel()
     pools = _pools(rule, v, d, 21, cuda)
     want_t, want_p = table.clone(), [p.clone() for p in pools]
     _rule(rule, wd, want_t, want_p, rows, src, h, plain=True)
@@ -464,6 +502,66 @@ def test_optimizer_mode_kernels_match_plain_versions(cuda, rule, wd, d, table_dt
     (a_t, a_p), (b_t, b_p) = got
     assert torch.equal(a_t.view(torch.uint8), b_t.view(torch.uint8))
     assert all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(a_p, b_p))
+
+
+def _chunk_case(case, seed, device):
+    """Streams shaped against the kernel's chunks of CHUNK (64) sorted
+    positions: (table [V, 16] bf16, rows, src, h)."""
+    rng = np.random.default_rng(seed)
+    c = ru.CHUNK
+    h = 1
+    if case == "run-over-5-chunks":
+        v, k = 1000, 1000
+        rows = rng.integers(0, v, k)
+        rows[100:100 + 5 * c] = 7
+    elif case == "runs-end-on-chunk-edges":
+        v = 50
+        rows = np.repeat([3, 9, 14, 20, 31, 40], [c, 2 * c, c, 3 * c, 4 * c, c])
+        rng.shuffle(rows)
+        k = rows.size
+    elif case == "one-row":
+        v, k, h = 100, 1000, 4
+        rows = np.full(k, 42)
+    elif case == "dropped-in-a-spanning-chunk":
+        v, k = 500, 900
+        rows = rng.integers(0, v - 1, k)
+        rows[:300] = v - 1  # its run ends where the dropped rows begin
+        rows[300:450] = -1
+        rows[450:600] = v + 2
+    else:  # K below one chunk
+        v, k = 100, c - 24
+        rows = rng.integers(-2, v + 2, k)
+    table = torch.from_numpy(rng.standard_normal((v, 16)).astype(np.float32)).to(device, torch.bfloat16)
+    src = torch.from_numpy(rng.standard_normal((k // h, 16)).astype(np.float32)).to(device)
+    return table, torch.from_numpy(rows).to(device), src, h
+
+
+@pytest.mark.parametrize("rule", ["sgd", "momentum", "adam", "adagrad"])
+@pytest.mark.parametrize("case", ["run-over-5-chunks", "runs-end-on-chunk-edges", "one-row",
+                                  "dropped-in-a-spanning-chunk", "k-below-a-chunk"])
+def test_row_update_kernel_sums_runs_across_chunks_like_the_plain_version(cuda, rule, case):
+    """The kernel cuts the sorted stream into chunks of CHUNK positions and
+    sums a run that crosses chunk edges piece by piece, in chunk order:
+    every mode against its plain version (SGD within the sum-order bound of
+    test_row_update_kernel_matches_plain_version, the optimizer modes within
+    test_optimizer_mode_kernels_match_plain_versions's), and a second run
+    bit-identical, on a run over 5 chunks, runs that end on chunk edges,
+    one row for the whole stream, dropped rows in a chunk a run crosses,
+    and a stream shorter than a chunk."""
+    table, rows, src, h = _chunk_case(case, 30, cuda)
+    if rule != "sgd":
+        _check_rule(rule, 0.0, table, rows, src * 1e-2, h, cuda)
+        return
+    scale = torch.tensor(-0.01, device=cuda)
+    want = table.clone()
+    row_update_reference(want, rows, (src, h), scale)
+    got = [table.clone(), table.clone()]
+    for t in got:
+        row_update([t], [rows], [(src, h)], scale)
+    torch.cuda.synchronize()
+    tol = _row_tolerance(table, rows, src, h, scale, True)
+    assert bool(((got[0].float() - want.float()).abs() <= tol).all())
+    assert torch.equal(got[0].view(torch.int16), got[1].view(torch.int16))
 
 
 def test_optimizer_mode_wrappers_count_one_launch_per_table_and_refuse_bad_pools(cuda):
@@ -520,21 +618,39 @@ def test_onehot_backward_kernel_matches_plain_version(cuda, v, d, b, h, aggr, cd
     assert torch.equal(grads[0], got.to(table.dtype)) and torch.equal(grads[0], grads[1])
 
 
+ADAGRAD_LR = 0.05
+
+
 @pytest.mark.parametrize("rule", ["adam", "momentum", "adam+adagrad"])
 def test_kaggle_shaped_training_under_each_rule_tracks_the_cpu(cuda, rule):
     """As the SGD test above, under Adam, momentum and Adam with a row-wise
-    AdaGrad sparse optimizer: 3 steps, 10 kernel launches a step. Where the
-    two devices' summation orders leave a gradient near 0 with other signs,
-    Adam moves a weight by up to about 3.2 alpha a step and row-wise AdaGrad
-    by up to lr * sqrt(D) = 4 lr on one device and not the other; all but 1
-    in 1000 weights agree within 2e-3."""
+    AdaGrad sparse optimizer (lr 0.05): 3 steps, 10 kernel launches a step.
+
+    Bounds. The loss within 2e-3 a step, as for SGD. Where the two devices'
+    summation orders leave a gradient near 0 with other signs, Adam moves a
+    weight by up to about 3.2 alpha a step and row-wise AdaGrad by up to
+    lr * sqrt(D) = 4 lr (its accumulator holds at least the step's own
+    mean of g^2) on one device and not the other: every weight within that
+    over 3 steps. All but 1 in 1000 of the weights that AdaGrad does not
+    normalize (the MLPs and one-hot tables, under dense Adam) agree within
+    2e-3. Row-wise AdaGrad's step lr * g_d * rsqrt(acc) does not shrink
+    with the gradient: on the first step acc = mean_d(g^2), so a touched
+    row moves by lr * g / rms(g), whose RMS over the row is exactly lr, and
+    two gradients of slightly different direction (the bf16 backward
+    rounds in other places on the card) move the row apart by a share of
+    lr, not of lr * |g|. So all but 1 in 1000 of all weights agree within
+    2e-3 + lr / 4, a quarter of that RMS step. The row-update kernel gives
+    the same bits as its plain version run on the card
+    (`python -m dlrm_flexflow_tpu_torch.tools.adagrad_parity` shows where
+    the two devices part), and the CPU port keeps these bounds against the
+    JAX package (tests/test_torch_port_sparse_optim.py)."""
     bs = 128
     cfg = kaggle_config(batch_size=bs)
     cfg.embedding_size = [min(v, 20_000) for v in cfg.embedding_size]
     kw = dict(batch_size=bs, compute_dtype="bfloat16", table_dtype="bfloat16", packed_tables="on", seed=5)
     opt = {"adam": lambda: (AdamOptimizer(alpha=1e-3), None),
            "momentum": lambda: (SGDOptimizer(lr=0.05, momentum=0.9), None),
-           "adam+adagrad": lambda: (AdamOptimizer(alpha=1e-3), RowWiseAdagradOptimizer(lr=0.01))}[rule]
+           "adam+adagrad": lambda: (AdamOptimizer(alpha=1e-3), RowWiseAdagradOptimizer(lr=ADAGRAD_LR))}[rule]
     gpu = make_dlrm_model(cfg, FFConfig(**kw), device=cuda)
     cpu = make_dlrm_model(cfg, FFConfig(**kw), device="cpu")
     for m in (gpu, cpu):
@@ -548,13 +664,20 @@ def test_kaggle_shaped_training_under_each_rule_tracks_the_cpu(cuda, rule):
     for i in range(3):
         sl = slice(i * bs, (i + 1) * bs)
         batch = {k: v[sl] for k, v in feeds.items()}
-        assert abs(float(gpu.train_batch(batch, labels[sl])) - float(cpu.train_batch(batch, labels[sl]))) <= 2e-3
+        loss_err = abs(float(gpu.train_batch(batch, labels[sl])) - float(cpu.train_batch(batch, labels[sl])))
+        assert loss_err <= 2e-3, ("loss", i, loss_err)
     assert wrapper.launches == before + 30
-    atol = {"adam": 3 * 3.2 * 1e-3, "adam+adagrad": 3 * 4 * 0.01}.get(rule, 0.0) + 2e-3
-    errs = np.concatenate([np.abs(w - cpu.get_weights(name)[k]).reshape(-1)
-                           for name in gpu.get_parameters() for k, w in gpu.get_weights(name).items()])
-    share = np.mean(errs <= 2e-3)
-    assert errs.max() <= atol and share >= 0.999, (errs.max(), share)
+    atol = {"adam": 3 * 3.2 * 1e-3, "adam+adagrad": 3 * 4 * ADAGRAD_LR}.get(rule, 0.0) + 2e-3
+    errs = {f"{name}/{k}": np.abs(w - cpu.get_weights(name)[k])
+            for name in gpu.get_parameters() for k, w in gpu.get_weights(name).items()}
+    worst = max(errs, key=lambda n: errs[n].max())
+    flat = np.concatenate([e.reshape(-1) for e in errs.values()])
+    assert flat.max() <= atol, ("max", worst, float(flat.max()))
+    normalized = {f"{op.name}/weight" for op in gpu._sparse_ops if op.kernel_route} if rule == "adam+adagrad" else set()
+    rest = np.concatenate([e.reshape(-1) for n, e in errs.items() if n not in normalized])
+    assert np.mean(rest <= 2e-3) >= 0.999, ("share", float(np.mean(rest <= 2e-3)))
+    share_atol = 2e-3 + (ADAGRAD_LR / 4 if rule == "adam+adagrad" else 0.0)
+    assert np.mean(flat <= share_atol) >= 0.999, ("share", float(np.mean(flat <= share_atol)), worst)
 
 
 # ------------------------------------------------------------------ K7, host routing
