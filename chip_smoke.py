@@ -73,7 +73,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
                padded bag), a bf16 table, indices past the table; the one-hot
                lookup at V = 7424, D = 128, B = 16384 (SUM, AVG, duplicates,
                indices >= V, f32 and bf16 compute) and its gradient (K5b) at
-               the same shape and with bags of 4; the row-update kernel's
+               the same shape, with bags of 4, at V = 3 and 4 (hot rows over
+               many segments) and at kaggle's shape, bit for bit against
+               the CPU where one segment holds the stream, and at each of
+               mlperf-lite's 13 small vocabularies held against its plain
+               version, its CUDA work a call counted from a CUDA graph of
+               the call, its whole call timed; the row-update kernel's
                optimizer modes at phase 3's K1 shape (momentum, Nesterov,
                Adam with and without weight decay, row-wise AdaGrad;
                momentum, Adam and AdaGrad on a Zipf(1.05) stream, each timed
@@ -1376,10 +1381,13 @@ def check_onehot_backward(name, v, d, idx, g, aggr, cdt, gen) -> dict:
     """K5b through torch.autograd.grad of the op against its plain version.
     Both sum exact products (bf16) or f32 products rounded alike in f32 in
     another order: within 2 * n * 2^-24 * sum |w * g| of each other, n the
-    row's weight sum (at least its bag count)."""
+    row's weight sum (at least its bag count). Where the plan gives one
+    segment the kernel adds a row's terms in member order, as the plain
+    version's index_add_ does on the CPU: there the two must agree bit for
+    bit."""
     from dlrm_flexflow_tpu_torch import AggrMode
     from dlrm_flexflow_tpu_torch.ops.kernels.onehot_embedding import (
-        onehot_embedding, onehot_embedding_backward_reference,
+        backward_plan, onehot_embedding, onehot_embedding_backward_reference,
     )
 
     table = randn((v, d), gen, scale=0.05).requires_grad_(True)
@@ -1392,33 +1400,92 @@ def check_onehot_backward(name, v, d, idx, g, aggr, cdt, gen) -> dict:
     torch.cuda.synchronize()
     got = grads[0]
     err = (got - want).abs()
+    plan = backward_plan(idx.shape[0], idx.shape[1], v, d)
     res = {
         "case": name, "rows": v, "D": d, "bags": idx.shape[0], "H": idx.shape[1],
+        "idx": str(idx.dtype).replace("torch.", ""),
         "aggr": aggr.name, "compute": str(cdt).replace("torch.", ""),
         "g": str(g.dtype).replace("torch.", ""),
+        "segments": plan.segments, "split": plan.split,
         "padded": int((idx < 0).sum()), "past_the_table": int((idx >= v).sum()),
         "rows_untouched": int((want == 0).all(dim=1).sum()),
         "max_abs_err": err.max().item(),
         "max_err_over_tol": (err / tol.clamp_min(1e-30)).max().item(),
-        "bit_identical_repeat": bool(torch.equal(grads[0], grads[1])),
+        "bit_identical_repeat": bool(torch.equal(bits(grads[0]), bits(grads[1]))),
     }
+    if plan.segments == 1:
+        cpu = onehot_embedding_backward_reference(idx.cpu(), g.cpu(), v, aggr, cdt)
+        res["bit_identical_cpu"] = bool(torch.equal(bits(got.cpu()), bits(cpu)))
     log(f"[kernels] onehot_embedding_backward {json.dumps(res)}")
     if (not torch.isfinite(got).all() or res["max_err_over_tol"] > 1.0
-            or not res["bit_identical_repeat"] or got.dtype != torch.float32):
+            or not res["bit_identical_repeat"] or got.dtype != torch.float32
+            or not res.get("bit_identical_cpu", True)):
         raise AssertionError(f"onehot_embedding_backward disagrees with its plain version: {res}")
+    return res
+
+
+def cuda_kernels_of(fn, reps: int = 20) -> dict:
+    """The CUDA kernels a call of fn runs, by name: launches a call and
+    device us a launch, from torch.profiler over `reps` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]:
+            {"a_call": e.count / reps, "us": e.self_device_time_total / e.count}
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def time_onehot_backward(v, idx, g) -> dict:
+    """The whole call onehot_embedding_backward(idx, g, v, SUM, bf16) in a
+    CUDA graph beside its bound (idx and g read once, dT written once) and
+    index_add_ of the pre-weighted rows into zeros. It takes any version of
+    the wrapper (`tools/onehot_backward_ab.py` times an earlier one)."""
+    from dlrm_flexflow_tpu_torch import AggrMode
+    from dlrm_flexflow_tpu_torch.ops.kernels.onehot_embedding import (
+        _onehot_weights, onehot_embedding_backward,
+    )
+
+    SUM, bf16 = AggrMode.AGGR_MODE_SUM, torch.bfloat16
+    d = g.shape[1]
+    w = _onehot_weights(idx, v, SUM, bf16)
+    b, m = torch.nonzero(w > 0, as_tuple=True)
+    rows_kept = idx[b, m]
+    weighted = w[b, m][:, None] * g[b].to(bf16).float()
+    dt0 = torch.zeros((v, d), device="cuda")
+    t_bytes = (idx.numel() * idx.element_size() + g.numel() * g.element_size() + v * d * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * rows_kept.numel() * d / F32_FLOP_PER_S * 1e3
+    res = {
+        "V": v,
+        "ms": graph_ms(lambda: onehot_embedding_backward(idx, g, v, SUM, bf16)),
+        # one library call that adds the pre-weighted rows into zeros
+        "library_ms": graph_ms(lambda: dt0.index_add_(0, rows_kept, weighted)),
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    res["over_bound"] = res["ms"] / res["bound_ms"]
     return res
 
 
 def phase_onehot_backward() -> dict:
     """K5b at the largest mlperf-lite small table (V = 7424, D = 128, B =
-    16384, H = 1, SUM, bf16 compute), then bags of 4 with AVG, duplicates,
-    indices >= V, padding and a fully padded bag in f32 compute; timed at
-    the first shape."""
+    16384, H = 1, SUM, bf16 compute), bags of 4 with AVG, duplicates,
+    indices >= V, padding and a fully padded bag, a ragged D, the hot
+    vocabularies V = 3 and 4, and kaggle's shape (D = 16, B = 65536, int32
+    idx, bf16 g); then at each of mlperf-lite's 13 small vocabularies the
+    same check, the CUDA work of one call counted and the whole call
+    timed."""
     from dlrm_flexflow_tpu_torch import AggrMode
+    from dlrm_flexflow_tpu_torch.models.dlrm import mlperf_lite_config
     from dlrm_flexflow_tpu_torch.ops.kernels.onehot_embedding import (
-        _launch_backward, _onehot_weights, onehot_embedding_backward,
-        onehot_embedding_backward_reference, sort_members,
+        backward_plan, onehot_embedding_backward, onehot_embedding_backward_reference,
     )
+    from dlrm_flexflow_tpu_torch.tools.graph_nodes import graph_nodes
 
     SUM, AVG = AggrMode.AGGR_MODE_SUM, AggrMode.AGGR_MODE_AVG
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
@@ -1431,6 +1498,7 @@ def phase_onehot_backward() -> dict:
     bags[::5, 3] = -1
     bags[::4, 2] = v + 2  # matches no row, counts in AVG's divisor
     bags[7] = -1  # a fully padded bag
+    kaggle_v, kaggle_b = 5683, TRAIN_BATCH
     errs = [
         check_onehot_backward("mlperf-lite", v, d, one, g, SUM, torch.bfloat16, gen),
         check_onehot_backward("bag4-avg-f32", v, d, bags, g, AVG, torch.float32, gen),
@@ -1438,61 +1506,104 @@ def phase_onehot_backward() -> dict:
                               torch.bfloat16, gen),
         check_onehot_backward("bag4-avg-ragged-D", 500, 37, torch.where(bags >= 0, bags % 520, bags),
                               g[:, :37].contiguous(), AVG, torch.bfloat16, gen),
+        check_onehot_backward("hot-v3", 3, d, one % 3, g, SUM, torch.bfloat16, gen),
+        check_onehot_backward("hot-v4-bag4-avg", 4, d, torch.where(bags >= 0, bags % 6, bags), g, AVG,
+                              torch.bfloat16, gen),
+        check_onehot_backward("kaggle-int32-bf16-g", kaggle_v, 16,
+                              torch.randint(0, kaggle_v, (kaggle_b, 1), generator=gen, device="cuda",
+                                            dtype=torch.int32),
+                              randn((kaggle_b, 16), gen, dtype=torch.bfloat16), SUM, torch.bfloat16, gen),
     ]
-    keys, order = sort_members(one, v)
-    w = _onehot_weights(one, v, SUM, torch.bfloat16)
-    b, m = torch.nonzero(w > 0, as_tuple=True)
-    rows_kept = one[b, m]
-    weighted = w[b, m][:, None] * g[b].to(torch.bfloat16).float()
-    dt0 = torch.zeros((v, d), device="cuda")
-    t_bytes = (one.numel() * one.element_size() + g.numel() * g.element_size() + v * d * 4) \
-        / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * rows_kept.numel() * d / F32_FLOP_PER_S * 1e3
+    # each of the 13 vocabs against its plain version; the work one call puts
+    # on the card, from a CUDA graph of it: the plan's kernels and nothing
+    # else (no sort); the whole call timed
+    vocabs = [vv for vv in mlperf_lite_config(batch_size=BATCH).embedding_size if vv <= 8192]
+    for vv in vocabs:
+        ix = one % vv
+        errs.append(check_onehot_backward(f"mlperf-lite-v{vv}", vv, d, ix, g, SUM, torch.bfloat16, gen))
+        nodes = graph_nodes(lambda: onehot_embedding_backward(ix, g, vv, SUM, torch.bfloat16))
+        want_nodes = {"kernel": backward_plan(BATCH, 1, vv, d).launches}
+        if nodes != want_nodes:
+            raise AssertionError(f"K5b at V = {vv} put {nodes} on the card, not {want_nodes}")
+        log(f"[kernels] onehot_embedding_backward timing, mlperf-lite vocab: "
+            f"{json.dumps({**time_onehot_backward(vv, ix, g), 'graph_nodes': nodes})}")
+    main = time_onehot_backward(v, one, g)
     k5b = {
         "max_abs_err": max(e["max_abs_err"] for e in errs),
-        "ms": graph_ms(lambda: _launch_backward(keys, order, one, g, v, SUM, torch.bfloat16)),
-        "prep_ms": cuda_ms(lambda: sort_members(one, v)),
-        "call_ms": cuda_ms(lambda: onehot_embedding_backward(one, g, v, SUM, torch.bfloat16)),
+        **main,
+        "segments": backward_plan(BATCH, 1, v, d).segments,
+        "eager_ms": cuda_ms(lambda: onehot_embedding_backward(one, g, v, SUM, torch.bfloat16)),
         "plain_ms": cuda_ms(lambda: onehot_embedding_backward_reference(one, g, v, SUM, torch.bfloat16)),
-        # one library call that adds the pre-weighted rows into zeros
-        "library_ms": graph_ms(lambda: dt0.index_add_(0, rows_kept, weighted)),
-        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
     }
     log(f"[kernels] onehot_embedding_backward timing at [{BATCH}, 1] into [{v}, {d}], "
-        f"f32 g, bf16 compute: {json.dumps(k5b)}")
-    del g, weighted, dt0
+        f"f32 g, bf16 compute, the whole call: {json.dumps(k5b)}")
+    del g, bags, one
     torch.cuda.empty_cache()
     return k5b
 
 
-def phase_onehot_grad() -> int:
-    """Phase 13: the one-hot lookup's gradient through torch.autograd, as a
-    user differentiates the op, at mlperf-lite's 13 tables of at most 8192
-    rows (D = 128, batch 16384, SUM, bf16 compute). Returns K5b's launches."""
-    from dlrm_flexflow_tpu_torch import AggrMode
+def onehot_grad_inputs() -> tuple:
+    """mlperf-lite's 13 tables of at most 8192 rows (D = 128), an index
+    batch of 16384 for each and the pooled output's gradient g, from a seed:
+    (tables, idx, g)."""
     from dlrm_flexflow_tpu_torch.models.dlrm import mlperf_lite_config
-    from dlrm_flexflow_tpu_torch.ops.kernels.onehot_embedding import onehot_embedding
 
     cfg = mlperf_lite_config(batch_size=BATCH)
     vocabs = [v for v in cfg.embedding_size if v <= 8192]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     tables = [randn((v, cfg.sparse_feature_size), gen, scale=0.05).requires_grad_(True) for v in vocabs]
     idx = [torch.randint(0, v, (BATCH, 1), generator=gen, device="cuda") for v in vocabs]
-    g = randn((BATCH, cfg.sparse_feature_size), gen)
+    return tables, idx, randn((BATCH, cfg.sparse_feature_size), gen)
+
+
+def onehot_grad_pass(tables, idx, g):
+    """The pass a user runs: each table's lookup (SUM, bf16 compute) and its
+    gradient through torch.autograd.grad."""
+    from dlrm_flexflow_tpu_torch import AggrMode
+    from dlrm_flexflow_tpu_torch.ops.kernels.onehot_embedding import onehot_embedding
+
+    return [torch.autograd.grad(onehot_embedding(t, ix, AggrMode.AGGR_MODE_SUM, torch.bfloat16),
+                                [t], grad_outputs=g)[0] for t, ix in zip(tables, idx)]
+
+
+def onehot_grad_times(grad_pass, reps: int = 20) -> dict:
+    """A pass's time by the host's clock over `reps`, by CUDA events, and as
+    its kernels' device time (torch.profiler)."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        grad_pass()
+    torch.cuda.synchronize()
+    ms_a_pass = (time.perf_counter() - t0) / reps * 1e3
+    kernels = cuda_kernels_of(grad_pass, reps=5)
+    return {"ms_a_pass": ms_a_pass, "events_ms_a_pass": cuda_ms(grad_pass),
+            "kernel_ms_a_pass": sum(k["a_call"] * k["us"] for k in kernels.values()) / 1e3,
+            "kernels_a_pass": {name: k["a_call"] for name, k in kernels.items()}}
+
+
+def phase_onehot_grad() -> int:
+    """Phase 13: the one-hot lookup's gradient through torch.autograd, as a
+    user differentiates the op, at mlperf-lite's 13 tables of at most 8192
+    rows (D = 128, batch 16384, SUM, bf16 compute): one counted pass, then
+    the pass's time over more. Returns K5b's launches."""
+    tables, idx, g = onehot_grad_inputs()
+    vocabs = [t.shape[0] for t in tables]
+
+    def grad_pass():
+        return onehot_grad_pass(tables, idx, g)
+
     torch.cuda.synchronize()
     counts = launch_counts()
     for fn in counts.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    grads = [torch.autograd.grad(onehot_embedding(t, ix, AggrMode.AGGR_MODE_SUM, torch.bfloat16),
-                                 [t], grad_outputs=g)[0] for t, ix in zip(tables, idx)]
+    grads = grad_pass()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counts.items()}
     want = {**{name: 0 for name in counts}, "onehot_embedding": len(vocabs),
             "onehot_embedding_backward": len(vocabs)}
     res = {"tables": len(vocabs), "rows": sum(vocabs), "batch": BATCH, "seconds": dt,
-           "launches": launches}
+           **onehot_grad_times(grad_pass), "launches": launches}
     log(f"[onehot-grad] {json.dumps(res)}")
     if launches != want or len(vocabs) != MLPERF_LITE_TABLES:
         raise AssertionError(f"the one-hot gradient launched {launches}, not {want}")

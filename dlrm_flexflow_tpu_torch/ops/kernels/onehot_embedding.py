@@ -26,18 +26,32 @@ by `_onehot_bwd` at `:138`; K5b), the VJP of `onehot_embedding_pallas`:
 dT [V, D] f32 = sum over bags b of w_{b,r} * cdt(g[b]), the transpose of the
 same weighted one-hot product, accumulated in f32. The op is differentiable
 with respect to the table, as `onehot_embedding_pallas` is; on CUDA its
-backward launches the kernel (`onehot_embedding_backward`), on the CPU its
+backward launches the kernel (`onehot_embedding_backward`: no sort, tiles of
+rows by segments of the member stream, `backward_plan`), on the CPU its
 plain version (the weighted rows `index_add_`-ed into f32 zeros).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 
 from ... import _build
 from ...ffconst import AggrMode
+
+# the gradient kernel's constants (csrc/onehot_embedding.cu k<Name>)
+WARPS = 8
+TILE_ROWS = 64
+COLS = 128
+SPLIT_ROWS = 8
+ROUND_MAX = 16384
+# the plan's own targets
+WARP_PICKS = 256  # picks of a uniform stream the busiest warp adds
+MIN_BLOCKS = 132  # the H100's SMs
+
 
 def _onehot_weights(idx: torch.Tensor, v: int, aggr: AggrMode, compute_dtype: torch.dtype) -> torch.Tensor:
     """[B, H] f32 weight of each bag member: w_r at a row's first
@@ -102,15 +116,17 @@ def _kernel_lib() -> ctypes.CDLL:
     ]
     lib.onehot_embedding_forward.restype = ctypes.c_int
     lib.onehot_embedding_backward.argtypes = [
-        ctypes.c_void_p,  # keys_sorted int32
-        ctypes.c_void_p,  # order int32
         ctypes.c_void_p,  # idx
         ctypes.c_void_p,  # g
         ctypes.c_void_p,  # dT f32
+        ctypes.c_void_p,  # scratch f32 (the S partials), or NULL when S = 1
+        ctypes.c_longlong,  # scratch floats
         ctypes.c_longlong,  # B
         ctypes.c_int,  # H
-        ctypes.c_int,  # V
+        ctypes.c_longlong,  # V
         ctypes.c_int,  # D
+        ctypes.c_int,  # R, rows a tile
+        ctypes.c_int,  # S, member segments
         ctypes.c_int,  # g is bf16
         ctypes.c_int,  # idx is int64
         ctypes.c_int,  # AVG
@@ -151,29 +167,74 @@ def _launch(table, idx, aggr, compute_dtype) -> torch.Tensor:
     return out
 
 
-def sort_members(idx: torch.Tensor, v: int):
-    """The backward's prep: every bag member's row, or the sentinel v for
-    padding and rows >= v, sorted stably. Returns (keys_sorted, order), both
-    [B * H] int32."""
-    keys = idx.reshape(-1).to(torch.int32)
-    keys = torch.where((keys >= 0) & (keys < v), keys, torch.full_like(keys, v))
-    keys_sorted, order = torch.sort(keys, stable=True)
-    return keys_sorted, order.to(torch.int32)
+class BackwardPlan(NamedTuple):
+    """How the gradient kernel cuts its work (csrc `bwd_plan` derives the
+    same from rows and segments and checks them)."""
+
+    rows: int  # R, rows a tile
+    tiles: int
+    slices: int  # column slices of COLS
+    segments: int  # S, runs of whole bags, each summed by its own blocks
+    bags: int  # bags a segment
+    split: bool  # tiles of at most SPLIT_ROWS rows, S > 1: a warp sums its own share of a segment
+    smem: int  # dynamic shared memory a block, bytes
+    scratch_floats: int  # the S partials [S, V, D] when S > 1
+
+    @property
+    def launches(self) -> int:
+        return 1 if self.segments == 1 else 2
 
 
-def _launch_backward(keys_sorted, order, idx, g, v, aggr, compute_dtype) -> torch.Tensor:
+def backward_plan(b: int, h: int, v: int, d: int) -> BackwardPlan:
+    """The gradient kernel's plan for idx [b, h] into v rows of width d.
+    S is the least count of segments that leaves the busiest warp about
+    WARP_PICKS picks of a uniform stream and, where the tiles alone would
+    keep fewer than half of the card's MIN_BLOCKS SMs busy, gives MIN_BLOCKS
+    blocks; then S * v <= max(b * h, v), so the partials hold no more rows
+    than the stream has members. The sums' order depends on this plan and
+    the shapes alone. Raises ValueError for a shape the kernel cannot take."""
+    n = b * h
+    if b < 1 or h < 1 or d < 1 or not 1 <= v < 2**31 - 1 or n >= 2**31:
+        raise ValueError(f"onehot_embedding_backward: {b} bags of {h} into {v} rows of width {d} "
+                         "out of the kernel's range (B * H < 2^31, 1 <= v < 2^31 - 1)")
+    rows = min(TILE_ROWS, v)
+    tiles, slices = -(-v // rows), -(-d // COLS)
+    if tiles * slices >= 2**31:
+        raise ValueError(f"onehot_embedding_backward: a [{v}, {d}] gradient needs more blocks "
+                         "than a launch holds")
+    hot = rows <= SPLIT_ROWS  # every row hot: a warp adds its own eighth of a segment
+    # the busiest warp's share of a segment's picks: its own eighth, or the
+    # stream's members in the rows it owns
+    share = 1 / WARPS if hot else -(-rows // WARPS) / v
+    s = max(1, math.ceil(n * share / WARP_PICKS))
+    if 2 * tiles * slices < MIN_BLOCKS:
+        s = max(s, -(-MIN_BLOCKS // (tiles * slices)))
+    s = min(s, max(n, v) // v, b, 65535)
+    bags = -(-b // s)
+    s = -(-b // bags)  # no empty segment
+    split = hot and s > 1  # with one segment the rows regime keeps member order
+    round_ = min(ROUND_MAX, -(-bags * h // WARPS) * WARPS)
+    smem = round_ * 4 + (WARPS * SPLIT_ROWS * COLS * 4 if split else round_ * 4)
+    return BackwardPlan(rows, tiles, slices, s, bags, split, smem, s * v * d if s > 1 else 0)
+
+
+def _launch_backward(idx, g, v, aggr, compute_dtype) -> torch.Tensor:
     b, d = g.shape
     h = 1 if idx.dim() == 1 else idx.shape[1]
     dt = torch.empty((v, d), dtype=torch.float32, device=g.device)
     if b == 0 or h == 0:
         return dt.zero_()
+    plan = backward_plan(b, h, v, d)
+    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=g.device) \
+        if plan.segments > 1 else None
     lib = _kernel_lib()
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         err = lib.onehot_embedding_backward(
-            keys_sorted.data_ptr(), order.data_ptr(), idx.data_ptr(), g.data_ptr(), dt.data_ptr(),
-            b, h, v, d, int(g.dtype == torch.bfloat16), int(idx.dtype == torch.int64),
-            int(aggr is AggrMode.AGGR_MODE_AVG), int(compute_dtype == torch.bfloat16), stream,
+            idx.data_ptr(), g.data_ptr(), dt.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            plan.scratch_floats, b, h, v, d, plan.rows, plan.segments, int(g.dtype == torch.bfloat16),
+            int(idx.dtype == torch.int64), int(aggr is AggrMode.AGGR_MODE_AVG),
+            int(compute_dtype == torch.bfloat16), stream,
         )
     _raise_if(lib, err, "onehot_embedding_backward")
     onehot_embedding_backward.launches += 1
@@ -206,9 +267,10 @@ def onehot_embedding_backward(
 ) -> torch.Tensor:
     """The gradient of `onehot_embedding` with respect to a table of v rows:
     idx [B, H] or [B] and the pooled output's gradient g [B, D] (f32 or
-    bf16) -> dT [v, D] f32. On CUDA it sorts the members and launches the
-    kernel (counted in `onehot_embedding_backward.launches`); on the CPU it
-    takes the plain version."""
+    bf16) -> dT [v, D] f32. On CUDA it launches the kernel, one CUDA launch
+    or two by `backward_plan` (counted once in
+    `onehot_embedding_backward.launches`); on the CPU it takes the plain
+    version."""
     if g.dim() != 2 or g.dtype not in (torch.float32, torch.bfloat16) or g.shape[0] != idx.shape[0]:
         raise TypeError(f"onehot_embedding_backward takes a [B, D] float32 or bfloat16 gradient "
                         f"of the {idx.shape[0]} bags, got {tuple(g.shape)} {g.dtype}")
@@ -217,8 +279,7 @@ def onehot_embedding_backward(
                          f"1 <= v < 2^31 - 1, got v = {v}")
     if not g.is_cuda:
         return onehot_embedding_backward_reference(idx, g, v, aggr, compute_dtype)
-    keys_sorted, order = sort_members(idx, v)
-    return _launch_backward(keys_sorted, order, idx, g, v, aggr, compute_dtype)
+    return _launch_backward(idx, g, v, aggr, compute_dtype)
 
 
 class _OnehotEmbedding(torch.autograd.Function):

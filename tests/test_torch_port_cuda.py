@@ -31,6 +31,7 @@ from dlrm_flexflow_tpu_torch.ops.kernels.embedding_bag import embedding_bag, emb
 from dlrm_flexflow_tpu_torch.ops.kernels.fused_mlp import fused_dense, fused_dense_reference
 from dlrm_flexflow_tpu_torch.ops.kernels import row_update as ru
 from dlrm_flexflow_tpu_torch.ops.kernels.onehot_embedding import (
+    backward_plan,
     onehot_embedding,
     onehot_embedding_backward,
     onehot_embedding_backward_reference,
@@ -578,19 +579,27 @@ def test_optimizer_mode_wrappers_count_one_launch_per_table_and_refuse_bad_pools
 
 
 @pytest.mark.parametrize(
-    "v, d, b, h, aggr, cdt, g_dtype",
+    "v, d, b, h, aggr, cdt, g_dtype, idx_dtype",
     [
-        (7424, 128, 16384, 1, "AGGR_MODE_SUM", torch.bfloat16, torch.float32),
-        (7424, 128, 4096, 6, "AGGR_MODE_AVG", torch.float32, torch.float32),
-        (3, 128, 1000, 6, "AGGR_MODE_SUM", torch.bfloat16, torch.bfloat16),
-        (500, 37, 999, 6, "AGGR_MODE_AVG", torch.bfloat16, torch.float32),  # scalar loads
+        (7424, 128, 16384, 1, "AGGR_MODE_SUM", torch.bfloat16, torch.float32, torch.int64),
+        (7424, 128, 4096, 6, "AGGR_MODE_AVG", torch.float32, torch.float32, torch.int64),
+        (3, 128, 1000, 6, "AGGR_MODE_SUM", torch.bfloat16, torch.bfloat16, torch.int64),
+        (500, 37, 999, 6, "AGGR_MODE_AVG", torch.bfloat16, torch.float32, torch.int64),  # scalar loads
+        (3, 128, 16384, 1, "AGGR_MODE_SUM", torch.bfloat16, torch.float32, torch.int64),  # hot rows
+        (4, 128, 16384, 1, "AGGR_MODE_SUM", torch.bfloat16, torch.float32, torch.int64),
+        (63, 128, 16384, 1, "AGGR_MODE_SUM", torch.bfloat16, torch.float32, torch.int64),  # S = 132
+        (976, 128, 16384, 1, "AGGR_MODE_SUM", torch.bfloat16, torch.float32, torch.int64),  # S = 9
+        (5683, 16, 65536, 1, "AGGR_MODE_SUM", torch.bfloat16, torch.bfloat16, torch.int32),  # kaggle
+        (100000, 128, 1000, 1, "AGGR_MODE_SUM", torch.float32, torch.float32, torch.int32),  # v > B * H
     ],
 )
-def test_onehot_backward_kernel_matches_plain_version(cuda, v, d, b, h, aggr, cdt, g_dtype):
+def test_onehot_backward_kernel_matches_plain_version(cuda, v, d, b, h, aggr, cdt, g_dtype, idx_dtype):
     """K5b, through the op's autograd, against its plain version: bags with
     duplicates (n_r = 2 and 3), padding and indices >= V; sums of exact (bf16)
     or alike-rounded (f32) products in another order, within 2 n 2^-24 of
-    the summed magnitudes; a second run bit-identical."""
+    the summed magnitudes; a second run bit-identical. Where the plan gives
+    one segment, a row's terms are added in member order into 0, as the
+    plain version's index_add_ adds them on the CPU: bit for bit."""
     rng = np.random.default_rng(22)
     idx = rng.integers(0, v, size=(b, h))
     if h > 1:
@@ -598,7 +607,7 @@ def test_onehot_backward_kernel_matches_plain_version(cuda, v, d, b, h, aggr, cd
         idx[::3, 2] = idx[::3, 0]
         idx[::5, 3] = -1
         idx[::4, 4] = v + 2
-    idx = torch.from_numpy(idx).to(cuda)
+    idx = torch.from_numpy(idx).to(device=cuda, dtype=idx_dtype)
     mode = getattr(AggrMode, aggr)
     g = _x((b, d), g_dtype, 23, cuda)
     table = _x((v, d), g_dtype, 24, cuda).requires_grad_(True)
@@ -606,7 +615,7 @@ def test_onehot_backward_kernel_matches_plain_version(cuda, v, d, b, h, aggr, cd
     grads = [torch.autograd.grad(onehot_embedding(table, idx, mode, cdt), [table], grad_outputs=g)[0]
              for _ in range(2)]
     got = onehot_embedding_backward(idx, g, v, mode, cdt)
-    assert onehot_embedding_backward.launches == before + 3
+    assert onehot_embedding_backward.launches == before + 3  # one a wrapper call
     want = onehot_embedding_backward_reference(idx, g, v, mode, cdt)
     n = onehot_embedding_backward_reference(idx, torch.ones((b, 1), device=cuda), v,
                                             AggrMode.AGGR_MODE_SUM, torch.float32)
@@ -616,6 +625,24 @@ def test_onehot_backward_kernel_matches_plain_version(cuda, v, d, b, h, aggr, cd
     assert bool(((got - want).abs() <= 2 * n * 2.0**-24 * mag).all())
     # autograd hands the table its gradient in the table's dtype
     assert torch.equal(grads[0], got.to(table.dtype)) and torch.equal(grads[0], grads[1])
+    if backward_plan(b, h, v, d).segments == 1:
+        cpu = onehot_embedding_backward_reference(idx.cpu(), g.cpu(), v, mode, cdt)
+        assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+@pytest.mark.parametrize("v, kernels", [(7424, 1), (976, 2), (63, 2), (3, 2)])
+def test_onehot_backward_runs_its_plans_kernels_and_no_sort(cuda, v, kernels):
+    """A call puts the tile kernel alone on the card where one segment holds
+    the stream, and the segment sum after it where hot rows take more: no
+    sort, no key preparation, nothing else (counted in a CUDA graph of the
+    call)."""
+    from dlrm_flexflow_tpu_torch.tools.graph_nodes import graph_nodes
+
+    idx = torch.from_numpy(np.random.default_rng(25).integers(0, v, size=(16384, 1))).to(cuda)
+    g = _x((16384, 128), torch.float32, 26, cuda)
+    assert backward_plan(16384, 1, v, 128).launches == kernels
+    nodes = graph_nodes(lambda: onehot_embedding_backward(idx, g, v, AggrMode.AGGR_MODE_SUM, torch.bfloat16))
+    assert nodes == {"kernel": kernels}, nodes
 
 
 ADAGRAD_LR = 0.05
