@@ -63,16 +63,40 @@ Phases, each of which ends the run with a non-zero exit if it fails:
  16. train-parity-host - phase 9's model, host-routed against
                device-sorted on CUDA (bit-identical losses and weights), and
                against the CPU.
- 17. bench   - python -m dlrm_flexflow_tpu_torch.bench --quick, as a
-               subprocess: kaggle training (host-routed), the same with
-               --zipf 1.05, and mlperf-lite serving.
- 18. kernels, continued - as phase 3: the fused dense layer at the 8
+ 17. train-chunk - phase 8's kaggle model trained by FFModel.train_chunk
+               (one train step captured in a CUDA graph, replayed; K = 4
+               over the 4 staged batches) against eager train_batch steps
+               from the same weights, under SGD and Adam, and host-routed
+               with the routes stacked as the bench stages them: ms a step
+               both ways, kernel time and busy share, the row-update
+               launches counted from the graph's kernel nodes times the
+               replays (tools/graph_nodes.py; the Python counts see no
+               replay); then 20 eager steps against 5 chunks under
+               deterministic algorithms, bit for bit in every loss and every
+               tensor of the state. fit-chunk: one fit(steps_per_call=4)
+               epoch with finite history.
+ 18. serve-quant - mlperf-lite serving at full width (batch 16384, 4 full
+               requests and a ragged one) under "auto", in f32 and after
+               quantize_embeddings to bf16, f16 and int8, each held against
+               the f32 model (atol 0.05, 0.05 / 8 and 0.08): table bytes,
+               memory allocated, warm examples/s; the same under "on"
+               (packed_tables="off") with K6, K4, K5f and K3 counted, int8
+               with K4 and K5f at zero.
+ 19. checkpoint - kaggle widths, vocabs capped at 20000, Adam: 3 steps,
+               save, restore into a fresh model, 2 steps, against 5 steps,
+               bit for bit.
+ 20. bench   - python -m dlrm_flexflow_tpu_torch.bench --quick, as a
+               subprocess: kaggle training (host-routed, graph replays), the
+               same with --zipf 1.05 and with --optimizer adam, and
+               mlperf-lite serving in f32 and with int8 tables.
+ 21. kernels, continued - as phase 3: the fused dense layer at the 8
                mlperf-lite layer shapes at M = 16384 (bf16), at M = 1000, in
                f32, without bias; the embedding bag at [16384, 1] into a
                2,000,000 x 128 table, with bags of 4 (AVG, padding, a fully
-               padded bag), a bf16 table, indices past the table; the one-hot
-               lookup at V = 7424, D = 128, B = 16384 (SUM, AVG, duplicates,
-               indices >= V, f32 and bf16 compute) and its gradient (K5b) at
+               padded bag), a bf16 table, indices past the table, an f16
+               table (quantized serving); the one-hot lookup at V = 7424,
+               D = 128, B = 16384 (SUM, AVG, duplicates, indices >= V, f32
+               and bf16 compute, bf16 and f16 tables) and its gradient (K5b) at
                the same shape, with bags of 4, at V = 3 and 4 (hot rows over
                many segments) and at kaggle's shape, bit for bit against
                the CPU where one segment holds the stream, and at each of
@@ -88,11 +112,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
                at the probe's shape in f32 and bf16 at every depth, at a
                ragged K, on the narrow [1000000, 16] table, at widths of 5
                and 6 chunks, with indices < 0 and >= P, twice.
- 19. summary - a {"kernels": [...]} line, then the last line
+ 22. summary - a {"kernels": [...]} line, then the last line
                {"ok": true, "device": {...}}.
-Around each path (4, 6, 8, 10, 11, 13, 14 and 15) the kernel launch counts
-are zeroed just before and read just after, and must show every kernel of
-that path.
+Around each path (4, 6, 8, 10, 11, 13, 14, 15 and 18) the kernel launch
+counts are zeroed just before and read just after, and must show every
+kernel of that path; phase 17 counts its replays' launches from the graph.
 The script imports nothing of JAX: it runs the port alone.
 """
 from __future__ import annotations
@@ -130,6 +154,7 @@ MLPERF_LITE_TABLES = 13  # mlperf-lite tables on each forced lookup (<= 8192 row
 # element is 2 * D * 2^-24 times the same dot taken over |x|.
 F32_UNIT = 2.0**-24
 BF16_UNIT = 2.0**-8
+F16_UNIT = 2.0**-11
 # CUDA-vs-CPU end to end: both round the MLP operands to bf16 and sum in f32;
 # the f32 sums differ in order only, but a difference that flips the bf16
 # rounding of an activation moves it by one bf16 step (2^-8 relative) and
@@ -210,7 +235,8 @@ def graph_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_device() -> None:
+def phase_device() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         sys.exit(1)
@@ -224,6 +250,7 @@ def phase_device() -> None:
     log(smi)
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    return smi
 
 
 def phase_build() -> None:
@@ -517,8 +544,9 @@ def check_lookup(kind, name, table, idx, aggr, cdt=None) -> dict:
     want = ref(table).float()
     h = idx.shape[1] if idx.dim() == 2 else 1
     tol = 2.0 * h * F32_UNIT * ref(table.float().abs()).float()
-    if table.dtype == torch.bfloat16:
-        tol = tol + 2.0 * BF16_UNIT * want.abs()
+    if table.dtype in (torch.bfloat16, torch.float16):  # the output's one rounding, a step apart
+        unit = BF16_UNIT if table.dtype == torch.bfloat16 else F16_UNIT
+        tol = tol + 2.0 * unit * want.abs()
     torch.cuda.synchronize()
     nan_same = bool(torch.equal(torch.isnan(got), torch.isnan(want)))
     fin = torch.isfinite(want)
@@ -572,17 +600,27 @@ def phase_lookups() -> tuple:
         check_lookup("embedding_bag", "bag4-avg-padding", big, bags, AVG),
         check_lookup("embedding_bag", "bf16-table", big.to(torch.bfloat16), bags, SUM),
         check_lookup("embedding_bag", "past-the-table", big[:1000].contiguous(), bags % 1100, AVG),
+        # quantize_embeddings("float16") tables
+        check_lookup("embedding_bag", "f16-table", big.to(torch.float16), main, SUM),
+        check_lookup("embedding_bag", "f16-table-bag4-avg", big.to(torch.float16), bags, AVG),
     ]
     bound, bound_by = lookup_bound(big, main)
+    big16 = big.to(torch.float16)
     k4 = {
         "max_abs_err": max(e["max_abs_err"] for e in errs),
         "ms": graph_ms(lambda: embedding_bag(big, main, SUM)),
         "plain_ms": graph_ms(lambda: embedding_bag_reference(big, main, SUM)),
         "library_ms": graph_ms(lambda: F.embedding_bag(main, big, mode="sum")),
         "bound_ms": bound, "bound_by": bound_by,
+        # the f16 table of quantized serving, the same lookup
+        "f16_ms": graph_ms(lambda: embedding_bag(big16, main, SUM)),
+        "f16_plain_ms": graph_ms(lambda: embedding_bag_reference(big16, main, SUM)),
+        "f16_library_ms": graph_ms(lambda: F.embedding_bag(main, big16, mode="sum")),
+        "f16_bound_ms": lookup_bound(big16, main)[0],
     }
-    log(f"[kernels] embedding_bag timing at [{BATCH}, 1] into {list(big.shape)} f32: {json.dumps(k4)}")
-    del big, bags
+    log(f"[kernels] embedding_bag timing at [{BATCH}, 1] into {list(big.shape)} f32 (f16_*: an f16 "
+        f"table): {json.dumps(k4)}")
+    del big, big16, bags
 
     small = randn((7424, 128), gen, scale=0.05)
     v = small.shape[0]
@@ -598,9 +636,11 @@ def phase_lookups() -> tuple:
         check_lookup("onehot_embedding", "dup-avg-bf16", small, dup, AVG, torch.bfloat16),
         check_lookup("onehot_embedding", "dup-avg-f32", small, dup, AVG, torch.float32),
         check_lookup("onehot_embedding", "bf16-table", small.to(torch.bfloat16), dup, AVG, torch.bfloat16),
+        check_lookup("onehot_embedding", "f16-table", small.to(torch.float16), one, SUM, torch.bfloat16),
+        check_lookup("onehot_embedding", "f16-table-dup-avg", small.to(torch.float16), dup, AVG, torch.bfloat16),
     ]
     bound, bound_by = lookup_bound(small, one)
-    small_c = small.to(torch.bfloat16)
+    small_c, small16 = small.to(torch.bfloat16), small.to(torch.float16)
     k5f = {
         "max_abs_err": max(e["max_abs_err"] for e in errs),
         "ms": graph_ms(lambda: onehot_embedding(small, one, SUM, torch.bfloat16)),
@@ -608,10 +648,13 @@ def phase_lookups() -> tuple:
         # one library call on a table cast to bf16 beforehand (a bf16 result)
         "library_ms": graph_ms(lambda: F.embedding_bag(one, small_c, mode="sum")),
         "bound_ms": bound, "bound_by": bound_by,
+        "f16_ms": graph_ms(lambda: onehot_embedding(small16, one, SUM, torch.bfloat16)),
+        "f16_plain_ms": graph_ms(lambda: onehot_embedding_reference(small16, one, SUM, torch.bfloat16)),
+        "f16_bound_ms": lookup_bound(small16, one)[0],
     }
     log(f"[kernels] onehot_embedding timing at [{BATCH}, 1] into {list(small.shape)} f32, "
-        f"bf16 compute: {json.dumps(k5f)}")
-    del small, small_c
+        f"bf16 compute (f16_*: an f16 table): {json.dumps(k5f)}")
+    del small, small_c, small16
     torch.cuda.empty_cache()
     return k4, k5f
 
@@ -1039,7 +1082,9 @@ def train_breakdown(model, feeds, labels, routes=None) -> dict:
     g_dense = {n: {k: next(it) for k in sub} for n, sub in leaves.items()}
     g_over = {op.name: next(it) for op in sparse_ops}
     st = model._opt_state
-    dstate = model.optimizer.update(g_dense, st["dense"], {n: params[n] for n in g_dense})
+    scalars = torch.from_numpy(model._scalar_table(model._step_count + 1, 1)[0]).cuda()
+    dstate = model._dense_update(g_dense, st["dense"], {n: params[n] for n in g_dense}, scalars)
+    model._advance(1)
     mark("dense_update")
     with torch.no_grad():
         ops = [op for op in sparse_ops if op.kernel_route]
@@ -1051,9 +1096,7 @@ def train_breakdown(model, feeds, labels, routes=None) -> dict:
         else:
             rows_sorted, order = zip(*(routes[op.name] for op in ops))
         sopt = model.sparse_optimizer
-        rate = model._sparse_rate(dstate)
-        if rate is None:
-            rate = torch.tensor(sopt.lr, device="cuda")
+        rate = model._sparse_rate(dstate, scalars)
         mark("sort_prep" if routes is None else "route_prep")
         for i, (op, t, (_, src, h)) in enumerate(zip(ops, tables, prep)):
             launch_rule(sopt, t, st["sparse"][op.name], rows_sorted[i], order[i],
@@ -1879,6 +1922,319 @@ def phase_train_parity_host() -> None:
         raise AssertionError(f"host-routed CUDA and CPU training disagree: {res}")
 
 
+# ------------------------------------------------------------------ slice 8: the multi-step call, serving, state
+
+
+def state_tensors(model) -> dict:
+    """Every tensor of a model's state by path: parameters, optimizer
+    state, metric totals."""
+    out = {}
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(tree, torch.Tensor):
+            out[path] = tree
+
+    for name, tree in (("params", model.get_parameters()), ("opt", model._opt_state),
+                       ("metrics", model._metrics_total)):
+        walk(tree, name)
+    return out
+
+
+def state_diff(a, b) -> dict:
+    """{path: max abs difference} of the tensors of a and b that differ."""
+    ta, tb = state_tensors(a), state_tensors(b)
+    if ta.keys() != tb.keys():
+        raise AssertionError(f"two models of one config hold different state: {sorted(ta.keys() ^ tb.keys())}")
+    return {k: (ta[k].double() - tb[k].double()).abs().max().item()
+            for k in ta if not torch.equal(ta[k], tb[k])}
+
+
+def chunk_stacks(staged) -> tuple:
+    """The staged batches (and routes) as [4, B, ...] stacks on the card."""
+    feeds = {k: torch.stack([f[k] for f, _ in staged]) for k in staged[0][0]}
+    return feeds, torch.stack([lbl for _, lbl in staged])
+
+
+def chunk_profile(model, stack, labels, ms_per_step: float) -> dict:
+    """Kernel time a step of graph replays (torch.profiler over one chunk of
+    4), against the unprofiled step time: the device's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        float(model.train_chunk(stack, labels))
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / int(labels.shape[0])
+    if busy == 0.0:
+        return {"kernel_ms_per_step": "not measured (the profiler saw no device time in the replays)"}
+    return {"kernel_ms_per_step": busy, "busy_share_of_unprofiled_step": busy / ms_per_step}
+
+
+def graph_launches(model, replays: int) -> dict:
+    """The kernels one captured train step holds (tools/graph_nodes.py) and
+    the row-update wrapper launches `replays` replays make: the row-update
+    kernel nodes over the kernels a wrapper launch runs (2; AdaGrad 4)."""
+    from dlrm_flexflow_tpu_torch import RowWiseAdagradOptimizer
+    from dlrm_flexflow_tpu_torch.tools.graph_nodes import node_counts
+
+    nodes = node_counts(model._step_graph.graph, kernel_names=True)
+    row = sum(n for name, n in nodes["kernels"].items() if "row_update" in name)
+    per_launch = 4 if type(model.sparse_optimizer) is RowWiseAdagradOptimizer else 2
+    return {"nodes": {k: v for k, v in nodes.items() if k != "kernels"},
+            "distinct_kernels": len(nodes["kernels"]), "row_update_kernel_nodes": row,
+            "row_update_launches": row // per_launch * replays}
+
+
+def phase_train_chunk(rule: str = "sgd", host_routing: bool = False) -> dict:
+    """The kaggle train path at full width as graph replays (FFModel.
+    train_chunk, K = 4 over the 4 staged batches) against eager steps, from
+    the same weights: 3 warm-up and 20 timed steps each way, the same
+    batches in the same order; the row-update launches counted from the
+    captured graph's nodes times the replays; then, under deterministic
+    algorithms (the one-hot lookups' index_add_ sums with float atomics,
+    in another order each run, eager or not), 20 eager steps against 5
+    chunks on fresh models, which must leave every tensor of the state and
+    every loss bit for bit the same."""
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
+
+    tag = f"[train-chunk{'-host' if host_routing else ''}] {rule}"
+    cfg = kaggle_config(batch_size=TRAIN_BATCH)
+
+    def pair():
+        models = [kaggle_model(cfg, TRAIN_BATCH, SEED, rule=rule, host_routing=host_routing) for _ in range(2)]
+        check_route(models[0], cfg)
+        batches, staged = kaggle_batches(models[0], cfg)
+        if host_routing:
+            staged = [({**f, **models[0].stage_routes(models[0].compute_routes(b))}, lbl)
+                      for (b, _), (f, lbl) in zip(batches, staged)]
+        return models, staged
+
+    (eager, chunk), staged = pair()
+    stack, labels = chunk_stacks(staged)
+    counts = launch_counts()
+    for i in range(TRAIN_WARMUP):
+        eager.train_batch(*staged[i % 4])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        loss_e = eager.train_batch(*staged[i % 4])
+    float(loss_e)
+    eager_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    chunk.train_chunk({k: v[:TRAIN_WARMUP] for k, v in stack.items()}, labels[:TRAIN_WARMUP])  # captures
+    torch.cuda.synchronize()
+    for fn in counts.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS // 4):
+        loss_g = chunk.train_chunk(stack, labels)
+    float(loss_g)
+    graph_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    python_launches = {name: fn.launches for name, fn in counts.items() if fn.launches}
+    nodes = graph_launches(chunk, TRAIN_STEPS)
+    # the same 23 steps on each: default (atomic) index_add_ in both
+    default_diff = state_diff(eager, chunk)
+    res = {"rule": rule, "host_routing": host_routing, "steps": TRAIN_STEPS,
+           "eager_ms_per_step": eager_ms, "graph_ms_per_step": graph_ms,
+           "eager_examples_per_s": TRAIN_BATCH / eager_ms * 1e3,
+           "graph_examples_per_s": TRAIN_BATCH / graph_ms * 1e3,
+           "graph": nodes, "python_counted_launches_in_replays": python_launches,
+           "eager_loss": float(loss_e), "graph_loss": float(loss_g),
+           "default_mode_differing_tensors": len(default_diff),
+           "default_mode_max_abs_diff": max(default_diff.values(), default=0.0),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"{tag} {json.dumps(res)}")
+    log(f"{tag} eager device kernels: {json.dumps(train_profile(eager, staged, eager_ms))}")
+    log(f"{tag} graph device kernels: {json.dumps(chunk_profile(chunk, stack, labels, graph_ms))}")
+    want_row = TRAIN_STEPS * KAGGLE_BIG_TABLES
+    if nodes["row_update_launches"] != want_row or python_launches:
+        raise AssertionError(f"{tag}: the graph held {nodes} row-update kernel nodes, "
+                             f"{nodes['row_update_launches']} launches in {TRAIN_STEPS} replays, not "
+                             f"{want_row}; Python-counted launches during replays {python_launches}")
+    if not (math.isfinite(res["eager_loss"]) and math.isfinite(res["graph_loss"])):
+        raise AssertionError(f"{tag}: losses not finite: {res}")
+    del eager, chunk, staged, stack, labels
+    torch.cuda.empty_cache()
+
+    (eager, chunk), staged = pair()
+    stack, labels = chunk_stacks(staged)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        losses_e = [eager.train_batch(*staged[i % 4]) for i in range(TRAIN_STEPS)]
+        losses_g = [chunk.train_chunk(stack, labels) for _ in range(TRAIN_STEPS // 4)]
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = state_diff(eager, chunk)
+    same_losses = all(torch.equal(a, b) for a, b in zip(losses_e[3::4], losses_g))
+    bits = {"deterministic_steps": TRAIN_STEPS, "chunks": TRAIN_STEPS // 4,
+            "tensors": len(state_tensors(eager)), "differing_tensors": len(diff),
+            "max_abs_diff": max(diff.values(), default=0.0), "losses_bit_identical": same_losses,
+            "step_counts": [eager._step_count, chunk._step_count]}
+    log(f"{tag} replays vs eager steps, deterministic: {json.dumps(bits)}")
+    if diff or not same_losses or eager._step_count != chunk._step_count:
+        raise AssertionError(f"{tag}: graph replays and eager steps differ: {bits} {diff}")
+    del eager, chunk, staged, stack, labels
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_fit_chunk() -> dict:
+    """One epoch of FFModel.fit(steps_per_call=4) on the full-width kaggle
+    model (4 batches of 65536 from numpy: one chunk, staged by one pinned
+    copy)."""
+    from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
+
+    cfg = kaggle_config(batch_size=TRAIN_BATCH)
+    model = kaggle_model(cfg, TRAIN_BATCH, SEED)
+    feeds, labels = random_batches(cfg, 4 * TRAIN_BATCH, seed=SEED)
+    hist = model.fit(feeds, labels, epochs=1, batch_size=TRAIN_BATCH, verbose=False, steps_per_call=4)
+    log(f"[fit-chunk] kaggle, 1 epoch of 4 steps, steps_per_call=4: {json.dumps(hist)}")
+    if not all(math.isfinite(v) for v in hist.values()) or hist["samples"] != 4 * TRAIN_BATCH \
+            or model._step_graph is None:
+        raise AssertionError(f"fit(steps_per_call=4) gave {hist}")
+    del model
+    torch.cuda.empty_cache()
+    return hist
+
+
+# the JAX package's own bounds against the f32 model: bf16 tables
+# (tests/test_training.py:245), int8 rows (:279); f16 keeps 3 more mantissa
+# bits than bf16, so its bound is bf16's over 8. Under "on" every layer also
+# rounds its output to bf16 (E2E_ON_ATOL more).
+SERVE_QUANT_ATOL = {"bfloat16": 0.05, "float16": 0.05 / 8, "int8": 0.08}
+
+
+def table_bytes(model) -> int:
+    from dlrm_flexflow_tpu_torch import OperatorType
+
+    return sum(t.numel() * t.element_size() for op in model.graph.compute_ops
+               if op.op_type is OperatorType.OP_EMBEDDING for t in model.get_parameters()[op.name].values())
+
+
+def warm_predict(model, feeds) -> tuple:
+    """(outputs, launches of one predict, warm examples/s: the median of 3)."""
+    counts = launch_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    out = model.predict(feeds)
+    launches = {name: fn.launches for name, fn in counts.items()}
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        model.predict(feeds)
+        warm.append(time.perf_counter() - t0)
+    return out, launches, out.shape[0] / float(np.median(warm))
+
+
+def phase_serve_quant(device_name: str) -> dict:
+    """mlperf-lite serving at full width (26 tables, D = 128, 6.7 GB of f32
+    tables) at batch 16384 through predict (4 full requests and a ragged
+    one): under "auto" in f32, then after quantize_embeddings to bf16, f16
+    and int8 (each from the f32 tables again, by set_parameters); then under
+    "on" (packed_tables="off") in f32, bf16, f16 and int8, launches counted.
+    Each quantized model is held against the f32 model of its route."""
+    from dlrm_flexflow_tpu_torch import FFConfig, LossType
+    from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
+    from dlrm_flexflow_tpu_torch.models.dlrm import make_dlrm_model, mlperf_lite_config
+
+    cfg = mlperf_lite_config(batch_size=BATCH)
+    n = 4 * BATCH + 1000
+    chunks = -(-n // BATCH)
+    feeds, _ = random_batches(cfg, n, seed=SEED + 20)
+    out = {}
+    f32_tables = None
+    for use_pallas in ("auto", "on"):
+        model = make_dlrm_model(cfg, FFConfig(batch_size=BATCH, seed=SEED, use_pallas=use_pallas,
+                                              packed_tables="off"))
+        model.compile(loss_type=LossType.LOSS_BINARY_CROSSENTROPY)
+        if f32_tables is None:  # the f32 weights, kept on the card for each dtype
+            f32_tables = {op: {k: v.clone() for k, v in sub.items()} for op, sub in model.get_parameters().items()}
+        y32, launches, eps = warm_predict(model, feeds)
+        rows = {"float32": {"table_bytes": table_bytes(model), "memory_allocated": torch.cuda.memory_allocated(),
+                            "launches": launches, "warm_examples_per_s": eps}}
+        for dtype in ("bfloat16", "float16", "int8"):
+            model.set_parameters(f32_tables)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            touched = model.quantize_embeddings(dtype)
+            torch.cuda.empty_cache()
+            y, launches, eps = warm_predict(model, feeds)
+            atol = SERVE_QUANT_ATOL[dtype] + (E2E_ON_ATOL if use_pallas == "on" else 0.0)
+            err = float(np.abs(y - y32).max())
+            rows[dtype] = {"arrays": touched, "table_bytes": table_bytes(model),
+                           "memory_allocated": torch.cuda.memory_allocated(), "launches": launches,
+                           "warm_examples_per_s": eps, "max_abs_err_vs_f32": err, "atol": atol}
+            if use_pallas == "on":
+                want = forced_launches(chunks)
+                if dtype == "int8":  # the quantized lookup, as the reference's _forward_device
+                    want = {**want, "embedding_bag": 0, "onehot_embedding": 0}
+            else:
+                want = {**{name: 0 for name in launches}, "dot_interaction": chunks}
+            if launches != want or y.shape != (n, 1) or not np.isfinite(y).all() or err > atol \
+                    or touched != cfg.num_tables:
+                raise AssertionError(f"[serve-quant] {use_pallas} {dtype}: {rows[dtype]}, launches not {want}?")
+        log(f"[serve-quant] mlperf-lite under {use_pallas!r} at batch {BATCH}, {n} examples, {device_name}: "
+            f"{json.dumps(rows)}")
+        if use_pallas == "on":
+            log("[serve-quant] int8 under 'on': 0 embedding_bag and 0 onehot_embedding launches, as in the "
+                "reference, whose Embedding takes quantized_embedding_bag before any Pallas route")
+        out[use_pallas] = rows
+        del model
+        torch.cuda.empty_cache()
+    del f32_tables
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_checkpoint() -> dict:
+    """kaggle widths with vocabs capped at 20000 under Adam (dense and
+    lazy sparse, the route tables in bf16): 3 steps, save_checkpoint,
+    restore into a freshly compiled model, 2 more steps, against 5
+    uninterrupted steps, bit for bit (deterministic algorithms, as in
+    train-parity-host)."""
+    import tempfile
+
+    from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
+    from dlrm_flexflow_tpu_torch.training.checkpoint import restore_checkpoint, save_checkpoint
+
+    bs, steps = 256, 5
+    cfg = kaggle_config(batch_size=bs)
+    cfg.embedding_size = [min(v, 20_000) for v in cfg.embedding_size]
+    feeds, labels = random_batches(cfg, steps * bs, seed=SEED + 21)
+    batches = [({k: v[i * bs:(i + 1) * bs] for k, v in feeds.items()}, labels[i * bs:(i + 1) * bs])
+               for i in range(steps)]
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        whole = kaggle_model(cfg, bs, SEED + 21, rule="adam", packed_tables="on")
+        want = [float(whole.train_batch(*b)) for b in batches]
+        first = kaggle_model(cfg, bs, SEED + 21, rule="adam", packed_tables="on")
+        got = [float(first.train_batch(*b)) for b in batches[:3]]
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            save_checkpoint(tmp, first)
+            resumed = kaggle_model(cfg, bs, SEED + 21, rule="adam", packed_tables="on")
+            manifest = restore_checkpoint(tmp, resumed)
+        got += [float(resumed.train_batch(*b)) for b in batches[3:]]
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = state_diff(whole, resumed)
+    res = {"steps": steps, "saved_at": manifest["step"], "losses_bit_identical": got == want,
+           "differing_tensors": len(diff), "tensors": len(state_tensors(whole)),
+           "route_tables": sum(op.kernel_route for op in resumed._sparse_ops),
+           "step_counts": [whole._step_count, resumed._step_count]}
+    log(f"[checkpoint] kaggle capped, Adam, 3 steps + save + restore + 2 against 5: {json.dumps(res)}")
+    if diff or got != want or manifest["step"] != 3 or resumed._step_count != steps:
+        raise AssertionError(f"[checkpoint] the resumed model differs: {res} {diff}")
+    return res
+
+
 def phase_bench() -> dict:
     """The port's bench as a user runs it, in a subprocess with a time
     limit: kaggle training (its default: batch 65536, host-routed), the same
@@ -1887,7 +2243,10 @@ def phase_bench() -> dict:
     finite numbers; kaggle must take the row-update route."""
     out = {}
     for name, extra in (("kaggle-train", []), ("kaggle-train-zipf", ["--zipf", "1.05"]),
-                        ("mlperf-lite-infer", ["--config", "mlperf-lite", "--mode", "infer"])):
+                        ("kaggle-train-adam", ["--optimizer", "adam"]),
+                        ("mlperf-lite-infer", ["--config", "mlperf-lite", "--mode", "infer"]),
+                        ("mlperf-lite-infer-int8", ["--config", "mlperf-lite", "--mode", "infer",
+                                                    "--table-dtype", "int8"])):
         cmd = [sys.executable, "-m", "dlrm_flexflow_tpu_torch.bench", "--quick", *extra]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
@@ -1908,12 +2267,16 @@ def phase_bench() -> dict:
             raise AssertionError(f"bench {name} printed {res}")
         if name.startswith("kaggle-train") and not (res["packed_engaged"] and res["table_dtype"] == "bfloat16"):
             raise AssertionError(f"bench kaggle did not take the bf16 row-update route: {res}")
+        timed = "steps=graph" if name.startswith("kaggle-train") else "steps=eager"
+        if not any(timed in line for line in notes) or (name.endswith("int8") and not any(
+                "# quantized 26 embedding arrays to int8" in line for line in notes)):
+            raise AssertionError(f"bench {name} did not say {timed!r} (or what it quantized): {notes}")
         out[name] = res
     return out
 
 
 def main() -> None:
-    phase_device()
+    card = phase_device()
     phase_build()
     k3 = phase_kernels()
     rows = phase_row_update()
@@ -1931,6 +2294,12 @@ def main() -> None:
     k7_launches = phase_gather_probe()
     phase_train_host(train_ms)
     phase_train_parity_host()
+    phase_train_chunk("sgd")
+    phase_train_chunk("adam")
+    phase_train_chunk("sgd", host_routing=True)
+    phase_fit_chunk()
+    phase_serve_quant(card)
+    phase_checkpoint()
     phase_bench()
     # after the paths: run before them, these cases left about 0.5 GB
     # allocated, which showed in the paths' peak memory

@@ -4,10 +4,11 @@ The same graph-builder API, configs and parameter layout as the JAX package,
 running on one NVIDIA H100 (or on the CPU when asked). Its kernels are
 written by hand for Hopper (`csrc/`), each beside its plain PyTorch version
 (`ops/kernels/`). This part of the port serves DLRM (build, compile,
-predict), trains it on one device (train_batch, fit, evaluate) with SGD,
-momentum, Adam or row-wise AdaGrad, the tables optionally under a sparse
-optimizer of their own, and carries weights over from the JAX package
-(`convert.py`).
+predict; the tables optionally quantized to bf16, f16 or int8), trains it
+on one device (train_batch, train_chunk on a CUDA graph, fit, evaluate)
+with SGD, momentum, Adam or row-wise AdaGrad, the tables optionally under a
+sparse optimizer of their own, checkpoints it (`training/checkpoint.py`),
+and carries weights over from the JAX package (`convert.py`).
 """
 
 from .config import FFConfig, FFIterationConfig

@@ -8,14 +8,19 @@ The port of the root `bench.py`, with its flags, defaults and protocol
 (`bench.py:245-375`): 4 batches from `random_batches` (indices Zipf with
 `--zipf`); under `--host-routing` (the default) each batch's routes are
 computed by `FFModel.compute_routes` before any timing; batches and routes
-are staged on the device; `--warmup` steps run first; the timed window runs
-from `torch.cuda.synchronize()` through `--steps` steps on the staged
-batches, round robin, to the host readback of the loss (train:
-`train_batch`) or of the summed outputs (infer: `forward`). PyTorch runs
-eagerly: where the JAX bench scans its steps inside one compiled call, each
-step here is its own call, so the host's time to issue a step is in the
-number. The entry runs on CUDA unless `--device cpu` is given; a CUDA run
-without a card fails.
+are staged on the device and stacked [4, B, ...]; for `--mode infer` with a
+`--table-dtype` other than float32 the tables are quantized
+(`quantize_embeddings`) after staging; `--warmup` steps run first (at least
+one when training: it captures the train step); the timed window runs from
+`torch.cuda.synchronize()` through `--steps` steps on the staged batches,
+round robin, to the host readback of the loss or of the summed outputs.
+Training steps are `FFModel.train_chunk` calls on the stack: on CUDA each
+step is a replay of one train step captured in a CUDA graph, as the JAX
+bench scans its steps inside one compiled call, so the host's time to launch
+a step's kernels is not in the number. Serving steps are eager `forward`
+calls, one a batch. The `#` line says which was timed (`steps=graph` or
+`steps=eager`). The entry runs on CUDA unless `--device cpu` is given (steps
+there are eager); a CUDA run without a card fails.
 
 Prints one JSON line with `bench.py`'s keys (metric, value, unit,
 examples_per_sec_per_chip, devices, table_dtype, packed_engaged: an op took
@@ -26,8 +31,7 @@ all_to_all_gbps are a TPU's numbers and are not printed.
 Flags without a counterpart in the port yet raise NotImplementedError,
 naming their ROADMAP.md item: --mesh (Queue 1 item 7), --config mlperf-full
 or --host-tail-threshold > 0 (item 8), --onehot-packed-threshold > 0 (item
-5), --mode infer with a --table-dtype other than float32 (item 6,
-quantize_embeddings). --packed-gather-mode, --packed-stream-mode and
+5). --packed-gather-mode, --packed-stream-mode and
 --packed-selective choose among the JAX package's packed-layout variants;
 the port keeps [V, D] tables with one gather and one update stream, so they
 are taken and change nothing.
@@ -98,8 +102,8 @@ def parser() -> argparse.ArgumentParser:
                     help="the mid-band one-hot tables (ROADMAP.md Queue 1 item 5): > 0 raises")
     ap.add_argument("--table-dtype", default="auto",
                     choices=["auto", "float32", "bfloat16", "float16", "int8"],
-                    help="train: float32 or bfloat16 route tables (auto: bfloat16); infer: "
-                         "float32 (auto; quantized serving is ROADMAP.md Queue 1 item 6)")
+                    help="train: float32 or bfloat16 route tables (auto: bfloat16); infer: the "
+                         "tables quantized after staging (auto: float32, none)")
     ap.add_argument("--device", default="cuda", help="cuda, or cpu (plain versions, for tests)")
     return ap
 
@@ -117,9 +121,6 @@ def check_ported(ap: argparse.ArgumentParser, args) -> None:
                                   "ROADMAP.md Queue 1 item 5, a later slice of the port")
     if args.table_dtype == "auto":
         args.table_dtype = "bfloat16" if args.mode == "train" else "float32"
-    if args.mode == "infer" and args.table_dtype != "float32":
-        raise NotImplementedError("--mode infer --table-dtype: quantize_embeddings is ROADMAP.md "
-                                  "Queue 1 item 6, a later slice of the port")
     if args.mode == "train" and args.table_dtype not in ("float32", "bfloat16"):
         ap.error("train supports --table-dtype float32|bfloat16")
 
@@ -184,29 +185,38 @@ def main(argv=None) -> dict:
         if routed:
             staged.update(model.stage_routes(model.compute_routes(feeds)))
         batches.append((staged, model._stage_labels(labels_np[j * bs:(j + 1) * bs])))
+    if args.mode == "train":
+        stacked = {k: torch.stack([f[k] for f, _ in batches]) for k in batches[0][0]}
+        stacked_labels = torch.stack([lbl for _, lbl in batches])
+    elif args.table_dtype != "float32":
+        n_cast = model.quantize_embeddings(args.table_dtype)
+        print(f"# quantized {n_cast} embedding arrays to {args.table_dtype}", file=sys.stderr)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
 
-    def step(i: int) -> torch.Tensor:
-        feeds, labels = batches[i % N_BATCHES]
-        if args.mode == "train":
-            return model.train_batch(feeds, labels)
-        return model.forward(feeds).float().sum()
+    def run(n: int) -> torch.Tensor:
+        """n steps over the staged batches, round robin: the last loss, or
+        the summed outputs."""
+        if args.mode == "infer":
+            acc = torch.zeros((), dtype=torch.float32, device=device)
+            for i in range(n):
+                acc += model.forward(batches[i % N_BATCHES][0]).float().sum()
+            return acc
+        for i in range(0, n, N_BATCHES):
+            k = min(N_BATCHES, n - i)
+            loss = model.train_chunk({name: v[:k] for name, v in stacked.items()}, stacked_labels[:k])
+        return loss
 
-    for i in range(args.warmup):
-        out = step(i)
+    if args.mode == "train" or args.warmup:
+        run(max(args.warmup, 1 if args.mode == "train" else 0))
     sync()
     t0 = time.perf_counter()
-    acc = torch.zeros((), dtype=torch.float32, device=device)
-    for i in range(args.steps):
-        out = step(i)
-        if args.mode == "infer":
-            acc += out
-    value = float(out if args.mode == "train" else acc)
+    value = float(run(args.steps))
     dt = time.perf_counter() - t0
     examples_per_sec = args.steps * bs / dt
     loss = value if args.mode == "train" else 0.0  # infer: no loss, as bench.py
-    print(f"# config={args.config} mode={args.mode} bs={bs} steps={args.steps} dt={dt}s "
-          f"device={card(device)} host_routing={'yes' if routed else 'no'} "
+    timed = "graph" if args.mode == "train" and device.type == "cuda" else "eager"
+    print(f"# config={args.config} mode={args.mode} bs={bs} n_steps={args.steps} dt={dt}s "
+          f"steps={timed} device={card(device)} host_routing={'yes' if routed else 'no'} "
           f"table_dtype={effective_table_dtype} packed={'yes' if packed_engaged else 'no'} "
           f"examples/s={examples_per_sec} loss={loss}", file=sys.stderr)
     result = {

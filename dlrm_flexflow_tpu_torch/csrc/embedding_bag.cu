@@ -4,7 +4,8 @@
 // (dlrm_flexflow_tpu/ops/pallas/embedding_bag.py:38, launched by `_bag_fwd`
 // at :90), which the JAX package runs under use_pallas="on" for a pooled
 // table with D % 128 == 0 (ops/embedding.py:155-162). For bag m of
-// idx [M, H] into table [R, D] (f32 or bf16):
+// idx [M, H] into table [R, D] (f32, bf16, or f16 after
+// quantize_embeddings("float16")):
 //   out[m, :] = T(sum over h with idx[m, h] >= 0 of f32(table[idx[m, h], :]))
 // summed in f32 in bag order; AVG divides the sum by max(#(idx >= 0), 1).
 // idx < 0 is padding. An index >= R gives a NaN row (the port's plain
@@ -29,6 +30,7 @@
 //   - 8 bags a 256-thread block; no shared memory.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -49,6 +51,13 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
   v[0] = __low2float(lo); v[1] = __high2float(lo);
   v[2] = __low2float(hi); v[3] = __high2float(hi);
 }
+__device__ __forceinline__ void load4(const __half* p, float (&v)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const __half2 lo = *reinterpret_cast<const __half2*>(&q.x);
+  const __half2 hi = *reinterpret_cast<const __half2*>(&q.y);
+  v[0] = __low2float(lo); v[1] = __high2float(lo);
+  v[2] = __low2float(hi); v[3] = __high2float(hi);
+}
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
@@ -60,10 +69,20 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
   q.y = *reinterpret_cast<uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(p) = q;
 }
+__device__ __forceinline__ void store4(__half* p, const float (&v)[4]) {
+  __half2 lo = __floats2half2_rn(v[0], v[1]);
+  __half2 hi = __floats2half2_rn(v[2], v[3]);
+  uint2 q;
+  q.x = *reinterpret_cast<uint32_t*>(&lo);
+  q.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = q;
+}
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store1(__half* p, float v) { *p = __float2half_rn(v); }
 
 template <typename T, typename TI, bool kVec>
 __global__ void __launch_bounds__(kThreads) embedding_bag_kernel(
@@ -150,15 +169,20 @@ cudaError_t launch(const void* table, const void* idx, void* out, long long M, i
 
 }  // namespace
 
+// table_dtype: 0 float32, 1 bfloat16, 2 float16 (the table's, and the output's)
 extern "C" int embedding_bag_forward(const void* table, const void* idx, void* out, long long M,
-                                     int H, long long R, int D, int table_is_bf16, int idx_is_i64,
+                                     int H, long long R, int D, int table_dtype, int idx_is_i64,
                                      int avg, void* stream) {
-  if (M < 1 || H < 1 || R < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  if (M < 1 || H < 1 || R < 1 || D < 1 || table_dtype < 0 || table_dtype > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (table_is_bf16) {
+  if (table_dtype == 1) {
     err = idx_is_i64 ? launch<__nv_bfloat16, long long>(table, idx, out, M, H, R, D, avg, s)
                      : launch<__nv_bfloat16, int>(table, idx, out, M, H, R, D, avg, s);
+  } else if (table_dtype == 2) {
+    err = idx_is_i64 ? launch<__half, long long>(table, idx, out, M, H, R, D, avg, s)
+                     : launch<__half, int>(table, idx, out, M, H, R, D, avg, s);
   } else {
     err = idx_is_i64 ? launch<float, long long>(table, idx, out, M, H, R, D, avg, s)
                      : launch<float, int>(table, idx, out, M, H, R, D, avg, s);

@@ -9,7 +9,8 @@
 // kernel multiplies a pooled one-hot matrix [B, V], cast to the compute
 // dtype cdt, by the table cast to cdt, with an f32 accumulator, and writes
 // the table's dtype (`_pooled_onehot`, :40-52). A one-hot product selects
-// rows exactly, so for bag b of idx [B, H] into table [V, D] it is
+// rows exactly, so for bag b of idx [B, H] into table [V, D] (f32, bf16,
+// or f16 after quantize_embeddings("float16")) it is
 //   out[b, :] = T(sum over distinct r in [0, V) of the bag of
 //                 w_r * f32(cdt(table[r, :])))            (f32 sum)
 //   w_r = cdt(n_r)                          SUM
@@ -97,6 +98,7 @@
 // stream makes hot is summed by one warp of one block.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -117,6 +119,13 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
   v[0] = __low2float(lo); v[1] = __high2float(lo);
   v[2] = __low2float(hi); v[3] = __high2float(hi);
 }
+__device__ __forceinline__ void load4(const __half* p, float (&v)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const __half2 lo = *reinterpret_cast<const __half2*>(&q.x);
+  const __half2 hi = *reinterpret_cast<const __half2*>(&q.y);
+  v[0] = __low2float(lo); v[1] = __high2float(lo);
+  v[2] = __low2float(hi); v[3] = __high2float(hi);
+}
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
@@ -128,10 +137,20 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
   q.y = *reinterpret_cast<uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(p) = q;
 }
+__device__ __forceinline__ void store4(__half* p, const float (&v)[4]) {
+  __half2 lo = __floats2half2_rn(v[0], v[1]);
+  __half2 hi = __floats2half2_rn(v[2], v[3]);
+  uint2 q;
+  q.x = *reinterpret_cast<uint32_t*>(&lo);
+  q.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = q;
+}
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store1(__half* p, float v) { *p = __float2half_rn(v); }
 
 template <bool kBf16>
 __device__ __forceinline__ float round_cdt(float v) {
@@ -215,16 +234,21 @@ cudaError_t launch_cdt(const void* table, const void* idx, void* out, long long 
 
 }  // namespace
 
+// table_dtype: 0 float32, 1 bfloat16, 2 float16 (the table's, and the output's)
 extern "C" int onehot_embedding_forward(const void* table, const void* idx, void* out, long long B,
-                                        int H, long long V, int D, int table_is_bf16,
+                                        int H, long long V, int D, int table_dtype,
                                         int idx_is_i64, int avg, int cdt_bf16, void* stream) {
-  if (B < 1 || H < 1 || V < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  if (B < 1 || H < 1 || V < 1 || D < 1 || table_dtype < 0 || table_dtype > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (table_is_bf16) {
+  if (table_dtype == 1) {
     err = idx_is_i64
               ? launch_cdt<__nv_bfloat16, long long>(table, idx, out, B, H, V, D, avg, cdt_bf16, s)
               : launch_cdt<__nv_bfloat16, int>(table, idx, out, B, H, V, D, avg, cdt_bf16, s);
+  } else if (table_dtype == 2) {
+    err = idx_is_i64 ? launch_cdt<__half, long long>(table, idx, out, B, H, V, D, avg, cdt_bf16, s)
+                     : launch_cdt<__half, int>(table, idx, out, B, H, V, D, avg, cdt_bf16, s);
   } else {
     err = idx_is_i64 ? launch_cdt<float, long long>(table, idx, out, B, H, V, D, avg, cdt_bf16, s)
                      : launch_cdt<float, int>(table, idx, out, B, H, V, D, avg, cdt_bf16, s);

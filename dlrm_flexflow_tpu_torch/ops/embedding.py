@@ -21,6 +21,12 @@ paths, chosen as the JAX package chooses them (`ops/embedding.py:116-163`):
   table with D % 128 == 0 takes the embedding-bag kernel instead
   (`ops/kernels/embedding_bag.py`, the port of K4): the same rows, summed in
   f32.
+- int8 serving tables (`FFModel.quantize_embeddings("int8")`: `weight_q`
+  and `weight_scale` in place of `weight`), checked before any route, as
+  the JAX package's `_forward_device` checks them (`ops/embedding.py:
+  104-116`), so under every use_pallas: `quantized_embedding_bag`, plain
+  torch as the JAX function is plain XLA. Indices >= vocab read row V-1,
+  as its clip does.
 All count every index >= 0 toward the AVG divisor, as the JAX package does.
 
 Training (`bag_row_grads`, `bag_row_src`, `Embedding.sparse_update`,
@@ -32,8 +38,8 @@ FFModel.compile puts on the row-update kernel route (`kernel_route`,
 updated by training/sparse_engine.py) may be stored in `table_dtype`
 (bf16); every other table, and every optimizer pool, stays f32.
 
-The JAX package's host-tail, int8 and mid-band packed one-hot branches
-belong to later slices.
+The JAX package's host-tail and mid-band packed one-hot branches belong to
+later slices.
 """
 from __future__ import annotations
 
@@ -119,6 +125,38 @@ class _OnehotRows(torch.autograd.Function):
         return acc.to(ctx.compute_dtype).to(ctx.dtype), None, None
 
 
+def quantize_table_int8(w: torch.Tensor):
+    """[V, D] table -> (q [V, D] int8, scale [V] f32), per row: scale =
+    max(max_d |w|, 1e-12) / 127 and q = clip(round(w / scale), -127, 127)
+    (the JAX package's `quantize_table_int8`, ops/embedding.py:294-305,
+    unpacked). Computed in f32 from the table widened exactly (a bf16 table
+    included), with correctly rounded divisions on every device: the 127 is
+    a tensor, as PyTorch's CUDA division by a host scalar multiplies by its
+    reciprocal instead."""
+    w = w.float()
+    s = torch.clamp_min(w.abs().amax(dim=1), 1e-12) / torch.full((), 127.0, device=w.device)
+    q = torch.clamp(torch.round(w / s[:, None]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def quantized_embedding_bag(q: torch.Tensor, scale: torch.Tensor, idx: torch.Tensor,
+                            aggr: AggrMode) -> torch.Tensor:
+    """Pooled lookup from int8 rows and per-row f32 scales (the JAX
+    package's `quantized_embedding_bag`, ops/embedding.py:243-292, its
+    unpacked branch): each member's row q[r] * scale[r] in f32, padding
+    (idx < 0) zero, indices clipped into [0, V), summed in f32; AVG divides
+    by max(#valid, 1). f32 out."""
+    idx, squeeze_bag = _as_bags(idx)
+    b, h = idx.shape
+    valid = idx >= 0
+    safe = idx.clamp(0, q.shape[0] - 1).reshape(-1)
+    rows = (q[safe].float() * scale[safe][:, None]).reshape(b, h, q.shape[1])
+    rows = torch.where(valid[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+    if aggr is AggrMode.AGGR_MODE_NONE:
+        return rows[:, 0, :] if squeeze_bag else rows
+    return _pool(rows, idx, aggr)
+
+
 def bag_row_grads(idx: torch.Tensor, g_pooled: torch.Tensor, aggr: AggrMode, num_entries: int):
     """Expand a pooled-output gradient [B, D] into per-row scatter operands:
     rows [B*H] (padding marked num_entries, to be dropped) and row_grads
@@ -185,6 +223,8 @@ class Embedding(Op):
 
     def forward(self, params, inputs, ctx):
         (idx,) = inputs
+        if "weight_q" in params:
+            return [quantized_embedding_bag(params["weight_q"], params["weight_scale"], idx, self.aggr)]
         table = params["weight"]
         pooled = self.aggr is not AggrMode.AGGR_MODE_NONE
         forced = ctx.use_pallas == "on"

@@ -4,7 +4,8 @@ Replaces the Pallas TPU kernel `_bag_kernel`
 (`dlrm_flexflow_tpu/ops/pallas/embedding_bag.py:38`, launched by `_bag_fwd`
 at `:90`), which the JAX package's Embedding runs under use_pallas="on" for
 a pooled table with D % 128 == 0 (`ops/embedding.py:155-162`): table
-[R, D] (f32 or bf16), idx [M, H] or [M] with idx < 0 as padding, rows
+[R, D] (f32 or bf16; f16 after `quantize_embeddings("float16")`), idx
+[M, H] or [M] with idx < 0 as padding, rows
 summed in f32, AVG divided by max(#valid, 1), the result in the table's
 dtype. An index >= R gives a NaN row, as the port's plain gather does; the
 kernel never reads outside the table. The kernel is
@@ -23,6 +24,9 @@ import torch
 
 from ... import _build
 from ...ffconst import AggrMode
+
+# the table dtypes the kernel takes, in the order of its dtype code
+TABLE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _bags(idx: torch.Tensor) -> torch.Tensor:
@@ -70,7 +74,7 @@ def _kernel_lib() -> ctypes.CDLL:
         ctypes.c_int,  # H
         ctypes.c_longlong,  # R
         ctypes.c_int,  # D
-        ctypes.c_int,  # table is bf16
+        ctypes.c_int,  # table dtype: 0 float32, 1 bfloat16, 2 float16
         ctypes.c_int,  # idx is int64
         ctypes.c_int,  # AVG
         ctypes.c_void_p,  # cudaStream_t
@@ -95,7 +99,7 @@ def _launch(table: torch.Tensor, idx: torch.Tensor, aggr: AggrMode) -> torch.Ten
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = lib.embedding_bag_forward(
             table.data_ptr(), idx.data_ptr(), out.data_ptr(), m, h, r, d,
-            int(table.dtype == torch.bfloat16), int(idx.dtype == torch.int64),
+            TABLE_DTYPES.index(table.dtype), int(idx.dtype == torch.int64),
             int(aggr is AggrMode.AGGR_MODE_AVG), stream,
         )
     if err != 0:
@@ -108,8 +112,8 @@ def _launch(table: torch.Tensor, idx: torch.Tensor, aggr: AggrMode) -> torch.Ten
 def _check(table: torch.Tensor, idx: torch.Tensor, aggr: AggrMode) -> None:
     if aggr not in (AggrMode.AGGR_MODE_SUM, AggrMode.AGGR_MODE_AVG):
         raise ValueError(f"embedding_bag is a pooled lookup (SUM or AVG), got {aggr}")
-    if table.dim() != 2 or table.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"embedding_bag takes a [R, D] float32 or bfloat16 table, got "
+    if table.dim() != 2 or table.dtype not in TABLE_DTYPES:
+        raise TypeError(f"embedding_bag takes a [R, D] float32, bfloat16 or float16 table, got "
                         f"{tuple(table.shape)} {table.dtype}")
     if idx.dim() not in (1, 2) or idx.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"embedding_bag takes int32 or int64 idx [M] or [M, H], got "

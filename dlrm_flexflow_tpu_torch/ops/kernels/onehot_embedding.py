@@ -42,6 +42,9 @@ import torch
 from ... import _build
 from ...ffconst import AggrMode
 
+# the table dtypes the kernel takes, in the order of its dtype code
+TABLE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
 # the gradient kernel's constants (csrc/onehot_embedding.cu k<Name>)
 WARPS = 8
 TILE_ROWS = 64
@@ -108,7 +111,7 @@ def _kernel_lib() -> ctypes.CDLL:
         ctypes.c_int,  # H
         ctypes.c_longlong,  # V
         ctypes.c_int,  # D
-        ctypes.c_int,  # table is bf16
+        ctypes.c_int,  # table dtype: 0 float32, 1 bfloat16, 2 float16
         ctypes.c_int,  # idx is int64
         ctypes.c_int,  # AVG
         ctypes.c_int,  # compute dtype is bf16
@@ -159,7 +162,7 @@ def _launch(table, idx, aggr, compute_dtype) -> torch.Tensor:
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = lib.onehot_embedding_forward(
             table.data_ptr(), idx.data_ptr(), out.data_ptr(), b, h, v, d,
-            int(table.dtype == torch.bfloat16), int(idx.dtype == torch.int64),
+            TABLE_DTYPES.index(table.dtype), int(idx.dtype == torch.int64),
             int(aggr is AggrMode.AGGR_MODE_AVG), int(compute_dtype == torch.bfloat16), stream,
         )
     _raise_if(lib, err, "onehot_embedding")
@@ -246,8 +249,8 @@ def _check(table, idx, aggr, compute_dtype) -> None:
         raise ValueError(f"onehot_embedding is a pooled lookup (SUM or AVG), got {aggr}")
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"onehot_embedding computes in float32 or bfloat16, got {compute_dtype}")
-    if table.dim() != 2 or table.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"onehot_embedding takes a [V, D] float32 or bfloat16 table, got "
+    if table.dim() != 2 or table.dtype not in TABLE_DTYPES:
+        raise TypeError(f"onehot_embedding takes a [V, D] float32, bfloat16 or float16 table, got "
                         f"{tuple(table.shape)} {table.dtype}")
     if idx.dim() not in (1, 2) or idx.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"onehot_embedding takes int32 or int64 idx [B] or [B, H], got "

@@ -1,13 +1,17 @@
 """The work one call puts on the card, counted from a CUDA graph of it.
 
-    from dlrm_flexflow_tpu_torch.tools.graph_nodes import graph_nodes
+    from dlrm_flexflow_tpu_torch.tools.graph_nodes import graph_nodes, node_counts
     graph_nodes(lambda: fn(x))  # -> {"kernel": 2}
+    node_counts(model._step_graph.graph, kernel_names=True)  # a captured train step
 
 A profiler's activity records can come back short of a call's launches; a
 captured graph holds one node for each kernel, copy and memset the call
-issued on the card, so their count is exact. The call runs once before it
-is captured (a first call may build or set up what capture refuses) and is
-never replayed.
+launched on the card, so their count is exact. `graph_nodes` runs the call
+once before it captures it (a first call may build or set up what capture
+refuses) and never replays it. `node_counts` reads a graph captured with
+`keep_graph=True` (as `FFModel.train_chunk` captures its step); with
+`kernel_names` it also counts the kernel nodes by function name (libcuda's
+`cuGraphKernelNodeGetParams_v2` and `cuFuncGetName`).
 """
 from __future__ import annotations
 
@@ -22,14 +26,26 @@ NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "
               10: "mem_alloc", 11: "mem_free", 12: "batch_mem_op", 13: "conditional"}
 
 
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 (cuda.h), with room to spare after it."""
+
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3), ("block", ctypes.c_uint * 3),
+                ("shared_mem_bytes", ctypes.c_uint), ("kernel_params", ctypes.c_void_p),
+                ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p),
+                ("_spare", ctypes.c_byte * 64)]
+
+
 @functools.lru_cache(maxsize=1)
 def _libcuda() -> ctypes.CDLL:
     lib = ctypes.CDLL("libcuda.so.1")
     lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
                                     ctypes.POINTER(ctypes.c_size_t)]
-    lib.cuGraphGetNodes.restype = ctypes.c_int
     lib.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
-    lib.cuGraphNodeGetType.restype = ctypes.c_int
+    lib.cuGraphKernelNodeGetParams_v2.argtypes = [ctypes.c_void_p, ctypes.POINTER(_KernelNodeParams)]
+    lib.cuFuncGetName.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p]
+    for fn in (lib.cuGraphGetNodes, lib.cuGraphNodeGetType, lib.cuGraphKernelNodeGetParams_v2,
+               lib.cuFuncGetName):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -45,6 +61,12 @@ def graph_nodes(fn) -> dict:
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
+    return node_counts(graph)
+
+
+def node_counts(graph: torch.cuda.CUDAGraph, kernel_names: bool = False) -> dict:
+    """{node type: count} of a graph captured with keep_graph=True; with
+    `kernel_names`, also {"kernels": {function name: count}}."""
     lib = _libcuda()
     handle = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
@@ -52,9 +74,24 @@ def graph_nodes(fn) -> dict:
     nodes = (ctypes.c_void_p * max(n.value, 1))()
     _check(lib.cuGraphGetNodes(handle, nodes, ctypes.byref(n)), "cuGraphGetNodes")
     counts: dict = {}
+    names: dict = {}
     for node in nodes[: n.value]:
         kind = ctypes.c_int(-1)
         _check(lib.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
         name = NODE_TYPES.get(kind.value, str(kind.value))
         counts[name] = counts.get(name, 0) + 1
+        if kernel_names and name == "kernel":
+            fname = _kernel_name(lib, node)
+            names[fname] = names.get(fname, 0) + 1
+    if kernel_names:
+        counts["kernels"] = names
     return counts
+
+
+def _kernel_name(lib, node) -> str:
+    params = _KernelNodeParams()
+    _check(lib.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(params)),
+           "cuGraphKernelNodeGetParams_v2")
+    name = ctypes.c_char_p()
+    _check(lib.cuFuncGetName(ctypes.byref(name), params.func), "cuFuncGetName")
+    return name.value.decode()

@@ -1,0 +1,158 @@
+"""Checkpoint / resume.
+
+PyTorch counterpart of `dlrm_flexflow_tpu/training/checkpoint.py`, writing
+the same on-disk format: a directory with `params.npz`, `opt_state.npz` and
+`metrics.npz` (the model's parameters, optimizer state and metric totals,
+flattened to "a/b/c" keys by `_flatten`, a None leaf as "<path>/__none__")
+and `manifest.json` (`version`, `step`, `host_tail`, `extra`). No pickle. A
+bf16 tensor is written as the JAX package writes a bf16 array, 2-byte void
+records of its bits ("|V2"), and read back bit for bit. Adam's sparse state
+is written in the layout the port keeps on each route: {"m", "v"} pools on
+the row-update kernel route, one stacked [2, V, D] array on the scatter
+route, as the JAX package keeps its packed and scatter tables.
+
+`restore_checkpoint` writes into the compiled model's own tensors (in
+place), so a train step captured in a CUDA graph (`FFModel.train_chunk`)
+stays valid; it needs the same keys and shapes as the model has, and a
+checkpoint the JAX package wrote of the same model and config (its tables
+unpacked, as on the CPU) restores too.
+"""
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..convert import to_torch
+
+_HOST_TAIL = ("restore_checkpoint: the checkpoint carries host-tail stores; host-tail offload is "
+              "ROADMAP.md Queue 1 item 8, a later slice of the port")
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}/"))
+    elif tree is None:
+        out[prefix + "__none__"] = np.zeros(0, np.int8)
+    else:
+        out[prefix.rstrip("/")] = _host(tree)
+    return out
+
+
+def _unflatten(flat: Dict[str, np.ndarray]):
+    root: Dict[str, Any] = {}
+    none_paths = []
+    for key, val in flat.items():
+        parts = key.split("/")
+        if parts[-1] == "__none__":
+            if len(parts) == 1:
+                return None
+            none_paths.append(parts[:-1])
+            continue
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+    for path in none_paths:
+        node = root
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = None
+    return root
+
+
+def _host(x) -> np.ndarray:
+    """A tensor (or a host step count) as numpy; bf16 as |V2 records."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x, np.int32 if isinstance(x, int) else None)
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy().view("V2")
+    return x.numpy()
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:  # bf16 bits
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    return to_torch(arr)
+
+
+def save_checkpoint(path: str, model, extra: Optional[Dict[str, Any]] = None) -> None:
+    """Write train state: params, optimizer state, step counter, metrics."""
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, "params.npz"), **_flatten(model.get_parameters()))
+    np.savez(os.path.join(path, "opt_state.npz"), **_flatten(model._opt_state))
+    np.savez(os.path.join(path, "metrics.npz"), **_flatten(model._metrics_total))
+    manifest = {
+        "version": 1,
+        "step": int(model._step_count),
+        "host_tail": False,  # the port has no host-tail stores (ROADMAP.md item 8)
+        "extra": extra or {},
+    }
+    with open(os.path.join(path, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=2)
+
+
+def _check_tree(have, got, key: str = "") -> None:
+    """The keys and shapes of the file's tree `got` against the model's
+    `have` (tensors, shape tuples, host ints or None), before any write."""
+    def fail(what):
+        raise ValueError(f"restore_checkpoint: {key or 'the tree'} {what}. Shapes must match "
+                         "(same model/config).")
+
+    if isinstance(have, dict):
+        if not isinstance(got, dict) or set(got) != set(have):
+            fail(f"holds {sorted(got) if isinstance(got, dict) else type(got).__name__}, "
+                 f"the model {sorted(have)}")
+        for k, v in have.items():
+            _check_tree(v, got[k], f"{key}/{k}".lstrip("/"))
+    elif (have is None) != (got is None):
+        fail("is None on one side only")
+    elif isinstance(have, (torch.Tensor, tuple)):
+        shape = tuple(have.shape) if isinstance(have, torch.Tensor) else have
+        if tuple(np.shape(got)) != shape:
+            fail(f"has shape {tuple(np.shape(got))}, the model {shape}")
+
+
+def _copy_into(have, got):
+    """Write the file's tree `got` into the model's tree `have`, in place;
+    returns the tree to keep (a host step count stays an int)."""
+    if isinstance(have, dict):
+        return {k: _copy_into(v, got[k]) for k, v in have.items()}
+    if have is None:
+        return None
+    if isinstance(have, int):
+        return int(got)
+    with torch.no_grad():
+        have.copy_(_tensor(got))
+    return have
+
+
+def restore_checkpoint(path: str, model) -> Dict[str, Any]:
+    """Restore state saved by save_checkpoint (by either package) into a
+    compiled model, in place. Shapes must match (same model/config).
+    Returns the manifest."""
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    if manifest.get("host_tail"):
+        raise NotImplementedError(_HOST_TAIL)
+
+    def load_npz(name):
+        with np.load(os.path.join(path, name)) as z:
+            return _unflatten({k: z[k] for k in z.files})
+
+    params, opt, totals = (load_npz(n) for n in ("params.npz", "opt_state.npz", "metrics.npz"))
+    _check_tree({op: {k: shape for k, (shape, _) in sub.items()} for op, sub in model._layout.items()},
+                params)
+    _check_tree(model._opt_state, opt)
+    _check_tree(model._metrics_total, totals)
+    model.set_parameters({op: {k: _tensor(a) for k, a in sub.items()} for op, sub in params.items()})
+    model._opt_state = _copy_into(model._opt_state, opt)
+    _copy_into(model._metrics_total, totals)
+    model._step_count = int(manifest["step"])
+    return manifest

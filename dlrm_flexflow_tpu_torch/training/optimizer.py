@@ -26,7 +26,11 @@ and the scatter rules for embedding rows (rows < 0 or >= V dropped):
 Tables on the row-update kernel route take the kernel's own rounding
 sequence instead (training/sparse_engine.py). The learning rate lives in
 the state as a 0-d f32 tensor on the device, so `FFModel.set_learning_rate`
-changes it without a host sync in the step.
+changes it without a host sync in the step. What changes from step to step
+(Adam's bias correction) is read from a small f32 device buffer that the
+caller fills before the step (`step_scalars`, `update(..., scalars=)`), so
+that one train step captured in a CUDA graph computes, replay after replay,
+what the eager step computes.
 """
 from __future__ import annotations
 
@@ -75,9 +79,15 @@ class Optimizer:
     def init(self, params: Dict[str, Dict[str, torch.Tensor]], device) -> dict:
         raise NotImplementedError
 
-    def update(self, grads, state: dict, params) -> dict:
+    def step_scalars(self, step: int) -> np.ndarray:
+        """The f32 numbers the update of step `step` (1 for the first) reads
+        from the device, computed on the host (none by default)."""
+        return np.zeros(0, np.float32)
+
+    def update(self, grads, state: dict, params, scalars=None) -> dict:
         """Apply `grads` ({op: {key: tensor}}) to `params` in place; returns
-        the new state."""
+        the new state. `scalars`: `step_scalars` of this step on the device,
+        where the rule has any."""
         raise NotImplementedError
 
     def sparse_init(self, pool_shape, device):
@@ -112,7 +122,7 @@ class SGDOptimizer(Optimizer):
         return state
 
     @torch.no_grad()
-    def update(self, grads, state, params) -> dict:
+    def update(self, grads, state, params, scalars=None) -> dict:
         lr = state["lr"]
         wd = self.weight_decay
         for op, sub in grads.items():
@@ -167,13 +177,22 @@ class AdamOptimizer(Optimizer):
 
     supports_sparse = True
 
-    def alpha_t(self, base, step: int, device) -> torch.Tensor:
-        """base * sqrt(1 - beta2^t) / (1 - beta1^t) at t = step, in f32:
-        the rate of step `step` (`base` a 0-d tensor or a float)."""
+    def step_scalars(self, step: int) -> np.ndarray:
+        """[sqrt(1 - beta2^t), 1 - beta1^t] at t = step, in f32: the bias
+        correction of step `step`."""
         t = np.float32(step)
         corr = np.sqrt(np.float32(1.0) - np.power(np.float32(self.beta2), t))
         den = np.float32(1.0) - np.power(np.float32(self.beta1), t)
-        return _rate(base, self.alpha, device) * float(corr) / float(den)
+        return np.array([corr, den], np.float32)
+
+    def alpha_t(self, base, step, device) -> torch.Tensor:
+        """base * sqrt(1 - beta2^t) / (1 - beta1^t) in f32, the rate of a
+        step (`base` a 0-d tensor or a float, None for alpha): at t = `step`
+        (an int), or from that step's `step_scalars` already on the device
+        (`step` a tensor)."""
+        if not isinstance(step, torch.Tensor):
+            step = torch.from_numpy(self.step_scalars(step)).to(device)
+        return _rate(base, self.alpha, device) * step[0] / step[1]
 
     def init(self, params, device) -> dict:
         return {
@@ -184,13 +203,15 @@ class AdamOptimizer(Optimizer):
         }
 
     @torch.no_grad()
-    def update(self, grads, state, params) -> dict:
+    def update(self, grads, state, params, scalars=None) -> dict:
+        """`scalars`: this step's `step_scalars` on the device; computed
+        here from the state's step count (a host-to-device copy) if None."""
         step = state["step"] + 1
         alpha_t = None
         for op, sub in grads.items():
             for k, g in sub.items():
                 if alpha_t is None:
-                    alpha_t = self.alpha_t(state["lr"], step, g.device)
+                    alpha_t = self.alpha_t(state["lr"], step if scalars is None else scalars, g.device)
                 w, m, v = params[op][k], state["m"][op][k], state["v"][op][k]
                 g = g + self.weight_decay * w
                 m.mul_(self.beta1).add_((1.0 - self.beta1) * g)
@@ -243,7 +264,7 @@ class RowWiseAdagradOptimizer(Optimizer):
         }
 
     @torch.no_grad()
-    def update(self, grads, state, params) -> dict:
+    def update(self, grads, state, params, scalars=None) -> dict:
         lr = state["lr"]
         for op, sub in grads.items():
             for k, g in sub.items():

@@ -54,8 +54,11 @@ def apply_sparse_updates(
 ) -> Dict[str, object]:
     """Update the sparse ops' tables and slot states in place; returns the
     slot states. `g_over[op]` is the list of pooled-output gradients of op,
-    `sparse_xs[op]` its index inputs, `lr` the rate of this step (default:
-    opt's own; for Adam, the bias-corrected alpha_t), `routes` None or
+    `sparse_xs[op]` its index inputs, `lr` the rate of this step, a 0-d f32
+    tensor on the device (for Adam, the bias-corrected alpha_t; FFModel
+    passes one that exists before any step, so a captured step copies
+    nothing from the host; None takes opt's own rate, a host-to-device
+    copy), `routes` None or
     {op name: (rows_sorted, order)} for every kernel-route op, computed
     from this step's `sparse_xs` (FFModel.compute_routes)."""
     new_sstates = dict(sstates)

@@ -329,6 +329,9 @@ def _bag_idx(m, h, r, seed, device, past=0):
         (100_000, 128, 4096, 4, "AGGR_MODE_SUM", torch.bfloat16, torch.int32),
         (5000, 99, 777, 3, "AGGR_MODE_AVG", torch.float32, torch.int32),  # scalar loads
         (5000, 256, 500, 9, "AGGR_MODE_SUM", torch.bfloat16, torch.int64),
+        (2_000_000, 128, 16384, 1, "AGGR_MODE_SUM", torch.float16, torch.int64),  # quantized serving
+        (100_000, 128, 4096, 4, "AGGR_MODE_AVG", torch.float16, torch.int32),
+        (5000, 99, 777, 3, "AGGR_MODE_SUM", torch.float16, torch.int64),  # scalar loads
     ],
 )
 def test_embedding_bag_kernel_matches_plain_version(cuda, r, d, m, h, aggr, dtype, idx_dtype):
@@ -341,9 +344,9 @@ def test_embedding_bag_kernel_matches_plain_version(cuda, r, d, m, h, aggr, dtyp
     want = embedding_bag_reference(table, idx, mode)
     torch.cuda.synchronize()
     assert got.dtype == dtype
-    # f32 sums of h rows in bag order against torch's sum order; a bf16
-    # table rounds the result once, possibly a bf16 step apart
-    rtol = 2.0**-7 if dtype == torch.bfloat16 else 2 * h * 2.0**-24
+    # f32 sums of h rows in bag order against torch's sum order; a bf16 or
+    # f16 table rounds the result once, possibly a step of its own apart
+    rtol = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}.get(dtype, 2 * h * 2.0**-24)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=1e-6)
 
 
@@ -365,6 +368,9 @@ def test_embedding_bag_kernel_gives_nan_past_the_table_and_reads_inside_it(cuda)
         (7424, 128, 4096, "AGGR_MODE_AVG", torch.float32, torch.float32),
         (3, 128, 1000, "AGGR_MODE_SUM", torch.bfloat16, torch.bfloat16),
         (500, 37, 999, "AGGR_MODE_AVG", torch.bfloat16, torch.float32),  # scalar loads
+        (7424, 128, 16384, "AGGR_MODE_SUM", torch.bfloat16, torch.float16),  # quantized serving
+        (7424, 128, 4096, "AGGR_MODE_AVG", torch.float32, torch.float16),
+        (500, 37, 999, "AGGR_MODE_AVG", torch.bfloat16, torch.float16),  # scalar loads
     ],
 )
 def test_onehot_embedding_kernel_matches_plain_version(cuda, v, d, b, aggr, cdt, table_dtype):
@@ -384,8 +390,8 @@ def test_onehot_embedding_kernel_matches_plain_version(cuda, v, d, b, aggr, cdt,
     want = onehot_embedding_reference(table, idx, mode, cdt)
     torch.cuda.synchronize()
     # exact products w_r * row summed in f32 over at most 6 distinct rows, in
-    # another order; a bf16 table rounds the result once
-    rtol = 2.0**-7 if table_dtype == torch.bfloat16 else 12 * 2.0**-24
+    # another order; a bf16 or f16 table rounds the result once
+    rtol = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}.get(table_dtype, 12 * 2.0**-24)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=1e-6)
 
 
@@ -821,3 +827,151 @@ def test_host_routed_training_on_cuda_is_bit_identical_to_device_sorted(cuda):
     for name in models[True].get_parameters():
         for k, w in models[True].get_weights(name).items():
             np.testing.assert_array_equal(w, models[False].get_weights(name)[k])
+
+
+# ------------------------------------------------------------------ the multi-step call
+
+
+def _tensors(tree, path=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_tensors(v, f"{path}/{k}"))
+        return out
+    return {path: tree} if isinstance(tree, torch.Tensor) else {}
+
+
+def _capped_kaggle(bs, rule, device, **kw):
+    cfg = kaggle_config(batch_size=bs)
+    cfg.embedding_size = [min(v, 20_000) for v in cfg.embedding_size]
+    m = make_dlrm_model(cfg, FFConfig(batch_size=bs, seed=11, compute_dtype="bfloat16",
+                                      table_dtype="bfloat16", packed_tables="on", **kw), device=device)
+    opt = {"sgd": SGDOptimizer(lr=0.05), "adam": AdamOptimizer(alpha=0.001),
+           "adagrad": RowWiseAdagradOptimizer(lr=0.01)}[rule]
+    m.compile(opt, LossType.LOSS_BINARY_CROSSENTROPY, [MetricsType.METRICS_ACCURACY])
+    return cfg, m
+
+
+@pytest.mark.parametrize("rule, host_routing", [("sgd", False), ("adam", False), ("adagrad", False),
+                                                ("sgd", True)])
+def test_train_chunk_graph_replays_equal_eager_steps_bit_for_bit(cuda, rule, host_routing):
+    """A chunk of 4, the rate changed, the parameters set, then a tail chunk
+    of 2 (the same graph, replayed twice), against 6 eager steps doing the
+    same: parameters, optimizer state, metric totals and losses bit for bit
+    (deterministic algorithms keep the one-hot lookups' index_add_ in one
+    order on both); the captured step holds the row-update kernels."""
+    from dlrm_flexflow_tpu_torch.tools.graph_nodes import node_counts
+
+    bs = 512
+    cfg, eager = _capped_kaggle(bs, rule, cuda, host_routing=host_routing)
+    _, chunk = _capped_kaggle(bs, rule, cuda, host_routing=host_routing)
+    feeds, labels = random_batches(cfg, 6 * bs, seed=12)
+    batches = [({k: v[i * bs:(i + 1) * bs] for k, v in feeds.items()}, labels[i * bs:(i + 1) * bs])
+               for i in range(6)]
+    if host_routing:
+        batches = [({**f, **chunk.compute_routes(f)}, lbl) for f, lbl in batches]
+    stack = {k: np.stack([f[k] for f, _ in batches]) for k in batches[0][0]}
+    slabels = np.stack([lbl for _, lbl in batches])
+    half = {op: {k: v * 0.5 for k, v in eager.get_weights(op).items()} for op in eager.get_parameters()}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        losses = []
+        for i, (f, lbl) in enumerate(batches):
+            if i == 4:
+                eager.set_learning_rate(0.02)
+                eager.set_parameters(half)
+            losses.append(eager.train_batch(f, lbl))
+        first = chunk.train_chunk({k: v[:4] for k, v in stack.items()}, slabels[:4])
+        chunk.set_learning_rate(0.02)
+        chunk.set_parameters(half)
+        graph = chunk._step_graph.graph
+        last = chunk.train_chunk({k: v[4:] for k, v in stack.items()}, slabels[4:])
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert chunk._step_graph.graph is graph  # set_learning_rate and set_parameters keep it
+    assert torch.equal(first, losses[3]) and torch.equal(last, losses[5])
+    for tree_e, tree_c in ((eager.get_parameters(), chunk.get_parameters()), (eager._opt_state, chunk._opt_state),
+                           (eager._metrics_total, chunk._metrics_total)):
+        te, tc = _tensors(tree_e), _tensors(tree_c)
+        assert te.keys() == tc.keys()
+        for k in te:
+            assert torch.equal(te[k], tc[k]), k
+    assert eager._step_count == chunk._step_count == 6
+    nodes = node_counts(graph, kernel_names=True)
+    row = sum(n for name, n in nodes["kernels"].items() if "row_update" in name)
+    per_launch = 4 if rule == "adagrad" else 2
+    assert row == per_launch * 10, nodes["kernels"]
+    assert "host" not in nodes  # no host callback: the step never waits for the host
+
+
+def test_train_chunk_raises_for_a_scatter_route_table(cuda):
+    cfg = kaggle_config(batch_size=256)
+    cfg.embedding_size = [min(v, 20_000) for v in cfg.embedding_size]
+    m = make_dlrm_model(cfg, FFConfig(batch_size=256, packed_tables="off"), device=cuda)
+    m.compile(SGDOptimizer(lr=0.05), LossType.LOSS_BINARY_CROSSENTROPY)
+    assert m._sparse_ops and not any(op.kernel_route for op in m._sparse_ops)
+    feeds, labels = random_batches(cfg, 256, seed=13)
+    with pytest.raises(NotImplementedError, match="scatter route.*ROADMAP.md"):
+        m.train_chunk({k: v[None] for k, v in feeds.items()}, labels[None])
+    assert m._step_count == 0
+
+
+def test_checkpoint_restored_between_chunks_resumes_bit_for_bit(cuda, tmp_path):
+    """Save after 3 Adam steps, restore into a model that already has its
+    step captured (in place: the graph stays), 2 more steps; against 5
+    uninterrupted steps."""
+    from dlrm_flexflow_tpu_torch.training.checkpoint import restore_checkpoint, save_checkpoint
+
+    bs = 512
+    cfg, whole = _capped_kaggle(bs, "adam", cuda)
+    _, first = _capped_kaggle(bs, "adam", cuda)
+    _, resumed = _capped_kaggle(bs, "adam", cuda)
+    feeds, labels = random_batches(cfg, 5 * bs, seed=14)
+    stack = {k: v.reshape((5, bs) + v.shape[1:]) for k, v in feeds.items()}
+    slabels = labels.reshape(5, bs, 1)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        want = whole.train_chunk(stack, slabels)
+        first.train_chunk({k: v[:3] for k, v in stack.items()}, slabels[:3])
+        save_checkpoint(str(tmp_path / "ck"), first)
+        resumed.train_chunk({k: v[:1] for k, v in stack.items()}, slabels[:1])  # captures
+        graph = resumed._step_graph.graph
+        restore_checkpoint(str(tmp_path / "ck"), resumed)
+        got = resumed.train_chunk({k: v[3:] for k, v in stack.items()}, slabels[3:])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert resumed._step_graph.graph is graph and resumed._step_count == whole._step_count == 5
+    assert torch.equal(got, want)
+    for name in whole.get_parameters():
+        for k, w in whole.get_weights(name).items():
+            np.testing.assert_array_equal(w, resumed.get_weights(name)[k])
+
+
+@pytest.mark.parametrize("use_pallas", ["auto", "on"])
+def test_int8_predict_on_cuda_matches_the_cpu_port(cuda, use_pallas):
+    """int8 tables take the plain quantized lookup under every use_pallas
+    (no K4 or K5f launch); CUDA against the CPU from the same weights. The
+    bound is E2E_ON_ATOL of chip_smoke.py: the MLPs round to bf16 on both
+    sides, and under "on" each layer's output too."""
+    cfg = mlperf_lite_config(batch_size=256, vocab_cap=20_000)
+    models = {}
+    for dev in (cuda, "cpu"):
+        m = make_dlrm_model(cfg, FFConfig(batch_size=256, seed=15, use_pallas=use_pallas, packed_tables="off"),
+                            device=dev)
+        m.compile(loss_type=LossType.LOSS_BINARY_CROSSENTROPY)
+        models[str(dev)] = m
+    gpu, cpu = models[str(cuda)], models["cpu"]
+    cpu._ctx.use_pallas = gpu._ctx.use_pallas  # like with like, as chip_smoke.py's parity phases
+    cpu.set_parameters({name: gpu.get_weights(name) for name in gpu.get_parameters()})
+    assert gpu.quantize_embeddings("int8") == cpu.quantize_embeddings("int8") == cfg.num_tables
+    for name in gpu.get_parameters():
+        for k, t in gpu.get_parameters()[name].items():
+            assert torch.equal(t.cpu(), cpu.get_parameters()[name][k]), (name, k)
+    feeds, _ = random_batches(cfg, 2 * 256 + 37, seed=15)
+    before = (embedding_bag.launches, onehot_embedding.launches)
+    y_gpu = gpu.predict(feeds)
+    assert (embedding_bag.launches, onehot_embedding.launches) == before
+    y_cpu = cpu.predict(feeds)
+    assert np.isfinite(y_gpu).all()
+    np.testing.assert_allclose(y_gpu, y_cpu, rtol=0, atol=2.0**-7)

@@ -306,11 +306,25 @@ def test_bench_prints_bench_py_keys(capsys, extra, engaged):
 
 @pytest.mark.parametrize("flags, item", [
     (["--mesh"], "item 7"), (["--config", "mlperf-full"], "item 8"), (["--host-tail-threshold", "5"], "item 8"),
-    (["--onehot-packed-threshold", "200"], "item 5"), (["--mode", "infer", "--table-dtype", "int8"], "item 6"),
+    (["--onehot-packed-threshold", "200"], "item 5"),
 ])
 def test_bench_raises_for_what_the_port_has_not(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         port_bench.main(TINY + flags)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "int8"])
+def test_bench_serves_quantized_tables(capsys, dtype):
+    """--mode infer --table-dtype quantizes after staging, as bench.py does,
+    and says so; serving steps are eager."""
+    port_bench.main(TINY + ["--mode", "infer", "--table-dtype", dtype])
+    captured = capsys.readouterr()
+    res = json.loads(captured.out.strip().splitlines()[-1])
+    assert set(res) == {"metric", "value", "unit", "examples_per_sec_per_chip", "devices", "table_dtype",
+                        "packed_engaged", "loss"}
+    assert res["table_dtype"] == dtype and res["loss"] == 0.0 and np.isfinite(res["value"]) and res["value"] > 0
+    assert f"# quantized 8 embedding arrays to {dtype}" in captured.err
+    assert "steps=eager" in captured.err
 
 
 def test_new_modules_import_no_jax():
@@ -319,6 +333,8 @@ def test_new_modules_import_no_jax():
         "import dlrm_flexflow_tpu_torch.data.native_batcher, dlrm_flexflow_tpu_torch.bench\n"
         "import dlrm_flexflow_tpu_torch.tools.bench_gather_probe\n"
         "import dlrm_flexflow_tpu_torch.ops.kernels.row_gather\n"
+        "import dlrm_flexflow_tpu_torch.training.checkpoint, dlrm_flexflow_tpu_torch.training.callbacks\n"
+        "import dlrm_flexflow_tpu_torch.data.criteo, dlrm_flexflow_tpu_torch.tools.graph_nodes\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dlrm_flexflow_tpu')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"

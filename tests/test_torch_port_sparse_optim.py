@@ -475,12 +475,16 @@ def test_sparse_adam_rate_is_alpha_t_of_the_dense_step():
     alpha); a distinct sparse optimizer keeps its own rate."""
     pm = port_dlrm.make_dlrm_model(_tiny(port_dlrm), port.FFConfig(batch_size=32), device="cpu")
     pm.compile(port.AdamOptimizer(alpha=0.02))
-    rate = pm._sparse_rate({"lr": torch.tensor(0.02), "step": 1})
+    # the step's scalars, as the step reads them from the device
+    rate = pm._sparse_rate({"lr": torch.tensor(0.02), "step": 1},
+                           torch.from_numpy(pm._scalar_table(1, 1)[0]))
     t = jnp.float32(1)  # the JAX package's formula (core/ffmodel.py:971-977), f32
     want = jnp.float32(0.02) * jnp.sqrt(1.0 - jnp.power(0.999, t)) / (1.0 - jnp.power(0.9, t))
     np.testing.assert_allclose(float(rate), float(want), rtol=2 * F32_UNIT)
     pm.compile(port.AdamOptimizer(alpha=0.02), sparse_optimizer=port.RowWiseAdagradOptimizer(lr=0.3))
-    assert pm._sparse_rate({"lr": torch.tensor(0.02), "step": 1}) is None
+    # the distinct optimizer's own rate, a device tensor made at compile
+    own = pm._sparse_rate({"lr": torch.tensor(0.02), "step": 1}, torch.from_numpy(pm._scalar_table(1, 1)[0]))
+    assert own.dtype == torch.float32 and float(own) == float(np.float32(0.3))
 
 
 def test_set_learning_rate_leaves_a_distinct_sparse_optimizer_its_rate():
