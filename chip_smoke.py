@@ -85,18 +85,39 @@ Phases, each of which ends the run with a non-zero exit if it fails:
  19. checkpoint - kaggle widths, vocabs capped at 20000, Adam: 3 steps,
                save, restore into a fresh model, 2 steps, against 5 steps,
                bit for bit.
- 20. bench   - python -m dlrm_flexflow_tpu_torch.bench --quick, as a
+ 20. train-full - mlperf-full (26 tables, the unclipped Criteo Terabyte
+               vocabs, 882,774,559 rows, D = 128) under host-tail offload at
+               hot = 2^20 (6 tables offloaded, 7,408,088 rows on the card),
+               Zipf(1.05) ids, batch 65536, bf16: 3 warm-up and 10 timed
+               train_batch steps under SGD, then with the tables under
+               row-wise AdaGrad; the row-update and interaction launches
+               counted; the step by phase (build_feeds, copy, device step,
+               g_val readback, apply_grads), kernel time and busy share,
+               touched tail rows, drop fraction, peak memory, host RSS.
+ 21. host-tail-parity - a small host-tail model against the same model
+               with whole tables on the card, and against the CPU, under
+               SGD and row-wise AdaGrad.
+ 22. train-midband - kaggle at full width with onehot_packed_threshold
+               2^20 (5 mid-band tables): eager steps against graph replays,
+               timed, then bit for bit; CUDA against the CPU at capped
+               vocabs.
+ 23. train-chunk-scatter - kaggle at full width with all 10 large tables
+               on the scatter route: the same, SGD and Adam.
+ 24. bench   - python -m dlrm_flexflow_tpu_torch.bench --quick, as a
                subprocess: kaggle training (host-routed, graph replays), the
-               same with --zipf 1.05 and with --optimizer adam, and
-               mlperf-lite serving in f32 and with int8 tables.
- 21. kernels, continued - as phase 3: the fused dense layer at the 8
+               same with --zipf 1.05, with --optimizer adam and with
+               --onehot-packed-threshold 1048576, mlperf-full training
+               (host-tail offload, eager steps), and mlperf-lite serving in
+               f32 and with int8 tables.
+ 25. kernels, continued - as phase 3: the fused dense layer at the 8
                mlperf-lite layer shapes at M = 16384 (bf16), at M = 1000, in
                f32, without bias; the embedding bag at [16384, 1] into a
                2,000,000 x 128 table, with bags of 4 (AVG, padding, a fully
                padded bag), a bf16 table, indices past the table, an f16
                table (quantized serving); the one-hot lookup at V = 7424,
                D = 128, B = 16384 (SUM, AVG, duplicates, indices >= V, f32
-               and bf16 compute, bf16 and f16 tables) and its gradient (K5b) at
+               and bf16 compute, bf16 and f16 tables; each table timed
+               beside F.embedding_bag on it) and its gradient (K5b) at
                the same shape, with bags of 4, at V = 3 and 4 (hot rows over
                many segments) and at kaggle's shape, bit for bit against
                the CPU where one segment holds the stream, and at each of
@@ -112,9 +133,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
                at the probe's shape in f32 and bf16 at every depth, at a
                ragged K, on the narrow [1000000, 16] table, at widths of 5
                and 6 chunks, with indices < 0 and >= P, twice.
- 22. summary - a {"kernels": [...]} line, then the last line
+ 26. summary - a {"kernels": [...]} line, then the last line
                {"ok": true, "device": {...}}.
-Around each path (4, 6, 8, 10, 11, 13, 14, 15 and 18) the kernel launch
+Around each path (4, 6, 8, 10, 11, 13, 14, 15, 18 and 20) the kernel launch
 counts are zeroed just before and read just after, and must show every
 kernel of that path; phase 17 counts its replays' launches from the graph.
 The script imports nothing of JAX: it runs the port alone.
@@ -650,6 +671,8 @@ def phase_lookups() -> tuple:
         "bound_ms": bound, "bound_by": bound_by,
         "f16_ms": graph_ms(lambda: onehot_embedding(small16, one, SUM, torch.bfloat16)),
         "f16_plain_ms": graph_ms(lambda: onehot_embedding_reference(small16, one, SUM, torch.bfloat16)),
+        # one library call on the f16 table (an f16 result)
+        "f16_library_ms": graph_ms(lambda: F.embedding_bag(one, small16, mode="sum")),
         "f16_bound_ms": lookup_bound(small16, one)[0],
     }
     log(f"[kernels] onehot_embedding timing at [{BATCH}, 1] into {list(small.shape)} f32, "
@@ -1012,7 +1035,8 @@ def phase_train(rule: str = "sgd") -> tuple:
     return launches[RULE_WRAPPER[rule]], res["ms_per_step"]
 
 
-def train_profile(model, staged, ms_per_step: float) -> dict:
+def train_profile(model, staged, ms_per_step: float, steps: int = PROFILED_STEPS,
+                  route_tables: int = KAGGLE_BIG_TABLES) -> dict:
     """Kernel time per step on the device, from torch.profiler (CUPTI) over
     a few steps, against the unprofiled step time: the device's busy share.
     Sums kernel rows only (op rows carry their kernels' time again)."""
@@ -1020,11 +1044,11 @@ def train_profile(model, staged, ms_per_step: float) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(PROFILED_STEPS):
+        for i in range(steps):
             model.train_batch(*staged[i % len(staged)])
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    per_step = {e.key: e.self_device_time_total / 1e3 / PROFILED_STEPS for e in kernels}
+    per_step = {e.key: e.self_device_time_total / 1e3 / steps for e in kernels}
     busy = sum(per_step.values())
     if busy == 0.0:
         return {"kernel_ms_per_step": "not measured (the profiler saw no device time)"}
@@ -1035,7 +1059,7 @@ def train_profile(model, staged, ms_per_step: float) -> dict:
         "kernel_ms_per_step": busy,
         "busy_share_of_unprofiled_step": busy / ms_per_step,
         "row_update_kernel_ms_per_launch": (
-            sum(e.self_device_time_total for e in row) / 1e3 / (PROFILED_STEPS * KAGGLE_BIG_TABLES)),
+            sum(e.self_device_time_total for e in row) / 1e3 / (steps * route_tables)),
         "top_kernels_ms_per_step": {k[:60]: v for k, v in top},
     }
 
@@ -2238,12 +2262,15 @@ def phase_checkpoint() -> dict:
 def phase_bench() -> dict:
     """The port's bench as a user runs it, in a subprocess with a time
     limit: kaggle training (its default: batch 65536, host-routed), the same
-    on Zipf(1.05) indices (frequency-skewed ids, as Criteo's are), and
-    mlperf-lite serving, --quick. Each must print bench.py's keys with
+    on Zipf(1.05) indices (frequency-skewed ids, as Criteo's are), with
+    Adam and with the mid-band tables, mlperf-full training under host-tail
+    offload, and mlperf-lite serving, --quick. Each must print bench.py's keys with
     finite numbers; kaggle must take the row-update route."""
     out = {}
     for name, extra in (("kaggle-train", []), ("kaggle-train-zipf", ["--zipf", "1.05"]),
                         ("kaggle-train-adam", ["--optimizer", "adam"]),
+                        ("kaggle-train-midband", ["--onehot-packed-threshold", "1048576"]),
+                        ("mlperf-full-train", ["--config", "mlperf-full"]),
                         ("mlperf-lite-infer", ["--config", "mlperf-lite", "--mode", "infer"]),
                         ("mlperf-lite-infer-int8", ["--config", "mlperf-lite", "--mode", "infer",
                                                     "--table-dtype", "int8"])):
@@ -2262,16 +2289,337 @@ def phase_bench() -> dict:
         log(f"[bench] {json.dumps(res)}")
         keys = {"metric", "value", "unit", "examples_per_sec_per_chip", "devices", "table_dtype",
                 "packed_engaged", "loss"}
+        if name == "mlperf-full-train":  # bench.py's host-tail keys
+            keys |= {"host_tail_tables", "host_tail_touched_rows", "host_tail_drop_fraction"}
+            if res.get("host_tail_tables") != 6 or not res.get("host_tail_touched_rows"):
+                raise AssertionError(f"bench {name} printed {res}")
         if set(res) != keys or not (math.isfinite(res["value"]) and res["value"] > 0
                                     and math.isfinite(res["loss"])):
             raise AssertionError(f"bench {name} printed {res}")
-        if name.startswith("kaggle-train") and not (res["packed_engaged"] and res["table_dtype"] == "bfloat16"):
-            raise AssertionError(f"bench kaggle did not take the bf16 row-update route: {res}")
+        if "-train" in name and not (res["packed_engaged"] and res["table_dtype"] == "bfloat16"):
+            raise AssertionError(f"bench {name} did not take the bf16 row-update route: {res}")
+        # a host-tail step cannot be one graph: the host works between steps
         timed = "steps=graph" if name.startswith("kaggle-train") else "steps=eager"
         if not any(timed in line for line in notes) or (name.endswith("int8") and not any(
                 "# quantized 26 embedding arrays to int8" in line for line in notes)):
             raise AssertionError(f"bench {name} did not say {timed!r} (or what it quantized): {notes}")
         out[name] = res
+    return out
+
+
+# ------------------------------------------------------------------ slice 9: host tail, mid-band, scatter replays
+
+HOST_TAIL_HOT = 1 << 20  # mlperf-full's hot prefix on the card (the JAX bench's)
+MIDBAND_THRESHOLD = 1 << 20  # train-midband's onehot_packed_threshold
+FULL_WARMUP, FULL_STEPS, FULL_PROFILED = 3, 10, 3
+MLPERF_FULL_ROWS = 882_774_559
+
+
+def host_rss_gb() -> dict:
+    """The process's resident host memory now and at its peak (GB)."""
+    import resource
+
+    rss = next((int(line.split()[1]) * 1024 / 1e9 for line in Path("/proc/self/status").read_text().splitlines()
+                if line.startswith("VmRSS:")), None)
+    return {"host_rss_gb": rss, "host_peak_rss_gb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9}
+
+
+def host_tail_breakdown(model, feeds, labels) -> dict:
+    """One host-tail train step as FFModel.train_batch runs it, phase by
+    phase, with the card synchronized between phases (host clock, ms):
+    build_feeds on the host, the staging copies, the device step, the g_val
+    readback (the step's one sync, with the row rate) and apply_grads."""
+    t = [time.perf_counter()]
+    feeds = model._host_tail_feeds(feeds, train=True)
+    t.append(time.perf_counter())
+    staged, lbl, scalars = model._stage(feeds), model._stage_labels(labels), model._step_scalars()
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    _, g_host = model._step(staged, lbl, None, scalars)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    g_val, rate = model._host_tail_readback(g_host, scalars)
+    t.append(time.perf_counter())
+    model._host_tail.apply_grads(g_val, rate)
+    t.append(time.perf_counter())
+    model._advance(1)
+    names = ("build_feeds", "h2d_copy", "device_step", "g_val_readback", "apply_grads")
+    out = {name: (b - a) * 1e3 for name, a, b in zip(names, t, t[1:])}
+    out["total"] = (t[-1] - t[0]) * 1e3
+    return out
+
+
+def phase_train_full(rule: str) -> dict:
+    """mlperf-full (the unclipped Criteo Terabyte vocabs, 882,774,559 rows,
+    D = 128) under host-tail offload at hot = 2^20: the 6 tables above it
+    keep 2^20 rows on the card and their tail rows on the host; Zipf(1.05)
+    ids, batch 65536, bf16 compute and route tables; SGD (lr 0.01), the
+    tables' rows under SGD (`rule` "sgd") or row-wise AdaGrad at lr 0.01
+    ("adagrad", a sparse optimizer: the hot rows on the card's row-update
+    kernel and the tail rows in the store follow it): 3 warm-up and 10 timed train_batch
+    steps (eager: the host works between steps), the row-update and
+    interaction launches counted, then the time by phase, kernel time and
+    busy share, touched tail rows, drop fraction, peak device memory and
+    host RSS."""
+    from dlrm_flexflow_tpu_torch import FFConfig, LossType, MetricsType, RowWiseAdagradOptimizer, SGDOptimizer
+    from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
+    from dlrm_flexflow_tpu_torch.models.dlrm import make_dlrm_model, mlperf_config
+
+    tag = f"[train-full] {rule}"
+    cfg = mlperf_config(batch_size=TRAIN_BATCH)
+    if sum(cfg.embedding_size) != MLPERF_FULL_ROWS:
+        raise AssertionError(f"mlperf-full holds {sum(cfg.embedding_size)} rows")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = make_dlrm_model(cfg, FFConfig(
+        batch_size=TRAIN_BATCH, seed=SEED, compute_dtype="bfloat16", table_dtype="bfloat16",
+        host_tail_threshold=HOST_TAIL_HOT, host_tail_cap_frac=0.25))
+    model.compile(SGDOptimizer(lr=0.01), LossType.LOSS_BINARY_CROSSENTROPY, [MetricsType.METRICS_ACCURACY],
+                  sparse_optimizer=None if rule == "sgd" else RowWiseAdagradOptimizer(lr=ADAGRAD_LR))
+    torch.cuda.synchronize()
+    ht = model._host_tail
+    route = [op for op in model._sparse_ops if op.kernel_route]
+    device_rows = sum(p["weight"].shape[0] for op, p in model.get_parameters().items() if op.startswith("table_"))
+    feeds, labels = random_batches(cfg, 4 * TRAIN_BATCH, seed=SEED, learnable=False, zipf=1.05)
+    batches = [({k: v[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH] for k, v in feeds.items()},
+                labels[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]) for i in range(4)]
+    setup = {"tables": cfg.num_tables, "rows": sum(cfg.embedding_size), "device_rows": device_rows,
+             "host_tail_tables": len(ht.entries), "k_cap": sorted({e[4] for e in ht.entries.values()}),
+             "route_tables": len(route), "route_dtype": str(model.get_parameters()[route[0].name]["weight"].dtype),
+             "rule": ht.rule, "set_up_s": time.perf_counter() - t0}
+    log(f"{tag} mlperf-full: {json.dumps(setup)}")
+    if len(ht.entries) != 6 or device_rows != 7_408_088 or len(route) != 13:
+        raise AssertionError(f"{tag}: not the expected split: {setup}")
+    losses = [float(model.train_batch(*batches[i % 4])) for i in range(FULL_WARMUP)]
+    counts = launch_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for i in range(FULL_STEPS):
+        loss = model.train_batch(*batches[i % 4])
+    losses.append(float(loss))
+    dt = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counts.items()}
+    wrapper = "row_update" if rule == "sgd" else "row_update_adagrad"
+    want = {**{name: 0 for name in counts}, wrapper: FULL_STEPS * len(route), "dot_interaction": FULL_STEPS}
+    ms = dt / FULL_STEPS * 1e3
+    res = {"steps": FULL_STEPS, "ms_per_step": ms, "examples_per_s": TRAIN_BATCH / ms * 1e3, "launches": launches,
+           "losses": losses, "touched_tail_rows": sum(e[0].touched_rows for e in ht.entries.values()),
+           "tail_lookups": ht.total, "dropped": ht.dropped, "drop_fraction": model.host_tail_drop_fraction(),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **host_rss_gb()}
+    log(f"{tag} {json.dumps(res)}")
+    if launches != want:
+        raise AssertionError(f"{tag}: the path launched {launches}, not {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag}: losses not finite: {losses}")
+    steps = [host_tail_breakdown(model, *batches[i % 4]) for i in range(2)]
+    log(f"{tag} ms by phase, one step (host clock, card synchronized between phases; 2 steps): "
+        f"{json.dumps(steps)}")
+    prof = train_profile(model, batches, ms, steps=FULL_PROFILED, route_tables=len(route))
+    log(f"{tag} device kernels over {FULL_PROFILED} profiled steps: {json.dumps(prof)}")
+    del model, batches, feeds
+    torch.cuda.empty_cache()
+    return {**res, "by_phase": steps, "profile": prof}
+
+
+def capped_kaggle(cap: int, bag: int = 1):
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
+
+    cfg = kaggle_config(batch_size=256)
+    cfg.embedding_size = [min(v, cap) for v in cfg.embedding_size]
+    cfg.embedding_bag_size = bag
+    return cfg
+
+
+def phase_host_tail_parity() -> dict:
+    """A small host-tail model (kaggle widths, vocabs capped at 5000, bags
+    of 2, hot prefix 1000: 15 tables offloaded; no one-hot tables) against the same model with
+    its whole tables on the card, from the same effective tables and
+    towers, and against the CPU port, 4 steps each under SGD and under SGD
+    with row-wise AdaGrad on the tables (the usual DLRM split: dense
+    AdaGrad's first step, about lr on every weight, saturates this model's
+    loss within one step), f32 compute. Host tail vs the whole table: the same sums but
+    for the host's duplicate rows, summed before their add (rtol 1e-5, atol
+    1e-6 on the loss; AdaGrad's rsqrt in numpy against torch's: rtol 1e-4,
+    atol 1e-5), the JAX package's bounds (tests/test_host_tail.py); CUDA vs
+    CPU the same bounds."""
+    from dlrm_flexflow_tpu_torch import FFConfig, LossType, MetricsType, RowWiseAdagradOptimizer, SGDOptimizer
+    from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
+    from dlrm_flexflow_tpu_torch.models.dlrm import make_dlrm_model
+
+    cfg, bs, hot, steps = capped_kaggle(5000, bag=2), 256, 1000, 4
+    n_tail = sum(v > hot for v in cfg.embedding_size)
+    out = {}
+    for rule in ("sgd", "adagrad"):
+        def make(device, thr):
+            m = make_dlrm_model(cfg, FFConfig(batch_size=bs, seed=SEED + 30, compute_dtype="float32",
+                                              onehot_embedding_threshold=0, host_tail_threshold=thr,
+                                              host_tail_cap_frac=1.0), device=device)
+            m.compile(SGDOptimizer(lr=0.05), LossType.LOSS_BINARY_CROSSENTROPY, [MetricsType.METRICS_ACCURACY],
+                      sparse_optimizer=None if rule == "sgd" else RowWiseAdagradOptimizer(lr=0.05))
+            return m
+
+        full, tail, cpu = make("cuda", 0), make("cuda", hot), make("cpu", hot)
+        for op, sub in full.get_parameters().items():
+            w = full.get_weights(op)
+            for m in (tail, cpu):
+                if op in m._host_tail.entries:
+                    m.set_weights(op, {"weight": w["weight"][:hot]})
+                    m._host_tail.entries[op][0].load_state(np.arange(hot, w["weight"].shape[0]), w["weight"][hot:])
+                else:
+                    m.set_weights(op, w)
+        feeds, labels = random_batches(cfg, steps * bs, seed=SEED + 30, zipf=1.05)
+        losses = {"full": [], "tail": [], "cpu": []}
+        for i in range(steps):
+            b = ({k: v[i * bs:(i + 1) * bs] for k, v in feeds.items()}, labels[i * bs:(i + 1) * bs])
+            for name, m in (("full", full), ("tail", tail), ("cpu", cpu)):
+                losses[name].append(float(m.train_batch(*b)))
+        rtol, atol = (1e-5, 1e-6) if rule == "sgd" else (1e-4, 1e-5)
+        tail_err = max(abs(a - b) - rtol * abs(b) for a, b in zip(losses["tail"], losses["full"]))
+        cpu_err = max(abs(a - b) - rtol * abs(b) for a, b in zip(losses["tail"], losses["cpu"]))
+        row_err = 0.0
+        for op, (store, *_) in tail._host_tail.entries.items():
+            rows, vals, _ = store.state()
+            row_err = max(row_err, float(np.abs(vals - full.get_weights(op)["weight"][rows]).max()))
+            c_rows, c_vals, _ = cpu._host_tail.entries[op][0].state()
+            if not np.array_equal(rows, c_rows):
+                raise AssertionError(f"[host-tail-parity] {rule}: CUDA and CPU touched other tail rows")
+            row_err = max(row_err, float(np.abs(vals - c_vals).max()))
+        res = {"rule": rule, "tables_offloaded": len(tail._host_tail.entries), "steps": steps,
+               "losses": losses, "loss_err_tail_vs_full_over_rtol": tail_err, "loss_err_cuda_vs_cpu_over_rtol": cpu_err,
+               "max_tail_row_err": row_err, "rtol": rtol, "atol": atol, "tail_lookups": tail._host_tail.total,
+               "dropped": tail.host_tail_dropped}
+        log(f"[host-tail-parity] {json.dumps(res)}")
+        if len(tail._host_tail.entries) != n_tail or tail_err > atol or cpu_err > atol or row_err > 10 * atol \
+                or tail.host_tail_dropped:
+            raise AssertionError(f"[host-tail-parity] {rule}: {res}")
+        out[rule] = res
+        del full, tail, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def replays_vs_eager(tag: str, make, cfg) -> dict:
+    """Two models from `make()` (the same weights): 3 warm-up and 20 timed
+    eager train_batch steps on the 4 staged batches against a warm-up chunk
+    (the capture) and 5 chunks of 4 graph replays (train_chunk), ms a step
+    both ways; then two fresh models under deterministic algorithms, 20
+    eager steps against 5 chunks of 4, which must leave every loss and
+    every tensor of the state bit for bit the same."""
+    eager, chunk = make(), make()
+    batches, staged = kaggle_batches(eager, cfg)
+    stack, labels = chunk_stacks(staged)
+    for i in range(TRAIN_WARMUP):
+        eager.train_batch(*staged[i % 4])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        loss_e = eager.train_batch(*staged[i % 4])
+    float(loss_e)
+    eager_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    chunk.train_chunk({k: v[:TRAIN_WARMUP] for k, v in stack.items()}, labels[:TRAIN_WARMUP])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS // 4):
+        loss_g = chunk.train_chunk(stack, labels)
+    float(loss_g)
+    graph_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    res = {"eager_ms_per_step": eager_ms, "graph_ms_per_step": graph_ms,
+           "eager_examples_per_s": TRAIN_BATCH / eager_ms * 1e3, "graph_examples_per_s": TRAIN_BATCH / graph_ms * 1e3,
+           "eager_loss": float(loss_e), "graph_loss": float(loss_g),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"{tag} {json.dumps(res)}")
+    if not (math.isfinite(res["eager_loss"]) and math.isfinite(res["graph_loss"])):
+        raise AssertionError(f"{tag}: losses not finite: {res}")
+    del eager, chunk, staged, stack, labels
+    torch.cuda.empty_cache()
+
+    eager, chunk = make(), make()
+    _, staged = kaggle_batches(eager, cfg)
+    stack, labels = chunk_stacks(staged)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        losses_e = [eager.train_batch(*staged[i % 4]) for i in range(TRAIN_STEPS)]
+        losses_g = [chunk.train_chunk(stack, labels) for _ in range(TRAIN_STEPS // 4)]
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = state_diff(eager, chunk)
+    same_losses = all(torch.equal(a, b) for a, b in zip(losses_e[3::4], losses_g))
+    bits = {"deterministic_steps": TRAIN_STEPS, "chunks": TRAIN_STEPS // 4, "tensors": len(state_tensors(eager)),
+            "differing_tensors": len(diff), "max_abs_diff": max(diff.values(), default=0.0),
+            "losses_bit_identical": same_losses, "captured": chunk._step_graph is not None,
+            "step_counts": [eager._step_count, chunk._step_count]}
+    log(f"{tag} replays vs eager steps, deterministic: {json.dumps(bits)}")
+    if diff or not same_losses or eager._step_count != chunk._step_count or chunk._step_graph is None:
+        raise AssertionError(f"{tag}: graph replays and eager steps differ: {bits} {diff}")
+    del eager, chunk, staged, stack, labels
+    torch.cuda.empty_cache()
+    return {**res, **bits}
+
+
+def phase_train_midband() -> dict:
+    """kaggle at full width with onehot_packed_threshold 2^20: the tables
+    of 12517, 93145, 14992, 286181 and 142572 rows become mid-band (one-hot
+    lookup, dense f32 gradients, the dense rule), the other five large ones
+    stay on the row-update route in bf16; SGD and Adam, eager steps against
+    graph replays. Then CUDA against the CPU at vocabs capped at 20000 (all
+    10 large tables mid-band), 5 SGD steps."""
+    from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
+
+    cfg = kaggle_config(batch_size=TRAIN_BATCH)
+    want_mid = sorted(v for v in cfg.embedding_size if 8192 < v <= MIDBAND_THRESHOLD)
+    want_route = sum(v > MIDBAND_THRESHOLD for v in cfg.embedding_size)
+    out = {}
+    for rule in ("sgd", "adam"):
+        def make():
+            m = kaggle_model(cfg, TRAIN_BATCH, SEED, rule=rule, onehot_packed_threshold=MIDBAND_THRESHOLD)
+            mid = sorted(op.num_entries for op in m.graph.compute_ops if getattr(op, "onehot_packed", False))
+            routed = [op for op in m._sparse_ops if op.kernel_route]
+            if mid != want_mid or len(routed) != want_route or any(
+                    m.get_parameters()[op.name]["weight"].dtype != torch.bfloat16 for op in routed):
+                raise AssertionError(f"[train-midband] mid-band {mid}, route {[op.name for op in routed]}")
+            return m
+
+        out[rule] = replays_vs_eager(f"[train-midband] {rule} (mid-band {want_mid})", make, cfg)
+    pcfg = capped_kaggle(20_000)
+    gpu = kaggle_model(pcfg, 256, SEED + 31, onehot_packed_threshold=MIDBAND_THRESHOLD)
+    cpu = kaggle_model(pcfg, 256, SEED + 31, device="cpu", onehot_packed_threshold=MIDBAND_THRESHOLD)
+    cpu.set_parameters({name: gpu.get_weights(name) for name in gpu.get_parameters()})
+    feeds, labels = random_batches(pcfg, 5 * 256, seed=SEED + 31)
+    errs = []
+    for i in range(5):
+        b = ({k: v[i * 256:(i + 1) * 256] for k, v in feeds.items()}, labels[i * 256:(i + 1) * 256])
+        errs.append(abs(float(gpu.train_batch(*b)) - float(cpu.train_batch(*b))))
+    w_err = max(float(np.abs(w - cpu.get_weights(n)[k]).max())
+                for n in gpu.get_parameters() for k, w in gpu.get_weights(n).items())
+    res = {"mid_band_tables": sum(getattr(op, "onehot_packed", False) for op in gpu.graph.compute_ops),
+           "steps": 5, "max_loss_err": max(errs), "max_weight_err": w_err, "atol": E2E_ATOL}
+    log(f"[train-midband] CUDA vs CPU, vocabs capped at 20000: {json.dumps(res)}")
+    if res["mid_band_tables"] != 10 or max(errs) > E2E_ATOL or w_err > E2E_ATOL:
+        raise AssertionError(f"[train-midband] CUDA and CPU disagree: {res}")
+    out["parity"] = res
+    return out
+
+
+def phase_train_chunk_scatter() -> dict:
+    """kaggle at full width with packed_tables="off": all 10 large tables
+    on the scatter route (the optimizer's fixed-size scatter rule), in f32;
+    SGD and Adam, eager steps against graph replays."""
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
+
+    cfg = kaggle_config(batch_size=TRAIN_BATCH)
+    out = {}
+    for rule in ("sgd", "adam"):
+        def make():
+            m = kaggle_model(cfg, TRAIN_BATCH, SEED, rule=rule, packed_tables="off")
+            scatter = [op for op in m._sparse_ops if not op.kernel_route]
+            if len(scatter) != KAGGLE_BIG_TABLES or len(m._sparse_ops) != KAGGLE_BIG_TABLES:
+                raise AssertionError(f"[train-chunk-scatter] scatter route {[op.name for op in scatter]}")
+            return m
+
+        out[rule] = replays_vs_eager(f"[train-chunk-scatter] {rule}", make, cfg)
     return out
 
 
@@ -2300,6 +2648,11 @@ def main() -> None:
     phase_fit_chunk()
     phase_serve_quant(card)
     phase_checkpoint()
+    for rule in ("sgd", "adagrad"):
+        phase_train_full(rule)
+    phase_host_tail_parity()
+    phase_train_midband()
+    phase_train_chunk_scatter()
     phase_bench()
     # after the paths: run before them, these cases left about 0.5 GB
     # allocated, which showed in the paths' peak memory

@@ -3,6 +3,7 @@
     python -m dlrm_flexflow_tpu_torch.bench                      # kaggle training, batch 65536, host-routed
     python -m dlrm_flexflow_tpu_torch.bench --config mlperf-lite --mode infer
     python -m dlrm_flexflow_tpu_torch.bench --device cpu --config tiny --batch-size 64 --quick
+    python -m dlrm_flexflow_tpu_torch.bench --config mlperf-full --quick   # host-tail offload
 
 The port of the root `bench.py`, with its flags, defaults and protocol
 (`bench.py:245-375`): 4 batches from `random_batches` (indices Zipf with
@@ -28,10 +29,21 @@ the row-update kernel route, loss) and a `#` line on stderr that names the
 card and its power limit. The TPU anchors (vs_baseline) and the mesh's
 all_to_all_gbps are a TPU's numbers and are not printed.
 
-Flags without a counterpart in the port yet raise NotImplementedError,
-naming their ROADMAP.md item: --mesh (Queue 1 item 7), --config mlperf-full
-or --host-tail-threshold > 0 (item 8), --onehot-packed-threshold > 0 (item
-5). --packed-gather-mode, --packed-stream-mode and
+`--config mlperf-full` (the unclipped Criteo Terabyte vocabs, 882,774,559
+rows) trains under host-tail offload, as the JAX bench does (`bench.py:
+158-166`, `:254-300`): `--host-tail-threshold` defaults to 2^20 there, the
+exchange's capacity is a quarter of a batch's lookups, the indices are
+Zipf(1.05) unless `--zipf` says otherwise, and only `--mode train` runs. A
+host-tail step cannot be one graph (the host serves and updates the tail
+rows between steps), so those steps are eager `train_batch` calls on the
+numpy batches (`steps=eager`), the host's work included; the `#` line and
+the JSON add `host_tail_tables`, `host_tail_touched_rows` and
+`host_tail_drop_fraction`. `--onehot-packed-threshold N` makes the tables
+with a vocab in (`--onehot-threshold`, N] mid-band tables (one-hot lookup,
+dense gradients), which graph replays capture.
+
+`--mesh` raises NotImplementedError: multi-GPU is ROADMAP.md Queue 1 item
+7. --packed-gather-mode, --packed-stream-mode and
 --packed-selective choose among the JAX package's packed-layout variants;
 the port keeps [V, D] tables with one gather and one update stream, so they
 are taken and change nothing.
@@ -74,7 +86,8 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="kaggle", choices=list(CONFIGS))
     ap.add_argument("--host-tail-threshold", type=int, default=0,
-                    help="host-tail offload (ROADMAP.md Queue 1 item 8): > 0 raises")
+                    help="host-tail offload: tables above it keep this many rows on the device, "
+                         "the rest in host RAM (mlperf-full: 2^20 unless given)")
     ap.add_argument("--batch-size", type=int, default=65536)
     ap.add_argument("--packed-tables", default="auto", choices=["auto", "on", "off"],
                     help="the row-update kernel route (auto: on CUDA)")
@@ -99,7 +112,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--onehot-threshold", type=int, default=8192,
                     help="vocab bound of the one-hot lookup path")
     ap.add_argument("--onehot-packed-threshold", type=int, default=0,
-                    help="the mid-band one-hot tables (ROADMAP.md Queue 1 item 5): > 0 raises")
+                    help="vocab bound of the mid-band tables (one-hot lookup, dense gradients); "
+                         "0 = off")
     ap.add_argument("--table-dtype", default="auto",
                     choices=["auto", "float32", "bfloat16", "float16", "int8"],
                     help="train: float32 or bfloat16 route tables (auto: bfloat16); infer: the "
@@ -109,16 +123,16 @@ def parser() -> argparse.ArgumentParser:
 
 
 def check_ported(ap: argparse.ArgumentParser, args) -> None:
-    """Resolve --table-dtype as bench.py does; raise for what the port has not."""
+    """Resolve --table-dtype and mlperf-full's host tail as bench.py does;
+    raise for what the port has not."""
     if args.mesh:
         raise NotImplementedError("--mesh: multi-GPU is ROADMAP.md Queue 1 item 7, a later "
                                   "slice of the port")
-    if args.config == "mlperf-full" or args.host_tail_threshold > 0:
-        raise NotImplementedError("--config mlperf-full and --host-tail-threshold: host-tail "
-                                  "offload is ROADMAP.md Queue 1 item 8, a later slice of the port")
-    if args.onehot_packed_threshold > 0:
-        raise NotImplementedError("--onehot-packed-threshold: the mid-band one-hot tables are "
-                                  "ROADMAP.md Queue 1 item 5, a later slice of the port")
+    if args.config == "mlperf-full":
+        if args.mode != "train":
+            ap.error("mlperf-full supports --mode train only (host-tail offload)")
+        if args.host_tail_threshold == 0:
+            args.host_tail_threshold = 1 << 20
     if args.table_dtype == "auto":
         args.table_dtype = "bfloat16" if args.mode == "train" else "float32"
     if args.mode == "train" and args.table_dtype not in ("float32", "bfloat16"):
@@ -156,7 +170,12 @@ def main(argv=None) -> dict:
                    packed_stream_mode=args.packed_stream_mode,
                    packed_selective=args.packed_selective,
                    onehot_embedding_threshold=args.onehot_threshold,
+                   onehot_packed_threshold=args.onehot_packed_threshold,
                    host_routing=args.host_routing)
+    if args.host_tail_threshold > 0:
+        # Zipf(1.05) ids at hot = 2^20 send about a fifth of the lookups to
+        # the tail; a quarter of the batch's lookups leaves slack
+        ffc.host_tail_threshold, ffc.host_tail_cap_frac = args.host_tail_threshold, 0.25
     if args.mode == "train" and args.table_dtype != "float32":
         ffc.table_dtype = args.table_dtype
     model = make_dlrm_model(cfg, ffc, device=device)
@@ -176,7 +195,11 @@ def main(argv=None) -> dict:
         print(f"# WARNING: {msg}", file=sys.stderr)
         effective_table_dtype = "float32"
 
-    feeds_np, labels_np = random_batches(cfg, bs * N_BATCHES, seed=0, learnable=False, zipf=args.zipf)
+    zipf = args.zipf if args.zipf > 0 else (1.05 if args.host_tail_threshold > 0 else 0.0)
+    feeds_np, labels_np = random_batches(cfg, bs * N_BATCHES, seed=0, learnable=False, zipf=zipf)
+    if model._host_tail is not None:
+        return host_tail_run(args, model, feeds_np, labels_np, device, effective_table_dtype,
+                             packed_engaged)
     routed = args.mode == "train" and args.host_routing and packed_engaged
     batches = []
     for j in range(N_BATCHES):
@@ -228,6 +251,45 @@ def main(argv=None) -> dict:
         "table_dtype": effective_table_dtype,
         "packed_engaged": packed_engaged,
         "loss": loss,
+    }
+    print(json.dumps(result))
+    return result
+
+
+def host_tail_run(args, model, feeds_np, labels_np, device, table_dtype, packed_engaged) -> dict:
+    """The host-tail bench (bench.py:254-300): eager train_batch steps on
+    the numpy batches, round robin, the host's work inside the timing."""
+    bs = args.batch_size
+    batches = [({k: v[j * bs:(j + 1) * bs] for k, v in feeds_np.items()}, labels_np[j * bs:(j + 1) * bs])
+               for j in range(N_BATCHES)]
+    for i in range(max(args.warmup, 1)):
+        loss = model.train_batch(*batches[i % N_BATCHES])
+    float(loss)
+    t0 = time.perf_counter()
+    for i in range(args.steps):
+        loss = model.train_batch(*batches[i % N_BATCHES])
+    loss_val = float(loss)
+    dt = time.perf_counter() - t0
+    examples_per_sec = args.steps * bs / dt
+    entries = model._host_tail.entries
+    touched = sum(e[0].touched_rows for e in entries.values())
+    drop = model.host_tail_drop_fraction()
+    print(f"# config={args.config} mode=train bs={bs} n_steps={args.steps} dt={dt}s steps=eager "
+          f"device={card(device)} host-tail tables={len(entries)} touched_rows={touched} "
+          f"drop_frac={drop} table_dtype={table_dtype} packed={'yes' if packed_engaged else 'no'} "
+          f"examples/s={examples_per_sec} loss={loss_val}", file=sys.stderr)
+    result = {
+        "metric": f"dlrm_{args.config}_train_examples_per_sec",
+        "value": examples_per_sec,
+        "unit": "examples/s",
+        "examples_per_sec_per_chip": examples_per_sec,
+        "host_tail_tables": len(entries),
+        "host_tail_touched_rows": int(touched),
+        "host_tail_drop_fraction": drop,
+        "devices": 1,
+        "table_dtype": table_dtype,
+        "packed_engaged": packed_engaged,
+        "loss": loss_val,
     }
     print(json.dumps(result))
     return result

@@ -2,7 +2,10 @@
 
 Both packages keep parameters as `{op_name: {key: array}}` with the same op
 names, keys, shapes and layouts (Dense `kernel` [out, in] and `bias` [out];
-Embedding `weight` [V, D]). `params_from_jax` takes what the JAX package's
+Embedding `weight` [V, D]), but for the tables the JAX package keeps
+packed [P, 128] (row r at line r // (128 / D), lanes (r % (128 / D)) * D
+onward), which the port keeps [V, D]: `params_from_jax(..., like=)` unpacks
+them as the JAX package's `unpack_table` does. `params_from_jax` takes what the JAX package's
 `FFModel.get_weights(op_name)` returns for each op (host numpy in logical
 shapes; packed tables come back unpacked, bf16 tables as bf16) and gives
 torch tensors for `FFModel.set_parameters`, which rounds each to the
@@ -14,7 +17,8 @@ kernel route with `table_dtype="bfloat16"`, f32 otherwise):
 """
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -30,11 +34,39 @@ def to_torch(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
+def unpack_like(arr: np.ndarray, shape: tuple) -> np.ndarray:
+    """A packed array of the JAX package in the port's `shape`: [Pp, 128]
+    -> [V, D], the first V * D elements of the row-major lines
+    (`unpack_table`, ops/pallas/packed_update.py:78); a per-line vector
+    [Pp] (dense AdaGrad's accumulator of a packed table) -> its first
+    `shape[0]` lines. Anything else comes back as it is."""
+    arr = np.asarray(arr)
+    n = math.prod(shape)
+    if tuple(arr.shape) == tuple(shape) or arr.size < n:
+        return arr
+    if arr.ndim == 2 and arr.shape[1] == 128 and len(shape) == 2:
+        return arr.reshape(-1)[:n].reshape(shape)
+    if arr.ndim == 1 and len(shape) == 1:
+        return arr[:n]
+    return arr
+
+
 def params_from_jax(
     np_params: Dict[str, Dict[str, np.ndarray]],
+    like: Optional[Dict[str, Dict[str, tuple]]] = None,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """{op_name: {key: numpy}} from the JAX package -> {op_name: {key: tensor}}."""
+    """{op_name: {key: numpy}} from the JAX package -> {op_name: {key: tensor}}.
+    `like` ({op_name: {key: shape}}, e.g. from the port model's
+    `get_parameters()`) unpacks each packed table to its shape there (for
+    arrays from the JAX package's `get_parameters()`; its `get_weights`
+    unpacks already)."""
+    def fit(op_name, key, arr):
+        shape = (like or {}).get(op_name, {}).get(key)
+        if shape is None:
+            return arr
+        return unpack_like(arr, tuple(shape.shape) if isinstance(shape, torch.Tensor) else tuple(shape))
+
     return {
-        op_name: {key: to_torch(arr) for key, arr in sub.items()}
+        op_name: {key: to_torch(fit(op_name, key, arr)) for key, arr in sub.items()}
         for op_name, sub in np_params.items()
     }

@@ -21,6 +21,13 @@ paths, chosen as the JAX package chooses them (`ops/embedding.py:116-163`):
   table with D % 128 == 0 takes the embedding-bag kernel instead
   (`ops/kernels/embedding_bag.py`, the port of K4): the same rows, summed in
   f32.
+- a mid-band table (`onehot_packed`, set by FFModel.compile for a vocab
+  in (onehot_embedding_threshold, onehot_packed_threshold]): the JAX
+  package's one-hot matmul over pack lines (`packed_embedding_bag_onehot`,
+  ops/embedding.py:333-383), which selects rows exactly as the narrow
+  one-hot does: `embedding_bag_onehot` on the [V, D] table, under every
+  use_pallas (the reference is plain XLA, with no Pallas gate). Its
+  gradient is dense [V, D], for the dense optimizer.
 - int8 serving tables (`FFModel.quantize_embeddings("int8")`: `weight_q`
   and `weight_scale` in place of `weight`), checked before any route, as
   the JAX package's `_forward_device` checks them (`ops/embedding.py:
@@ -38,8 +45,12 @@ FFModel.compile puts on the row-update kernel route (`kernel_route`,
 updated by training/sparse_engine.py) may be stored in `table_dtype`
 (bf16); every other table, and every optimizer pool, stays f32.
 
-The JAX package's host-tail and mid-band packed one-hot branches belong to
-later slices.
+Host-tail offload (`enable_host_tail`, parallel/host_tail.py): the table
+keeps its hot prefix [0, hot) and the op takes two more inputs, the host's
+pooled tail partials `pos` [K_cap] and `val` [K_cap, D]. The forward masks
+indices >= hot to padding before the lookup (an index >= V reads a zero row
+on the route and NaN off it, so neither can be relied on), then adds `val`
+into the pooled rows at `pos`, dropping pos == B (`add_tail_partials`).
 """
 from __future__ import annotations
 
@@ -123,6 +134,33 @@ class _OnehotRows(torch.autograd.Function):
         acc = torch.zeros(ctx.shape, dtype=torch.float32, device=g.device)
         acc.index_add_(0, idx.reshape(-1), g.reshape(-1, ctx.shape[1]).float())
         return acc.to(ctx.compute_dtype).to(ctx.dtype), None, None
+
+
+def add_tail_partials(pooled: torch.Tensor, pos: torch.Tensor, val: torch.Tensor, bag: int) -> torch.Tensor:
+    """pooled [B, D] with val [K, D] added at rows pos [K], pos == B (the
+    host's empty slots) dropped: the JAX package's `pooled.at[pos].add(
+    val.astype(pooled.dtype), mode="drop")`. With bags of one no
+    valid pos repeats, and one `index_add_` adds each partial once. With
+    bags of `bag` > 1 an example may hold several tail lookups: the slots
+    are ordered stably by pos (the host already gives them ascending) and
+    added in `bag` passes, pass j taking each example's j-th partial, so
+    that no pass adds twice to one row and an example's partials add in
+    their order, as the reference's sequential scatter adds them, on every
+    device and run alike (CUDA's `index_add_` of repeated rows adds by
+    float atomics, in no fixed order). Returns a new [B, D] tensor."""
+    b, d = pooled.shape
+    pos = pos.long()
+    ext = torch.cat([pooled, pooled.new_zeros((1, d))])  # row B takes what is dropped
+    val = val.to(pooled.dtype)
+    if bag == 1:
+        ext.index_add_(0, pos.clamp(0, b), val)
+    else:
+        spos, order = torch.sort(pos.clamp(0, b), stable=True)
+        sval = val[order]
+        rank = torch.arange(spos.shape[0], device=pos.device) - torch.searchsorted(spos, spos)
+        for j in range(bag):
+            ext.index_add_(0, torch.where(rank == j, spos, b), sval)
+    return ext[:b]
 
 
 def quantize_table_int8(w: torch.Tensor):
@@ -217,11 +255,38 @@ class Embedding(Op):
             kernel_initializer or GlorotUniform(),
         )
         # set by FFModel.compile: the sparse-update route of this table and
-        # its storage dtype there (None: the parameter's f32)
+        # its storage dtype there (None: the parameter's f32); whether it is
+        # a mid-band table
         self.kernel_route = False
         self.table_dtype = None
+        self.onehot_packed = False
+        # host-tail offload: the full vocab (num_entries is then the hot
+        # prefix on the device); 0 when off
+        self.host_tail_vocab = 0
+
+    def enable_host_tail(self, full_vocab: int, pos_spec: TensorSpec, val_spec: TensorSpec) -> None:
+        """Keep rows [0, num_entries) here and take the host's tail partials
+        as two more inputs (the JAX package's `enable_host_tail`). SUM
+        pooling only: the partials must add."""
+        if self.aggr is not AggrMode.AGGR_MODE_SUM:
+            raise ValueError(f"{self.name}: host-tail offload needs SUM pooling (the partials must add)")
+        if not 0 < self.num_entries < full_vocab:
+            raise ValueError(f"{self.name}: hot prefix {self.num_entries} not in (0, {full_vocab})")
+        self.host_tail_vocab = int(full_vocab)
+        self.inputs.extend([pos_spec, val_spec])
+
+    def hot_indices(self, idx: torch.Tensor) -> torch.Tensor:
+        """Indices at or above the hot prefix as padding (-1)."""
+        return torch.where(idx >= self.num_entries, torch.full_like(idx, -1), idx)
 
     def forward(self, params, inputs, ctx):
+        if self.host_tail_vocab:
+            idx, pos, val = inputs
+            (pooled,) = self._forward_device(params, [self.hot_indices(idx)], ctx)
+            return [add_tail_partials(pooled, pos, val, idx.shape[1] if idx.dim() == 2 else 1)]
+        return self._forward_device(params, inputs, ctx)
+
+    def _forward_device(self, params, inputs, ctx):
         (idx,) = inputs
         if "weight_q" in params:
             return [quantized_embedding_bag(params["weight_q"], params["weight_scale"], idx, self.aggr)]
@@ -230,6 +295,8 @@ class Embedding(Op):
         forced = ctx.use_pallas == "on"
         if self.kernel_route:
             return [embedding_bag(table, idx, self.aggr, out_of_range=0.0)]
+        if self.onehot_packed:
+            return [embedding_bag_onehot(table, idx, self.aggr, ctx.compute_dtype)]
         if 0 < self.num_entries <= ctx.onehot_threshold and pooled:
             if forced:
                 return [onehot_embedding(table, idx.contiguous(), self.aggr, ctx.compute_dtype)]
@@ -243,8 +310,10 @@ class Embedding(Op):
         """Apply the pooled-output gradient to the touched rows through the
         optimizer's row rule (the scatter route), in place; returns the new
         slot state. Tables on the kernel route go through
-        training/sparse_engine.py instead."""
-        rows, grads = bag_row_grads(inputs[0], g_out_list[0], self.aggr, self.num_entries)
+        training/sparse_engine.py instead (whose kernels drop the rows >= V
+        of a host-tail table's stream, as this masking does)."""
+        idx = self.hot_indices(inputs[0]) if self.host_tail_vocab else inputs[0]
+        rows, grads = bag_row_grads(idx, g_out_list[0], self.aggr, self.num_entries)
         return optimizer.sparse_row_update(params["weight"], sstate, rows, grads, lr=lr)
 
     def sparse_state_init(self, optimizer, device):

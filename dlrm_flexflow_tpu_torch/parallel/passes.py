@@ -1,0 +1,60 @@
+"""Compile-time graph passes.
+
+The port's counterpart of `dlrm_flexflow_tpu/parallel/passes.py`, for one
+device: `offload_embedding_tails` alone (`:21-92`). Placement comes from
+`config.host_tail_threshold`; the plan axis (`plan.host_tail_rows`) and the
+table fusion belong to the multi-device slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import List
+
+from ..core.graph import Graph, InputOp
+from ..core.initializers import GlorotUniform, UniformInitializer
+from ..ffconst import AggrMode, DataType
+from ..ops.embedding import Embedding
+
+
+def offload_embedding_tails(graph: Graph, config) -> List[tuple]:
+    """Rewrite each Embedding op whose vocab is above
+    `config.host_tail_threshold` (SUM pooling) for host-tail offload: the
+    device keeps rows [0, threshold), rows [threshold, vocab) live in a
+    host store (parallel/host_tail.py), and the op gains the inputs
+    `_hosttail:<op>:pos` [K_cap] int32 and `_hosttail:<op>:val` [K_cap, D]
+    f32 that carry the host's pooled tail partials. K_cap is
+    `host_tail_cap_frac` of the batch's lookups, rounded up to a multiple
+    of 8 (at least 8).
+
+    The device table shrinks to the hot prefix here, before the parameters
+    are made: the full table need never exist (292,775,614 x 128 in f32 is
+    150 GB). Its rows must still be drawn like rows of the full [vocab, D]
+    table, so a GlorotUniform initializer becomes UniformInitializer(+-limit)
+    with the full table's fan, and the limit is kept as
+    `op.host_tail_init_scale` for the store's rows.
+
+    Returns [(op, index feed name, full vocab, hot, k_cap)]."""
+    thr = int(config.host_tail_threshold or 0)
+    if thr <= 0:
+        return []
+    cap_frac = float(config.host_tail_cap_frac)
+    out = []
+    for e in [op for op in graph.compute_ops if isinstance(op, Embedding)]:
+        if e.host_tail_vocab or e.num_entries <= thr or e.aggr is not AggrMode.AGGR_MODE_SUM:
+            continue
+        full, hot = e.num_entries, thr
+        idx_spec = e.inputs[0]
+        bag = idx_spec.shape[1] if idx_spec.num_dims > 1 else 1
+        k_cap = max(8, int(-(-idx_spec.shape[0] * bag * cap_frac // 8)) * 8)
+        pos_in = graph.add_op(InputOp(f"_hosttail:{e.name}:pos", (k_cap,), DataType.DT_INT32))
+        val_in = graph.add_op(InputOp(f"_hosttail:{e.name}:val", (k_cap, e.out_dim), DataType.DT_FLOAT))
+        init = e.params[0].initializer
+        if isinstance(init, GlorotUniform):
+            limit = init.scale * math.sqrt(6.0 / (full + e.out_dim))
+            e.params[0].initializer = UniformInitializer(min_val=-limit, max_val=limit)
+            e.host_tail_init_scale = limit
+        e.num_entries = hot
+        e.params[0].shape = (hot, e.out_dim)
+        e.enable_host_tail(full, pos_in.outputs[0], val_in.outputs[0])
+        out.append((e, idx_spec.owner_op.name, full, hot, k_cap))
+    return out

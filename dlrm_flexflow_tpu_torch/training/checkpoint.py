@@ -4,7 +4,10 @@ PyTorch counterpart of `dlrm_flexflow_tpu/training/checkpoint.py`, writing
 the same on-disk format: a directory with `params.npz`, `opt_state.npz` and
 `metrics.npz` (the model's parameters, optimizer state and metric totals,
 flattened to "a/b/c" keys by `_flatten`, a None leaf as "<path>/__none__")
-and `manifest.json` (`version`, `step`, `host_tail`, `extra`). No pickle. A
+and `manifest.json` (`version`, `step`, `host_tail`, `extra`), and under
+host-tail offload `host_tail.npz` (each store's touched rows, their values
+and their AdaGrad accumulators, "<op>/rows|vals|acc", as the JAX package
+writes them, training/checkpoint.py:71-86). No pickle. A
 bf16 tensor is written as the JAX package writes a bf16 array, 2-byte void
 records of its bits ("|V2"), and read back bit for bit. Adam's sparse state
 is written in the layout the port keeps on each route: {"m", "v"} pools on
@@ -14,8 +17,10 @@ route, as the JAX package keeps its packed and scatter tables.
 `restore_checkpoint` writes into the compiled model's own tensors (in
 place), so a train step captured in a CUDA graph (`FFModel.train_chunk`)
 stays valid; it needs the same keys and shapes as the model has, and a
-checkpoint the JAX package wrote of the same model and config (its tables
-unpacked, as on the CPU) restores too.
+checkpoint the JAX package wrote of the same model and config restores
+too: a table the JAX package keeps packed [P, 128] (a mid-band table, and
+with it the dense optimizer's state of that table) is unpacked to the
+port's [V, D] as `unpack_table` does (convert.py).
 """
 from __future__ import annotations
 
@@ -26,10 +31,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..convert import to_torch
-
-_HOST_TAIL = ("restore_checkpoint: the checkpoint carries host-tail stores; host-tail offload is "
-              "ROADMAP.md Queue 1 item 8, a later slice of the port")
+from ..convert import to_torch, unpack_like
 
 
 def _flatten(tree, prefix=""):
@@ -88,10 +90,16 @@ def save_checkpoint(path: str, model, extra: Optional[Dict[str, Any]] = None) ->
     np.savez(os.path.join(path, "params.npz"), **_flatten(model.get_parameters()))
     np.savez(os.path.join(path, "opt_state.npz"), **_flatten(model._opt_state))
     np.savez(os.path.join(path, "metrics.npz"), **_flatten(model._metrics_total))
+    ht = model._host_tail
+    if ht is not None and ht.entries:
+        blobs = {}
+        for name, (store, *_rest) in ht.entries.items():
+            blobs[f"{name}/rows"], blobs[f"{name}/vals"], blobs[f"{name}/acc"] = store.state()
+        np.savez(os.path.join(path, "host_tail.npz"), **blobs)
     manifest = {
         "version": 1,
         "step": int(model._step_count),
-        "host_tail": False,  # the port has no host-tail stores (ROADMAP.md item 8)
+        "host_tail": bool(ht is not None and ht.entries),
         "extra": extra or {},
     }
     with open(os.path.join(path, "manifest.json"), "w") as f:
@@ -133,26 +141,49 @@ def _copy_into(have, got):
     return have
 
 
+def _unpack_midband(got, have, midband, under=False):
+    """The file's tree `got` with each array under a mid-band op's name
+    unpacked to the shape the model's tree `have` holds there."""
+    if isinstance(got, dict) and isinstance(have, dict):
+        return {k: _unpack_midband(v, have[k], midband, under or k in midband) if k in have else v
+                for k, v in got.items()}
+    if under and isinstance(got, np.ndarray) and isinstance(have, (torch.Tensor, tuple)):
+        return unpack_like(got, tuple(have.shape) if isinstance(have, torch.Tensor) else have)
+    return got
+
+
 def restore_checkpoint(path: str, model) -> Dict[str, Any]:
     """Restore state saved by save_checkpoint (by either package) into a
-    compiled model, in place. Shapes must match (same model/config).
-    Returns the manifest."""
+    compiled model, in place, the host-tail stores included. Shapes must
+    match (same model/config); ValueError otherwise, and for a checkpoint
+    with host-tail stores into a model without them. Returns the
+    manifest."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
-    if manifest.get("host_tail"):
-        raise NotImplementedError(_HOST_TAIL)
+    ht = model._host_tail
+    if manifest.get("host_tail") and not (ht is not None and ht.entries):
+        raise ValueError("restore_checkpoint: the checkpoint carries host-tail stores but the model "
+                         "has none (compile with the same host_tail_threshold)")
 
     def load_npz(name):
         with np.load(os.path.join(path, name)) as z:
             return _unflatten({k: z[k] for k in z.files})
 
     params, opt, totals = (load_npz(n) for n in ("params.npz", "opt_state.npz", "metrics.npz"))
-    _check_tree({op: {k: shape for k, (shape, _) in sub.items()} for op, sub in model._layout.items()},
-                params)
+    midband = {op.name for op in model.graph.compute_ops if getattr(op, "onehot_packed", False)}
+    layout = {op: {k: shape for k, (shape, _) in sub.items()} for op, sub in model._layout.items()}
+    params = _unpack_midband(params, layout, midband)
+    opt = _unpack_midband(opt, model._opt_state, midband)
+    _check_tree(layout, params)
     _check_tree(model._opt_state, opt)
     _check_tree(model._metrics_total, totals)
     model.set_parameters({op: {k: _tensor(a) for k, a in sub.items()} for op, sub in params.items()})
     model._opt_state = _copy_into(model._opt_state, opt)
     _copy_into(model._metrics_total, totals)
     model._step_count = int(manifest["step"])
+    if manifest.get("host_tail"):
+        with np.load(os.path.join(path, "host_tail.npz")) as z:
+            for name, (store, *_rest) in ht.entries.items():
+                acc = f"{name}/acc"
+                store.load_state(z[f"{name}/rows"], z[f"{name}/vals"], z[acc] if acc in z.files else None)
     return manifest

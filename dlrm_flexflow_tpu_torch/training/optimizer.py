@@ -13,7 +13,8 @@ package's, operation by operation, in f32:
                   the bias-corrected alpha_t of the stepped count (:192-221);
   dense AdaGrad:  one accumulator per first-dim row, += the row's mean
                   squared gradient; w <- w - lr * rsqrt(acc + eps) * g
-                  (:238-264);
+                  (:238-264); a mid-band table's accumulator has one entry
+                  per 128-lane line, as the JAX package's packed table;
 and the scatter rules for embedding rows (rows < 0 or >= V dropped):
   SGD:            table[rows] += -lr * (row_grads + wd * table[rows]) (:86-97);
   lazy momentum:  per touched row, v <- mu*v + G_r (G_r: the summed
@@ -23,6 +24,9 @@ and the scatter rules for embedding rows (rows < 0 or >= V dropped):
                   of the occurrences, decayed once (:169-190);
   row-wise AdaGrad: acc[r] += mean_d(g^2) per occurrence, then every
                   occurrence adds -lr * rsqrt(acc[r] + eps) * g (:266-278).
+Every tensor of a scatter rule is sized by the stream's length K, never by
+its data (`_segments`), so that a train step captured in a CUDA graph
+replays it.
 Tables on the row-update kernel route take the kernel's own rounding
 sequence instead (training/sparse_engine.py). The learning rate lives in
 the state as a 0-d f32 tensor on the device, so `FFModel.set_learning_rate`
@@ -47,18 +51,50 @@ def _rate(lr, default: float, device) -> torch.Tensor:
     return torch.as_tensor(lr, dtype=torch.float32, device=device)
 
 
-def _dedup_row_grads(rows: torch.Tensor, g32: torch.Tensor, num_rows: int):
-    """(uniq, inv, keep, G, Sq): the distinct kept rows, each kept entry's
-    slot among them, the kept entries, and per distinct row the summed
-    gradients and summed squares (`_dedup_row_grads`, optimizer.py:25-38).
-    Every temporary is O(K * D), never the [V, D] table shape."""
-    keep = torch.nonzero((rows >= 0) & (rows < num_rows)).reshape(-1)
-    uniq, inv = torch.unique(rows[keep].long(), return_inverse=True)
-    g = g32[keep]
-    n, d = uniq.numel(), g32.shape[1]
-    G = torch.zeros((n, d), dtype=torch.float32, device=g32.device).index_add_(0, inv, g)
-    Sq = torch.zeros((n, d), dtype=torch.float32, device=g32.device).index_add_(0, inv, g * g)
-    return uniq, inv, keep, G, Sq
+def _segments(rows: torch.Tensor, g32: torch.Tensor, num_rows: int, squares: bool = False):
+    """The duplicate rows of an update stream folded into segments, every
+    tensor sized by K = len(rows), none by the data, so that a CUDA graph
+    can capture it (the counterpart of `_dedup_row_grads`, optimizer.py:
+    25-38, whose `jnp.unique(size=K)` is fixed-size too). One stable sort of
+    the K rows, the dropped ones (< 0 or >= V) keyed V so that they sort
+    last; head flags and, from their cumulative sum, each entry's segment;
+    per-segment sums of g (and of g * g) in [K, D], in the stream's order;
+    the row of each segment from its head (`searchsorted`).
+
+    Returns (row, valid, src, G, Sq): `row` [K] each slot's row in [0, V),
+    `valid` [K] whether slot s is a real segment (s below the segment
+    count, its row kept), `src` [K] the slot whose values slot s writes
+    back: itself if valid, else slot 0. A write-back that assigns
+    (`index_copy_` of values[src] at row[src]) then writes each real row
+    once with its own values, and a padding slot repeats slot 0's write,
+    the same bits to the same row, which is race-free; a stream that drops
+    every entry has no real segment, and its callers write slot 0's old
+    values back unchanged. A write-back that adds uses `row` and adds
+    exactly 0.0 at the padding slots. Sq is None unless `squares`."""
+    k, d = rows.shape[0], g32.shape[1]
+    dev = g32.device
+    key = torch.where((rows >= 0) & (rows < num_rows), rows.long(), num_rows)
+    skey, order = torch.sort(key, stable=True)
+    head = torch.ones(k, dtype=torch.bool, device=dev)
+    head[1:] = skey[1:] != skey[:-1]
+    seg = torch.cumsum(head, 0) - 1
+    gs = g32[order]
+    G = torch.zeros((k, d), dtype=torch.float32, device=dev).index_add_(0, seg, gs)
+    Sq = torch.zeros((k, d), dtype=torch.float32, device=dev).index_add_(0, seg, gs * gs) if squares else None
+    slots = torch.arange(k, device=dev)
+    row = skey[torch.searchsorted(seg, slots).clamp_max(k - 1)]
+    valid = (slots <= seg[-1]) & (row < num_rows)
+    src = torch.where(valid, slots, 0)
+    return row.clamp_max(num_rows - 1), valid, src, G, Sq
+
+
+def _assign_rows(pool: torch.Tensor, row, valid, src, new_rows: torch.Tensor) -> None:
+    """pool[row[s]] = new_rows[s] for every real segment s, in place and
+    race-free (`_segments`): slot s writes slot src[s]'s values, and a
+    slot that is not a real segment keeps its row's old values."""
+    old = pool[row]
+    vals = torch.where(valid.reshape((-1,) + (1,) * (old.dim() - 1)), new_rows, old)
+    pool.index_copy_(0, row[src], vals[src])
 
 
 def _decayed(table, rows, row_grads, weight_decay: float) -> torch.Tensor:
@@ -147,18 +183,21 @@ class SGDOptimizer(Optimizer):
     def sparse_row_update(self, table, state, rows, row_grads, lr=None):
         rate = _rate(lr, self.lr, table.device)
         if self.momentum == 0.0:
-            keep = (rows >= 0) & (rows < table.shape[0])
+            # one add per kept entry, as the JAX scatter adds them; a
+            # dropped entry adds exactly 0.0 to a clamped row
+            keep = ((rows >= 0) & (rows < table.shape[0]))[:, None]
+            safe = rows.long().clamp(0, table.shape[0] - 1)
             if self.weight_decay != 0.0:
-                decay = table[rows.clamp(0, table.shape[0] - 1)]
-                row_grads = row_grads + self.weight_decay * decay
-            table.index_add_(0, rows[keep], (-rate * row_grads[keep]).to(table.dtype))
+                row_grads = row_grads + self.weight_decay * table[safe]
+            delta = torch.where(keep, -rate * row_grads, 0.0)
+            table.index_add_(0, safe, delta.to(table.dtype))
             return state
         g32 = _decayed(table, rows, row_grads, self.weight_decay)
-        uniq, _, _, G, _ = _dedup_row_grads(rows, g32, table.shape[0])
-        v2 = self.momentum * state[uniq] + G
+        row, valid, src, G, _ = _segments(rows, g32, table.shape[0])
+        v2 = self.momentum * state[row] + G
         step = G + self.momentum * v2 if self.nesterov else v2
-        state[uniq] = v2
-        table[uniq] = table[uniq] + (-rate * step).to(table.dtype)
+        _assign_rows(state, row, valid, src, v2)
+        table.index_add_(0, row, torch.where(valid[:, None], -rate * step, 0.0).to(table.dtype))
         return state
 
 
@@ -230,13 +269,13 @@ class AdamOptimizer(Optimizer):
         alpha_t = _rate(lr, self.alpha, table.device)
         g32 = _decayed(table, rows, row_grads, self.weight_decay)
         m, v = state[0], state[1]
-        uniq, _, _, G, Sq = _dedup_row_grads(rows, g32, table.shape[0])
-        m2 = self.beta1 * m[uniq] + (1.0 - self.beta1) * G
-        v2 = self.beta2 * v[uniq] + (1.0 - self.beta2) * Sq
+        row, valid, src, G, Sq = _segments(rows, g32, table.shape[0], squares=True)
+        m2 = self.beta1 * m[row] + (1.0 - self.beta1) * G
+        v2 = self.beta2 * v[row] + (1.0 - self.beta2) * Sq
         upd = alpha_t * m2 / (torch.sqrt(v2) + self.epsilon)
-        m[uniq] = m2
-        v[uniq] = v2
-        table[uniq] = table[uniq] + (-upd).to(table.dtype)
+        _assign_rows(m, row, valid, src, m2)
+        _assign_rows(v, row, valid, src, v2)
+        table.index_add_(0, row, torch.where(valid[:, None], -upd, 0.0).to(table.dtype))
         return state
 
 
@@ -270,7 +309,15 @@ class RowWiseAdagradOptimizer(Optimizer):
             for k, g in sub.items():
                 w, a = params[op][k], state["acc"][op][k]
                 g32 = g.float()
-                if g.dim() > 1:
+                if g.dim() == 2 and a.shape[0] != g.shape[0]:
+                    # one accumulator per 128-lane line of the row-major
+                    # table (128 // D rows), as the JAX package's dense
+                    # AdaGrad keeps it for a mid-band table stored packed
+                    v, d = g.shape
+                    lines = torch.nn.functional.pad(g32.reshape(-1), (0, a.shape[0] * 128 - v * d))
+                    a.add_(torch.mean((lines * lines).reshape(-1, 128), dim=1))
+                    shaped = torch.rsqrt(a + self.epsilon).repeat_interleave(128 // d)[:v].reshape(-1, 1)
+                elif g.dim() > 1:
                     a.add_(torch.mean(g32 * g32, dim=tuple(range(1, g.dim()))))
                     shaped = torch.rsqrt(a + self.epsilon).reshape((-1,) + (1,) * (g.dim() - 1))
                 else:
@@ -286,11 +333,13 @@ class RowWiseAdagradOptimizer(Optimizer):
 
     @torch.no_grad()
     def sparse_row_update(self, table, acc, rows, row_grads, lr=None):
+        # per entry, as the JAX rule: a dropped entry adds exactly 0.0 to a
+        # clamped row of the accumulator and of the table
         rate = _rate(lr, self.lr, table.device)
         keep = (rows >= 0) & (rows < table.shape[0])
-        r = rows[keep]
-        g32 = row_grads.float()[keep]
-        acc.index_add_(0, r, torch.mean(g32 * g32, dim=-1))
+        r = rows.long().clamp(0, table.shape[0] - 1)
+        g32 = row_grads.float()
+        acc.index_add_(0, r, torch.where(keep, torch.mean(g32 * g32, dim=-1), 0.0))
         scale = -rate * torch.rsqrt(acc[r] + self.epsilon)
-        table.index_add_(0, r, (scale[:, None] * g32).to(table.dtype))
+        table.index_add_(0, r, torch.where(keep[:, None], scale[:, None] * g32, 0.0).to(table.dtype))
         return acc

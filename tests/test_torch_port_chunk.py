@@ -7,10 +7,13 @@ weights, within the tolerances of the port's training parity tests; fit
 with steps_per_call=4 against steps_per_call=1 as tests/test_data.py checks
 the JAX package; the per-step scalars, the in-place state that a captured
 step relies on, and the packing of a chunk's stacks into the static buffer
-of the CUDA graph. The graph itself is held against eager steps on the card
-in tests/test_torch_port_cuda.py and chip_smoke.py.
+of the CUDA graph; the scatter route's rules, whose tensors are all sized by
+the update stream so that a graph captures them, against the JAX rules. The
+graph itself is held against eager steps on the card in
+tests/test_torch_port_cuda.py and chip_smoke.py.
 """
 import numpy as np
+import jax.numpy as jnp
 import pytest
 import torch
 
@@ -262,3 +265,94 @@ def test_chunk_stacks_pack_into_the_static_buffer():
             assert graph.views[key].dtype == dt and torch.equal(graph.views[key], want), key
     with pytest.raises(ValueError, match="stacks 2 steps"):
         port_ffmodel._StepGraph.plan(entries[:1] + [("x", np.zeros((2, 1)), torch.float32)], k)
+
+
+# ----------------------------------------------------------------- the scatter route in a graph
+
+
+SCATTER_RULES = {"sgd": ("SGDOptimizer", dict(lr=0.1)),
+                 "sgd-wd": ("SGDOptimizer", dict(lr=0.1, weight_decay=0.01)),
+                 "momentum": ("SGDOptimizer", dict(lr=0.1, momentum=0.9)),
+                 "nesterov": ("SGDOptimizer", dict(lr=0.1, momentum=0.9, nesterov=True)),
+                 "adam": ("AdamOptimizer", dict(alpha=0.01)),
+                 "adagrad": ("RowWiseAdagradOptimizer", dict(lr=0.1))}
+
+
+@pytest.mark.parametrize("stream", ["duplicates-and-dropped", "all-padding", "all-one-row"])
+@pytest.mark.parametrize("rule", list(SCATTER_RULES))
+def test_fixed_size_scatter_rules_match_the_jax_rules(rule, stream):
+    """The scatter rules, every tensor sized by K (a CUDA graph captures
+    them), against the JAX rules over 2 steps: duplicates (a run of 9),
+    rows < 0 and >= V, a stream that is all padding (nothing moves), and
+    one row K times. f32 sums of a row's duplicates in another order
+    (rtol 1e-5, atol 1e-6, as test_scatter_rule_matches_jax_rule)."""
+    name, kw = SCATTER_RULES[rule]
+    r_opt, p_opt = getattr(ref, name)(**kw), getattr(port, name)(**kw)
+    rng = np.random.default_rng(len(rule) + len(stream))
+    v, d, k = 30, 4, 40
+    table = rng.standard_normal((v, d)).astype(np.float32)
+    r_t, r_s = jnp.asarray(table), r_opt.sparse_init((v, d))
+    p_t = torch.from_numpy(table.copy())
+    p_s = p_opt.sparse_init((v, d), "cpu")
+    if p_s is not None and r_s is not None and rule != "adagrad":
+        p_s.copy_(torch.from_numpy(np.abs(rng.standard_normal(tuple(p_s.shape))).astype(np.float32)))
+        r_s = jnp.asarray(p_s.numpy())
+    for step in range(2):
+        rows = rng.integers(-3, v + 3, k).astype(np.int32)
+        if stream == "duplicates-and-dropped":
+            rows[:9] = 4
+        elif stream == "all-padding":
+            rows = np.where(np.arange(k) % 2 == 0, -1, v + 1).astype(np.int32)
+        else:
+            rows[:] = v - 1
+        g = rng.standard_normal((k, d)).astype(np.float32)
+        lr = 0.01 * (step + 1) if rule == "adam" else None
+        # the JAX scatter (`.at[rows].add`) wraps a negative row around as
+        # numpy indexing does, where its dedup drops it; the port drops it
+        # on every rule (the model's streams mark padding V, never < 0)
+        r_rows = np.where(rows < 0, v, rows) if rule in ("sgd", "sgd-wd", "adagrad") else rows
+        r_t, r_s = r_opt.sparse_row_update(r_t, r_s, jnp.asarray(r_rows), jnp.asarray(g),
+                                           lr=None if lr is None else jnp.float32(lr))
+        p_s = p_opt.sparse_row_update(p_t, p_s, torch.from_numpy(rows), torch.from_numpy(g),
+                                      lr=None if lr is None else torch.tensor(lr))
+    np.testing.assert_allclose(p_t.numpy(), np.asarray(r_t), rtol=1e-5, atol=1e-6)
+    if r_s is not None:
+        np.testing.assert_allclose(p_s.numpy(), np.asarray(r_s), rtol=1e-5, atol=1e-6)
+    if stream == "all-padding":
+        assert np.array_equal(p_t.numpy(), table)
+
+
+def test_segments_are_sized_by_the_stream():
+    """`_segments`: every output has K entries whatever the data; the
+    padding slots point at slot 0 (one real row written twice with the same
+    bits), and a stream that drops everything has no real segment."""
+    from dlrm_flexflow_tpu_torch.training.optimizer import _segments
+
+    g = torch.arange(24, dtype=torch.float32).reshape(6, 4)
+    for rows, want_rows, n in (([3, 1, 3, 9, -1, 1], [1, 3], 2), ([5, 5, 5, 5, 5, 5], [5], 1),
+                               ([-1, 9, 7, -2, 8, 10], [], 0), ([0, 1, 2, 3, 4, 5], [0, 1, 2, 3, 4, 5], 6)):
+        row, valid, src, G, Sq = _segments(torch.tensor(rows), g, 6, squares=True)
+        assert [t.shape[0] for t in (row, valid, src, G, Sq)] == [6] * 5
+        assert row[valid].tolist() == want_rows and int(valid.sum()) == n
+        assert src.tolist() == [i if i < n else 0 for i in range(6)]
+        keep = [r for r in rows if 0 <= r < 6]
+        for s, r in enumerate(want_rows):
+            sel = [i for i, x in enumerate(rows) if x == r]
+            assert torch.equal(G[s], g[sel].sum(0)) and torch.equal(Sq[s], (g[sel] ** 2).sum(0))
+        assert int(row.max()) <= 5 and len(keep) >= n
+
+
+@pytest.mark.parametrize("rule", ["sgd", "momentum", "adam", "adam+adagrad"])
+def test_train_chunk_on_the_scatter_route_equals_k_train_batch_calls(rule):
+    """A model whose tables take the scatter route (packed_tables="off")
+    in chunks of 4 and 2 against 6 steps, bit for bit (on the card the
+    chunk is one captured step replayed: tests/test_torch_port_cuda.py)."""
+    feeds, labels, stacked, slabels = _data(6, seed=8)
+    eager, chunk = _model(rule, packed_tables="off"), _model(rule, packed_tables="off")
+    assert eager._sparse_ops and not any(op.kernel_route for op in eager._sparse_ops)
+    for i in range(6):
+        sl = slice(BS * i, BS * (i + 1))
+        eager.train_batch({k: v[sl] for k, v in feeds.items()}, labels[sl])
+    for sl in (slice(0, 4), slice(4, 6)):
+        chunk.train_chunk({k: v[sl] for k, v in stacked.items()}, slabels[sl])
+    _assert_same_state(eager, chunk)

@@ -905,16 +905,128 @@ def test_train_chunk_graph_replays_equal_eager_steps_bit_for_bit(cuda, rule, hos
     assert "host" not in nodes  # no host callback: the step never waits for the host
 
 
-def test_train_chunk_raises_for_a_scatter_route_table(cuda):
-    cfg = kaggle_config(batch_size=256)
+def _replays_against_eager(cuda, make, bs, seed):
+    """A chunk of 4 and a tail chunk of 2 against 6 eager steps from the
+    same weights under deterministic algorithms: (eager, chunk, losses,
+    the two chunk losses)."""
+    cfg, eager = make()
+    _, chunk = make()
+    feeds, labels = random_batches(cfg, 6 * bs, seed=seed)
+    stack = {k: v.reshape((6, bs) + v.shape[1:]) for k, v in feeds.items()}
+    slabels = labels.reshape(6, bs, 1)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        losses = [eager.train_batch({k: v[i] for k, v in stack.items()}, slabels[i]) for i in range(6)]
+        first = chunk.train_chunk({k: v[:4] for k, v in stack.items()}, slabels[:4])
+        last = chunk.train_chunk({k: v[4:] for k, v in stack.items()}, slabels[4:])
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return eager, chunk, losses, (first, last)
+
+
+def _assert_same(eager, chunk):
+    for tree_e, tree_c in ((eager.get_parameters(), chunk.get_parameters()), (eager._opt_state, chunk._opt_state),
+                           (eager._metrics_total, chunk._metrics_total)):
+        te, tc = _tensors(tree_e), _tensors(tree_c)
+        assert te.keys() == tc.keys()
+        for k in te:
+            assert torch.equal(te[k], tc[k]), k
+    assert eager._step_count == chunk._step_count == 6
+
+
+@pytest.mark.parametrize("rule", ["sgd", "momentum", "adam", "adagrad"])
+def test_train_chunk_on_the_scatter_route_replays_eager_steps_bit_for_bit(cuda, rule):
+    """Tables on the scatter route (packed_tables="off": the optimizer's
+    fixed-size scatter rule) are captured: replays against eager steps bit
+    for bit, under deterministic algorithms."""
+    bs = 256
+
+    def make():
+        cfg = kaggle_config(batch_size=bs)
+        cfg.embedding_size = [min(v, 20_000) for v in cfg.embedding_size]
+        m = make_dlrm_model(cfg, FFConfig(batch_size=bs, seed=13, packed_tables="off"), device=cuda)
+        opt = {"sgd": SGDOptimizer(lr=0.05), "momentum": SGDOptimizer(lr=0.05, momentum=0.9),
+               "adam": AdamOptimizer(alpha=0.001), "adagrad": RowWiseAdagradOptimizer(lr=0.01)}[rule]
+        m.compile(opt, LossType.LOSS_BINARY_CROSSENTROPY, [MetricsType.METRICS_ACCURACY])
+        assert m._sparse_ops and not any(op.kernel_route for op in m._sparse_ops)
+        return cfg, m
+
+    eager, chunk, losses, (first, last) = _replays_against_eager(cuda, make, bs, 13)
+    assert chunk._step_graph is not None and chunk._step_graph.graph is not None
+    assert torch.equal(first, losses[3]) and torch.equal(last, losses[5])
+    _assert_same(eager, chunk)
+
+
+@pytest.mark.parametrize("rule", ["sgd", "adam"])
+def test_midband_replays_eager_steps_and_matches_the_cpu(cuda, rule):
+    """kaggle widths, vocabs capped at 20000, onehot_packed_threshold 2^20:
+    the 10 large tables become mid-band (dense gradients); replays against
+    eager steps bit for bit, and one step on CUDA against the CPU (f32
+    compute: the same f32 operations in another order)."""
+    bs = 256
+
+    def make(device=cuda):
+        cfg = kaggle_config(batch_size=bs)
+        cfg.embedding_size = [min(v, 20_000) for v in cfg.embedding_size]
+        m = make_dlrm_model(cfg, FFConfig(batch_size=bs, seed=16, compute_dtype="float32",
+                                          onehot_packed_threshold=1 << 20), device=device)
+        m.compile(SGDOptimizer(lr=0.05) if rule == "sgd" else AdamOptimizer(alpha=0.001),
+                  LossType.LOSS_BINARY_CROSSENTROPY, [MetricsType.METRICS_ACCURACY])
+        assert sum(op.onehot_packed for op in m.graph.compute_ops if hasattr(op, "onehot_packed")) == 10
+        return cfg, m
+
+    eager, chunk, losses, (first, last) = _replays_against_eager(cuda, make, bs, 16)
+    assert torch.equal(first, losses[3]) and torch.equal(last, losses[5])
+    _assert_same(eager, chunk)
+    cfg, gpu = make()
+    _, cpu = make("cpu")
+    cpu.set_parameters({name: gpu.get_weights(name) for name in gpu.get_parameters()})
+    feeds, labels = random_batches(cfg, bs, seed=17)
+    np.testing.assert_allclose(float(gpu.train_batch(feeds, labels)), float(cpu.train_batch(feeds, labels)),
+                               rtol=1e-5, atol=1e-6)
+    for name in gpu.get_parameters():
+        for k, w in gpu.get_weights(name).items():
+            np.testing.assert_allclose(w, cpu.get_weights(name)[k], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("rule", ["sgd", "adagrad"])
+def test_host_tail_steps_on_cuda_match_the_cpu(cuda, rule):
+    """A small host-tail model (hot prefix 1000 of vocabs up to 20000,
+    bags of 2) trains 3 steps on CUDA and on the CPU from the same weights
+    and the same seeded stores: losses, hot prefixes and touched tail rows
+    within f32 reordering (AdaGrad's rsqrt an ulp apart grows it); the
+    host-tail model refuses train_chunk."""
+    bs = 256
+    cfg = kaggle_config(batch_size=bs)
     cfg.embedding_size = [min(v, 20_000) for v in cfg.embedding_size]
-    m = make_dlrm_model(cfg, FFConfig(batch_size=256, packed_tables="off"), device=cuda)
-    m.compile(SGDOptimizer(lr=0.05), LossType.LOSS_BINARY_CROSSENTROPY)
-    assert m._sparse_ops and not any(op.kernel_route for op in m._sparse_ops)
-    feeds, labels = random_batches(cfg, 256, seed=13)
-    with pytest.raises(NotImplementedError, match="scatter route.*ROADMAP.md"):
-        m.train_chunk({k: v[None] for k, v in feeds.items()}, labels[None])
-    assert m._step_count == 0
+    cfg.embedding_bag_size = 2
+    models = {}
+    for dev in (cuda, "cpu"):
+        m = make_dlrm_model(cfg, FFConfig(batch_size=bs, seed=18, compute_dtype="float32", host_tail_threshold=1000,
+                                          host_tail_cap_frac=0.5), device=dev)
+        m.compile(SGDOptimizer(lr=0.05) if rule == "sgd" else RowWiseAdagradOptimizer(lr=0.01),
+                  LossType.LOSS_BINARY_CROSSENTROPY, [MetricsType.METRICS_ACCURACY])
+        models[str(dev)] = m
+    gpu, cpu = models[str(cuda)], models["cpu"]
+    assert len(gpu._host_tail.entries) == sum(v > 1000 for v in cfg.embedding_size) == 15
+    cpu.set_parameters({name: gpu.get_weights(name) for name in gpu.get_parameters()})
+    feeds, labels = random_batches(cfg, 3 * bs, seed=18, zipf=1.05)
+    tol = dict(rtol=1e-5, atol=1e-6) if rule == "sgd" else dict(rtol=1e-4, atol=1e-5)
+    for i in range(3):
+        b = ({k: v[i * bs:(i + 1) * bs] for k, v in feeds.items()}, labels[i * bs:(i + 1) * bs])
+        np.testing.assert_allclose(float(gpu.train_batch(*b)), float(cpu.train_batch(*b)), **tol)
+    for name in gpu.get_parameters():
+        for k, w in gpu.get_weights(name).items():
+            np.testing.assert_allclose(w, cpu.get_weights(name)[k], rtol=0, atol=tol["atol"])
+    for name, (store, *_) in gpu._host_tail.entries.items():
+        rows, vals, acc = store.state()
+        c_rows, c_vals, c_acc = cpu._host_tail.entries[name][0].state()
+        np.testing.assert_array_equal(rows, c_rows)
+        np.testing.assert_allclose(vals, c_vals, rtol=0, atol=tol["atol"])
+    assert gpu._host_tail.total == cpu._host_tail.total > 0
+    with pytest.raises(RuntimeError, match="host-tail"):
+        gpu.train_chunk({k: v[None, :bs] for k, v in feeds.items()}, labels[None, :bs])
 
 
 def test_checkpoint_restored_between_chunks_resumes_bit_for_bit(cuda, tmp_path):

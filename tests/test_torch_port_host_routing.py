@@ -304,13 +304,40 @@ def test_bench_prints_bench_py_keys(capsys, extra, engaged):
     assert sort_rows.calls == calls  # the CPU's plain update sorts nothing
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--mesh"], "item 7"), (["--config", "mlperf-full"], "item 8"), (["--host-tail-threshold", "5"], "item 8"),
-    (["--onehot-packed-threshold", "200"], "item 5"),
-])
+@pytest.mark.parametrize("flags, item", [(["--mesh"], "item 7")])
 def test_bench_raises_for_what_the_port_has_not(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         port_bench.main(TINY + flags)
+
+
+def test_bench_trains_mlperf_full_under_host_tail_offload(capsys):
+    """--config mlperf-full at a cut batch (64) and hot prefix (4096 rows,
+    where the card keeps 2^20; the 15 tables above it go to the host):
+    eager steps, bench.py's host-tail keys, Zipf ids by default."""
+    port_bench.main(["--device", "cpu", "--config", "mlperf-full", "--batch-size", "64", "--quick",
+                     "--host-tail-threshold", "4096"])
+    captured = capsys.readouterr()
+    res = json.loads(captured.out.strip().splitlines()[-1])
+    assert set(res) == {"metric", "value", "unit", "examples_per_sec_per_chip", "host_tail_tables",
+                        "host_tail_touched_rows", "host_tail_drop_fraction", "devices", "table_dtype",
+                        "packed_engaged", "loss"}
+    assert res["metric"] == "dlrm_mlperf-full_train_examples_per_sec" and res["host_tail_tables"] == 15
+    assert res["host_tail_touched_rows"] > 0 and 0.0 <= res["host_tail_drop_fraction"] < 1.0
+    assert np.isfinite(res["value"]) and res["value"] > 0 and np.isfinite(res["loss"])
+    assert "steps=eager" in captured.err and "host-tail tables=15" in captured.err
+    with pytest.raises(SystemExit):
+        port_bench.main(["--device", "cpu", "--config", "mlperf-full", "--mode", "infer"])
+
+
+def test_bench_takes_the_mid_band_threshold(capsys):
+    """--onehot-packed-threshold: the tiny config's 100000-row tables become
+    mid-band (dense gradients, no row-update route)."""
+    port_bench.main(TINY + ["--onehot-packed-threshold", "200000"])
+    captured = capsys.readouterr()
+    res = json.loads(captured.out.strip().splitlines()[-1])
+    assert set(res) == {"metric", "value", "unit", "examples_per_sec_per_chip", "devices", "table_dtype",
+                        "packed_engaged", "loss"}
+    assert res["packed_engaged"] is False and np.isfinite(res["loss"]) and res["value"] > 0
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16", "int8"])
@@ -335,6 +362,8 @@ def test_new_modules_import_no_jax():
         "import dlrm_flexflow_tpu_torch.ops.kernels.row_gather\n"
         "import dlrm_flexflow_tpu_torch.training.checkpoint, dlrm_flexflow_tpu_torch.training.callbacks\n"
         "import dlrm_flexflow_tpu_torch.data.criteo, dlrm_flexflow_tpu_torch.tools.graph_nodes\n"
+        "import dlrm_flexflow_tpu_torch.parallel.host_tail, dlrm_flexflow_tpu_torch.parallel.passes\n"
+        "import dlrm_flexflow_tpu_torch.training.host_offload\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dlrm_flexflow_tpu')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"

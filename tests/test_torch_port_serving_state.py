@@ -335,9 +335,11 @@ def test_restore_refuses_other_shapes_and_host_tail_stores(tmp_path):
     adam = _ckpt_model(port.AdamOptimizer(alpha=0.01))
     with pytest.raises(ValueError, match="Shapes must match"):
         restore_checkpoint(str(tmp_path / "c"), adam)
+    # host-tail stores go only into a model that has them (the round trip
+    # is tests/test_torch_port_host_tail.py::test_host_tail_checkpoint_roundtrip)
     manifest = tmp_path / "c" / "manifest.json"
     manifest.write_text(json.dumps({**json.loads(manifest.read_text()), "host_tail": True}))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="host-tail stores but the model has none"):
         restore_checkpoint(str(tmp_path / "c"), m)
 
 

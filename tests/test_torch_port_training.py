@@ -586,15 +586,11 @@ def test_ported_sparse_optimizers_train_on_the_kernel_route(what):
         assert st.shape == ((120,) if what == "adagrad" else (120, 8)) and st.dtype == torch.float32
 
 
-@pytest.mark.parametrize("what", ["mid_band", "host_tail", "profiling"])
+@pytest.mark.parametrize("what", ["profiling"])
 def test_unported_training_features_raise_with_their_slice(what):
     ffkw = dict(batch_size=32, onehot_embedding_threshold=100, packed_tables="on")
     opt = port.SGDOptimizer(lr=0.1)
-    if what == "mid_band":
-        ffkw["onehot_packed_threshold"] = 200
-    elif what == "host_tail":
-        ffkw["host_tail_threshold"] = 100
-    elif what == "profiling":
+    if what == "profiling":
         ffkw["profiling"] = True
     m = port_dlrm.make_dlrm_model(_tiny(port_dlrm), port.FFConfig(**ffkw), device="cpu")
     with pytest.raises(NotImplementedError, match="slice"):
