@@ -1039,28 +1039,44 @@ def train_profile(model, staged, ms_per_step: float, steps: int = PROFILED_STEPS
                   route_tables: int = KAGGLE_BIG_TABLES) -> dict:
     """Kernel time per step on the device, from torch.profiler (CUPTI) over
     a few steps, against the unprofiled step time: the device's busy share.
-    Sums kernel rows only (op rows carry their kernels' time again)."""
+    Sums kernel rows only: op rows carry their kernels' time again, copies
+    and fills (Memcpy, Memset rows) are summed on their own, and the step's
+    phase ranges (`STEP_PHASES`) are read apart: each phase's host time
+    (profiled, so a little slower than unprofiled) and the span of the
+    device work launched in it, where the profiler records one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from dlrm_flexflow_tpu_torch.core.ffmodel import STEP_PHASES
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(steps):
             model.train_batch(*staged[i % len(staged)])
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = prof.key_averages()
+    device = [e for e in rows if e.device_type == DeviceType.CUDA and e.key not in STEP_PHASES]
+    copies = [e for e in device if e.key.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in device if e not in copies]
+    spans = {e.key: e.device_time_total / 1e3 / steps for e in rows
+             if e.device_type == DeviceType.CUDA and e.key in STEP_PHASES}
+    phases = {e.key.split(":")[1]: {"host_ms": e.cpu_time_total / 1e3 / steps,
+                                    "device_span_ms": spans.get(e.key, "not measured")}
+              for e in rows if e.device_type == DeviceType.CPU and e.key in STEP_PHASES}
     per_step = {e.key: e.self_device_time_total / 1e3 / steps for e in kernels}
     busy = sum(per_step.values())
     if busy == 0.0:
-        return {"kernel_ms_per_step": "not measured (the profiler saw no device time)"}
+        return {"kernel_ms_per_step": "not measured (the profiler saw no device time)", "phases": phases}
     # a row-update wrapper launch runs 2 to 4 CUDA kernels, all named row_update_*
     row = [e for e in kernels if "row_update" in e.key]
     top = sorted(per_step.items(), key=lambda kv: -kv[1])[:8]
     return {
         "kernel_ms_per_step": busy,
         "busy_share_of_unprofiled_step": busy / ms_per_step,
+        "copy_ms_per_step": {e.key[:60]: e.self_device_time_total / 1e3 / steps for e in copies},
         "row_update_kernel_ms_per_launch": (
             sum(e.self_device_time_total for e in row) / 1e3 / (steps * route_tables)),
         "top_kernels_ms_per_step": {k[:60]: v for k, v in top},
+        "phases": phases,
     }
 
 
@@ -2311,6 +2327,10 @@ def phase_bench() -> dict:
 
 HOST_TAIL_HOT = 1 << 20  # mlperf-full's hot prefix on the card (the JAX bench's)
 MIDBAND_THRESHOLD = 1 << 20  # train-midband's onehot_packed_threshold
+# train-midband's CUDA-vs-CPU bounds, those of the card test
+# test_midband_replays_eager_steps_and_matches_the_cpu: the same f32 sums
+# in another order, over 5 steps
+MIDBAND_LOSS_RTOL, MIDBAND_LOSS_ATOL, MIDBAND_WEIGHT_ATOL = 1e-5, 1e-6, 1e-5
 FULL_WARMUP, FULL_STEPS, FULL_PROFILED = 3, 10, 3
 MLPERF_FULL_ROWS = 882_774_559
 
@@ -2324,29 +2344,35 @@ def host_rss_gb() -> dict:
     return {"host_rss_gb": rss, "host_peak_rss_gb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9}
 
 
-def host_tail_breakdown(model, feeds, labels) -> dict:
-    """One host-tail train step as FFModel.train_batch runs it, phase by
-    phase, with the card synchronized between phases (host clock, ms):
-    build_feeds on the host, the staging copies, the device step, the g_val
-    readback (the step's one sync, with the row rate) and apply_grads."""
-    t = [time.perf_counter()]
-    feeds = model._host_tail_feeds(feeds, train=True)
-    t.append(time.perf_counter())
-    staged, lbl, scalars = model._stage(feeds), model._stage_labels(labels), model._step_scalars()
-    torch.cuda.synchronize()
-    t.append(time.perf_counter())
-    _, g_host = model._step(staged, lbl, None, scalars)
-    torch.cuda.synchronize()
-    t.append(time.perf_counter())
-    g_val, rate = model._host_tail_readback(g_host, scalars)
-    t.append(time.perf_counter())
-    model._host_tail.apply_grads(g_val, rate)
-    t.append(time.perf_counter())
-    model._advance(1)
-    names = ("build_feeds", "h2d_copy", "device_step", "g_val_readback", "apply_grads")
-    out = {name: (b - a) * 1e3 for name, a, b in zip(names, t, t[1:])}
-    out["total"] = (t[-1] - t[0]) * 1e3
-    return out
+def full_kernel_checks(model, feeds, rule: str) -> dict:
+    """The kernels train-full launches, against their plain versions at the
+    shapes the path gives them: the rule's row-update mode (`check_row_update`
+    for SGD, `check_rule` for row-wise AdaGrad) on the hot prefix of the
+    largest host-tail table ([2^20, 128] bf16, its weights as initialized)
+    with the stream this batch's Zipf(1.05) ids make, those at or above the
+    hot prefix masked as the model masks them (`Embedding.hot_indices`,
+    then `bag_row_src`: padding becomes row V, dropped), and the
+    interaction on a [65536, 27, 128] bf16 input."""
+    from dlrm_flexflow_tpu_torch.ops.embedding import bag_row_src
+
+    op = max((o for o in model._sparse_ops if o.host_tail_vocab), key=lambda o: o.host_tail_vocab)
+    idx = torch.as_tensor(feeds[op.inputs[0].owner_op.name], dtype=op.inputs[0].dtype.to_torch()).cuda()
+    table = model.get_parameters()[op.name]["weight"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    src = torch.randn((idx.shape[0], table.shape[1]), generator=gen, device="cuda") * 1e-2
+    rows, _, _ = bag_row_src(op.hot_indices(idx), src, op.aggr, op.num_entries)
+    name = f"full-{op.name}-v{op.host_tail_vocab}-hot{op.num_entries}"
+    if rule == "sgd":
+        rows_res = check_row_update(name, table, rows, src, torch.bfloat16, timed=False)
+    else:
+        rows_res = check_rule(f"adagrad:{name}", table, rows, src, timed=False, gen=gen)
+    inter = next(o for o in model.graph.compute_ops if hasattr(o, "self_interaction"))
+    x = torch.randn((TRAIN_BATCH, len(inter.inputs), inter.inputs[0].shape[1]), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    k3 = check_dot_interaction(x, inter.self_interaction)
+    del x, src, rows
+    torch.cuda.empty_cache()
+    return {"row_update": rows_res, "dot_interaction": k3}
 
 
 def phase_train_full(rule: str) -> dict:
@@ -2360,7 +2386,9 @@ def phase_train_full(rule: str) -> dict:
     steps (eager: the host works between steps), the row-update and
     interaction launches counted, then the time by phase, kernel time and
     busy share, touched tail rows, drop fraction, peak device memory and
-    host RSS."""
+    host RSS. Before the steps, the rule's row-update mode and the
+    interaction are held against their plain versions at the shapes this
+    path gives them (`full_kernel_checks`)."""
     from dlrm_flexflow_tpu_torch import FFConfig, LossType, MetricsType, RowWiseAdagradOptimizer, SGDOptimizer
     from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
     from dlrm_flexflow_tpu_torch.models.dlrm import make_dlrm_model, mlperf_config
@@ -2390,6 +2418,7 @@ def phase_train_full(rule: str) -> dict:
     log(f"{tag} mlperf-full: {json.dumps(setup)}")
     if len(ht.entries) != 6 or device_rows != 7_408_088 or len(route) != 13:
         raise AssertionError(f"{tag}: not the expected split: {setup}")
+    checks = full_kernel_checks(model, batches[0][0], rule)
     losses = [float(model.train_batch(*batches[i % 4])) for i in range(FULL_WARMUP)]
     counts = launch_counts()
     for fn in counts.values():
@@ -2412,14 +2441,13 @@ def phase_train_full(rule: str) -> dict:
         raise AssertionError(f"{tag}: the path launched {launches}, not {want}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{tag}: losses not finite: {losses}")
-    steps = [host_tail_breakdown(model, *batches[i % 4]) for i in range(2)]
-    log(f"{tag} ms by phase, one step (host clock, card synchronized between phases; 2 steps): "
-        f"{json.dumps(steps)}")
     prof = train_profile(model, batches, ms, steps=FULL_PROFILED, route_tables=len(route))
+    log(f"{tag} ms by phase, a step over {FULL_PROFILED} profiled steps (host clock; the span of "
+        f"the device work each phase launched): {json.dumps(prof.pop('phases', None))}")
     log(f"{tag} device kernels over {FULL_PROFILED} profiled steps: {json.dumps(prof)}")
     del model, batches, feeds
     torch.cuda.empty_cache()
-    return {**res, "by_phase": steps, "profile": prof}
+    return {**res, "profile": prof, "kernel_checks": checks}
 
 
 def capped_kaggle(cap: int, bag: int = 1):
@@ -2591,13 +2619,15 @@ def phase_train_midband() -> dict:
     errs = []
     for i in range(5):
         b = ({k: v[i * 256:(i + 1) * 256] for k, v in feeds.items()}, labels[i * 256:(i + 1) * 256])
-        errs.append(abs(float(gpu.train_batch(*b)) - float(cpu.train_batch(*b))))
+        got, want = float(gpu.train_batch(*b)), float(cpu.train_batch(*b))
+        errs.append(abs(got - want) - MIDBAND_LOSS_RTOL * abs(want))
     w_err = max(float(np.abs(w - cpu.get_weights(n)[k]).max())
                 for n in gpu.get_parameters() for k, w in gpu.get_weights(n).items())
     res = {"mid_band_tables": sum(getattr(op, "onehot_packed", False) for op in gpu.graph.compute_ops),
-           "steps": 5, "max_loss_err": max(errs), "max_weight_err": w_err, "atol": E2E_ATOL}
+           "steps": 5, "max_loss_err_over_rtol": max(errs), "max_weight_err": w_err,
+           "loss_rtol": MIDBAND_LOSS_RTOL, "loss_atol": MIDBAND_LOSS_ATOL, "weight_atol": MIDBAND_WEIGHT_ATOL}
     log(f"[train-midband] CUDA vs CPU, vocabs capped at 20000: {json.dumps(res)}")
-    if res["mid_band_tables"] != 10 or max(errs) > E2E_ATOL or w_err > E2E_ATOL:
+    if res["mid_band_tables"] != 10 or max(errs) > MIDBAND_LOSS_ATOL or w_err > MIDBAND_WEIGHT_ATOL:
         raise AssertionError(f"[train-midband] CUDA and CPU disagree: {res}")
     out["parity"] = res
     return out
@@ -2648,8 +2678,7 @@ def main() -> None:
     phase_fit_chunk()
     phase_serve_quant(card)
     phase_checkpoint()
-    for rule in ("sgd", "adagrad"):
-        phase_train_full(rule)
+    full = {rule: phase_train_full(rule)["kernel_checks"] for rule in ("sgd", "adagrad")}
     phase_host_tail_parity()
     phase_train_midband()
     phase_train_chunk_scatter()
@@ -2667,7 +2696,7 @@ def main() -> None:
         "source": "dlrm_flexflow_tpu_torch/csrc/dot_interaction.cu",
         "replaces": "dlrm_flexflow_tpu/ops/pallas/dot_interaction.py:42",
         "launches": launches,
-        "max_abs_err": k3["max_abs_err"],
+        "max_abs_err": max([k3["max_abs_err"]] + [c["dot_interaction"]["max_abs_err"] for c in full.values()]),
         "ms": k3["ms"],
         "kernel_ms": k3["ms"],
         "plain_ms": k3["plain_ms"],
@@ -2675,7 +2704,7 @@ def main() -> None:
         "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
     }
-    row_err = max(c["max_abs_err"] for c in rows.values())
+    row_err = max([c["max_abs_err"] for c in rows.values()] + [full["sgd"]["row_update"]["max_abs_err"]])
     entries = [kernel]
     for case, replaces in (("a-k1-bfloat16-table-bfloat16-stream", 487), ("c-k2", 750)):
         c = rows[case]
@@ -2726,8 +2755,9 @@ def main() -> None:
             "source": "dlrm_flexflow_tpu_torch/csrc/row_update.cu",
             "replaces": f"dlrm_flexflow_tpu/ops/pallas/packed_update.py:{replaces}",
             "launches": optim_launches[rule],
-            "max_abs_err": max(m["max_abs_err"] for k, m in modes.items()
-                               if k.split(":")[0].split("-")[0] == case),
+            "max_abs_err": max([m["max_abs_err"] for k, m in modes.items()
+                                if k.split(":")[0].split("-")[0] == case]
+                               + ([full["adagrad"]["row_update"]["max_abs_err"]] if case == "adagrad" else [])),
             **{key: c[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
     entries.append({

@@ -79,6 +79,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..config import FFConfig
 from ..convert import to_torch
@@ -108,6 +109,10 @@ from .tensor import TensorSpec
 # package's reserved feed keys)
 ROUTE_FIELDS = ("rows", "order")
 HOST_TAIL_PREFIX = "_hosttail:"  # the feed keys of the host's tail partials, "_hosttail:<op>:pos|val"
+# the eager train step's phases, in order, as torch.profiler ranges (the
+# last two only under host-tail offload)
+STEP_PHASES = ("step:build_feeds", "step:h2d_copy", "step:device_step", "step:g_val_readback",
+               "step:apply_grads")
 _PROFILING = ("per-op profiling (config.profiling, utils/profiling.py) is a later slice of "
               "the port (autotune and profiling)")
 _FORCED_TRAINING = ("training under use_pallas='on' is a later slice of the port: the JAX "
@@ -328,23 +333,20 @@ class FFModel:
                     }
         self._sparse_ops = sparse_ops
 
+        # the JAX package keeps a mid-band table packed [P, 128], and its
+        # dense row-wise AdaGrad keeps one accumulator per 128-lane line of it
+        line_rows = {op.name: 128 // op.out_dim for op in self.graph.compute_ops
+                     if isinstance(op, Embedding) and op.onehot_packed}
+        self._dense_kw = ({"line_rows": line_rows}
+                          if line_rows and isinstance(opt, RowWiseAdagradOptimizer) else {})
         if sparse_ops:
             dense_init = {k: v for k, v in params.items() if k not in sparse_names}
             self._opt_state = {
-                "dense": opt.init(dense_init, self.device),
+                "dense": opt.init(dense_init, self.device, **self._dense_kw),
                 "sparse": {op.name: op.sparse_state_init(sopt, self.device) for op in sparse_ops},
             }
         else:
-            self._opt_state = opt.init(params, self.device)
-        if isinstance(opt, RowWiseAdagradOptimizer):
-            # the JAX package keeps a mid-band table packed [P, 128], and its
-            # dense AdaGrad keeps one accumulator per 128-lane line of it
-            dstate = self._opt_state["dense"] if sparse_ops else self._opt_state
-            for op in self.graph.compute_ops:
-                if isinstance(op, Embedding) and op.onehot_packed:
-                    lines = -(-op.num_entries * op.out_dim // 128)
-                    dstate["acc"][op.name]["weight"] = torch.full(
-                        (lines,), opt.initial_accumulator, dtype=torch.float32, device=self.device)
+            self._opt_state = opt.init(params, self.device, **self._dense_kw)
         self._params = params
         self._layout = {op: {k: (tuple(v.shape), v.dtype) for k, v in sub.items()}
                         for op, sub in params.items()}
@@ -522,12 +524,20 @@ class FFModel:
 
     def _eager_step(self, feeds, labels, routes) -> torch.Tensor:
         """Stage one batch and this step's scalars (one small copy), run the
-        step, count it; under host-tail offload, the host's half around it."""
-        feeds = self._host_tail_feeds(feeds, train=True)
-        scalars = self._step_scalars()
-        loss, g_host = self._step(self._stage(feeds), self._stage_labels(labels), routes, scalars)
+        step, count it; under host-tail offload, the host's half around it.
+        Each phase is a `torch.profiler` range named in `STEP_PHASES`."""
+        with record_function("step:build_feeds"):
+            feeds = self._host_tail_feeds(feeds, train=True)
+        with record_function("step:h2d_copy"):
+            scalars = self._step_scalars()
+            staged, labels = self._stage(feeds), self._stage_labels(labels)
+        with record_function("step:device_step"):
+            loss, g_host = self._step(staged, labels, routes, scalars)
         if self._host_tail is not None:
-            self._host_tail.apply_grads(*self._host_tail_readback(g_host, scalars))
+            with record_function("step:g_val_readback"):
+                g_val, rate = self._host_tail_readback(g_host, scalars)
+            with record_function("step:apply_grads"):
+                self._host_tail.apply_grads(g_val, rate)
         self._advance(1)
         return loss
 
@@ -612,8 +622,9 @@ class FFModel:
 
     def _dense_update(self, grads, state, params, scalars) -> dict:
         if self._n_dense_scalars:
-            return self.optimizer.update(grads, state, params, scalars=scalars[: self._n_dense_scalars])
-        return self.optimizer.update(grads, state, params)
+            return self.optimizer.update(grads, state, params, scalars=scalars[: self._n_dense_scalars],
+                                         **self._dense_kw)
+        return self.optimizer.update(grads, state, params, **self._dense_kw)
 
     def _scalar_table(self, first_step: int, k: int) -> np.ndarray:
         """[k, S] f32: the step scalars of steps first_step .. first_step + k

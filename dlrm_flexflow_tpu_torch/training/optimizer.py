@@ -39,7 +39,7 @@ what the eager step computes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -291,32 +291,39 @@ class RowWiseAdagradOptimizer(Optimizer):
 
     supports_sparse = True
 
-    def init(self, params, device) -> dict:
-        def acc_like(w):
-            return torch.full(tuple(w.shape[:1]), self.initial_accumulator,
-                              dtype=torch.float32, device=device)
+    def init(self, params, device, line_rows: Optional[Dict[str, int]] = None) -> dict:
+        """`line_rows` {op: rows per 128-lane line} names the tables the JAX
+        package stores packed [P, 128] (mid-band): its dense AdaGrad keeps
+        one accumulator per line of such a table, so they get [P] here."""
+        line_rows = line_rows or {}
+
+        def acc_like(op, w):
+            shape = (-(-w.shape[0] // line_rows[op]),) if op in line_rows else tuple(w.shape[:1])
+            return torch.full(shape, self.initial_accumulator, dtype=torch.float32, device=device)
 
         return {
             "step": 0,
             "lr": _rate(None, self.lr, device),
-            "acc": {op: {k: acc_like(p) for k, p in sub.items()} for op, sub in params.items()},
+            "acc": {op: {k: acc_like(op, p) for k, p in sub.items()} for op, sub in params.items()},
         }
 
     @torch.no_grad()
-    def update(self, grads, state, params, scalars=None) -> dict:
+    def update(self, grads, state, params, scalars=None,
+               line_rows: Optional[Dict[str, int]] = None) -> dict:
+        """`line_rows`: the map `init` was given."""
         lr = state["lr"]
+        line_rows = line_rows or {}
         for op, sub in grads.items():
             for k, g in sub.items():
                 w, a = params[op][k], state["acc"][op][k]
                 g32 = g.float()
-                if g.dim() == 2 and a.shape[0] != g.shape[0]:
+                if op in line_rows:
                     # one accumulator per 128-lane line of the row-major
-                    # table (128 // D rows), as the JAX package's dense
-                    # AdaGrad keeps it for a mid-band table stored packed
+                    # [V, D] table (128 // D rows)
                     v, d = g.shape
                     lines = torch.nn.functional.pad(g32.reshape(-1), (0, a.shape[0] * 128 - v * d))
                     a.add_(torch.mean((lines * lines).reshape(-1, 128), dim=1))
-                    shaped = torch.rsqrt(a + self.epsilon).repeat_interleave(128 // d)[:v].reshape(-1, 1)
+                    shaped = torch.rsqrt(a + self.epsilon).repeat_interleave(line_rows[op])[:v].reshape(-1, 1)
                 elif g.dim() > 1:
                     a.add_(torch.mean(g32 * g32, dim=tuple(range(1, g.dim()))))
                     shaped = torch.rsqrt(a + self.epsilon).reshape((-1,) + (1,) * (g.dim() - 1))

@@ -401,6 +401,23 @@ def test_fit_trains_a_host_tail_model():
     assert hist["samples"] == BS * 3 and m._step_count == 6 and m._host_tail.total > 0
 
 
+def test_train_batch_marks_each_phase_of_the_step_for_the_profiler():
+    """A host-tail step's five phases are torch.profiler ranges, in the
+    order `_eager_step` runs them, one of each a step; a model without a
+    host tail has the first three."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlrm_flexflow_tpu_torch.core.ffmodel import STEP_PHASES
+
+    for hot, want in ((HOT, STEP_PHASES), (0, STEP_PHASES[:3])):
+        m = _model(port, port.SGDOptimizer(lr=0.05), _ffkw(hot))
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for b in _batches(2):
+                m.train_batch(*b)
+        seen = [e for e in prof.events() if e.name.startswith("step:")]
+        assert [e.name for e in sorted(seen, key=lambda e: e.time_range.start)] == list(want) * 2
+
+
 # ----------------------------------------------------------------- the whole-table host placement
 
 

@@ -148,6 +148,25 @@ def test_midband_training_matches_the_jax_package(rule):
             np.testing.assert_allclose(pm.get_weights(op)[k], v, rtol=0, atol=1e-5 if loose else 1e-6)
 
 
+def test_rowwise_adagrad_keeps_per_line_accumulators_only_for_the_tables_it_is_told_of():
+    """`init(line_rows=)` builds one accumulator per 128-lane line for the
+    named tables and one per row elsewhere; `update` takes the per-line
+    rule from the same map, so an accumulator of another shape raises
+    instead of silently taking it."""
+    opt = port.RowWiseAdagradOptimizer(lr=0.05)
+    rng = np.random.default_rng(8)
+    params = {t: {"weight": torch.from_numpy(rng.standard_normal((1000, 16)).astype(np.float32))}
+              for t in ("mid", "row")}
+    grads = {t: {"weight": torch.from_numpy(rng.standard_normal((1000, 16)).astype(np.float32))} for t in params}
+    st = opt.init(params, "cpu", line_rows={"mid": 8})
+    assert st["acc"]["mid"]["weight"].shape == (125,) and st["acc"]["row"]["weight"].shape == (1000,)
+    st = opt.update(grads, st, params, line_rows={"mid": 8})
+    lines = grads["mid"]["weight"].reshape(125, 128)
+    torch.testing.assert_close(st["acc"]["mid"]["weight"], (lines * lines).mean(dim=1), rtol=1e-6, atol=0)
+    with pytest.raises(RuntimeError):
+        opt.update(grads, st, params)
+
+
 def test_midband_train_chunk_matches_the_jax_train_chunk():
     rm, pm = _model(ref, ref.AdamOptimizer(alpha=0.01)), _model(port, port.AdamOptimizer(alpha=0.01))
     pm.set_parameters(params_from_jax({op: rm.get_weights(op) for op in rm.get_parameters()}))
