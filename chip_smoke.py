@@ -103,13 +103,27 @@ Phases, each of which ends the run with a non-zero exit if it fails:
                vocabs.
  23. train-chunk-scatter - kaggle at full width with all 10 large tables
                on the scatter route: the same, SGD and Adam.
- 24. bench   - python -m dlrm_flexflow_tpu_torch.bench --quick, as a
+ 24. mesh-1  - the hybrid-parallel path (parallel/, ops/embedding_collection_op.py)
+               in an in-process NCCL world of one, destroyed after: kaggle
+               at full width through compile(mesh=make_mesh(),
+               plan=dlrm_hybrid_plan()), which at a data axis of 1 is the
+               flat collection of the 10 large tables on the flat scatter
+               (f32, no kernel), a warm-up and 3 timed steps under SGD and
+               Adam; at capped vocabs with every table fused, 5 steps on
+               CUDA against FFConfig(fuse_embeddings=True) on the CPU; then
+               sharded_embedding_lookup and sharded_embedding_sparse_update
+               called directly at N = 1 on a kernel-route layout of the 10
+               tables ([r_pad, 16] bf16, 65536 lookups a table): the lookup
+               bit for bit against the flat gather, the update (K1, SGD)
+               against the row-update kernel's plain version, its launches
+               counted (the kernels line's `mesh_launches`).
+ 25. bench   - python -m dlrm_flexflow_tpu_torch.bench --quick, as a
                subprocess: kaggle training (host-routed, graph replays), the
                same with --zipf 1.05, with --optimizer adam and with
                --onehot-packed-threshold 1048576, mlperf-full training
                (host-tail offload, eager steps), and mlperf-lite serving in
                f32 and with int8 tables.
- 25. kernels, continued - as phase 3: the fused dense layer at the 8
+ 26. kernels, continued - as phase 3: the fused dense layer at the 8
                mlperf-lite layer shapes at M = 16384 (bf16), at M = 1000, in
                f32, without bias; the embedding bag at [16384, 1] into a
                2,000,000 x 128 table, with bags of 4 (AVG, padding, a fully
@@ -133,11 +147,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
                at the probe's shape in f32 and bf16 at every depth, at a
                ragged K, on the narrow [1000000, 16] table, at widths of 5
                and 6 chunks, with indices < 0 and >= P, twice.
- 26. summary - a {"kernels": [...]} line, then the last line
+ 27. summary - a {"kernels": [...]} line, then the last line
                {"ok": true, "device": {...}}.
-Around each path (4, 6, 8, 10, 11, 13, 14, 15, 18 and 20) the kernel launch
-counts are zeroed just before and read just after, and must show every
-kernel of that path; phase 17 counts its replays' launches from the graph.
+Around each path (4, 6, 8, 10, 11, 13, 14, 15, 18, 20 and 24) the kernel
+launch counts are zeroed just before and read just after, and must show
+every kernel of that path; phase 17 counts its replays' launches from the
+graph.
 The script imports nothing of JAX: it runs the port alone.
 """
 from __future__ import annotations
@@ -936,12 +951,12 @@ def optimizers(rule: str) -> tuple:
     }[rule]
 
 
-def compile_for(model, rule: str) -> None:
+def compile_for(model, rule: str, **kw) -> None:
     from dlrm_flexflow_tpu_torch import LossType, MetricsType
 
     opt, sopt = optimizers(rule)
     model.compile(opt, LossType.LOSS_BINARY_CROSSENTROPY, [MetricsType.METRICS_ACCURACY],
-                  sparse_optimizer=sopt)
+                  sparse_optimizer=sopt, **kw)
 
 
 def kaggle_model(cfg, batch: int, seed: int, device="cuda", rule: str = "sgd", **ffkw):
@@ -1174,7 +1189,7 @@ def phase_train_optims() -> dict:
 
     cfg = kaggle_config(batch_size=TRAIN_BATCH)
     model = make_dlrm_model(cfg, FFConfig(batch_size=TRAIN_BATCH, seed=SEED, compute_dtype="bfloat16",
-                                          table_dtype="bfloat16"))
+                                          table_dtype="bfloat16"), device="cuda")
     out = {}
     for rule in ("momentum", "nesterov", "adagrad", "adam+adagrad"):
         compile_for(model, rule)
@@ -2653,6 +2668,156 @@ def phase_train_chunk_scatter() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ the hybrid-parallel path, one card
+
+MESH_STEPS = 3
+
+
+def mesh_one_kaggle(mesh, rule: str) -> dict:
+    """compile(mesh=, plan=dlrm_hybrid_plan()) on kaggle at full width in a
+    world of one: the flat collection of the 10 large tables, on the flat
+    scatter (no kernel launched), f32 pool; a warm-up and a few timed eager
+    steps."""
+    from dlrm_flexflow_tpu_torch import FFConfig
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config, make_dlrm_model
+    from dlrm_flexflow_tpu_torch.parallel.plan import dlrm_hybrid_plan
+
+    cfg = kaggle_config(batch_size=TRAIN_BATCH)
+    model = make_dlrm_model(cfg, FFConfig(batch_size=TRAIN_BATCH, seed=SEED, compute_dtype="bfloat16",
+                                          table_dtype="bfloat16"), device="cuda")
+    compile_for(model, rule, mesh=mesh, plan=dlrm_hybrid_plan())
+    coll = model._op("embedding_collection")
+    lay = coll.layout
+    pool = model.get_parameters()[coll.name]["pool"]
+    if (coll.shard is not None or lay.num_shards != 1 or lay.packed_pool or model.plan.packed_pool
+            or len(coll.table_names) != KAGGLE_BIG_TABLES or pool.dtype != torch.float32):
+        raise AssertionError(f"mesh-1 kaggle is not the flat f32 collection of the {KAGGLE_BIG_TABLES} "
+                             f"large tables off the kernel route: {lay}")
+    _, staged = kaggle_batches(model, cfg)
+    counts = launch_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    losses = [float(model.train_batch(*staged[0]))]  # a warm-up step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [float(model.train_batch(*staged[(i + 1) % 4])) for i in range(MESH_STEPS)]
+    dt = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counts.items() if fn.launches}
+    res = {"rule": rule, "tables": coll.table_names, "r_pad": lay.r_pad, "pool": list(pool.shape),
+           "losses": losses, "ms_per_step": dt / MESH_STEPS * 1e3, "launches": launches}
+    if launches or not all(np.isfinite(losses)):
+        raise AssertionError(f"mesh-1 kaggle: {res}")
+    return res
+
+
+def mesh_one_parity(mesh, rule: str) -> dict:
+    """Kaggle widths with vocabs capped at 20000, every table fused
+    (onehot_embedding_threshold 0): 5 steps of the mesh-1 model on CUDA
+    against FFConfig(fuse_embeddings=True) on the CPU (the same flat
+    collection, no mesh) from the same weights."""
+    from dlrm_flexflow_tpu_torch import FFConfig
+    from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config, make_dlrm_model
+    from dlrm_flexflow_tpu_torch.parallel.plan import dlrm_hybrid_plan
+
+    bs, steps = 256, 5
+    cfg = kaggle_config(batch_size=bs)
+    cfg.embedding_size = [min(v, 20_000) for v in cfg.embedding_size]
+    gpu = make_dlrm_model(cfg, FFConfig(batch_size=bs, seed=SEED + 5, compute_dtype="bfloat16",
+                                        table_dtype="bfloat16", onehot_embedding_threshold=0,
+                                        packed_tables="on"), device="cuda")
+    compile_for(gpu, rule, mesh=mesh, plan=dlrm_hybrid_plan())
+    cpu = kaggle_model(cfg, bs, SEED + 5, device="cpu", rule=rule, onehot_embedding_threshold=0,
+                       fuse_embeddings=True)
+    cpu.set_parameters({name: gpu.get_weights(name) for name in gpu.get_parameters()})
+    feeds, labels = random_batches(cfg, steps * bs, seed=SEED + 5)
+    errs = []
+    for i in range(steps):
+        sl = slice(i * bs, (i + 1) * bs)
+        batch = {k: v[sl] for k, v in feeds.items()}
+        errs.append(abs(float(gpu.train_batch(batch, labels[sl])) - float(cpu.train_batch(batch, labels[sl]))))
+    w_errs = np.concatenate([np.abs(w - cpu.get_weights(name)[k]).reshape(-1)
+                             for name in gpu.get_parameters() for k, w in gpu.get_weights(name).items()])
+    w_atol = ADAM_E2E_ATOL if rule == "adam" else E2E_ATOL
+    res = {"rule": rule, "fused_tables": len(gpu._op("embedding_collection").table_names),
+           "max_loss_err": max(errs), "max_weight_err": float(w_errs.max()),
+           "share_within_e2e_atol": float(np.mean(w_errs <= E2E_ATOL)), "atol": E2E_ATOL, "weight_atol": w_atol}
+    if (max(errs) > E2E_ATOL or res["max_weight_err"] > w_atol or res["share_within_e2e_atol"] < 0.999
+            or res["fused_tables"] != cfg.num_tables):
+        raise AssertionError(f"mesh-1 CUDA and CPU training disagree: {res}")
+    return res
+
+
+def mesh_one_exchange(mesh) -> dict:
+    """`sharded_embedding_lookup` and `sharded_embedding_sparse_update`
+    called directly at N = 1 over NCCL on a kernel-route layout of kaggle's
+    10 large tables: the [r_pad, 16] bf16 shard pool, 65536 lookups a
+    table. The lookup equals the flat gather bit for bit; the update (K1,
+    SGD) is held against the row-update kernel's plain version on the flat
+    rows, its launches counted."""
+    from dlrm_flexflow_tpu_torch import AggrMode, SGDOptimizer
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
+    from dlrm_flexflow_tpu_torch.ops.embedding import embedding_bag
+    from dlrm_flexflow_tpu_torch.ops.kernels.row_update import row_update, row_update_reference
+    from dlrm_flexflow_tpu_torch.parallel import embedding_collection as pec
+
+    vocabs = [v for v in kaggle_config().embedding_size if v > 8192]
+    lay = pec.ShardedEmbeddingLayout(vocabs, 16, 1, [0] * len(vocabs), packed_pool=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    pool = ((torch.rand((lay.r_pad, 16), generator=gen, device="cuda") - 0.5) * 0.02).to(torch.bfloat16)
+    idx = torch.stack([torch.randint(0, v, (TRAIN_BATCH, 1), generator=gen, device="cuda") for v in vocabs], 1)
+    g = torch.randn((TRAIN_BATCH, len(vocabs), 16), generator=gen, device="cuda") * 0.01
+    flat = (idx + torch.as_tensor(lay.table_bases(), device="cuda")[None, :, None]).reshape(-1, 1)
+    got = pec.sharded_embedding_lookup(lay, pool, idx, mesh)
+    want = embedding_bag(pool, flat, AggrMode.AGGR_MODE_SUM).reshape(got.shape)
+    opt = SGDOptimizer(lr=0.01)
+    upd = pool.clone()
+    row_update.launches = 0
+    pec.sharded_embedding_sparse_update(lay, upd, None, idx, g, mesh, opt)
+    launches = row_update.launches
+    scale = torch.tensor(-0.01, device="cuda")
+    ref = pool.clone()
+    rows, src = flat.reshape(-1), g.reshape(-1, 16).contiguous()
+    row_update_reference(ref, rows, (src, 1), scale)
+    tol = row_update_tolerance(pool, rows, src, 1, scale)
+    err = (upd.float() - ref.float()).abs()
+    res = {"r_pad": lay.r_pad, "t_max": lay.t_max, "pool": list(pool.shape), "pool_dtype": "bfloat16",
+           "lookup_bit_equal": bool(torch.equal(got, want)), "row_update_launches": launches,
+           "max_abs_err": err.max().item(),
+           "max_err_over_tol": (err / tol.clamp_min(1e-30)).max().item(),
+           "touched_rows": int(torch.unique(rows).numel()),
+           "lookup_ms": cuda_ms(lambda: pec.sharded_embedding_lookup(lay, pool, idx, mesh)),
+           "flat_lookup_ms": cuda_ms(lambda: embedding_bag(pool, flat, AggrMode.AGGR_MODE_SUM)),
+           "update_ms": cuda_ms(lambda: pec.sharded_embedding_sparse_update(lay, upd, None, idx, g, mesh, opt))}
+    if not res["lookup_bit_equal"] or launches != 1 or res["max_err_over_tol"] > 1.0:
+        raise AssertionError(f"mesh-1 exchange: {res}")
+    return res
+
+
+def phase_mesh_one() -> dict:
+    """Phase 24: the hybrid-parallel path in an in-process NCCL world of one
+    (destroyed at the end, so later phases run as before)."""
+    import torch.distributed as dist
+
+    from dlrm_flexflow_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        log(f"[mesh-1] {mesh!r} NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}")
+        for rule in ("sgd", "adam"):
+            log(f"[mesh-1] kaggle {json.dumps(mesh_one_kaggle(mesh, rule))}")
+            torch.cuda.empty_cache()
+        for rule in ("sgd", "adam"):
+            log(f"[mesh-1-parity] {json.dumps(mesh_one_parity(mesh, rule))}")
+        res = mesh_one_exchange(mesh)
+        log(f"[mesh-1] exchange at N = 1 {json.dumps(res)}")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -2682,6 +2847,7 @@ def main() -> None:
     phase_host_tail_parity()
     phase_train_midband()
     phase_train_chunk_scatter()
+    mesh = phase_mesh_one()
     phase_bench()
     # after the paths: run before them, these cases left about 0.5 GB
     # allocated, which showed in the paths' peak memory
@@ -2714,7 +2880,9 @@ def main() -> None:
             "source": "dlrm_flexflow_tpu_torch/csrc/row_update.cu",
             "replaces": f"dlrm_flexflow_tpu/ops/pallas/packed_update.py:{replaces}",
             "launches": train_launches,
-            "max_abs_err": row_err,
+            # the direct sharded update at N = 1 over NCCL (phase 24)
+            "mesh_launches": mesh["row_update_launches"],
+            "max_abs_err": max(row_err, mesh["max_abs_err"]),
             "ms": c["ms"],
             "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"],

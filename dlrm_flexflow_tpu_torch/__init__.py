@@ -7,8 +7,11 @@ written by hand for Hopper (`csrc/`), each beside its plain PyTorch version
 predict; the tables optionally quantized to bf16, f16 or int8), trains it
 on one device (train_batch, train_chunk on a CUDA graph, fit, evaluate)
 with SGD, momentum, Adam or row-wise AdaGrad, the tables optionally under a
-sparse optimizer of their own, checkpoints it (`training/checkpoint.py`),
-and carries weights over from the JAX package (`convert.py`).
+sparse optimizer of their own, trains it hybrid-parallel on several cards
+(`compile(mesh=, plan=)`, one process a card started by `launch.py`: the
+large tables sharded and exchanged by NCCL all-to-all, the rest
+data-parallel), checkpoints it (`training/checkpoint.py`), and carries
+weights over from the JAX package (`convert.py`).
 """
 
 from .config import FFConfig, FFIterationConfig

@@ -4,6 +4,7 @@
     python -m dlrm_flexflow_tpu_torch.bench --config mlperf-lite --mode infer
     python -m dlrm_flexflow_tpu_torch.bench --device cpu --config tiny --batch-size 64 --quick
     python -m dlrm_flexflow_tpu_torch.bench --config mlperf-full --quick   # host-tail offload
+    python -m dlrm_flexflow_tpu_torch.launch --nproc-per-node 4 -m dlrm_flexflow_tpu_torch.bench --mesh
 
 The port of the root `bench.py`, with its flags, defaults and protocol
 (`bench.py:245-375`): 4 batches from `random_batches` (indices Zipf with
@@ -26,8 +27,8 @@ there are eager); a CUDA run without a card fails.
 Prints one JSON line with `bench.py`'s keys (metric, value, unit,
 examples_per_sec_per_chip, devices, table_dtype, packed_engaged: an op took
 the row-update kernel route, loss) and a `#` line on stderr that names the
-card and its power limit. The TPU anchors (vs_baseline) and the mesh's
-all_to_all_gbps are a TPU's numbers and are not printed.
+card and its power limit. The TPU anchors (vs_baseline) are a TPU's
+numbers and are not printed.
 
 `--config mlperf-full` (the unclipped Criteo Terabyte vocabs, 882,774,559
 rows) trains under host-tail offload, as the JAX bench does (`bench.py:
@@ -42,8 +43,18 @@ the JSON add `host_tail_tables`, `host_tail_touched_rows` and
 with a vocab in (`--onehot-threshold`, N] mid-band tables (one-hot lookup,
 dense gradients), which graph replays capture.
 
-`--mesh` raises NotImplementedError: multi-GPU is ROADMAP.md Queue 1 item
-7. --packed-gather-mode, --packed-stream-mode and
+`--mesh` trains (or serves) hybrid-parallel over every rank of the
+launcher's world (`bench.py:190-210`): `launch.initialize`, `make_mesh`,
+`compile(mesh=, plan=dlrm_hybrid_plan())`; every rank is given the global
+batch of `--batch-size` (staged on its device) and takes its slice. The
+steps are eager `train_batch` (or `forward`) calls (`steps=eager`):
+`train_chunk` under a mesh is a later slice. Rank 0 prints the keys, with
+`devices` the world size, `examples_per_sec_per_chip` the global rate over
+it, and `all_to_all_gbps`, the layout's `step_exchange_bytes` at the
+pool's element size (the JAX bench counts the compute dtype's; both are 2
+bytes under the default bf16 tables) over the timed window. A world of one
+is refused, as the JAX bench takes the mesh only with more than one
+device. --packed-gather-mode, --packed-stream-mode and
 --packed-selective choose among the JAX package's packed-layout variants;
 the port keeps [V, D] tables with one gather and one update stream, so they
 are taken and change nothing.
@@ -51,15 +62,18 @@ are taken and change nothing.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from . import AdamOptimizer, FFConfig, LossType, MetricsType, SGDOptimizer
 from .data.synthetic import random_batches
+from .launch import initialize
 from .models.dlrm import (
     kaggle_config,
     make_dlrm_model,
@@ -69,6 +83,8 @@ from .models.dlrm import (
     summit_large_config,
     tiny_config,
 )
+from .parallel.mesh import make_mesh
+from .parallel.plan import dlrm_hybrid_plan
 
 CONFIGS = {
     "tiny": tiny_config,
@@ -107,7 +123,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--packed-selective", default="on", choices=["on", "off"],
                     help="the JAX package's touched-chunk dispatch; no effect in the port")
     ap.add_argument("--optimizer", default="sgd", choices=["sgd", "adam"])
-    ap.add_argument("--mesh", action="store_true", help="multi-GPU (ROADMAP.md Queue 1 item 7): raises")
+    ap.add_argument("--mesh", action="store_true",
+                    help="hybrid-parallel over the launcher's ranks (run under "
+                         "python -m dlrm_flexflow_tpu_torch.launch --nproc-per-node N)")
     ap.add_argument("--mode", default="train", choices=["train", "infer"])
     ap.add_argument("--onehot-threshold", type=int, default=8192,
                     help="vocab bound of the one-hot lookup path")
@@ -123,11 +141,7 @@ def parser() -> argparse.ArgumentParser:
 
 
 def check_ported(ap: argparse.ArgumentParser, args) -> None:
-    """Resolve --table-dtype and mlperf-full's host tail as bench.py does;
-    raise for what the port has not."""
-    if args.mesh:
-        raise NotImplementedError("--mesh: multi-GPU is ROADMAP.md Queue 1 item 7, a later "
-                                  "slice of the port")
+    """Resolve --table-dtype and mlperf-full's host tail as bench.py does."""
     if args.config == "mlperf-full":
         if args.mode != "train":
             ap.error("mlperf-full supports --mode train only (host-tail offload)")
@@ -143,10 +157,11 @@ def card(device: torch.device) -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     if device.type != "cuda":
         return "cpu"
+    index = torch.cuda.current_device() if device.index is None else device.index
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, check=True, timeout=60).stdout
-        limit = smi.strip().splitlines()[device.index or 0].split(",")[-1].strip()
+        limit = smi.strip().splitlines()[index].split(",")[-1].strip()
     except (OSError, subprocess.SubprocessError, IndexError):
         limit = "power limit not read"
     return f"{torch.cuda.get_device_name(device)}, {limit}"
@@ -161,9 +176,33 @@ def main(argv=None) -> dict:
     if args.steps < 1 or args.warmup < 0:
         ap.error("--steps must be at least 1 and --warmup at least 0")
     check_ported(ap, args)
-    device = torch.device(args.device)
-    bs = args.batch_size
+    with _world(args) as mesh:
+        return _run(ap, args, mesh, explicit_table_dtype)
 
+
+@contextlib.contextmanager
+def _world(args):
+    """Under --mesh, the launcher's world as a mesh (the process group
+    joined here is left at the end), else None."""
+    if not args.mesh:
+        yield None
+        return
+    joined = not dist.is_initialized()
+    initialize(args.device)
+    try:
+        mesh = make_mesh(device=args.device)
+        if mesh.size == 1:
+            raise ValueError("--mesh needs a world of more than one rank: run it under python -m "
+                             "dlrm_flexflow_tpu_torch.launch --nproc-per-node N")
+        yield mesh
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _run(ap, args, mesh, explicit_table_dtype) -> dict:
+    device = mesh.device if mesh is not None else torch.device(args.device)
+    bs = args.batch_size
     cfg = CONFIGS[args.config](batch_size=bs)
     ffc = FFConfig(batch_size=bs, compute_dtype=args.compute_dtype, packed_tables=args.packed_tables,
                    packed_gather_mode=args.packed_gather_mode,
@@ -180,10 +219,12 @@ def main(argv=None) -> dict:
         ffc.table_dtype = args.table_dtype
     model = make_dlrm_model(cfg, ffc, device=device)
     optimizer = AdamOptimizer(alpha=0.001) if args.optimizer == "adam" else SGDOptimizer(lr=0.01)
-    model.compile(optimizer, LossType.LOSS_BINARY_CROSSENTROPY, [MetricsType.METRICS_ACCURACY])
+    model.compile(optimizer, LossType.LOSS_BINARY_CROSSENTROPY, [MetricsType.METRICS_ACCURACY],
+                  mesh=mesh, plan=dlrm_hybrid_plan() if mesh is not None else None)
 
     # what engaged (bench.py:213-237): bf16 storage exists only on the route
-    packed_engaged = any(op.kernel_route for op in model._sparse_ops)
+    layout = model._embedding_layout
+    packed_engaged = any(op.kernel_route for op in model._sparse_ops) or bool(layout and layout.packed_pool)
     effective_table_dtype = args.table_dtype
     if args.mode == "train" and args.table_dtype == "bfloat16" and not any(
             op.table_dtype is not None for op in model._sparse_ops):
@@ -200,6 +241,8 @@ def main(argv=None) -> dict:
     if model._host_tail is not None:
         return host_tail_run(args, model, feeds_np, labels_np, device, effective_table_dtype,
                              packed_engaged)
+    if mesh is not None:
+        return mesh_run(args, model, mesh, feeds_np, labels_np, effective_table_dtype, packed_engaged)
     routed = args.mode == "train" and args.host_routing and packed_engaged
     batches = []
     for j in range(N_BATCHES):
@@ -253,6 +296,56 @@ def main(argv=None) -> dict:
         "loss": loss,
     }
     print(json.dumps(result))
+    return result
+
+
+def mesh_run(args, model, mesh, feeds_np, labels_np, table_dtype, packed_engaged) -> dict:
+    """The hybrid-parallel bench: eager steps on the global batches, staged
+    on this rank's device beforehand, round robin; rank 0 prints."""
+    bs, device = args.batch_size, mesh.device
+    batches = [({k: torch.as_tensor(v[j * bs:(j + 1) * bs]).to(device) for k, v in feeds_np.items()},
+                torch.as_tensor(labels_np[j * bs:(j + 1) * bs]).to(device)) for j in range(N_BATCHES)]
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+    def run(n: int) -> torch.Tensor:
+        out = torch.zeros((), dtype=torch.float32, device=device)
+        for i in range(n):
+            feeds, labels = batches[i % N_BATCHES]
+            if args.mode == "train":
+                out = model.train_batch(feeds, labels)
+            else:
+                out = out + model.forward(feeds).float().sum()
+        return out
+
+    run(max(args.warmup, 1))
+    sync()
+    dist.barrier()
+    t0 = time.perf_counter()
+    value = float(run(args.steps))
+    dt = time.perf_counter() - t0
+    examples_per_sec = args.steps * bs / dt
+    loss = value if args.mode == "train" else 0.0
+    pool = next((sub["pool"] for sub in model.get_parameters().values() if "pool" in sub), None)
+    a2a_gbps = 0.0 if pool is None else (model._embedding_layout.step_exchange_bytes(
+        bs, dtype_bytes=pool.element_size()) * args.steps / dt / 1e9)
+    result = {
+        "metric": f"dlrm_{args.config}_{args.mode}_examples_per_sec",
+        "value": examples_per_sec,
+        "unit": "examples/s",
+        "examples_per_sec_per_chip": examples_per_sec / mesh.size,
+        "devices": mesh.size,
+        "all_to_all_gbps": a2a_gbps,
+        "table_dtype": table_dtype,
+        "packed_engaged": packed_engaged,
+        "loss": loss,
+    }
+    if mesh.rank == 0:
+        print(f"# config={args.config} mode={args.mode} bs={bs} n_steps={args.steps} dt={dt}s steps=eager "
+              f"devices={mesh.size} device={card(device)} mesh=yes table_dtype={table_dtype} "
+              f"packed={'yes' if packed_engaged else 'no'} examples/s={examples_per_sec} "
+              f"per-chip={examples_per_sec / mesh.size} all-to-all={a2a_gbps}GB/s loss={loss}",
+              file=sys.stderr)
+        print(json.dumps(result))
     return result
 
 

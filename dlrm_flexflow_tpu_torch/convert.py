@@ -54,17 +54,29 @@ def unpack_like(arr: np.ndarray, shape: tuple) -> np.ndarray:
 def params_from_jax(
     np_params: Dict[str, Dict[str, np.ndarray]],
     like: Optional[Dict[str, Dict[str, tuple]]] = None,
+    shard: Optional[int] = None,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """{op_name: {key: numpy}} from the JAX package -> {op_name: {key: tensor}}.
     `like` ({op_name: {key: shape}}, e.g. from the port model's
     `get_parameters()`) unpacks each packed table to its shape there (for
     arrays from the JAX package's `get_parameters()`; its `get_weights`
-    unpacks already)."""
+    unpacks already).
+
+    A fused embedding collection's "pool", [N, R_pad, D] or packed [N, P,
+    128] in the JAX package (P * 128 = R_pad * D: the packed layout's
+    r_pad is chunk-aligned), becomes shard `shard`'s rows [R_pad, D] (a
+    rank of a mesh), or with `shard` None the flat [N * R_pad, D] of one
+    device; D comes from `like`, else from an unpacked pool's shape."""
     def fit(op_name, key, arr):
         shape = (like or {}).get(op_name, {}).get(key)
+        shape = None if shape is None else tuple(shape.shape) if isinstance(shape, torch.Tensor) else tuple(shape)
+        if key == "pool" and np.ndim(arr) == 3:
+            arr = np.asarray(arr)
+            d = shape[-1] if shape is not None else arr.shape[-1]
+            return (arr if shard is None else arr[shard]).reshape(-1, d)
         if shape is None:
             return arr
-        return unpack_like(arr, tuple(shape.shape) if isinstance(shape, torch.Tensor) else tuple(shape))
+        return unpack_like(arr, shape)
 
     return {
         op_name: {key: to_torch(fit(op_name, key, arr)) for key, arr in sub.items()}

@@ -54,6 +54,18 @@ lookups, the interaction), as in the JAX package; such a model serves
 A model lives on one device, given at construction and "cuda" by default.
 It never moves to another: with no CUDA device a "cuda" model raises.
 
+Several devices (`compile(mesh=, plan=)`, the JAX package's hybrid
+parallelism): one process a device, each with the same model on its own
+card (parallel/mesh.py, launch.py). The planner pass fuses the tables
+above the one-hot threshold into one EmbeddingCollection sharded over the
+ranks (ops/embedding_collection_op.py, parallel/embedding_collection.py);
+the rest is replicated. Every rank is fed the global batch and steps on
+its slice: the collection's lookup and update exchange over the ranks, the
+local loss is the rank's share of the global one, the dense gradients are
+summed over the ranks in one all-reduce, the loss and metrics in another,
+so every rank holds the same replicated parameters and returns the same
+loss (`_loss_and_metrics`).
+
 The multi-step call. A step reads everything that changes between steps
 from device memory: the batch, its routes, and the step's scalars (Adam's
 bias correction, `Optimizer.step_scalars`, computed on the host in f32 as
@@ -79,6 +91,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..config import FFConfig
@@ -88,11 +101,13 @@ from ..data.loader import DataLoader
 from ..ffconst import ActiMode, AggrMode, DataType, LossType, MetricsType, OperatorType
 from ..ops.dense import Dense
 from ..ops.embedding import Embedding, quantize_table_int8
+from ..ops.embedding_collection_op import EmbeddingCollection
 from ..ops.interaction import DotInteraction
 from ..ops.kernels import resolve_use_pallas
 from ..ops.shape_ops import Concat
 from ..parallel.host_tail import HostTailRuntime, HostTailStore
-from ..parallel.passes import offload_embedding_tails
+from ..parallel.passes import fuse_embedding_tables, offload_embedding_tails
+from ..parallel.plan import TWO_D_MESH, ShardingPlan, dlrm_hybrid_plan
 from ..training import losses as losses_lib
 from ..training import metrics as metrics_lib
 from ..training.optimizer import (
@@ -122,6 +137,9 @@ _QUANTIZED = ("the embedding tables were quantized for serving (quantize_embeddi
               "needs the f32 master tables: compile again, or set_parameters to restore them")
 _HOST_TAIL_CHUNK = ("train_chunk: host-tail offload steps one batch at a time (the host serves and "
                     "updates the tail rows between steps); use train_batch or fit(steps_per_call=1)")
+_ITEM7 = "ROADMAP.md Queue 1 item 7, a later slice of the port"
+_MESH_CHUNK = (f"train_chunk under a mesh (a CUDA graph with the exchange's collectives in it) is "
+               f"{_ITEM7}; use train_batch or fit(steps_per_call=1)")
 QUANTIZED_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "int8": torch.int8}
 _ALIGN = 16  # bytes: each entry of a chunk's packed step buffer starts on a 16-byte boundary
 
@@ -154,6 +172,9 @@ class FFModel:
         self._sparse_base: Optional[torch.Tensor] = None
         self._step_graph: Optional[_StepGraph] = None
         self._host_tail: Optional[HostTailRuntime] = None
+        self.mesh = None  # the compiled mesh (parallel/mesh.py), or None
+        self.plan: Optional[ShardingPlan] = None
+        self._embedding_layout = None  # the fused collection's layout, or None
 
     # ------------------------------------------------------------------ build
     def create_tensor(
@@ -234,6 +255,8 @@ class FFModel:
         metrics: Sequence[MetricsType] = (),
         seed: Optional[int] = None,
         sparse_optimizer: Optional[Optimizer] = None,
+        mesh=None,
+        plan: Optional[ShardingPlan] = None,
     ) -> None:
         """reference: FFModel::compile (model.cc:1567). Makes the parameters
         on the model's device from `seed` (default config.seed), selects
@@ -250,7 +273,13 @@ class FFModel:
         Under config.host_tail_threshold the large tables are cut to their
         hot prefix before the parameters are made (`_setup_host_tail`);
         ValueError if the rows' optimizer is not plain SGD or row-wise
-        AdaGrad."""
+        AdaGrad.
+
+        mesh, plan: the hybrid-parallel path (`parallel/mesh.py`
+        `make_mesh`, `parallel/plan.py` `dlrm_hybrid_plan`), the planner
+        pass of `_plan_embeddings`. Every rank compiles the same model and
+        makes the same replicated parameters (one seed, one order) and its
+        own shard of the fused tables."""
         cfg = self.config
         self.optimizer = optimizer or SGDOptimizer(
             lr=cfg.learning_rate, weight_decay=cfg.weight_decay
@@ -263,7 +292,17 @@ class FFModel:
         if isinstance(sopt, AdamOptimizer) and not isinstance(opt, AdamOptimizer):
             raise ValueError("compile: sparse Adam requires dense Adam (the bias correction's "
                              "step count lives in the dense Adam state)")
-        self._setup_host_tail()
+        # the row-update kernel route (JAX package :798-841, whose "auto"
+        # packs on a TPU; here "auto" takes the route on CUDA). The kernels
+        # take exactly these sparse optimizers; any other (a custom
+        # Optimizer subclass) keeps its scatter rule (:803-809).
+        route_enable = (
+            cfg.packed_tables == "on"
+            or (cfg.packed_tables == "auto" and cfg.use_pallas != "off"
+                and self.device.type == "cuda")
+        ) and (isinstance(sopt, (SGDOptimizer, AdamOptimizer))
+               or type(sopt) is RowWiseAdagradOptimizer)
+        coll = self._plan_embeddings(mesh, plan, route_enable)
         self.loss_type = loss_type
         mask = MetricsType.METRICS_NONE
         for m in metrics:
@@ -282,7 +321,7 @@ class FFModel:
         # sparse ops (JAX package :753-775): indices straight from the
         # inputs, vocab above the one-hot threshold (a host-tail op stays
         # sparse whatever its hot prefix: its backward exists only there),
-        # not a mid-band table
+        # not a mid-band table; the fused collection always
         sparse_ops: List[Embedding] = []
         if sopt.supports_sparse:
             for op in self.graph.compute_ops:
@@ -291,27 +330,27 @@ class FFModel:
                     and all(isinstance(t.owner_op, InputOp) for t in op.inputs)
                 ):
                     continue
-                if 0 < op.num_entries <= cfg.onehot_embedding_threshold and not op.host_tail_vocab:
-                    continue
-                if self._onehot_packed_eligible(op):
+                if isinstance(op, Embedding) and (
+                    0 < op.num_entries <= cfg.onehot_embedding_threshold and not op.host_tail_vocab
+                    or self._onehot_packed_eligible(op)
+                ):
                     continue
                 sparse_ops.append(op)
+        if coll is not None and coll not in sparse_ops:
+            raise ValueError(f"compile: the fused embedding collection needs a sparse optimizer "
+                             f"(supports_sparse), got {type(sopt).__name__}")
+        if self._data_mesh is not None and any(op is not coll for op in sparse_ops):
+            raise NotImplementedError(
+                f"compile: {sorted(op.name for op in sparse_ops if op is not coll)} would be sparse "
+                f"tables outside the fused collection under a mesh (each rank would update its "
+                f"replica with its own batch slice); that is {_ITEM7}. Fuse them (dlrm_hybrid_plan, "
+                f"one D and pooling) or keep them at or under onehot_embedding_threshold")
         if self._host_tail is not None:
             missing = sorted(set(self._host_tail.entries) - {op.name for op in sparse_ops})
             if missing:
                 raise ValueError(f"compile: host-tail tables {missing} need the sparse-update path "
                                  "(an optimizer with supports_sparse, indices fed from the inputs)")
 
-        # the row-update kernel route (JAX package :798-841, whose "auto"
-        # packs on a TPU; here "auto" takes the route on CUDA). The kernels
-        # take exactly these sparse optimizers; any other (a custom
-        # Optimizer subclass) keeps its scatter rule (:803-809).
-        route_enable = (
-            cfg.packed_tables == "on"
-            or (cfg.packed_tables == "auto" and cfg.use_pallas != "off"
-                and self.device.type == "cuda")
-        ) and (isinstance(sopt, (SGDOptimizer, AdamOptimizer))
-               or type(sopt) is RowWiseAdagradOptimizer)
         sparse_names = {op.name for op in sparse_ops}
         for op in self.graph.compute_ops:
             if isinstance(op, Embedding):
@@ -331,6 +370,15 @@ class FFModel:
                     params[op.name] = {
                         **params[op.name], "weight": params[op.name]["weight"].to(op.table_dtype)
                     }
+        # bf16 pool storage (JAX package :871-893): on the kernel route
+        # under a data axis > 1 only, where the row-update kernel adds each
+        # step's f32 sums into it once; the flat collection's scatter would
+        # round every duplicate add in bf16
+        if coll is not None:
+            coll.table_dtype = None
+            if cfg.table_dtype == "bfloat16" and coll.sharded and coll.layout.packed_pool:
+                coll.table_dtype = torch.bfloat16
+                params[coll.name] = {"pool": params[coll.name]["pool"].to(torch.bfloat16)}
         self._sparse_ops = sparse_ops
 
         # the JAX package keeps a mid-band table packed [P, 128], and its
@@ -366,6 +414,7 @@ class FFModel:
             onehot_threshold=cfg.onehot_embedding_threshold,
             use_pallas=use_pallas,
             device=self.device,
+            mesh=self.mesh,
         )
         self._metrics_total = {}
         self.reset_metrics()
@@ -374,17 +423,103 @@ class FFModel:
     def _onehot_packed_eligible(self, op) -> bool:
         """The JAX package's mid-band selection (`_onehot_packed_eligible`,
         :502-520): vocab in (onehot_embedding_threshold,
-        onehot_packed_threshold], D | 128, pooled, not a host-tail op (the
-        port runs on one device)."""
+        onehot_packed_threshold], D | 128, pooled, not a host-tail op, no
+        mesh."""
         thr = self.config.onehot_packed_threshold
         return (
             thr > 0
+            and self.mesh is None
             and type(op) is Embedding
             and self.config.onehot_embedding_threshold < op.num_entries <= thr
             and 128 % op.out_dim == 0
             and op.aggr is not AggrMode.AGGR_MODE_NONE
             and not op.host_tail_vocab
         )
+
+    # ------------------------------------------------------------------ the planner pass
+    @property
+    def _data_mesh(self):
+        """The compiled mesh when its data axis is above 1, else None: the
+        batch is then sliced, the dense gradients, losses and metrics
+        reduced, and the fused tables sharded."""
+        return self.mesh if self.mesh is not None and self.mesh.size > 1 else None
+
+    def _plan_embeddings(self, mesh, plan: Optional[ShardingPlan], route_enable: bool):
+        """The planner pass of compile (the JAX package's :609-699), before
+        the parameters are made; returns the fused collection or None.
+
+        No mesh: host-tail offload, then, under config.fuse_embeddings,
+        every table of one D and pooling fused on one device. A mesh: the
+        plan's defaults from the config (a strategy file to import,
+        `exchange`, `chips_per_host`), the kernel-route decision, the
+        tables above onehot_embedding_threshold fused and sharded over the
+        data axis, the strategy exported (by rank 0). At a data axis of 1
+        the collection is the flat one and stays off the kernel route
+        whatever the plan says: the JAX package sets `packed_pool` there
+        too and its flat fallback then asserts (`ops/
+        embedding_collection_op.py:176-181`; ROADMAP.md Queue 3).
+
+        Raises NotImplementedError, naming its ROADMAP.md item, for what
+        the port does not run under a mesh yet: a 2-D mesh or parameter
+        specs, config.search_budget > 0, host-tail tables, the routed
+        exchange."""
+        cfg = self.config
+        existing = next((op for op in self.graph.compute_ops if isinstance(op, EmbeddingCollection)), None)
+        self.mesh, self.plan = mesh, plan
+        if mesh is None:
+            self._setup_host_tail()
+            if existing is None and cfg.fuse_embeddings:
+                existing = fuse_embedding_tables(self.graph, dlrm_hybrid_plan(), 1)
+            return self._bind_collection(existing, 1, None)
+        if len(mesh.shape) != 1 or cfg.enable_parameter_parallel:
+            raise NotImplementedError(f"compile(mesh=): {TWO_D_MESH}")
+        if self.device.type != mesh.device.type or (
+                self.device.type == "cuda" and self.device.index not in (None, mesh.device.index)):
+            raise ValueError(f"compile(mesh=): the model lives on {self.device}, the mesh's rank on "
+                             f"{mesh.device}")
+        if plan is None:
+            raise ValueError("compile(mesh=) takes a plan: parallel.plan.dlrm_hybrid_plan() or "
+                             "data_parallel_plan()")
+        if cfg.import_strategy_file:
+            plan = self.plan = ShardingPlan.load(cfg.import_strategy_file)
+        if plan.exchange == "dense" and cfg.exchange != "dense":
+            plan.exchange = cfg.exchange
+        if plan.chips_per_host is None and cfg.chips_per_host:
+            plan.chips_per_host = cfg.chips_per_host
+        if cfg.search_budget > 0:
+            raise NotImplementedError("compile(mesh=): the strategy search (config.search_budget > 0) is "
+                                      "ROADMAP.md Queue 1 item 10, a later slice of the port")
+        if any(spec.param_specs for spec in plan.op_specs.values()) or any(
+                axis not in (None, plan.batch_axis) for spec in plan.op_specs.values()
+                for out in (spec.output_specs or []) for axis in out):
+            raise NotImplementedError(f"compile(mesh=): the plan's op specs shard over a model axis: "
+                                      f"{TWO_D_MESH}")
+        if plan.exchange != "dense":
+            raise NotImplementedError(f"compile(mesh=): exchange={plan.exchange!r}: the routed exchange "
+                                      f"(parallel/routed_exchange.py, routed_drop_fraction) is {_ITEM7}")
+        if cfg.host_tail_threshold > 0 or any(plan.host_tail_rows or []):
+            raise NotImplementedError(f"compile(mesh=): host-tail offload under a mesh is {_ITEM7}")
+        n = mesh.size
+        if plan.packed_pool is None or n == 1:
+            plan.packed_pool = route_enable and n > 1
+        if existing is None and plan.embedding_mode == "table_parallel":
+            existing = fuse_embedding_tables(self.graph, plan, n, min_vocab=cfg.onehot_embedding_threshold,
+                                             shard=mesh.rank if n > 1 else None)
+        if n > 1 and existing is not None and existing.layout.hierarchical:
+            # the subgroups, made once on every rank (Mesh.subgroup)
+            mesh.subgroup(existing.layout._host_groups())
+            mesh.subgroup(existing.layout._cross_host_groups())
+        if cfg.export_strategy_file and mesh.rank == 0:
+            plan.save(cfg.export_strategy_file)
+        return self._bind_collection(existing, n, mesh.rank if n > 1 else None)
+
+    def _bind_collection(self, coll, num_shards: int, shard):
+        if coll is not None and (coll.layout.num_shards != num_shards or coll.shard != shard):
+            raise ValueError(f"compile: the graph's {coll.name} was fused for {coll.layout.num_shards} "
+                             f"shards (shard {coll.shard}), not {num_shards} (shard {shard}); build the "
+                             "model again for another mesh")
+        self._embedding_layout = coll.layout if coll is not None else None
+        return coll
 
     # ------------------------------------------------------------------ host-tail offload
     def _setup_host_tail(self) -> None:
@@ -470,12 +605,18 @@ class FFModel:
     def _stage(self, feeds: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Host -> device batch staging; every graph input must be fed.
         Tensors already on the model's device pass through. The host's tail
-        partials go through pinned memory, without waiting."""
+        partials go through pinned memory, without waiting. Under a mesh
+        each rank is fed the global batch and stages its slice
+        (`Mesh.batch_slice`)."""
         staged = {}
+        mesh = self._data_mesh
         for iop in self.graph.inputs:
             if iop.name not in feeds:
                 raise KeyError(f"missing feed {iop.name!r}")
-            t = torch.as_tensor(feeds[iop.name], dtype=iop.outputs[0].dtype.to_torch())
+            x = feeds[iop.name]
+            if mesh is not None:
+                x = x[mesh.batch_slice(x.shape[0])]
+            t = torch.as_tensor(x, dtype=iop.outputs[0].dtype.to_torch())
             if iop.name.startswith(HOST_TAIL_PREFIX) and self.device.type == "cuda" and t.device.type == "cpu":
                 staged[iop.name] = t.pin_memory().to(self.device, non_blocking=True)
             else:
@@ -483,11 +624,15 @@ class FFModel:
         return staged
 
     def _stage_labels(self, labels) -> torch.Tensor:
+        if self._data_mesh is not None:
+            labels = labels[self._data_mesh.batch_slice(labels.shape[0])]
         return torch.as_tensor(labels, dtype=torch.float32).to(self.device)
 
     def forward(self, feeds: Dict[str, Any], training: bool = False) -> torch.Tensor:
         """reference: FFModel::forward (model.cc:1416): the forward of one
-        batch, without gradients, as a tensor on the model's device."""
+        batch, without gradients, as a tensor on the model's device; under
+        a mesh, this rank's slice of it (`predict` puts the slices
+        together)."""
         self._require_compiled()
         ctx = dataclasses.replace(self._ctx, training=training)
         feeds = self._host_tail_feeds(feeds, train=False)
@@ -585,12 +730,7 @@ class FFModel:
         staged = {**staged, **inputs}
         ctx.overrides = overrides
         (logits,) = self.graph.execute(leaves, staged, ctx, fetch=[self._out_spec])
-        loss = losses_lib.compute_loss(self.loss_type, logits, labels)
-        with torch.no_grad():
-            metrics_lib.accumulate(
-                self._metrics_total,
-                metrics_lib.compute_perf_metrics(self.metrics_mask, logits, labels, self._binary_acc),
-            )
+        loss, loss_out = self._loss_and_metrics(logits, labels)
         flat_leaves = [p for sub in leaves.values() for p in sub.values()]
         flat_over = [y for op in sparse_ops for y in overrides[op.name]]
         grads = torch.autograd.grad(
@@ -607,6 +747,8 @@ class FFModel:
                 pos = staged[f"{HOST_TAIL_PREFIX}{name}:pos"].long().clamp(0, g.shape[0] - 1)
                 aux[name] = g[pos]
 
+        if self._data_mesh is not None:
+            _all_reduce_flat([g for sub in g_dense.values() for g in sub.values()])
         dense_params = {name: self._params[name] for name in g_dense}
         if sparse_ops:
             st = self._opt_state
@@ -618,7 +760,31 @@ class FFModel:
             self._opt_state = {"dense": dstate, "sparse": sstates}
         else:
             self._opt_state = self._dense_update(g_dense, self._opt_state, dense_params, scalars)
-        return loss.detach(), aux
+        return loss_out, aux
+
+    def _loss_and_metrics(self, logits, labels) -> tuple:
+        """(the loss to differentiate, the loss to return) of one batch,
+        its metrics added to the totals. Under a mesh the first is this
+        rank's share of the global batch's loss (a mean loss divided by the
+        ranks), whose gradients sum over the ranks to the global ones; the
+        second, the global loss, and the metrics are reduced over the ranks
+        in one all-reduce, so every rank returns the same loss and keeps
+        the same totals."""
+        loss = losses_lib.compute_loss(self.loss_type, logits, labels)
+        with torch.no_grad():
+            step = metrics_lib.compute_perf_metrics(self.metrics_mask, logits, labels, self._binary_acc)
+        mesh = self._data_mesh
+        if mesh is not None:
+            if self.loss_type is not LossType.LOSS_MEAN_SQUARED_ERROR_SUM_REDUCE:
+                loss = loss / mesh.size
+            with torch.no_grad():
+                out, *values = _all_reduce_flat([loss.detach().clone()] + list(step.values()))
+                step = dict(zip(step, values))
+        else:
+            out = loss.detach()
+        with torch.no_grad():
+            metrics_lib.accumulate(self._metrics_total, step)
+        return loss, out
 
     def _dense_update(self, grads, state, params, scalars) -> dict:
         if self._n_dense_scalars:
@@ -664,6 +830,8 @@ class FFModel:
         self._require_trainable()
         if self._host_tail is not None:
             raise RuntimeError(_HOST_TAIL_CHUNK)
+        if self.mesh is not None:
+            raise NotImplementedError(_MESH_CHUNK)
         k = int(stacked_labels.shape[0])
         if k < 1:
             raise ValueError("train_chunk: the stacks hold no step")
@@ -790,12 +958,7 @@ class FFModel:
             (logits,) = self.graph.execute(
                 self._params, self._stage(feeds), self._ctx, fetch=[self._out_spec]
             )
-            loss = losses_lib.compute_loss(self.loss_type, logits, labels)
-            metrics_lib.accumulate(
-                self._metrics_total,
-                metrics_lib.compute_perf_metrics(self.metrics_mask, logits, labels, self._binary_acc),
-            )
-        return loss
+            return self._loss_and_metrics(logits, labels)[1]
 
     def reset_metrics(self) -> None:
         """reference: FFModel::reset_metrics (model.h:508). Zeroes the
@@ -835,6 +998,8 @@ class FFModel:
         self._require_trainable()
         if self.config.profiling:
             raise NotImplementedError(_PROFILING)
+        if steps_per_call > 1 and self.mesh is not None:
+            raise NotImplementedError(_MESH_CHUNK)
         epochs = epochs or self.config.epochs
         bs = batch_size or self.config.batch_size
         loader = DataLoader(feeds, labels, bs, shuffle=shuffle, seed=self.config.seed)
@@ -951,7 +1116,9 @@ class FFModel:
     ) -> np.ndarray:
         """Serving entry for any number of examples: inputs are cut into
         chunks of the compiled batch size; the last partial chunk is padded
-        by repeating its final row, then trimmed."""
+        by repeating its final row, then trimmed. Under a mesh every rank
+        is given all the examples, serves its slice of each chunk, and
+        returns them all (an all-gather a chunk)."""
         self._require_compiled()
         bs = batch_size or self.config.batch_size
         n = next(iter(feeds.values())).shape[0]
@@ -967,6 +1134,11 @@ class FFModel:
                     for k, v in chunk.items()
                 }
             y = self.forward(chunk, training=False)
+            if self._data_mesh is not None:
+                parts = torch.empty((self._data_mesh.size * y.shape[0],) + tuple(y.shape[1:]),
+                                    dtype=y.dtype, device=y.device)
+                dist.all_gather_into_tensor(parts, y.contiguous())
+                y = parts
             outs.append(y[:m].float().cpu().numpy())
         return np.concatenate(outs, axis=0)
 
@@ -1004,24 +1176,46 @@ class FFModel:
     def get_weights(self, op_name: str) -> Dict[str, np.ndarray]:
         """Per-op weight dict as host numpy, in the op's logical shapes. A
         bf16 table comes back widened to f32, which is exact (numpy has no
-        bf16 of its own)."""
+        bf16 of its own).
+
+        The fused embedding collection: its name gives {"pool": [N, R_pad,
+        D]} (the JAX package's layout, unpacked), and the name of a table
+        fused into it gives {"weight": [V, D]} in logical row order (the
+        layout's `extract_table`). Under a mesh those come from the ranks
+        that hold the rows (an all-gather, or a broadcast from each owner),
+        so every rank must ask for them alike."""
         self._require_compiled()
-        return {
-            k: (v.float() if v.dtype == torch.bfloat16 else v).detach().cpu().numpy()
-            for k, v in self._params[op_name].items()
-        }
+        fused = self._fused_table(op_name)
+        if fused is not None:
+            params = {"weight": self._table_weight(*fused)}
+        elif isinstance(self._op(op_name), EmbeddingCollection):
+            params = {"pool": self._global_pool(self._op(op_name))}
+        else:
+            params = self._params[op_name]
+        return {k: (v.float() if v.dtype == torch.bfloat16 else v).detach().cpu().numpy()
+                for k, v in params.items()}
 
     def set_weights(self, op_name: str, weights: Dict[str, Any]) -> None:
         """Per-op weight update, in place: each array is rounded to the
         storage dtype of the parameter it sets (bf16 for a bf16 table) and
-        keeps its shape."""
+        keeps its shape. A fused table's name takes {"weight": [V, D]}; the
+        collection's "pool" takes this rank's rows, or the global [N, R_pad,
+        D] (or the JAX package's packed [N, P, 128]), of which each rank
+        keeps its own (no collective: every rank is given the same
+        arrays)."""
         self._require_compiled()
+        fused = self._fused_table(op_name)
+        if fused is not None:
+            self._set_table(*fused, weights)
+            return
         cur = self._params[op_name]
         arrs = {}
         for k, w in weights.items():
             if k not in cur:
                 raise KeyError(f"{op_name} has no parameter {k!r}")
             arrs[k] = w if isinstance(w, torch.Tensor) else to_torch(np.asarray(w))
+            if k == "pool" and tuple(arrs[k].shape) != tuple(cur[k].shape):
+                arrs[k] = self._local_pool(self._op(op_name), arrs[k])
             if tuple(arrs[k].shape) != tuple(cur[k].shape):
                 raise ValueError(
                     f"{op_name}/{k}: shape {tuple(arrs[k].shape)} != {tuple(cur[k].shape)}"
@@ -1029,6 +1223,77 @@ class FFModel:
         with torch.no_grad():
             for k, arr in arrs.items():
                 cur[k].copy_(arr)
+
+    def _op(self, op_name: str):
+        return next((op for op in self.graph.compute_ops if op.name == op_name), None)
+
+    def _fused_table(self, name: str):
+        """(collection, table id) of a table fused into the collection."""
+        for op in self.graph.compute_ops:
+            if isinstance(op, EmbeddingCollection) and name in op.table_names:
+                return op, op.table_names.index(name)
+        return None
+
+    def _table_weight(self, coll: EmbeddingCollection, t: int) -> torch.Tensor:
+        """Fused table t as [V, D] in logical row order, on this device;
+        under a data axis > 1 each owner broadcasts its rows of it."""
+        lay = coll.layout
+        pool = self._params[coll.name]["pool"]
+        if not coll.sharded:
+            return lay.extract_table(pool, t)
+        pieces = []  # (position start, rows)
+        for shard in coll.owners(t):
+            mine = coll.shard_rows(t, shard)
+            if shard == coll.shard:
+                buf = torch.cat([pool[off:off + length] for _, length, off in mine])
+            else:
+                buf = torch.empty((sum(length for _, length, _ in mine), lay.dim), dtype=pool.dtype,
+                                  device=pool.device)
+            dist.broadcast(buf, src=shard)
+            pieces += list(zip([start for start, _, _ in mine],
+                               torch.split(buf, [length for _, length, _ in mine])))
+        full = torch.cat([rows for _, rows in sorted(pieces, key=lambda p: p[0])])
+        return full[torch.as_tensor(lay.perm_table_np(t), device=full.device)] if lay.hash_rows else full
+
+    @torch.no_grad()
+    def _set_table(self, coll: EmbeddingCollection, t: int, weights: Dict[str, Any]) -> None:
+        """Fused table t's rows held here set from weights["weight"] ([V,
+        D], logical row order), in place."""
+        lay = coll.layout
+        if set(weights) != {"weight"}:
+            raise KeyError(f"{coll.table_names[t]} (fused into {coll.name}) takes 'weight' only")
+        w = weights["weight"]
+        w = (w if isinstance(w, torch.Tensor) else to_torch(np.asarray(w))).to(self.device)
+        if tuple(w.shape) != (lay.vocab_sizes[t], lay.dim):
+            raise ValueError(f"{coll.table_names[t]}/weight: shape {tuple(w.shape)} != "
+                             f"{(lay.vocab_sizes[t], lay.dim)}")
+        pool = self._params[coll.name]["pool"]
+        for i, (tt, start, length) in enumerate(lay.subs):
+            if tt == t and coll.shard in (None, lay.owner[i]):
+                off = (0 if coll.sharded else lay.owner[i] * lay.r_pad) + int(lay.row_offset[i])
+                rows = torch.as_tensor(lay._inv_positions(t, start, length), device=w.device)
+                pool[off:off + length] = w[rows].to(pool.dtype)
+
+    def _global_pool(self, coll: EmbeddingCollection) -> torch.Tensor:
+        """[N, R_pad, D]: every shard's pool (an all-gather under a data
+        axis > 1)."""
+        lay = coll.layout
+        pool = self._params[coll.name]["pool"]
+        if coll.sharded:
+            out = torch.empty((lay.num_shards * lay.r_pad, lay.dim), dtype=pool.dtype, device=pool.device)
+            dist.all_gather_into_tensor(out, pool.contiguous())
+            pool = out
+        return pool.reshape(lay.num_shards, lay.r_pad, lay.dim)
+
+    @staticmethod
+    def _local_pool(coll: EmbeddingCollection, arr: torch.Tensor) -> torch.Tensor:
+        """The rows held here of a global pool [N, R_pad, D] or [N, P, 128]."""
+        lay = coll.layout
+        if arr.numel() != lay.num_shards * lay.r_pad * lay.dim:
+            raise ValueError(f"{coll.name}/pool: shape {tuple(arr.shape)} holds no [N={lay.num_shards}, "
+                             f"R_pad={lay.r_pad}, D={lay.dim}] pool")
+        arr = arr.reshape(lay.num_shards, lay.r_pad, lay.dim)
+        return arr[coll.shard] if coll.sharded else arr.reshape(-1, lay.dim)
 
     # ------------------------------------------------------------------ serving
     def quantize_embeddings(self, dtype: str = "bfloat16") -> int:
@@ -1044,6 +1309,12 @@ class FFModel:
         self._require_compiled()
         if dtype not in QUANTIZED_DTYPES:
             raise ValueError(f"quantize_embeddings takes {sorted(QUANTIZED_DTYPES)}, got {dtype!r}")
+        coll = next((op for op in self.graph.compute_ops if isinstance(op, EmbeddingCollection)), None)
+        if dtype == "int8" and coll is not None:
+            if coll.sharded:
+                raise ValueError("int8 serving of a sharded embedding collection is not supported (as in "
+                                 "the JAX package); quantize a one-device model instead")
+            raise NotImplementedError(f"int8 serving of a fused embedding collection is {_ITEM7}")
         self._step_graph = None
         n = 0
         with torch.no_grad():
@@ -1151,3 +1422,15 @@ def _aligned(n: int) -> int:
 
 def _view(buf: torch.Tensor, off: int, shape, dtype) -> torch.Tensor:
     return buf[off:off + _nbytes(shape, dtype)].view(dtype).view(shape)
+
+
+def _all_reduce_flat(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Sum `tensors` over the ranks in one all-reduce of an f32 bucket (one
+    collective a step however many tensors), in place; returns them."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat)
+    off = 0
+    for t in tensors:
+        t.copy_(flat[off:off + t.numel()].view(t.shape))
+        off += t.numel()
+    return tensors

@@ -36,6 +36,9 @@ class OpContext:
     # calling op.forward (the train step looks the sparse tables up outside
     # autograd and injects their pooled outputs here)
     overrides: Optional[Dict[str, List[torch.Tensor]]] = None
+    # the compiled mesh (parallel/mesh.py): a sharded embedding collection
+    # exchanges over it
+    mesh: Optional[object] = None
 
 
 class Op:

@@ -1,19 +1,22 @@
 """Compile-time graph passes.
 
-The port's counterpart of `dlrm_flexflow_tpu/parallel/passes.py`, for one
-device: `offload_embedding_tails` alone (`:21-92`). Placement comes from
-`config.host_tail_threshold`; the plan axis (`plan.host_tail_rows`) and the
-table fusion belong to the multi-device slice.
+The port's counterpart of `dlrm_flexflow_tpu/parallel/passes.py`:
+`offload_embedding_tails` (`:21-92`, one device: placement from
+`config.host_tail_threshold`, not from the plan's `host_tail_rows`) and
+`fuse_embedding_tables` (`:95-164`), which puts the large tables into one
+EmbeddingCollection for the hybrid-parallel path.
 """
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import List, Optional
 
 from ..core.graph import Graph, InputOp
 from ..core.initializers import GlorotUniform, UniformInitializer
 from ..ffconst import AggrMode, DataType
 from ..ops.embedding import Embedding
+from ..ops.embedding_collection_op import EmbeddingCollection
+from .plan import ShardingPlan
 
 
 def offload_embedding_tails(graph: Graph, config) -> List[tuple]:
@@ -58,3 +61,50 @@ def offload_embedding_tails(graph: Graph, config) -> List[tuple]:
         e.enable_host_tail(full, pos_in.outputs[0], val_in.outputs[0])
         out.append((e, idx_spec.owner_op.name, full, hot, k_cap))
     return out
+
+
+def fuse_embedding_tables(graph: Graph, plan: ShardingPlan, num_shards: int, min_vocab: int = 0,
+                          shard: Optional[int] = None) -> Optional[EmbeddingCollection]:
+    """Rewrite `graph` in place: the fusable Embedding ops become one
+    EmbeddingCollection, spliced in at the first of them, which adopts
+    their outputs so that their consumers stay wired. Returns the
+    collection, or None with fewer than 2 such tables.
+
+    Fusable: vocab above `min_vocab` (the one-hot tables at or under it
+    stay replicated), or, where the plan names them, every table but
+    `plan.replicated_tables`; no host-tail table; the first one's D and
+    pooling. The layout is `plan.make_layout(..., num_shards)`; `shard` is
+    this rank's shard under a data axis > 1 (the collection then holds only
+    its shard), None on one device."""
+    all_embeds = [op for op in graph.compute_ops if isinstance(op, Embedding)]
+    if plan.replicated_tables is not None:
+        excluded = set(plan.replicated_tables)
+        embeds = [e for i, e in enumerate(all_embeds) if i not in excluded]
+    else:
+        embeds = [e for e in all_embeds if e.num_entries > min_vocab]
+    embeds = [e for e in embeds if not e.host_tail_vocab]
+    if len(embeds) < 2:
+        return None
+    dim, aggr = embeds[0].out_dim, embeds[0].aggr
+    embeds = [e for e in embeds if e.out_dim == dim and e.aggr is aggr]
+    if len(embeds) < 2:
+        return None
+    layout = plan.make_layout([e.num_entries for e in embeds], dim, num_shards)
+    coll = EmbeddingCollection(
+        graph.unique_name("embedding_collection"), [e.inputs[0] for e in embeds], layout, aggr,
+        table_initializers=[e.params[0].initializer for e in embeds],
+        adopt_outputs=[e.outputs[0] for e in embeds], table_names=[e.name for e in embeds],
+        shard=shard,
+    )
+    first_pos = graph.ops.index(embeds[0])
+    removed = {id(e) for e in embeds}
+    new_ops = []
+    for i, op in enumerate(graph.ops):
+        if i == first_pos:
+            new_ops.append(coll)
+        if id(op) not in removed:
+            new_ops.append(op)
+    coll.guid = graph._next_guid
+    graph._next_guid += 1
+    graph.ops = new_ops
+    return coll

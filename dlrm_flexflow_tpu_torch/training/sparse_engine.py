@@ -79,44 +79,52 @@ def apply_sparse_updates(
     for op in kernel_ops:
         rows, src, h = bag_row_src(sparse_xs[op.name][0], g_over[op.name][0], op.aggr, op.num_entries)
         groups.setdefault((int(rows.shape[0]), op.out_dim), []).append((op, rows, src.contiguous(), h))
+    for items in groups.values():
+        kernel_route_update(
+            opt, [params[op.name]["weight"] for op, *_ in items], [sstates[op.name] for op, *_ in items],
+            [rows for _, rows, _, _ in items], [(src, h) for _, _, src, h in items], lr,
+            None if routes is None else [routes[op.name] for op, *_ in items])
+    return new_sstates
 
-    device = params[kernel_ops[0].name]["weight"].device
+
+@torch.no_grad()
+def kernel_route_update(opt, tables, states, rows_l, payloads, lr=None, routes=None) -> None:
+    """One group of tables (equal K and D) through the row-update kernel's
+    rule for `opt`, in place: `states` each table's slot state (None, a
+    [V, D] velocity, Adam's {"m", "v"}, an AdaGrad [V]), `payloads` each
+    (src, h), `lr` the step's rate as in `apply_sparse_updates`, `routes`
+    None or one (rows_sorted, order) a table. Also the shard update of a
+    sharded collection on the kernel route (parallel/embedding_collection.py)."""
+    device = tables[0].device
     base = opt.alpha if isinstance(opt, AdamOptimizer) else getattr(opt, "lr", None)
     rate = torch.as_tensor(base if lr is None else lr, dtype=torch.float32, device=device)
-    for items in groups.values():
-        tables = [params[op.name]["weight"] for op, *_ in items]
-        rows_l = [rows for _, rows, _, _ in items]
-        payloads = [(src, h) for _, _, src, h in items]
-        states = [sstates[op.name] for op, *_ in items]
-        rts = None if routes is None else [routes[op.name] for op, *_ in items]
-        if isinstance(opt, AdamOptimizer):
-            row_update_adam(tables, [s["m"] for s in states], [s["v"] for s in states], rows_l,
-                            payloads, rate, opt.beta1, opt.beta2, opt.epsilon, opt.weight_decay, rts)
-        elif isinstance(opt, SGDOptimizer) and opt.momentum != 0.0:
-            row_update_momentum(tables, states, rows_l, payloads, rate, opt.momentum,
-                                opt.nesterov, opt.weight_decay, rts)
-        elif isinstance(opt, SGDOptimizer):
-            if opt.weight_decay != 0.0:
-                # lazy decay on touched rows (duplicates decay once per
-                # occurrence, as on the scatter route). The decay term is
-                # taken in the table's dtype, as the JAX package's weakly
-                # typed `weight_decay * rows` is, and forces the expanded
-                # payload.
-                payloads = [
-                    -rate * (
-                        _expand(src, h)
-                        + torch.full((), opt.weight_decay, dtype=t.dtype, device=device)
-                        * t[rows.clamp(0, t.shape[0] - 1)]
-                    )
-                    for (_, rows, src, h), t in zip(items, tables)
-                ]
-                scale = torch.ones((), dtype=torch.float32, device=device)
-            else:
-                scale = -rate
-            row_update(tables, rows_l, payloads, scale, routes=rts)
-        elif type(opt) is RowWiseAdagradOptimizer:
-            row_update_adagrad(tables, states, rows_l, payloads, rate, opt.epsilon, rts)
-        else:  # FFModel.compile keeps other optimizers off the kernel route
-            raise TypeError(f"the row-update kernel route takes SGD (with momentum), Adam and "
-                            f"row-wise AdaGrad, not {type(opt).__name__}")
-    return new_sstates
+    if isinstance(opt, AdamOptimizer):
+        row_update_adam(tables, [s["m"] for s in states], [s["v"] for s in states], rows_l,
+                        payloads, rate, opt.beta1, opt.beta2, opt.epsilon, opt.weight_decay, routes)
+    elif isinstance(opt, SGDOptimizer) and opt.momentum != 0.0:
+        row_update_momentum(tables, states, rows_l, payloads, rate, opt.momentum,
+                            opt.nesterov, opt.weight_decay, routes)
+    elif isinstance(opt, SGDOptimizer):
+        if opt.weight_decay != 0.0:
+            # lazy decay on touched rows (duplicates decay once per
+            # occurrence, as on the scatter route). The decay term is
+            # taken in the table's dtype, as the JAX package's weakly
+            # typed `weight_decay * rows` is, and forces the expanded
+            # payload.
+            payloads = [
+                -rate * (
+                    _expand(src, h)
+                    + torch.full((), opt.weight_decay, dtype=t.dtype, device=device)
+                    * t[rows.clamp(0, t.shape[0] - 1)]
+                )
+                for (src, h), rows, t in zip(payloads, rows_l, tables)
+            ]
+            scale = torch.ones((), dtype=torch.float32, device=device)
+        else:
+            scale = -rate
+        row_update(tables, rows_l, payloads, scale, routes=routes)
+    elif type(opt) is RowWiseAdagradOptimizer:
+        row_update_adagrad(tables, states, rows_l, payloads, rate, opt.epsilon, routes)
+    else:  # FFModel.compile keeps other optimizers off the kernel route
+        raise TypeError(f"the row-update kernel route takes SGD (with momentum), Adam and "
+                        f"row-wise AdaGrad, not {type(opt).__name__}")

@@ -213,6 +213,10 @@ def test_port_imports_no_jax_and_refuses_cuda_without_a_card():
         "import dlrm_flexflow_tpu_torch.ops.kernels.row_update\n"
         "import dlrm_flexflow_tpu_torch.training.sparse_engine, dlrm_flexflow_tpu_torch.data.loader\n"
         "import dlrm_flexflow_tpu_torch.tools.k3_staging_ab\n"
+        "import dlrm_flexflow_tpu_torch.launch, dlrm_flexflow_tpu_torch.bench\n"
+        "import dlrm_flexflow_tpu_torch.parallel.mesh, dlrm_flexflow_tpu_torch.parallel.plan\n"
+        "import dlrm_flexflow_tpu_torch.parallel.embedding_collection, dlrm_flexflow_tpu_torch.parallel.passes\n"
+        "import dlrm_flexflow_tpu_torch.ops.embedding_collection_op, dlrm_flexflow_tpu_torch.tools.mesh_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dlrm_flexflow_tpu')]\n"
         "assert not bad, bad\n"
         "if not torch.cuda.is_available():\n"

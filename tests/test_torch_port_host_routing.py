@@ -304,10 +304,14 @@ def test_bench_prints_bench_py_keys(capsys, extra, engaged):
     assert sort_rows.calls == calls  # the CPU's plain update sorts nothing
 
 
-@pytest.mark.parametrize("flags, item", [(["--mesh"], "item 7")])
+@pytest.mark.parametrize("flags, item", [(["--mesh"], "more than one rank")])
 def test_bench_raises_for_what_the_port_has_not(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """--mesh in a world of one (no launcher) is refused, as the JAX bench
+    takes the mesh only with more than one device; the group it joined is
+    left again."""
+    with pytest.raises(ValueError, match=item):
         port_bench.main(TINY + flags)
+    assert not torch.distributed.is_initialized()
 
 
 def test_bench_trains_mlperf_full_under_host_tail_offload(capsys):

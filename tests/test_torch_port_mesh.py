@@ -1,0 +1,660 @@
+"""The port's hybrid-parallel path in 4 gloo processes against the JAX
+package on a 4-device CPU mesh.
+
+Four worker processes are started once for the module (`workers`): each
+imports the port and torch only (no JAX), joins a gloo group through a
+`file://` rendezvous under the test's temporary directory, makes a
+4-rank "data" mesh on the CPU, and then runs the code of each case on its
+own rank, as a rank of a real mesh does; one torch thread a worker. The JAX
+side runs here, on `make_mesh((4,), ("data",), jax.devices()[:4])` (the 8
+CPU devices of conftest.py), and weights go to the workers by
+`convert.params_from_jax(..., shard=rank)`. The cases follow
+tests/test_sharding.py: the sharded lookup (SUM, AVG, row splits,
+hierarchical at chips_per_host=2), the sparse update under SGD, momentum,
+Adam and row-wise AdaGrad (the JAX side on its packed pool, the packed
+update kernels interpreted; the port on the kernel route, whose wrappers
+take their plain versions on the CPU), 3 steps of the small hybrid DLRM of
+`__graft_entry__.py` (flat and hierarchical with splits) and `predict`;
+then the replicated parameters after `compile`, the refusals, the
+launcher, `bench --mesh` and the workers' import boundary. The data axis of
+1 runs in this process, in a gloo world of one.
+
+Tolerances. The lookups gather and sum the same f32 rows: the JAX package
+sums a bag in another order (rtol 1e-5, atol 1e-6). The row updates: both
+sides round each stream entry to bf16 and sum a row's entries in f32, in
+another order for duplicates (a row's run of n entries: within n * 2^-24
+of each other, relatively), and XLA fuses a multiply-add where the port
+rounds twice; the pools within rtol 1e-5 and atol 1e-6 under SGD and
+momentum, and AdaGrad's reciprocal square roots (XLA's and torch's, an ulp
+apart) within rtol 1e-4 and atol 1e-5, the bound of the JAX package's own
+AdaGrad host-tail test. Adam's update alpha_t * m / (sqrt(v) + eps) moves
+a weight whose gradient is near 0 by up to alpha_t * (1 - beta1) /
+sqrt(1 - beta2) = 3.2 alpha_t whatever the sign two summation orders give
+that gradient: Adam's pools are held within rtol 1e-5, atol 1e-6, and its
+weights within that bound with almost all (99%) within rtol 1e-5, atol
+1e-6. The DLRM steps are f32 on both sides with the same operations but
+for f32 summation orders (the losses within rtol 1e-5, atol 1e-6; weights
+within rtol 1e-4, atol 1e-5, as tests/test_torch_port_training.py holds
+its Adam models).
+"""
+import json
+import os
+import pickle
+import queue
+import struct
+import subprocess
+import sys
+import textwrap
+import threading
+import types
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import dlrm_flexflow_tpu as ref
+from dlrm_flexflow_tpu.core.initializers import GlorotUniform as RefGlorot
+from dlrm_flexflow_tpu.data import synthetic as ref_synthetic
+from dlrm_flexflow_tpu.models import dlrm as ref_dlrm
+from dlrm_flexflow_tpu.ops.embedding_collection_op import EmbeddingCollection as RefCollection
+from dlrm_flexflow_tpu.parallel import embedding_collection as ref_ec
+from dlrm_flexflow_tpu.parallel.mesh import make_mesh as ref_make_mesh
+from dlrm_flexflow_tpu.parallel.plan import dlrm_hybrid_plan as ref_hybrid_plan
+
+REPO = Path(__file__).resolve().parent.parent
+N = 4
+CASE_TIMEOUT_S = 120
+
+# the worker: a loop of (code, args) read from stdin, each run in one
+# namespace that persists between cases, the result (or the traceback)
+# written back as a pickle on the original stdout
+_WORKER = r"""
+import os, pickle, struct, sys, traceback
+out = os.fdopen(os.dup(1), "wb")
+os.dup2(2, 1)
+sys.stdout = sys.stderr
+import torch
+torch.set_num_threads(1)
+import torch.distributed as dist
+rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+dist.init_process_group("gloo", init_method=os.environ["RENDEZVOUS"], rank=rank, world_size=world)
+ns = {"rank": rank, "world": world}
+inp = sys.stdin.buffer
+while True:
+    head = inp.read(8)
+    if len(head) < 8:
+        break
+    code, args = pickle.loads(inp.read(struct.unpack("<Q", head)[0]))
+    ns["args"], ns["result"] = args, None
+    try:
+        exec(code, ns)
+        res = ("ok", ns["result"])
+    except BaseException:
+        res = ("err", traceback.format_exc())
+    blob = pickle.dumps(res)
+    out.write(struct.pack("<Q", len(blob)) + blob)
+    out.flush()
+dist.destroy_process_group()
+"""
+
+_PRELUDE = """
+import numpy as np
+import torch
+import dlrm_flexflow_tpu_torch as port
+from dlrm_flexflow_tpu_torch.convert import params_from_jax
+from dlrm_flexflow_tpu_torch.models import dlrm as pdlrm
+from dlrm_flexflow_tpu_torch.parallel import embedding_collection as pec
+from dlrm_flexflow_tpu_torch.parallel.mesh import make_mesh
+from dlrm_flexflow_tpu_torch.parallel.plan import dlrm_hybrid_plan
+mesh = make_mesh(device="cpu")
+assert (mesh.rank, mesh.size, str(mesh.device)) == (rank, world, "cpu")
+
+def local(x):
+    return x[mesh.batch_slice(x.shape[0])]
+
+def state_np(st):
+    if st is None:
+        return None
+    if isinstance(st, dict):
+        return {k: v.numpy().copy() for k, v in st.items()}
+    return st.numpy().copy()
+
+def dlrm(kw, opt, plan_kw, **ffkw):
+    cfg = pdlrm.DLRMConfig(**kw)
+    m = pdlrm.make_dlrm_model(cfg, port.FFConfig(batch_size=cfg.batch_size, compute_dtype="float32",
+                                                 onehot_embedding_threshold=0, **ffkw), device="cpu")
+    plan = dlrm_hybrid_plan()
+    for k, v in plan_kw.items():
+        setattr(plan, k, v)
+    m.compile(getattr(port, opt[0])(**opt[1]), port.LossType.LOSS_BINARY_CROSSENTROPY,
+              [port.MetricsType.METRICS_ACCURACY], mesh=mesh, plan=plan)
+    return m
+"""
+
+
+class Workers:
+    """The 4 resident worker processes."""
+
+    def __init__(self, tmp: Path):
+        rendezvous = f"file://{tmp / 'rendezvous'}"
+        env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "MASTER_ADDR", "MASTER_PORT")}
+        env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1", WORLD_SIZE=str(N), RENDEZVOUS=rendezvous,
+                   PYTHONWARNINGS="ignore")
+        self.logs = [open(tmp / f"worker{r}.log", "w") for r in range(N)]
+        self.procs = [subprocess.Popen([sys.executable, "-c", _WORKER], cwd=REPO, env={**env, "RANK": str(r)},
+                                       stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self.logs[r])
+                      for r in range(N)]
+        self.replies = [queue.Queue() for _ in range(N)]
+        for p, q in zip(self.procs, self.replies):
+            threading.Thread(target=self._read, args=(p.stdout, q), daemon=True).start()
+        self.tmp = tmp
+
+    @staticmethod
+    def _read(stream, q):
+        while True:
+            head = stream.read(8)
+            if len(head) < 8:
+                q.put(("err", "the worker exited"))
+                return
+            q.put(pickle.loads(stream.read(struct.unpack("<Q", head)[0])))
+
+    def run(self, code: str, args=None) -> list:
+        """Run `code` on every rank; returns each rank's `result`."""
+        blob = pickle.dumps((textwrap.dedent(code), args))
+        for p in self.procs:
+            p.stdin.write(struct.pack("<Q", len(blob)) + blob)
+            p.stdin.flush()
+        out = []
+        for r, q in enumerate(self.replies):
+            try:
+                status, value = q.get(timeout=CASE_TIMEOUT_S)
+            except queue.Empty:
+                self.close()
+                raise AssertionError(f"rank {r} gave no reply in {CASE_TIMEOUT_S} s: "
+                                     f"{(self.tmp / f'worker{r}.log').read_text()[-3000:]}")
+            if status != "ok":
+                raise AssertionError(f"rank {r}:\n{value}")
+            out.append(value)
+        return out
+
+    def close(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.stdin.close()
+        for p in self.procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        for f in self.logs:
+            f.close()
+
+
+@pytest.fixture(scope="module")
+def workers(tmp_path_factory):
+    w = Workers(tmp_path_factory.mktemp("mesh"))
+    try:
+        w.run(_PRELUDE)
+        yield w
+    finally:
+        w.close()
+
+
+@pytest.fixture(scope="module")
+def jmesh():
+    return ref_make_mesh((N,), ("data",), jax.devices()[:N])
+
+
+def _close(got, want, rtol, atol):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    err = np.abs(got - want)
+    over = err - rtol * np.abs(want)
+    assert np.all(over <= atol), (float(err.max()), float(over.max()))
+
+
+# ------------------------------------------------------------------ the exchange
+
+VOCABS = [300, 1000, 50, 120, 700, 90, 33, 410]
+# name -> (split, chips_per_host, aggr, policy)
+LOOKUPS = {
+    "greedy-sum": (None, None, "SUM", "greedy"),
+    "round-robin-avg": (None, None, "AVG", "round_robin"),
+    "splits-sum": ([2, 4, 1, 1, 3, 1, 1, 2], None, "SUM", "greedy"),
+    "hierarchical-cph2": ([2, 2, 1, 1, 2, 1, 1, 1], 2, "SUM", "greedy"),
+}
+
+
+def _ref_layout(vocabs, dim, split, cph, policy="greedy", packed=False, chunk_packs=2048):
+    plan = ref_hybrid_plan(policy)
+    plan.table_split, plan.chips_per_host, plan.packed_pool = split, cph, packed
+    lay = plan.make_layout(vocabs, dim, N)
+    if packed:  # small chunks keep r_pad (and the interpreted kernel) small
+        lay = ref_ec.ShardedEmbeddingLayout(vocabs, dim, N, lay.owner, split=split, chips_per_host=cph,
+                                            packed_pool=True, pool_chunk_packs=chunk_packs)
+    return lay
+
+
+def _layout_args(lay) -> dict:
+    return dict(vocab_sizes=list(lay.vocab_sizes), dim=lay.dim, num_shards=lay.num_shards,
+                owner=list(lay.owner),
+                split=lay.split, chips_per_host=lay._phys_chips_per_host, packed_pool=lay.packed_pool,
+                pool_chunk_packs=lay.pool_chunk_packs)
+
+
+def _indices(vocabs, b, h, seed):
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.integers(0, v, size=(b, h)) for v in vocabs], axis=1).astype(np.int32)
+    idx[0, 0, 1:] = -1
+    idx[3, 5, :] = -1  # an empty bag
+    return idx
+
+
+@pytest.mark.parametrize("case", list(LOOKUPS))
+def test_sharded_lookup_matches_jax(workers, jmesh, case):
+    split, cph, aggr, policy = LOOKUPS[case]
+    lay = _ref_layout(VOCABS, 8, split, cph, policy)
+    assert lay.hierarchical == (cph is not None)
+    pool = np.asarray(lay.init_params(jax.random.PRNGKey(0), RefGlorot()))
+    idx = _indices(VOCABS, 16, 3, 1)
+    jaggr = getattr(ref.AggrMode, f"AGGR_MODE_{aggr}")
+    want = np.asarray(ref_ec.sharded_embedding_lookup(lay, jnp.asarray(pool), jnp.asarray(idx), jmesh, jaggr))
+    got = workers.run("""
+        lay = pec.ShardedEmbeddingLayout(**args["layout"])
+        out = pec.sharded_embedding_lookup(lay, torch.from_numpy(args["pool"][rank]),
+                                           torch.from_numpy(local(args["idx"])), mesh,
+                                           getattr(port.AggrMode, args["aggr"]))
+        result = (out.numpy(), lay.hierarchical)
+    """, {"layout": _layout_args(lay), "pool": pool, "idx": idx, "aggr": f"AGGR_MODE_{aggr}"})
+    assert all(h == lay.hierarchical for _, h in got)
+    _close(np.concatenate([o for o, _ in got]), want, 1e-5, 1e-6)
+
+
+# name -> (optimizer class, kwargs, rtol, atol, split, chips_per_host,
+# the kernel route); the hierarchical case tests the exchange, on the
+# scatter route
+UPDATES = {
+    "sgd": ("SGDOptimizer", dict(lr=0.1), 1e-5, 1e-6, None, None, True),
+    "momentum": ("SGDOptimizer", dict(lr=0.1, momentum=0.9), 1e-5, 1e-6, None, None, True),
+    "adam": ("AdamOptimizer", dict(alpha=0.01), 1e-5, 1e-6, None, None, True),
+    "adagrad": ("RowWiseAdagradOptimizer", dict(lr=0.1), 1e-4, 1e-5, None, None, True),
+    "adam-hierarchical-splits": ("AdamOptimizer", dict(alpha=0.01), 1e-5, 1e-6, [2, 2, 1, 1, 2, 1, 1, 1], 2,
+                                 False),
+}
+
+
+def _ref_state(st, lay, adagrad):
+    """The JAX package's state as the port keeps it, shard-leading: a
+    packed pool [N, P, 128] as [N, R_pad, D], AdaGrad's lane-replicated
+    packed accumulator as [N, R_pad]."""
+    if isinstance(st, dict):
+        return {k: _ref_state(v, lay, adagrad) for k, v in st.items()}
+    if not lay.packed_pool:
+        return np.asarray(st)
+    full = np.asarray(st).reshape(lay.num_shards, lay.r_pad, lay.dim)
+    return full[..., 0] if adagrad else full
+
+
+@pytest.mark.parametrize("case", list(UPDATES))
+def test_sharded_sparse_update_matches_jax(workers, jmesh, case):
+    """Two steps of `sharded_embedding_sparse_update`, the slot state
+    carried, bags of 2 with duplicate rows: on a kernel-route layout (the
+    JAX package's packed pool) for each rule, and on the scatter route
+    through the hierarchical exchange with splits."""
+    name, kw, rtol, atol, split, cph, packed = UPDATES[case]
+    lay = _ref_layout(VOCABS, 8, split, cph, packed=packed, chunk_packs=16)
+    assert lay.packed_pool == packed and lay.hierarchical == (cph is not None)
+    opt = getattr(ref, name)(**kw)
+    pool = lay.init_params(jax.random.PRNGKey(2), RefGlorot())
+    st = RefCollection.sparse_state_init(types.SimpleNamespace(layout=lay), opt)
+    rng = np.random.default_rng(3)
+    steps = []
+    for step in range(2):
+        idx = _indices(VOCABS, 16, 2, 10 + step)
+        idx[4:8, :, 0] = 7  # duplicates of one row in every table
+        steps.append((idx, rng.standard_normal((16, len(VOCABS), 8)).astype(np.float32),
+                      0.003 * (step + 1) if name == "AdamOptimizer" else None))
+    pool0 = np.asarray(pool).reshape(N, lay.r_pad, 8)
+    # one trace of the interpreted kernels for both steps
+    update = jax.jit(lambda p, s, i, g, lr: ref_ec.sharded_embedding_sparse_update(
+        lay, p, s, i, g, jmesh, opt, lr=lr))
+    for idx, g, lr in steps:
+        pool, st = update(pool, st, jnp.asarray(idx), jnp.asarray(g), None if lr is None else jnp.float32(lr))
+    got = workers.run("""
+        lay = pec.ShardedEmbeddingLayout(**args["layout"])
+        opt = getattr(port, args["opt"])(**args["kw"])
+        pool = torch.from_numpy(args["pool"][rank].copy())
+        st = opt.sparse_init((lay.r_pad, lay.dim), "cpu")
+        if lay.packed_pool and st is not None and st.dim() == 3:
+            st = {"m": st[0], "v": st[1]}
+        for idx, g, lr in args["steps"]:
+            st = pec.sharded_embedding_sparse_update(
+                lay, pool, st, torch.from_numpy(local(idx)), torch.from_numpy(local(g)), mesh, opt,
+                lr=None if lr is None else torch.tensor(lr))
+        result = (pool.numpy(), state_np(st))
+    """, {"layout": _layout_args(lay), "opt": name, "kw": kw, "pool": pool0, "steps": steps})
+    want = np.asarray(pool).reshape(N, lay.r_pad, 8)
+    got_pool = np.stack([p for p, _ in got])
+    assert not np.array_equal(want, pool0)
+    if name == "AdamOptimizer":
+        bound = 3.2 * 0.003 * 2 * 2  # two steps at up to 2 * alpha_t
+        err = np.abs(got_pool - want)
+        assert err.max() <= bound and np.mean(err <= 1e-5 * np.abs(want) + 1e-6) >= 0.99
+    else:
+        _close(got_pool, want, rtol, atol)
+    if st is None:
+        assert all(s is None for _, s in got)
+        return
+    want_st = _ref_state(st, lay, name == "RowWiseAdagradOptimizer")
+    if isinstance(want_st, dict):
+        for k in want_st:
+            _close(np.stack([s[k] for _, s in got]), want_st[k], rtol, atol)
+    else:
+        _close(np.stack([s for _, s in got]), want_st, rtol, atol)
+
+
+# ------------------------------------------------------------------ the model
+
+GRAFT = dict(sparse_feature_size=8, embedding_size=[64, 200, 48, 96, 300, 40, 56, 128, 72, 500],
+             embedding_bag_size=2, mlp_bot=[4, 16, 8], mlp_top=[88, 16, 1], batch_size=8 * N)
+PLANS = {"flat": {}, "hierarchical": {"chips_per_host": 2, "table_split": [1, 2, 1, 1, 2, 1, 1, 1, 1, 2]}}
+OPT = ("AdamOptimizer", dict(alpha=0.01))
+STEPS = 3
+
+
+@pytest.fixture(scope="module")
+def trained(workers, jmesh):
+    """{plan: (JAX model, losses, port results)} after 3 steps on both sides
+    from the same weights."""
+    out = {}
+    cfg = ref_dlrm.DLRMConfig(**GRAFT)
+    feeds, labels = ref_synthetic.random_batches(cfg, GRAFT["batch_size"] * STEPS, seed=0)
+    for name, plan_kw in PLANS.items():
+        m = ref_dlrm.make_dlrm_model(cfg, ref.FFConfig(batch_size=GRAFT["batch_size"], compute_dtype="float32",
+                                                       onehot_embedding_threshold=0))
+        plan = ref_hybrid_plan()
+        for k, v in plan_kw.items():
+            setattr(plan, k, v)
+        m.compile(getattr(ref, OPT[0])(**OPT[1]), ref.LossType.LOSS_BINARY_CROSSENTROPY,
+                  [ref.MetricsType.METRICS_ACCURACY], mesh=jmesh, plan=plan)
+        weights = {op: m.get_weights(op) for op in m.get_parameters()}
+        bs = GRAFT["batch_size"]
+        batches = [({k: v[i * bs:(i + 1) * bs] for k, v in feeds.items()}, labels[i * bs:(i + 1) * bs])
+                   for i in range(STEPS)]
+        got = workers.run("""
+            model = dlrm(args["cfg"], args["opt"], args["plan"])
+            model.set_parameters(params_from_jax(args["weights"], like=model.get_parameters(), shard=rank))
+            coll = model._op("embedding_collection")
+            losses = [float(model.train_batch(f, l)) for f, l in args["batches"]]
+            tables = {n: model.get_weights(n)["weight"] for n in coll.table_names}
+            dense = {n: model.get_weights(n) for n in model.get_parameters() if n != coll.name}
+            models = globals().setdefault("models", {})
+            models[args["name"]] = model
+            result = {"losses": losses, "metrics": model.get_metrics(), "tables": tables, "dense": dense,
+                      "cost_stats": coll.cost_stats(),
+                      "hierarchical": coll.layout.hierarchical, "shard": coll.shard,
+                      "pool": model.get_weights(coll.name)["pool"]}
+        """, {"cfg": GRAFT, "opt": OPT, "plan": plan_kw, "weights": weights, "batches": batches, "name": name})
+        losses = [float(m.train_batch(f, l)) for f, l in batches]
+        out[name] = (m, losses, got, feeds)
+    return out
+
+
+@pytest.mark.parametrize("plan", list(PLANS))
+def test_hybrid_dlrm_trains_like_jax(trained, plan):
+    """3 Adam steps of the graft DLRM: every rank's loss, accuracy, fused
+    tables (through `extract_table` on the JAX side) and towers."""
+    m, losses, got, _ = trained[plan]
+    lay = m._embedding_layout
+    assert [r["shard"] for r in got] == list(range(N))
+    assert all(r["cost_stats"] == m._op_by_name("embedding_collection").cost_stats() for r in got)
+    assert all(r["hierarchical"] == lay.hierarchical == (plan == "hierarchical") for r in got)
+    want_metrics = m.get_metrics()
+    pool = m.get_weights("embedding_collection")["pool"]
+    for r in got:
+        np.testing.assert_allclose(r["losses"], losses, rtol=1e-5, atol=1e-6)
+        assert r["metrics"]["accuracy"] == want_metrics["accuracy"]
+        assert r["metrics"]["samples"] == GRAFT["batch_size"] * STEPS
+        for t, name in enumerate(sorted(r["tables"], key=lambda n: int(n.split("_")[1]))):
+            _close(r["tables"][name], lay.extract_table(pool, t), 1e-4, 1e-5)
+        for name, sub in r["dense"].items():
+            for k, w in sub.items():
+                _close(w, m.get_weights(name)[k], 1e-4, 1e-5)
+        _close(r["pool"], pool, 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("plan", list(PLANS))
+def test_hybrid_dlrm_predict_matches_jax(workers, trained, plan):
+    """`predict` of 70 examples (two full chunks of 32, a ragged one) on
+    the trained models: every rank returns all of them."""
+    m, _, _, feeds = trained[plan]
+    sample = {k: v[:70] for k, v in feeds.items()}
+    want = m.predict(sample)
+    got = workers.run("result = models[args['name']].predict(args['feeds'])", {"name": plan, "feeds": sample})
+    for y in got:
+        assert y.shape == want.shape == (70, 1)
+        _close(y, want, 1e-5, 1e-6)
+
+
+def test_replicated_parameters_equal_on_every_rank(workers):
+    """After `compile` every rank holds the same replicated parameters
+    (drawn from one seed in one order) and its own pool shard."""
+    got = workers.run("""
+        import hashlib
+        model = dlrm(args, ("SGDOptimizer", {"lr": 0.1}), {})
+        coll = model._op("embedding_collection")
+        result = {(n, k): hashlib.sha256(v.numpy().tobytes()).hexdigest()
+                  for n, sub in model.get_parameters().items() for k, v in sub.items()}
+        result["shard"] = coll.shard
+    """, {**GRAFT, "embedding_size": [64, 20, 48, 96, 300, 40, 56, 128, 72, 500]})
+    keys = [k for k in got[0] if k != "shard" and k[0] != "embedding_collection"]
+    assert len(keys) >= 6
+    for r in got[1:]:
+        assert all(r[k] == got[0][k] for k in keys)
+    assert len({r[("embedding_collection", "pool")] for r in got}) == N
+    assert [r["shard"] for r in got] == list(range(N))
+
+
+def test_mesh_refusals(workers):
+    """Under a data axis of 4: train_chunk, fit(steps_per_call > 1),
+    checkpoints and int8 serving of the sharded collection raise, as does
+    a sparse table left outside the collection."""
+    got = workers.run("""
+        import tempfile
+        from dlrm_flexflow_tpu_torch.training.checkpoint import save_checkpoint
+        model = dlrm(args, ("SGDOptimizer", {"lr": 0.1}), {})
+        feeds = {"dense_features": np.zeros((32, 4), np.float32),
+                 **{f"sparse_{i}": np.zeros((32, 2), np.int64) for i in range(10)}}
+        labels = np.zeros((32, 1), np.float32)
+        out = {}
+        for name, call in (
+                ("chunk", lambda: model.train_chunk({k: v[None] for k, v in feeds.items()}, labels[None])),
+                ("fit", lambda: model.fit(feeds, labels, epochs=1, steps_per_call=2, verbose=False)),
+                ("checkpoint", lambda: save_checkpoint(tempfile.mkdtemp(), model)),
+                ("int8", lambda: model.quantize_embeddings("int8"))):
+            try:
+                call()
+                out[name] = None
+            except (NotImplementedError, ValueError) as e:
+                out[name] = f"{type(e).__name__}: {e}"
+        mixed = dict(args, embedding_size=[64, 200, 48])
+        mixed.update(mlp_top=[32, 16, 1])
+        cfg = pdlrm.DLRMConfig(**mixed)
+        m = pdlrm.make_dlrm_model(cfg, port.FFConfig(batch_size=32, compute_dtype="float32",
+                                                     onehot_embedding_threshold=100), device="cpu")
+        try:
+            m.compile(port.SGDOptimizer(lr=0.1), mesh=mesh, plan=dlrm_hybrid_plan())
+            out["unfused"] = None
+        except NotImplementedError as e:
+            out["unfused"] = f"NotImplementedError: {e}"
+        result = out
+    """, GRAFT)
+    for r in got:
+        assert r == got[0]
+    r = got[0]
+    for name in ("chunk", "fit", "checkpoint", "unfused"):
+        assert r[name] and r[name].startswith("NotImplementedError") and "item 7" in r[name], (name, r[name])
+    assert r["int8"].startswith("ValueError") and "sharded" in r["int8"]
+
+
+# ------------------------------------------------------------------ a data axis of 1, in this process
+
+
+@pytest.fixture
+def world_of_one():
+    import torch.distributed as dist
+
+    from dlrm_flexflow_tpu_torch.launch import initialize
+    from dlrm_flexflow_tpu_torch.parallel.mesh import make_mesh
+
+    assert not dist.is_initialized()
+    initialize("cpu")
+    try:
+        yield make_mesh(device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def _port_model(mesh=None, plan_kw=None, **ffkw):
+    import dlrm_flexflow_tpu_torch as port
+    from dlrm_flexflow_tpu_torch.models import dlrm as pdlrm
+    from dlrm_flexflow_tpu_torch.parallel.plan import dlrm_hybrid_plan
+
+    cfg = pdlrm.DLRMConfig(**GRAFT)
+    m = pdlrm.make_dlrm_model(cfg, port.FFConfig(batch_size=GRAFT["batch_size"], compute_dtype="float32",
+                                                 onehot_embedding_threshold=0, seed=5, **ffkw), device="cpu")
+    plan = dlrm_hybrid_plan()
+    for k, v in (plan_kw or {}).items():
+        setattr(plan, k, v)
+    m.compile(port.AdamOptimizer(alpha=0.01), port.LossType.LOSS_BINARY_CROSSENTROPY,
+              [port.MetricsType.METRICS_ACCURACY], mesh=mesh, plan=plan if mesh is not None else None)
+    return m
+
+
+def test_data_axis_of_one_is_the_flat_collection_off_the_kernel_route(world_of_one):
+    """At a data axis of 1 the collection is the flat one and stays off
+    the kernel route even under packed_tables="on" (the JAX package would
+    set its packed pool and then assert in its flat fallback, ROADMAP.md
+    Queue 3): it trains as FFConfig(fuse_embeddings=True) does without a
+    mesh, bit for bit."""
+    mesh_model = _port_model(world_of_one, packed_tables="on")
+    coll = mesh_model._op("embedding_collection")
+    assert mesh_model.plan.packed_pool is False and not coll.layout.packed_pool
+    assert coll.shard is None and coll.layout.num_shards == 1 and mesh_model._data_mesh is None
+    fused = _port_model(None, packed_tables="on", fuse_embeddings=True)
+    assert not fused._op("embedding_collection").layout.packed_pool
+    cfg = ref_dlrm.DLRMConfig(**GRAFT)
+    feeds, labels = ref_synthetic.random_batches(cfg, 64, seed=4)
+    for name in fused.get_parameters():
+        np.testing.assert_array_equal(mesh_model.get_weights(name)[next(iter(fused.get_weights(name)))],
+                                      fused.get_weights(name)[next(iter(fused.get_weights(name)))])
+    for i in range(2):
+        b = {k: v[i * 32:(i + 1) * 32] for k, v in feeds.items()}
+        assert float(mesh_model.train_batch(b, labels[i * 32:(i + 1) * 32])) == float(
+            fused.train_batch(b, labels[i * 32:(i + 1) * 32]))
+    np.testing.assert_array_equal(mesh_model.predict(feeds), fused.predict(feeds))
+
+
+@pytest.mark.parametrize("what", ["search", "host-tail", "routed", "param-specs", "parameter-parallel"])
+def test_mesh_compile_refuses_later_slices(world_of_one, what):
+    from dlrm_flexflow_tpu_torch.parallel.plan import OpShardSpec
+
+    ffkw, plan_kw, item = {}, {}, "item 7"
+    if what == "search":
+        ffkw, item = {"search_budget": 10}, "item 10"
+    elif what == "host-tail":
+        ffkw = {"host_tail_threshold": 100}
+    elif what == "routed":
+        plan_kw = {"exchange": "routed"}
+    elif what == "param-specs":
+        plan_kw = {"op_specs": {"bot_mlp_0": OpShardSpec(param_specs={"kernel": ["model", None]})}}
+    else:
+        ffkw = {"enable_parameter_parallel": True}
+    with pytest.raises(NotImplementedError, match=item):
+        _port_model(world_of_one, plan_kw, **ffkw)
+
+
+def test_flat_collection_int8_is_a_later_slice():
+    m = _port_model(None, fuse_embeddings=True)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        m.quantize_embeddings("int8")
+    assert m.quantize_embeddings("bfloat16") >= 1
+
+
+# ------------------------------------------------------------------ the launcher and the bench
+
+
+def _launch(args, cwd, **env_kw):
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "MASTER_ADDR", "MASTER_PORT")}
+    env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1", PYTHONWARNINGS="ignore", **env_kw)
+    return subprocess.run([sys.executable, "-m", "dlrm_flexflow_tpu_torch.launch", *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=240)
+
+
+_SCRIPT = """
+import os, sys
+import torch
+import torch.distributed as dist
+from dlrm_flexflow_tpu_torch.launch import initialize
+if os.environ["RANK"] == os.environ.get("FAIL_RANK"):
+    sys.exit(3)
+initialize("cpu")
+r = dist.get_rank()
+x = torch.tensor([float(r + 1)])
+dist.all_reduce(x)
+with open(f"out{r}.txt", "w") as f:
+    f.write(f"rank {r} of {dist.get_world_size()} local {os.environ['LOCAL_RANK']} sum {x.item()} "
+            f"args {sys.argv[1:]}")
+dist.destroy_process_group()
+"""
+
+
+def test_launcher_runs_every_rank(tmp_path):
+    (tmp_path / "job.py").write_text(_SCRIPT)
+    res = _launch(["--nproc-per-node", "3", "job.py", "--flag", "x"], tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert [(tmp_path / f"out{r}.txt").read_text() for r in range(3)] == [
+        f"rank {r} of 3 local {r} sum 6.0 args ['--flag', 'x']" for r in range(3)]
+
+
+def test_launcher_fails_when_a_rank_fails(tmp_path):
+    """Rank 1 exits 3 before it joins the group that rank 0 waits to form:
+    the launcher ends rank 0 and exits with 3."""
+    (tmp_path / "job.py").write_text(_SCRIPT)
+    res = _launch(["--nproc-per-node", "2", "job.py"], tmp_path, FAIL_RANK="1")
+    assert res.returncode == 3, (res.returncode, res.stderr[-3000:])
+    assert "local rank 1 exited with 3" in res.stderr
+    assert not list(tmp_path.glob("out*.txt"))
+
+
+def test_launcher_usage(tmp_path):
+    for args in ([], ["--nproc-per-node", "x", "a.py"], ["--nodes", "2", "a.py"]):
+        res = _launch(args, tmp_path)
+        assert res.returncode == 2 and "usage" in res.stderr
+
+
+def test_bench_mesh_on_two_cpu_ranks(tmp_path):
+    """`bench --mesh` under the launcher (tests/test_bench_mesh.py's
+    check, at 2 ranks): rank 0 prints one JSON line with the root bench's
+    keys, `devices` 2 and a positive all-to-all rate."""
+    res = _launch(["--nproc-per-node", "2", "-m", "dlrm_flexflow_tpu_torch.bench", "--mesh", "--device", "cpu",
+                   "--config", "tiny", "--batch-size", "64", "--steps", "3", "--warmup", "1"], REPO)
+    assert res.returncode == 0, res.stderr[-3000:]
+    lines = [line for line in res.stdout.splitlines() if line.startswith("{")]
+    assert len(lines) == 1, res.stdout
+    doc = json.loads(lines[0])
+    assert doc["devices"] == 2 and doc["all_to_all_gbps"] > 0, doc
+    assert doc["value"] > 0 and doc["examples_per_sec_per_chip"] == doc["value"] / 2
+    assert np.isfinite(doc["loss"]) and "steps=eager" in res.stderr
+
+
+def test_workers_import_no_jax(workers):
+    """Last: after every case, no worker has imported JAX or the JAX
+    package."""
+    got = workers.run("""
+        import sys
+        result = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "dlrm_flexflow_tpu"))
+    """)
+    assert got == [[]] * N
