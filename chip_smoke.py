@@ -109,14 +109,28 @@ Phases, each of which ends the run with a non-zero exit if it fails:
                plan=dlrm_hybrid_plan()), which at a data axis of 1 is the
                flat collection of the 10 large tables on the flat scatter
                (f32, no kernel), a warm-up and 3 timed steps under SGD and
-               Adam; at capped vocabs with every table fused, 5 steps on
-               CUDA against FFConfig(fuse_embeddings=True) on the CPU; then
+               Adam; train_chunk replays against eager steps (timed, then
+               bit for bit under deterministic algorithms); at capped
+               vocabs with every table fused, 5 steps on CUDA against
+               FFConfig(fuse_embeddings=True) on the CPU; then
                sharded_embedding_lookup and sharded_embedding_sparse_update
                called directly at N = 1 on a kernel-route layout of the 10
                tables ([r_pad, 16] bf16, 65536 lookups a table): the lookup
                bit for bit against the flat gather, the update (K1, SGD)
                against the row-update kernel's plain version, its launches
-               counted (the kernels line's `mesh_launches`).
+               counted (the kernels line's `mesh_launches`); the routed
+               exchange in exact mode on the same layout against the dense
+               one (the lookup bit for bit; the update's K1 against its
+               plain version on the routed stream, and against the dense
+               update within twice the row-update tolerance); both
+               exchanges and an all-reduce captured in a CUDA graph and
+               replayed, bit for bit against eager calls (K1's nodes:
+               `mesh_captured_k1_nodes`); the sharded checkpoint's gather
+               to rank 0 and restore's own-shard pick called directly on
+               that bf16 pool and an Adam m and v, bit for bit; the
+               checkpoint round trip (of the flat collection: at a data
+               axis of 1 nothing is sharded) and int8 serving of the fused
+               collection at capped vocabs.
  25. bench   - python -m dlrm_flexflow_tpu_torch.bench --quick, as a
                subprocess: kaggle training (host-routed, graph replays), the
                same with --zipf 1.05, with --optimizer adam and with
@@ -1980,33 +1994,6 @@ def phase_train_parity_host() -> None:
 # ------------------------------------------------------------------ slice 8: the multi-step call, serving, state
 
 
-def state_tensors(model) -> dict:
-    """Every tensor of a model's state by path: parameters, optimizer
-    state, metric totals."""
-    out = {}
-
-    def walk(tree, path):
-        if isinstance(tree, dict):
-            for k, v in tree.items():
-                walk(v, f"{path}/{k}")
-        elif isinstance(tree, torch.Tensor):
-            out[path] = tree
-
-    for name, tree in (("params", model.get_parameters()), ("opt", model._opt_state),
-                       ("metrics", model._metrics_total)):
-        walk(tree, name)
-    return out
-
-
-def state_diff(a, b) -> dict:
-    """{path: max abs difference} of the tensors of a and b that differ."""
-    ta, tb = state_tensors(a), state_tensors(b)
-    if ta.keys() != tb.keys():
-        raise AssertionError(f"two models of one config hold different state: {sorted(ta.keys() ^ tb.keys())}")
-    return {k: (ta[k].double() - tb[k].double()).abs().max().item()
-            for k in ta if not torch.equal(ta[k], tb[k])}
-
-
 def chunk_stacks(staged) -> tuple:
     """The staged batches (and routes) as [4, B, ...] stacks on the card."""
     feeds = {k: torch.stack([f[k] for f, _ in staged]) for k in staged[0][0]}
@@ -2054,6 +2041,7 @@ def phase_train_chunk(rule: str = "sgd", host_routing: bool = False) -> dict:
     chunks on fresh models, which must leave every tensor of the state and
     every loss bit for bit the same."""
     from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
+    from dlrm_flexflow_tpu_torch.tools.state import state_diff, state_tensors
 
     tag = f"[train-chunk{'-host' if host_routing else ''}] {rule}"
     cfg = kaggle_config(batch_size=TRAIN_BATCH)
@@ -2255,6 +2243,7 @@ def phase_checkpoint() -> dict:
 
     from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
     from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
+    from dlrm_flexflow_tpu_torch.tools.state import state_diff, state_tensors
     from dlrm_flexflow_tpu_torch.training.checkpoint import restore_checkpoint, save_checkpoint
 
     bs, steps = 256, 5
@@ -2549,6 +2538,8 @@ def replays_vs_eager(tag: str, make, cfg) -> dict:
     both ways; then two fresh models under deterministic algorithms, 20
     eager steps against 5 chunks of 4, which must leave every loss and
     every tensor of the state bit for bit the same."""
+    from dlrm_flexflow_tpu_torch.tools.state import state_diff, state_tensors
+
     eager, chunk = make(), make()
     batches, staged = kaggle_batches(eager, cfg)
     stack, labels = chunk_stacks(staged)
@@ -2673,19 +2664,27 @@ def phase_train_chunk_scatter() -> dict:
 MESH_STEPS = 3
 
 
+def mesh_one_model(mesh, cfg, rule: str, seed: int = SEED, batch: int = TRAIN_BATCH, **ffkw):
+    """compile(mesh=, plan=dlrm_hybrid_plan()) of a kaggle-shaped model."""
+    from dlrm_flexflow_tpu_torch import FFConfig
+    from dlrm_flexflow_tpu_torch.models.dlrm import make_dlrm_model
+    from dlrm_flexflow_tpu_torch.parallel.plan import dlrm_hybrid_plan
+
+    model = make_dlrm_model(cfg, FFConfig(batch_size=batch, seed=seed, compute_dtype="bfloat16",
+                                          table_dtype="bfloat16", **ffkw), device="cuda")
+    compile_for(model, rule, mesh=mesh, plan=dlrm_hybrid_plan())
+    return model
+
+
 def mesh_one_kaggle(mesh, rule: str) -> dict:
     """compile(mesh=, plan=dlrm_hybrid_plan()) on kaggle at full width in a
     world of one: the flat collection of the 10 large tables, on the flat
     scatter (no kernel launched), f32 pool; a warm-up and a few timed eager
     steps."""
-    from dlrm_flexflow_tpu_torch import FFConfig
-    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config, make_dlrm_model
-    from dlrm_flexflow_tpu_torch.parallel.plan import dlrm_hybrid_plan
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
 
     cfg = kaggle_config(batch_size=TRAIN_BATCH)
-    model = make_dlrm_model(cfg, FFConfig(batch_size=TRAIN_BATCH, seed=SEED, compute_dtype="bfloat16",
-                                          table_dtype="bfloat16"), device="cuda")
-    compile_for(model, rule, mesh=mesh, plan=dlrm_hybrid_plan())
+    model = mesh_one_model(mesh, cfg, rule)
     coll = model._op("embedding_collection")
     lay = coll.layout
     pool = model.get_parameters()[coll.name]["pool"]
@@ -2715,18 +2714,14 @@ def mesh_one_parity(mesh, rule: str) -> dict:
     (onehot_embedding_threshold 0): 5 steps of the mesh-1 model on CUDA
     against FFConfig(fuse_embeddings=True) on the CPU (the same flat
     collection, no mesh) from the same weights."""
-    from dlrm_flexflow_tpu_torch import FFConfig
     from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
-    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config, make_dlrm_model
-    from dlrm_flexflow_tpu_torch.parallel.plan import dlrm_hybrid_plan
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
 
     bs, steps = 256, 5
     cfg = kaggle_config(batch_size=bs)
     cfg.embedding_size = [min(v, 20_000) for v in cfg.embedding_size]
-    gpu = make_dlrm_model(cfg, FFConfig(batch_size=bs, seed=SEED + 5, compute_dtype="bfloat16",
-                                        table_dtype="bfloat16", onehot_embedding_threshold=0,
-                                        packed_tables="on"), device="cuda")
-    compile_for(gpu, rule, mesh=mesh, plan=dlrm_hybrid_plan())
+    gpu = mesh_one_model(mesh, cfg, rule, seed=SEED + 5, batch=bs, onehot_embedding_threshold=0,
+                         packed_tables="on")
     cpu = kaggle_model(cfg, bs, SEED + 5, device="cpu", rule=rule, onehot_embedding_threshold=0,
                        fuse_embeddings=True)
     cpu.set_parameters({name: gpu.get_weights(name) for name in gpu.get_parameters()})
@@ -2748,6 +2743,24 @@ def mesh_one_parity(mesh, rule: str) -> dict:
     return res
 
 
+def mesh_one_layouts():
+    """Kaggle's 10 large tables as one shard's kernel-route layout, dense
+    and routed (exact mode), a [r_pad, 16] bf16 pool, 65536 lookups a
+    table and their pooled gradients."""
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
+    from dlrm_flexflow_tpu_torch.parallel import embedding_collection as pec
+
+    vocabs = [v for v in kaggle_config().embedding_size if v > 8192]
+    dense = pec.ShardedEmbeddingLayout(vocabs, 16, 1, [0] * len(vocabs), packed_pool=True)
+    routed = pec.ShardedEmbeddingLayout(vocabs, 16, 1, [0] * len(vocabs), packed_pool=True, exchange="routed",
+                                        routed_cap_factor=0.0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    pool = ((torch.rand((dense.r_pad, 16), generator=gen, device="cuda") - 0.5) * 0.02).to(torch.bfloat16)
+    idx = torch.stack([torch.randint(0, v, (TRAIN_BATCH, 1), generator=gen, device="cuda") for v in vocabs], 1)
+    g = torch.randn((TRAIN_BATCH, len(vocabs), 16), generator=gen, device="cuda") * 0.01
+    return dense, routed, pool, idx, g
+
+
 def mesh_one_exchange(mesh) -> dict:
     """`sharded_embedding_lookup` and `sharded_embedding_sparse_update`
     called directly at N = 1 over NCCL on a kernel-route layout of kaggle's
@@ -2756,17 +2769,11 @@ def mesh_one_exchange(mesh) -> dict:
     SGD) is held against the row-update kernel's plain version on the flat
     rows, its launches counted."""
     from dlrm_flexflow_tpu_torch import AggrMode, SGDOptimizer
-    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
     from dlrm_flexflow_tpu_torch.ops.embedding import embedding_bag
     from dlrm_flexflow_tpu_torch.ops.kernels.row_update import row_update, row_update_reference
     from dlrm_flexflow_tpu_torch.parallel import embedding_collection as pec
 
-    vocabs = [v for v in kaggle_config().embedding_size if v > 8192]
-    lay = pec.ShardedEmbeddingLayout(vocabs, 16, 1, [0] * len(vocabs), packed_pool=True)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    pool = ((torch.rand((lay.r_pad, 16), generator=gen, device="cuda") - 0.5) * 0.02).to(torch.bfloat16)
-    idx = torch.stack([torch.randint(0, v, (TRAIN_BATCH, 1), generator=gen, device="cuda") for v in vocabs], 1)
-    g = torch.randn((TRAIN_BATCH, len(vocabs), 16), generator=gen, device="cuda") * 0.01
+    lay, _, pool, idx, g = mesh_one_layouts()
     flat = (idx + torch.as_tensor(lay.table_bases(), device="cuda")[None, :, None]).reshape(-1, 1)
     got = pec.sharded_embedding_lookup(lay, pool, idx, mesh)
     want = embedding_bag(pool, flat, AggrMode.AGGR_MODE_SUM).reshape(got.shape)
@@ -2794,6 +2801,265 @@ def mesh_one_exchange(mesh) -> dict:
     return res
 
 
+def mesh_one_chunk(mesh, rule: str) -> dict:
+    """`train_chunk` under compile(mesh=, plan=) in the world of one, kaggle
+    at full width (the flat collection on the scatter route): eager steps
+    against graph replays, timed (3 warm-up and 20 timed steps each way,
+    the captured step's nodes), then under deterministic algorithms 8
+    eager steps against 2 chunks of 4 on fresh models, which must leave
+    every tensor of the state and every loss bit for bit the same."""
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
+    from dlrm_flexflow_tpu_torch.tools.graph_nodes import node_counts
+    from dlrm_flexflow_tpu_torch.tools.state import state_diff, state_tensors
+
+    cfg = kaggle_config(batch_size=TRAIN_BATCH)
+    eager, chunk = (mesh_one_model(mesh, cfg, rule) for _ in range(2))
+    _, staged = kaggle_batches(eager, cfg)
+    stack, labels = chunk_stacks(staged)
+    for i in range(TRAIN_WARMUP):
+        eager.train_batch(*staged[i % 4])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        loss_e = eager.train_batch(*staged[i % 4])
+    float(loss_e)
+    eager_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    chunk.train_chunk({k: v[:TRAIN_WARMUP] for k, v in stack.items()}, labels[:TRAIN_WARMUP])  # captures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS // 4):
+        loss_g = chunk.train_chunk(stack, labels)
+    float(loss_g)
+    graph_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    nodes = node_counts(chunk._step_graph.graph)
+    res = {"rule": rule, "eager_ms_per_step": eager_ms, "graph_ms_per_step": graph_ms,
+           "graph_examples_per_s": TRAIN_BATCH / graph_ms * 1e3, "graph_nodes": nodes,
+           "eager_loss": float(loss_e), "graph_loss": float(loss_g)}
+    del eager, chunk
+    torch.cuda.empty_cache()
+    eager, chunk = (mesh_one_model(mesh, cfg, rule) for _ in range(2))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        losses_e = [eager.train_batch(*staged[i % 4]) for i in range(8)]
+        losses_g = [chunk.train_chunk(stack, labels) for _ in range(2)]
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = state_diff(eager, chunk)
+    res.update({"deterministic_steps": 8, "differing_tensors": len(diff),
+                "losses_bit_identical": all(torch.equal(a, b) for a, b in zip(losses_e[3::4], losses_g)),
+                "step_counts": [eager._step_count, chunk._step_count]})
+    if (diff or not res["losses_bit_identical"] or eager._step_count != chunk._step_count
+            or not all(math.isfinite(res[k]) for k in ("eager_loss", "graph_loss"))):
+        raise AssertionError(f"mesh-1 train_chunk: replays and eager steps differ: {res} {diff}")
+    del eager, chunk, staged, stack, labels
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_one_routed(mesh) -> dict:
+    """The routed exchange called directly at N = 1 over NCCL in exact mode
+    (cap_factor 0) on mesh_one_layouts: the lookup bit for bit against the
+    dense exchange's; the update's K1 launch (SGD, one, at the owner) held
+    against the row-update kernel's plain version on the same routed
+    stream (its unique rows, their gradients summed) within the row-update
+    tolerance; and the routed update against the dense exchange's within
+    twice that tolerance (`row_update_tolerance` on the dense stream): the
+    dense stream sums a row's bf16-rounded deltas and rounds the sum to
+    bf16, the routed one rounds the sum of the f32 gradients once, so the
+    two row deltas part by up to one bf16 step of the row's delta
+    magnitude, 2^-7 sum |delta|, and the bf16 results by one more step,
+    2^-7 |t|: within 2^-7 (|t| + sum |delta|) of each other twice over."""
+    from dlrm_flexflow_tpu_torch import SGDOptimizer
+    from dlrm_flexflow_tpu_torch.ops.kernels.row_update import row_update, row_update_reference
+    from dlrm_flexflow_tpu_torch.parallel import embedding_collection as pec
+    from dlrm_flexflow_tpu_torch.parallel import routed_exchange as prx
+
+    dense, routed, pool, idx, g = mesh_one_layouts()
+    opt = SGDOptimizer(lr=0.01)
+    scale = torch.tensor(-0.01, device="cuda")
+    got = prx.routed_embedding_lookup(routed, pool, idx, mesh)
+    want = pec.sharded_embedding_lookup(dense, pool, idx, mesh)
+    upd_d, upd_r = pool.clone(), pool.clone()
+    pec.sharded_embedding_sparse_update(dense, upd_d, None, idx, g, mesh, opt)
+    stream = {}
+    update = prx.local_pool_row_update
+
+    def seen(layout, table, sstate, rows, payload, optimizer, lr=None):  # the owner's routed stream
+        stream.update(rows=rows.clone(), src=payload[0].clone())
+        return update(layout, table, sstate, rows, payload, optimizer, lr=lr)
+
+    row_update.launches = 0
+    prx.local_pool_row_update = seen
+    try:
+        prx.routed_embedding_sparse_update(routed, upd_r, None, idx, g, mesh, opt)
+    finally:
+        prx.local_pool_row_update = update
+    launches = row_update.launches
+    ref = pool.clone()
+    row_update_reference(ref, stream["rows"], (stream["src"], 1), scale)
+    k1_tol = row_update_tolerance(pool, stream["rows"], stream["src"], 1, scale)
+    k1_err = (upd_r.float() - ref.float()).abs()
+    rows = (idx + torch.as_tensor(dense.table_bases(), device="cuda")[None, :, None]).reshape(-1)
+    tol = 2.0 * row_update_tolerance(pool, rows, g.reshape(-1, 16).contiguous(), 1, scale)
+    err = (upd_r.float() - upd_d.float()).abs()
+    res = {"lookup_bit_equal_to_dense": bool(torch.equal(got, want)), "row_update_launches": launches,
+           "routed_stream": int(stream["rows"].numel()),
+           "unique_rows": int((stream["rows"] < routed.r_pad).sum().item()),
+           "max_abs_err": k1_err.max().item(), "max_err_over_tol": (k1_err / k1_tol.clamp_min(1e-30)).max().item(),
+           "vs_dense_max_abs_err": err.max().item(),
+           "vs_dense_max_err_over_tol": (err / tol.clamp_min(1e-30)).max().item(),
+           "c_max": prx.routed_plan(routed, TRAIN_BATCH, 1, 0.0).c_max,
+           "lookup_ms": cuda_ms(lambda: prx.routed_embedding_lookup(routed, pool, idx, mesh)),
+           "update_ms": cuda_ms(lambda: prx.routed_embedding_sparse_update(routed, upd_r, None, idx, g, mesh, opt))}
+    if (not res["lookup_bit_equal_to_dense"] or launches != 1 or res["max_err_over_tol"] > 1.0
+            or res["vs_dense_max_err_over_tol"] > 1.0):
+        raise AssertionError(f"mesh-1 routed exchange: {res}")
+    return res
+
+
+def mesh_one_captured(mesh) -> dict:
+    """The step's collectives captured in a CUDA graph over NCCL, as
+    `train_chunk` captures them under a data axis > 1: the dense and the
+    routed lookup and update (K1 at the owner) of mesh_one_layouts and an
+    all-reduce of one flat bucket (`_all_reduce_flat`), captured in the
+    process group's thread-local capture mode after one eager warm-up
+    call, then replayed once: every output and both updated pools against
+    the same calls made eagerly, bit for bit; the graph's nodes by type
+    and its K1 kernel nodes."""
+    from dlrm_flexflow_tpu_torch import SGDOptimizer
+    from dlrm_flexflow_tpu_torch.core.ffmodel import _all_reduce_flat
+    from dlrm_flexflow_tpu_torch.parallel import embedding_collection as pec
+    from dlrm_flexflow_tpu_torch.parallel import routed_exchange as prx
+    from dlrm_flexflow_tpu_torch.tools.graph_nodes import node_counts
+
+    dense, routed, pool, idx, g = mesh_one_layouts()
+    opt = SGDOptimizer(lr=0.01)
+    bucket = torch.randn(100_000, device="cuda")
+
+    def body(pool_d, pool_r):
+        outs = [pec.sharded_embedding_lookup(dense, pool_d, idx, mesh),
+                prx.routed_embedding_lookup(routed, pool_r, idx, mesh)]
+        pec.sharded_embedding_sparse_update(dense, pool_d, None, idx, g, mesh, opt)
+        prx.routed_embedding_sparse_update(routed, pool_r, None, idx, g, mesh, opt)
+        return outs + _all_reduce_flat([bucket.clone()])
+
+    eager_pools = (pool.clone(), pool.clone())
+    want = body(*eager_pools)
+    warm = (pool.clone(), pool.clone())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body(*warm)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    pools = (pool.clone(), pool.clone())
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        got = body(*pools)
+    graph.instantiate()
+    graph.replay()
+    torch.cuda.synchronize()
+    nodes = node_counts(graph, kernel_names=True)
+    res = {"outputs_bit_equal": [bool(torch.equal(a, b)) for a, b in zip(got, want)],
+           "pools_bit_equal": [bool(torch.equal(a, b)) for a, b in zip(pools, eager_pools)],
+           "nodes": {k: v for k, v in nodes.items() if k != "kernels"},
+           "k1_kernel_nodes": sum(n for name, n in nodes["kernels"].items() if "row_update" in name),
+           "nccl_kernel_nodes": sum(n for name, n in nodes["kernels"].items() if "nccl" in name.lower())}
+    if not (all(res["outputs_bit_equal"]) and all(res["pools_bit_equal"])) or res["k1_kernel_nodes"] < 2:
+        raise AssertionError(f"mesh-1 captured exchange: {res}")
+    return res
+
+
+def mesh_one_state(mesh) -> dict:
+    """Kaggle widths with vocabs capped at 20000, every table fused, SGD, in
+    the world of one: the checkpoint round trip of tests/test_sharding.py
+    (one step, save, restore into a model built from another seed, the
+    next step's loss within rtol 1e-5, atol 1e-6 of the saved model's, and
+    the state bit for bit); then int8 serving of the fused collection
+    (`quantize_embeddings("int8")`: its flat pool to pool_q and
+    pool_scale): within the JAX test's atol 0.08 of the f32 output, and
+    within E2E_ATOL of the CPU port's int8 output from the same weights."""
+    import tempfile
+
+    from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
+    from dlrm_flexflow_tpu_torch.tools.state import state_diff
+    from dlrm_flexflow_tpu_torch.training.checkpoint import restore_checkpoint, save_checkpoint
+
+    bs = 256
+    cfg = kaggle_config(batch_size=bs)
+    cfg.embedding_size = [min(v, 20_000) for v in cfg.embedding_size]
+    kw = dict(batch=bs, onehot_embedding_threshold=0, packed_tables="on")
+    feeds, labels = random_batches(cfg, 2 * bs, seed=SEED + 22)
+    batch = ({k: v[:bs] for k, v in feeds.items()}, labels[:bs])
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    first = mesh_one_model(mesh, cfg, "sgd", seed=SEED + 22, **kw)
+    first.train_batch(*batch)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        save_checkpoint(tmp, first)
+        resumed = mesh_one_model(mesh, cfg, "sgd", seed=SEED + 23, **kw)
+        differed = bool(state_diff(first, resumed))
+        manifest = restore_checkpoint(tmp, resumed)
+    restored = state_diff(first, resumed)
+    l1, l2 = float(first.train_batch(*batch)), float(resumed.train_batch(*batch))
+    res = {"saved_at": manifest["step"], "differed_before_restore": differed,
+           "differing_tensors_after_restore": len(restored), "loss_saved_model": l1, "loss_restored": l2}
+    if restored or not differed or abs(l2 - l1) > 1e-6 + 1e-5 * abs(l1):
+        raise AssertionError(f"mesh-1 checkpoint: {res} {restored}")
+    cpu = kaggle_model(cfg, bs, SEED + 22, device="cpu", onehot_embedding_threshold=0, fuse_embeddings=True)
+    cpu.set_parameters({name: first.get_weights(name) for name in first.get_parameters()})
+    sample = {k: v[bs:] for k, v in feeds.items()}
+    y32 = first.predict(sample)
+    arrays = (first.quantize_embeddings("int8"), cpu.quantize_embeddings("int8"))
+    y8, y8_cpu = first.predict(sample), cpu.predict(sample)
+    sub = first.get_parameters()[first._op("embedding_collection").name]
+    res.update({"int8_arrays": list(arrays), "int8_pool": list(sub["pool_q"].shape),
+                "int8_vs_f32_max_err": float(np.abs(y8 - y32).max()),
+                "int8_cuda_vs_cpu_max_err": float(np.abs(y8 - y8_cpu).max()), "atol": E2E_ATOL})
+    if (arrays != (1, 1) or not np.all(np.isfinite(y8)) or res["int8_vs_f32_max_err"] > 0.08
+            or res["int8_cuda_vs_cpu_max_err"] > E2E_ATOL):
+        raise AssertionError(f"mesh-1 int8 serving: {res}")
+    return res
+
+
+def mesh_one_shards(mesh) -> dict:
+    """The sharded checkpoint's two halves called directly in the world of
+    one over NCCL (at a data axis of 1 `save_checkpoint` has no shards to
+    gather): on mesh_one_layouts' [r_pad, 16] bf16 pool and an Adam m and v
+    of its shape (f32), `_gather_shards` (rank 0's [1, r_pad, 16]; a bf16
+    tensor travels as f16 bits), the host array the writer makes of it
+    (`_host`), and `_own_shard` of that (what each rank keeps on restore),
+    back on the card: each bit for bit with what was gathered; the gathers'
+    and host copies' ms."""
+    from types import SimpleNamespace
+
+    from dlrm_flexflow_tpu_torch.training.checkpoint import _gather_shards, _host, _own_shard, _tensor
+
+    _, _, pool, _, _ = mesh_one_layouts()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    state = {"pool": pool, "m": torch.randn(pool.shape, generator=gen, device="cuda") * 1e-3,
+             "v": torch.rand(pool.shape, generator=gen, device="cuda") * 1e-6}
+    coll = SimpleNamespace(name="embedding_collection", shard=mesh.rank)
+    res = {}
+    for key, t in state.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stacked = _gather_shards(t, mesh.rank, mesh.size)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = _host(stacked)
+        t2 = time.perf_counter()
+        back = _tensor(_own_shard(host, coll, mesh.size)).to("cuda")
+        res[key] = {"dtype": str(t.dtype), "stacked": list(stacked.shape), "host": str(host.dtype),
+                    "bytes": t.numel() * t.element_size(), "gather_ms": (t1 - t0) * 1e3,
+                    "to_host_ms": (t2 - t1) * 1e3, "bit_equal": bool(torch.equal(back, t))}
+    if not all(r["bit_equal"] and r["stacked"] == [mesh.size, *pool.shape] for r in res.values()):
+        raise AssertionError(f"mesh-1 checkpoint shards: {res}")
+    return res
+
+
 def phase_mesh_one() -> dict:
     """Phase 24: the hybrid-parallel path in an in-process NCCL world of one
     (destroyed at the end, so later phases run as before)."""
@@ -2809,9 +3075,17 @@ def phase_mesh_one() -> dict:
             log(f"[mesh-1] kaggle {json.dumps(mesh_one_kaggle(mesh, rule))}")
             torch.cuda.empty_cache()
         for rule in ("sgd", "adam"):
+            log(f"[mesh-1] train_chunk replays vs eager steps {json.dumps(mesh_one_chunk(mesh, rule))}")
+        for rule in ("sgd", "adam"):
             log(f"[mesh-1-parity] {json.dumps(mesh_one_parity(mesh, rule))}")
         res = mesh_one_exchange(mesh)
         log(f"[mesh-1] exchange at N = 1 {json.dumps(res)}")
+        res["routed"] = mesh_one_routed(mesh)
+        log(f"[mesh-1] routed exchange at N = 1, exact mode {json.dumps(res['routed'])}")
+        res["captured"] = mesh_one_captured(mesh)
+        log(f"[mesh-1] the exchange and an all-reduce captured in a CUDA graph {json.dumps(res['captured'])}")
+        log(f"[mesh-1] checkpoint shards gathered and kept {json.dumps(mesh_one_shards(mesh))}")
+        log(f"[mesh-1] checkpoint and int8 serving {json.dumps(mesh_one_state(mesh))}")
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -2880,9 +3154,11 @@ def main() -> None:
             "source": "dlrm_flexflow_tpu_torch/csrc/row_update.cu",
             "replaces": f"dlrm_flexflow_tpu/ops/pallas/packed_update.py:{replaces}",
             "launches": train_launches,
-            # the direct sharded update at N = 1 over NCCL (phase 24)
-            "mesh_launches": mesh["row_update_launches"],
-            "max_abs_err": max(row_err, mesh["max_abs_err"]),
+            # the direct sharded and routed updates at N = 1 over NCCL
+            # (phase 24), and K1's kernel nodes in their captured graph
+            "mesh_launches": mesh["row_update_launches"] + mesh["routed"]["row_update_launches"],
+            "mesh_captured_k1_nodes": mesh["captured"]["k1_kernel_nodes"],
+            "max_abs_err": max(row_err, mesh["max_abs_err"], mesh["routed"]["max_abs_err"]),
             "ms": c["ms"],
             "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"],

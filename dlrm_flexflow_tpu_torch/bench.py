@@ -46,9 +46,12 @@ dense gradients), which graph replays capture.
 `--mesh` trains (or serves) hybrid-parallel over every rank of the
 launcher's world (`bench.py:190-210`): `launch.initialize`, `make_mesh`,
 `compile(mesh=, plan=dlrm_hybrid_plan())`; every rank is given the global
-batch of `--batch-size` (staged on its device) and takes its slice. The
-steps are eager `train_batch` (or `forward`) calls (`steps=eager`):
-`train_chunk` under a mesh is a later slice. Rank 0 prints the keys, with
+batch of `--batch-size` (staged on its device) and takes its slice.
+Training steps are `train_chunk` calls on the [4, B, ...] stack, so on CUDA
+each is a replay of one captured step that holds the exchange's
+all-to-alls and the all-reduces (`steps=graph`), as the JAX bench times one
+scanned dispatch (`bench.py:239-242`); serving steps are eager `forward`
+calls (`steps=eager`), as are the steps on the CPU. Rank 0 prints the keys, with
 `devices` the world size, `examples_per_sec_per_chip` the global rate over
 it, and `all_to_all_gbps`, the layout's `step_exchange_bytes` at the
 pool's element size (the JAX bench counts the compute dtype's; both are 2
@@ -300,21 +303,26 @@ def _run(ap, args, mesh, explicit_table_dtype) -> dict:
 
 
 def mesh_run(args, model, mesh, feeds_np, labels_np, table_dtype, packed_engaged) -> dict:
-    """The hybrid-parallel bench: eager steps on the global batches, staged
-    on this rank's device beforehand, round robin; rank 0 prints."""
+    """The hybrid-parallel bench: the global batches staged on this rank's
+    device beforehand and stacked [4, B, ...]; training steps are
+    `train_chunk` calls (graph replays on CUDA, each rank on its slice),
+    serving steps eager `forward` calls, round robin; rank 0 prints."""
     bs, device = args.batch_size, mesh.device
     batches = [({k: torch.as_tensor(v[j * bs:(j + 1) * bs]).to(device) for k, v in feeds_np.items()},
                 torch.as_tensor(labels_np[j * bs:(j + 1) * bs]).to(device)) for j in range(N_BATCHES)]
+    stacked = {k: torch.stack([f[k] for f, _ in batches]) for k in batches[0][0]}
+    stacked_labels = torch.stack([lbl for _, lbl in batches])
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
 
     def run(n: int) -> torch.Tensor:
         out = torch.zeros((), dtype=torch.float32, device=device)
+        if args.mode == "train":
+            for i in range(0, n, N_BATCHES):
+                k = min(N_BATCHES, n - i)
+                out = model.train_chunk({name: v[:k] for name, v in stacked.items()}, stacked_labels[:k])
+            return out
         for i in range(n):
-            feeds, labels = batches[i % N_BATCHES]
-            if args.mode == "train":
-                out = model.train_batch(feeds, labels)
-            else:
-                out = out + model.forward(feeds).float().sum()
+            out = out + model.forward(batches[i % N_BATCHES][0]).float().sum()
         return out
 
     run(max(args.warmup, 1))
@@ -339,8 +347,9 @@ def mesh_run(args, model, mesh, feeds_np, labels_np, table_dtype, packed_engaged
         "packed_engaged": packed_engaged,
         "loss": loss,
     }
+    timed = "graph" if args.mode == "train" and device.type == "cuda" else "eager"
     if mesh.rank == 0:
-        print(f"# config={args.config} mode={args.mode} bs={bs} n_steps={args.steps} dt={dt}s steps=eager "
+        print(f"# config={args.config} mode={args.mode} bs={bs} n_steps={args.steps} dt={dt}s steps={timed} "
               f"devices={mesh.size} device={card(device)} mesh=yes table_dtype={table_dtype} "
               f"packed={'yes' if packed_engaged else 'no'} examples/s={examples_per_sec} "
               f"per-chip={examples_per_sec / mesh.size} all-to-all={a2a_gbps}GB/s loss={loss}",

@@ -64,7 +64,11 @@ its slice: the collection's lookup and update exchange over the ranks, the
 local loss is the rank's share of the global one, the dense gradients are
 summed over the ranks in one all-reduce, the loss and metrics in another,
 so every rank holds the same replicated parameters and returns the same
-loss (`_loss_and_metrics`).
+loss (`_loss_and_metrics`). Those collectives have static sizes (equal
+all-to-all chunks, one flat bucket an all-reduce), so `train_chunk`
+captures the step with them on CUDA, as on one device. The exchange is the
+dense one or, under `exchange="routed"`, the routed one (parallel/
+routed_exchange.py).
 
 The multi-step call. A step reads everything that changes between steps
 from device memory: the batch, its routes, and the step's scalars (Adam's
@@ -138,8 +142,6 @@ _QUANTIZED = ("the embedding tables were quantized for serving (quantize_embeddi
 _HOST_TAIL_CHUNK = ("train_chunk: host-tail offload steps one batch at a time (the host serves and "
                     "updates the tail rows between steps); use train_batch or fit(steps_per_call=1)")
 _ITEM7 = "ROADMAP.md Queue 1 item 7, a later slice of the port"
-_MESH_CHUNK = (f"train_chunk under a mesh (a CUDA graph with the exchange's collectives in it) is "
-               f"{_ITEM7}; use train_batch or fit(steps_per_call=1)")
 QUANTIZED_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "int8": torch.int8}
 _ALIGN = 16  # bytes: each entry of a chunk's packed step buffer starts on a 16-byte boundary
 
@@ -461,8 +463,7 @@ class FFModel:
 
         Raises NotImplementedError, naming its ROADMAP.md item, for what
         the port does not run under a mesh yet: a 2-D mesh or parameter
-        specs, config.search_budget > 0, host-tail tables, the routed
-        exchange."""
+        specs, config.search_budget > 0, host-tail tables."""
         cfg = self.config
         existing = next((op for op in self.graph.compute_ops if isinstance(op, EmbeddingCollection)), None)
         self.mesh, self.plan = mesh, plan
@@ -494,9 +495,8 @@ class FFModel:
                 for out in (spec.output_specs or []) for axis in out):
             raise NotImplementedError(f"compile(mesh=): the plan's op specs shard over a model axis: "
                                       f"{TWO_D_MESH}")
-        if plan.exchange != "dense":
-            raise NotImplementedError(f"compile(mesh=): exchange={plan.exchange!r}: the routed exchange "
-                                      f"(parallel/routed_exchange.py, routed_drop_fraction) is {_ITEM7}")
+        if plan.exchange not in ("dense", "routed"):
+            raise ValueError(f"compile(mesh=): exchange={plan.exchange!r}: 'dense' or 'routed'")
         if cfg.host_tail_threshold > 0 or any(plan.host_tail_rows or []):
             raise NotImplementedError(f"compile(mesh=): host-tail offload under a mesh is {_ITEM7}")
         n = mesh.size
@@ -558,6 +558,26 @@ class FFModel:
 
     def host_tail_drop_fraction(self) -> float:
         return self._host_tail.drop_fraction if self._host_tail is not None else 0.0
+
+    def routed_drop_fraction(self, feeds) -> float:
+        """The share of a global batch's valid lookups that the routed
+        exchange's capacity buckets drop (0.0 unless the fused collection's
+        exchange is "routed" with cap_factor > 0), counted on the host
+        (parallel/routed_exchange.routed_drop_stats; the JAX package's
+        `routed_drop_fraction`, core/ffmodel.py:1894-1921)."""
+        from ..parallel.routed_exchange import routed_drop_stats
+
+        lay = self._embedding_layout
+        if lay is None or lay.exchange != "routed" or lay.routed_cap_factor <= 0:
+            return 0.0
+        coll = next(op for op in self.graph.compute_ops if isinstance(op, EmbeddingCollection))
+
+        def host(x):
+            return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+        idx = np.stack([host(feeds[t.owner_op.name]).reshape(len(feeds[t.owner_op.name]), -1)
+                        for t in coll.inputs], axis=1)
+        return float(routed_drop_stats(lay, idx)[2])
 
     def _index_arrays(self, feeds: Dict[str, Any]) -> Dict[str, np.ndarray]:
         """The host-tail tables' index feeds as host arrays (a tensor on the
@@ -826,12 +846,18 @@ class FFModel:
         Raises whatever capture or replay raises: it never falls back to
         eager steps. On the CPU it is a loop of steps. Raises as
         `train_batch` does for a model that does not train, and
-        RuntimeError under host-tail offload, as the JAX package does."""
+        RuntimeError under host-tail offload, as the JAX package does.
+
+        Under a mesh every rank is given the global [K, B_global, ...]
+        stacks and steps on its slice along axis 1 (`Mesh.batch_slice`; the
+        JAX package shards them P(None, batch), :1498-1512). The captured
+        step holds the step's collectives: the exchange's all-to-alls, the
+        dense gradients' all-reduce and the loss-and-metrics all-reduce,
+        each run once, in the same order on every rank, by the eager first
+        step, which makes the NCCL communicators before the capture."""
         self._require_trainable()
         if self._host_tail is not None:
             raise RuntimeError(_HOST_TAIL_CHUNK)
-        if self.mesh is not None:
-            raise NotImplementedError(_MESH_CHUNK)
         k = int(stacked_labels.shape[0])
         if k < 1:
             raise ValueError("train_chunk: the stacks hold no step")
@@ -848,9 +874,14 @@ class FFModel:
         missing = [iop.name for iop in self.graph.inputs if iop.name not in stacked_feeds]
         if missing:
             raise KeyError(f"train_chunk: missing feed {missing[0]!r}")
-        entries = [(iop.name, stacked_feeds[iop.name], iop.outputs[0].dtype.to_torch())
+        mesh = self._data_mesh
+
+        def local(stack):  # this rank's slice of a [K, B_global, ...] stack
+            return stack if mesh is None else stack[:, mesh.batch_slice(stack.shape[1])]
+
+        entries = [(iop.name, local(stacked_feeds[iop.name]), iop.outputs[0].dtype.to_torch())
                    for iop in self.graph.inputs]
-        entries += [("_labels", stacked_labels, torch.float32)]
+        entries += [("_labels", local(stacked_labels), torch.float32)]
         entries += [(key, stacked_feeds[key], torch.int32) for key in keys]
         entries += [("_scalars", self._scalar_table(self._step_count + 1, k), torch.float32)]
         plan = _StepGraph.plan(entries, k)
@@ -998,8 +1029,6 @@ class FFModel:
         self._require_trainable()
         if self.config.profiling:
             raise NotImplementedError(_PROFILING)
-        if steps_per_call > 1 and self.mesh is not None:
-            raise NotImplementedError(_MESH_CHUNK)
         epochs = epochs or self.config.epochs
         bs = batch_size or self.config.batch_size
         loader = DataLoader(feeds, labels, bs, shuffle=shuffle, seed=self.config.seed)
@@ -1302,7 +1331,10 @@ class FFModel:
         "float16" cast every f32 array of each embedding op; "int8" replaces
         each op's `weight` by `weight_q` ([V, D] int8) and `weight_scale`
         ([V] f32, per row), which the lookup dequantizes
-        (`ops/embedding.quantized_embedding_bag`) under every use_pallas.
+        (`ops/embedding.quantized_embedding_bag`) under every use_pallas; a
+        fused collection at a data axis of 1 has its flat pool replaced by
+        `pool_q` and `pool_scale` the same way (ValueError for a sharded
+        one, as in the JAX package).
         Training refuses afterwards (RuntimeError) until compile or
         set_parameters restores the tables. Returns the number of arrays
         touched."""
@@ -1310,11 +1342,9 @@ class FFModel:
         if dtype not in QUANTIZED_DTYPES:
             raise ValueError(f"quantize_embeddings takes {sorted(QUANTIZED_DTYPES)}, got {dtype!r}")
         coll = next((op for op in self.graph.compute_ops if isinstance(op, EmbeddingCollection)), None)
-        if dtype == "int8" and coll is not None:
-            if coll.sharded:
-                raise ValueError("int8 serving of a sharded embedding collection is not supported (as in "
-                                 "the JAX package); quantize a one-device model instead")
-            raise NotImplementedError(f"int8 serving of a fused embedding collection is {_ITEM7}")
+        if dtype == "int8" and coll is not None and coll.sharded:
+            raise ValueError("int8 serving of a sharded embedding collection is not supported (as in "
+                             "the JAX package); quantize a one-device model instead")
         self._step_graph = None
         n = 0
         with torch.no_grad():
@@ -1323,9 +1353,12 @@ class FFModel:
                     continue
                 sub = self._params.get(op.name, {})
                 if dtype == "int8":
-                    if "weight" not in sub:
+                    # a fused collection (at a data axis of 1) quantizes its
+                    # flat [N * R_pad, D] pool, as the JAX package does
+                    key = "pool" if isinstance(op, EmbeddingCollection) else "weight"
+                    if key not in sub:
                         continue
-                    sub["weight_q"], sub["weight_scale"] = quantize_table_int8(sub.pop("weight"))
+                    sub[f"{key}_q"], sub[f"{key}_scale"] = quantize_table_int8(sub.pop(key))
                     n += 1
                     continue
                 for k, v in list(sub.items()):
@@ -1399,7 +1432,10 @@ class _StepGraph:
         `self.loss` at each replay. The graph's nodes stay readable
         (`keep_graph`; tools/graph_nodes.py counts them)."""
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph):
+        # thread_local: under a mesh the process group's watchdog thread
+        # queries its work's events during the capture, which the default
+        # global mode refuses; one mode on every device count
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self.loss, _ = model._step(*self._args())
         graph.instantiate()
         self.graph = graph

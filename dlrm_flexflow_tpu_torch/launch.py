@@ -73,8 +73,11 @@ def initialize(device: str = "cuda", coordinator: Optional[str] = None, world_si
 
 
 def _free_port() -> int:
+    """A port free on every local address: rank 0's store listens on all of
+    them, so a port free on the loopback alone can still be taken on
+    another address (EADDRINUSE at `init_process_group`)."""
     with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
+        s.bind(("", 0))
         return s.getsockname()[1]
 
 

@@ -11,12 +11,16 @@ made. Tables are drawn one at a time from a generator of their own
 (`init_params`), so a rank makes only its shard and the replicated
 parameters draw the same numbers on every rank.
 
-  forward        sharded: `sharded_embedding_lookup` (all-to-all exchange);
-                 flat: one gather over the whole pool, the tables' indices
-                 moved to their rows in it (also FFConfig.fuse_embeddings
-                 on one device).
-  sparse_update  sharded: `sharded_embedding_sparse_update`; flat: one
-                 update of the flat pool. Both through
+  forward        sharded: `sharded_embedding_lookup` (all-to-all exchange),
+                 or `routed_embedding_lookup` under exchange="routed"
+                 (parallel/routed_exchange.py, at the layout's
+                 routed_cap_factor); flat: one gather over the whole pool,
+                 the tables' indices moved to their rows in it (also
+                 FFConfig.fuse_embeddings on one device); after int8
+                 quantization (`pool_q`, `pool_scale`) the dequantizing
+                 lookup over the flat pool.
+  sparse_update  sharded: `sharded_embedding_sparse_update` (or the
+                 routed one); flat: one update of the flat pool. All through
                  `local_pool_row_update`: the row-update kernel's rule when
                  the layout is on the kernel route (`packed_pool`), the
                  optimizer's scatter rule otherwise.
@@ -38,11 +42,13 @@ from ..core.tensor import TensorSpec
 from ..ffconst import AggrMode, OperatorType
 from ..parallel.embedding_collection import (
     ShardedEmbeddingLayout,
+    device_consts,
     local_pool_row_update,
     sharded_embedding_lookup,
     sharded_embedding_sparse_update,
 )
-from .embedding import embedding_bag
+from ..parallel.routed_exchange import routed_embedding_lookup, routed_embedding_sparse_update
+from .embedding import embedding_bag, quantized_embedding_bag
 
 _TABLE_SEED = 0x5EED_7AB1E  # mixes the model's seed with a table's id (`init_params`)
 
@@ -108,14 +114,21 @@ class EmbeddingCollection(Op):
     def _flat_rows(self, idx: torch.Tensor) -> torch.Tensor:
         """[B, T, H] per-table indices -> rows of the flat pool, -1 kept."""
         idx = self.layout.perm_rows(idx)
-        base = torch.as_tensor(self.layout.table_bases(), device=idx.device)
+        base = device_consts(self.layout, idx.device)["bases"]
         return torch.where(idx >= 0, idx + base[None, :, None], -1)
 
     def forward(self, params, inputs, ctx):
         idx = self._stacked(inputs)  # [B, T, H]
-        pool = params["pool"]
-        if self.sharded:
+        pool = params.get("pool")
+        if self.sharded and self.layout.exchange == "routed":
+            out = routed_embedding_lookup(self.layout, pool, idx, ctx.mesh, self.aggr,
+                                          cap_factor=self.layout.routed_cap_factor)
+        elif self.sharded:
             out = sharded_embedding_lookup(self.layout, pool, idx, ctx.mesh, self.aggr)
+        elif "pool_q" in params:  # int8 serving (FFModel.quantize_embeddings), flat only
+            b, t, h = idx.shape
+            out = quantized_embedding_bag(params["pool_q"], params["pool_scale"],
+                                          self._flat_rows(idx).reshape(b * t, h), self.aggr).reshape(b, t, -1)
         else:
             b, t, h = idx.shape
             out = embedding_bag(pool, self._flat_rows(idx).reshape(b * t, h), self.aggr).reshape(b, t, -1)
@@ -134,6 +147,9 @@ class EmbeddingCollection(Op):
         idx = self._stacked(inputs)
         g = torch.stack(g_out_list, dim=1)  # [B, T, D]
         pool = params["pool"]
+        if self.sharded and self.layout.exchange == "routed":
+            return routed_embedding_sparse_update(self.layout, pool, sstate, idx, g, ctx.mesh, optimizer,
+                                                  self.aggr, lr=lr, cap_factor=self.layout.routed_cap_factor)
         if self.sharded:
             return sharded_embedding_sparse_update(self.layout, pool, sstate, idx, g, ctx.mesh, optimizer,
                                                    self.aggr, lr=lr)

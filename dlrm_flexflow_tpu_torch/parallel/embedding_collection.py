@@ -210,17 +210,13 @@ class ShardedEmbeddingLayout:
         off; indices < 0 or >= vocab pass through."""
         if not self.hash_rows:
             return idx
-        a, b = self._hash_consts()
         shape = [1] * idx.dim()
         shape[table_axis] = self.num_tables
-
-        def col(x):
-            return torch.as_tensor(np.asarray(x, np.int64), device=idx.device).reshape(shape)
-
-        v = col(np.maximum(np.asarray(self.vocab_sizes, np.int64), 1))
-        invalid = (idx < 0) | (idx >= col(self.vocab_sizes))
+        c = device_consts(self, idx.device)
+        a, b, vocab = (c[k].reshape(shape) for k in ("hash_a", "hash_b", "vocab"))
+        invalid = (idx < 0) | (idx >= vocab)
         r = torch.where(invalid, 0, idx).long()
-        return torch.where(invalid, idx, ((r * col(a) + col(b)) % v).to(idx.dtype))
+        return torch.where(invalid, idx, ((r * a + b) % vocab.clamp_min(1)).to(idx.dtype))
 
     def perm_table_np(self, t: int) -> np.ndarray:
         """positions[r] = permuted row of logical row r."""
@@ -387,19 +383,18 @@ def _a2a(x: torch.Tensor, group=None) -> torch.Tensor:
 def _check(layout: ShardedEmbeddingLayout, mesh, aggr: AggrMode) -> None:
     if layout.num_shards != mesh.size:
         raise ValueError(f"the layout has {layout.num_shards} shards, the mesh {mesh.size} ranks")
-    if layout.exchange != "dense":
-        raise NotImplementedError(
-            f"exchange={layout.exchange!r}: the routed exchange (parallel/routed_exchange.py, "
-            "routed_drop_fraction) is ROADMAP.md Queue 1 item 7, a later slice of the port")
     if layout.has_splits and aggr is not AggrMode.AGGR_MODE_SUM:
         raise ValueError("row-split tables need SUM pooling (per-slot partials sum exactly; "
                          "AVG counts would need a second exchange)")
 
 
-def _consts(layout: ShardedEmbeddingLayout, device) -> dict:
+def device_consts(layout: ShardedEmbeddingLayout, device) -> dict:
     """The layout's static arrays on `device`, made once a device (the
-    layout is fixed once built): the slot arrays, each table's slot where
-    no table is split, and the 0/1 selection matrices."""
+    layout is fixed once built), so that a step copies nothing from the
+    host and a CUDA graph can capture it: the slot arrays, each table's
+    slot where no table is split, the 0/1 selection matrices, the hash
+    constants and vocabs (`perm_rows`), and each table's first row in the
+    flat pool (`table_bases`, None with splits)."""
     cache = layout.__dict__.setdefault("_device_consts", {})
     key = str(torch.device(device))
     if key not in cache:
@@ -409,7 +404,10 @@ def _consts(layout: ShardedEmbeddingLayout, device) -> dict:
         out_slot = np.zeros(layout.num_tables, np.int64)
         for slot in np.nonzero(layout.slot_sub >= 0)[0]:
             out_slot[int(layout.slot_tid[slot])] = slot
+        hash_a, hash_b = layout._hash_consts()
         cache[key] = {
+            "hash_a": t(hash_a), "hash_b": t(hash_b), "vocab": t(layout.vocab_sizes),
+            "bases": None if layout.has_splits else t(layout.table_bases()),
             "is_real": t(layout.slot_sub) >= 0, "tid": t(layout.slot_tid), "start": t(layout.slot_start),
             "len": t(layout.slot_len), "off": t(layout.slot_offset_arr), "out_slot": t(out_slot),
             "sel": t(layout.table_select_matrix(), torch.float32),
@@ -423,7 +421,7 @@ def _expand_by_slot(layout: ShardedEmbeddingLayout, idx_local: torch.Tensor) -> 
     """idx_local [B_loc, T, H] -> [B_loc, N*t_max, H]: a slot's table's
     indices remapped into its sub-table's pool rows; indices outside the
     slot's row range, padding and dead slots become -1."""
-    c = _consts(layout, idx_local.device)
+    c = device_consts(layout, idx_local.device)
     g = idx_local[:, c["tid"]]  # [B_loc, S, H]
     s, ln, o = c["start"][None, :, None], c["len"][None, :, None], c["off"][None, :, None]
     keep = (g >= s) & (g < s + ln) & c["is_real"][None, :, None]
@@ -462,7 +460,7 @@ def sharded_embedding_lookup(
     if layout.hierarchical:
         return _hierarchical_lookup_tail(layout, pooled, mesh, b_loc)
     back = _a2a(pooled).reshape(n, b_loc, t_max, d).permute(1, 0, 2, 3).reshape(b_loc, n * t_max, d)
-    c = _consts(layout, back.device)
+    c = device_consts(layout, back.device)
     if not layout.has_splits:
         return back[:, c["out_slot"]]  # one slot a table: a gather
     return torch.einsum("bsd,st->btd", back.float(), c["sel"]).to(back.dtype)
@@ -481,7 +479,7 @@ def _hierarchical_lookup_tail(layout, pooled: torch.Tensor, mesh, b_loc: int) ->
     p = pooled.reshape(hosts, c, b_loc, t_max, d).transpose(0, 1).reshape(nb, t_max, d)
     intra = _a2a(p, mesh.subgroup(layout._host_groups()))  # [C(src), nb/C, t_max, D]
     intra = intra.reshape(c, nb // c, t_max, d).transpose(0, 1).reshape(nb // c, c * t_max, d)
-    consts = _consts(layout, p.device)
+    consts = device_consts(layout, p.device)
     sel1 = consts["sel_host"][mesh.rank // c]
     part = torch.einsum("bsd,st->btd", intra.float(), sel1).to(pooled.dtype)  # [nb/C, th, D]
     inter = _a2a(part, mesh.subgroup(layout._cross_host_groups()))  # [H(src), B_loc, th, D]
@@ -496,7 +494,7 @@ def _hierarchical_grads(layout, g_local: torch.Tensor, mesh) -> torch.Tensor:
     hosts, c = layout.num_hosts, layout.chips_per_host
     t_max, d, th = layout.t_max, layout.dim, layout.th_max
     b_loc = g_local.shape[0]
-    consts = _consts(layout, g_local.device)
+    consts = device_consts(layout, g_local.device)
     # 0/1 gathers, no sums: the wire keeps the gradient's dtype
     # [B_loc, H*th, D]
     g_ht = torch.einsum("btd,st->bsd", g_local.float(), consts["sel_global"]).to(g_local.dtype)
@@ -554,7 +552,7 @@ def sharded_embedding_sparse_update(
     if layout.hierarchical:
         sent_g = _hierarchical_grads(layout, g_pooled, mesh)
     else:
-        c = _consts(layout, g_pooled.device)
+        c = device_consts(layout, g_pooled.device)
         # each slot receives its table's pooled gradient (its row range's
         # lookups use it; the others are padding and drop)
         g_by_slot = torch.where(c["is_real"][None, :, None], g_pooled[:, c["tid"]], 0)

@@ -21,13 +21,39 @@ D = 16) and a global batch of `--batch-size` (65536: 16384 a rank on 4):
                   the lookup bit for bit, every table after the update
                   within the row-update kernel's tolerance, the launches a
                   rank;
+                  and the routed exchange in exact mode (cap_factor 0)
+                  on the flat layout: its lookup bit for bit against the
+                  dense one's;
   [mesh-train]    `--steps` kaggle steps (after 2 warm-up steps) under SGD
                   and Adam: the losses of every step against one card's
                   model trained on the same batches from the same weights
                   (rank 0, the single-table row-update route), examples/s
                   global and a card, row-update launches a rank and step,
                   the exchange's GB/s, peak memory a rank, kernel ms and
-                  busy share a rank from torch.profiler;
+                  busy share a rank from torch.profiler; then the same as
+                  `train_chunk` replays of one captured step a rank (the
+                  exchange's all-to-alls and the two all-reduces in it):
+                  ms a step, examples/s, busy share a rank, the captured
+                  step's K1 and NCCL kernel nodes a rank; then, under
+                  deterministic algorithms, 8 eager steps against 2 chunks
+                  of 4 on fresh models: every loss and every tensor of
+                  each rank's state bit for bit;
+  [mesh-routed]   kaggle under exchange="routed" at cap_factor 2.0 with the
+                  two largest tables split two ways (hash_rows on) on
+                  Zipf(1.05) ids: `routed_drop_fraction` of a batch, the
+                  bytes a step (`step_exchange_bytes`, and what the padded
+                  buckets carry, `step_bucket_bytes`) against the dense
+                  exchange's count, one eager step (one K1 launch
+                  at each owner), then `train_chunk` replays (the routed
+                  exchange captured): ms a step and K1 nodes a rank;
+  [mesh-checkpoint] kaggle at full width under Adam (a bf16 pool on the
+                  kernel route, its m and v f32): one step,
+                  `save_checkpoint` (the shards gathered to rank 0),
+                  `restore_checkpoint` into a model of another seed; the
+                  state bit for bit and the next step's loss within rtol
+                  1e-5, atol 1e-6 on every rank; the files' bytes, save and
+                  restore seconds, each rank's peak host memory and rank
+                  0's peak device memory in the save;
   [mesh-mlperf-lite] `predict` of 4 global batches and a ragged one, then 3
                   train steps, K3 (dot_interaction) and K1 launches a rank.
 
@@ -40,6 +66,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -54,11 +81,14 @@ from ..ops.embedding import embedding_bag
 from ..ops.kernels.dot_interaction import dot_interaction
 from ..ops.kernels.row_update import row_update, row_update_adam
 from ..parallel import embedding_collection as pec
+from ..parallel import routed_exchange as prx
 from ..parallel.mesh import make_mesh
 from ..parallel.plan import dlrm_hybrid_plan
+from .state import state_diff, state_tensors
 
 SEED = 0
 WARMUP, PROFILED = 2, 3
+DETERMINISTIC_STEPS = 8  # eager steps against chunks of 4
 F32_UNIT, BF16_UNIT = 2.0**-24, 2.0**-8
 # one card's step against the mesh's: the same operations but for f32
 # summation orders, so a flipped bf16 rounding (of an activation or a
@@ -140,6 +170,11 @@ def exchange_check(run: Run, vocabs, hierarchical: bool) -> dict:
     g = torch.randn((b, len(vocabs), d), generator=gen, device=dev) * 0.01
     sl = mesh.batch_slice(b)
     out = pec.sharded_embedding_lookup(lay, pool, idx[sl], mesh)
+    routed_equal = None
+    if not hierarchical:
+        routed = pec.ShardedEmbeddingLayout(lay.vocab_sizes, d, n, lay.owner, packed_pool=lay.packed_pool,
+                                            exchange="routed", routed_cap_factor=0.0)
+        routed_equal = run.gather(bool(torch.equal(prx.routed_embedding_lookup(routed, pool, idx[sl], mesh), out)))
     got = torch.empty((b,) + tuple(out.shape[1:]), dtype=out.dtype, device=dev)
     dist.all_gather_into_tensor(got, out.contiguous())
     opt = SGDOptimizer(lr=0.01)
@@ -149,7 +184,8 @@ def exchange_check(run: Run, vocabs, hierarchical: bool) -> dict:
     shards = torch.empty((n * lay.r_pad, d), dtype=dtype, device=dev)
     dist.all_gather_into_tensor(shards, pool.contiguous())
     res = {"hierarchical": lay.hierarchical, "owner": lay.owner, "t_max": lay.t_max, "r_pad": lay.r_pad,
-           "row_update_launches_by_rank": launches}
+           "row_update_launches_by_rank": launches, "routed_exact_lookup_bit_equal_by_rank": routed_equal}
+    run.check(routed_equal is None or all(routed_equal), "routed exact lookup", res)
     if mesh.rank == 0:
         flat_lay = pec.ShardedEmbeddingLayout(vocabs, d, 1, [0] * len(vocabs), packed_pool=run.cuda)
         flat = flat_lay.init_pool(make_table, None, dev, dtype)
@@ -181,33 +217,52 @@ def exchange_check(run: Run, vocabs, hierarchical: bool) -> dict:
     return res
 
 
-def kaggle_model(run: Run, cfg, rule: str, mesh):
-    model = make_dlrm_model(cfg, FFConfig(batch_size=cfg.batch_size, seed=SEED, compute_dtype="bfloat16",
+def kaggle_model(run: Run, cfg, rule: str, mesh, seed: int = SEED, plan=None):
+    model = make_dlrm_model(cfg, FFConfig(batch_size=cfg.batch_size, seed=seed, compute_dtype="bfloat16",
                                           table_dtype="bfloat16"), device=run.device)
     opt = AdamOptimizer(alpha=0.001) if rule == "adam" else SGDOptimizer(lr=0.01)
     model.compile(opt, LossType.LOSS_BINARY_CROSSENTROPY, [MetricsType.METRICS_ACCURACY], mesh=mesh,
-                  plan=dlrm_hybrid_plan() if mesh is not None else None)
+                  plan=(plan or dlrm_hybrid_plan()) if mesh is not None else None)
     return model
 
 
-def profile_steps(run: Run, model, batches, ms_per_step: float) -> dict:
+def stacks(batches) -> tuple:
+    """The staged global batches as [K, B, ...] stacks (train_chunk's input)."""
+    return ({k: torch.stack([f[k] for f, _ in batches]) for k in batches[0][0]},
+            torch.stack([lbl for _, lbl in batches]))
+
+
+def graph_kernels(run: Run, model) -> dict:
+    """The kernel nodes of the model's captured step (tools/graph_nodes.py):
+    K1's (a row-update launch runs 2 kernels under SGD and Adam) and
+    NCCL's."""
+    if not run.cuda:
+        return {"k1_kernel_nodes": "not measured (CPU: no graph)"}
+    from .graph_nodes import node_counts
+
+    nodes = node_counts(model._step_graph.graph, kernel_names=True)
+    return {"nodes": {k: v for k, v in nodes.items() if k != "kernels"},
+            "k1_kernel_nodes": sum(n for name, n in nodes["kernels"].items() if "row_update" in name),
+            "nccl_kernel_nodes": sum(n for name, n in nodes["kernels"].items() if "nccl" in name.lower())}
+
+
+def profile_steps(run: Run, fn, steps: int, ms_per_step: float) -> dict:
     """Kernel ms a step and the busy share of the unprofiled step, from
-    torch.profiler over a few steps. The NCCL kernels are summed apart:
-    a collective's kernel runs from its launch until the slowest rank
-    joins, so its time holds the wait for the peers; the profiler's
-    "nccl:*" rows repeat their time and are left out."""
+    torch.profiler over `fn()`, which runs `steps` steps. The NCCL kernels
+    are summed apart: a collective's kernel runs from its launch until the
+    slowest rank joins, so its time holds the wait for the peers; the
+    profiler's "nccl:*" rows repeat their time and are left out."""
     if not run.cuda:
         return {"kernel_ms_per_step": "not measured (CPU)"}
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(PROFILED):
-            model.train_batch(*batches[i % len(batches)])
+        fn()
         torch.cuda.synchronize(run.device)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                and not e.key.startswith(("Memcpy", "Memset", "step:", "nccl:"))]
-    per_step = {e.key: e.self_device_time_total / 1e3 / PROFILED for e in kernels}
+    per_step = {e.key: e.self_device_time_total / 1e3 / steps for e in kernels}
     nccl = sum(v for k, v in per_step.items() if k.startswith("ncclDevKernel"))
     busy = sum(per_step.values()) - nccl
     if busy == 0.0:
@@ -247,7 +302,8 @@ def train_check(run: Run, rule: str) -> dict:
     launches = wrapper.launches
     peak = torch.cuda.max_memory_allocated(dev) / 1e9 if run.cuda else "not measured (CPU)"
     ms = dt / steps * 1e3
-    prof = profile_steps(run, model, batches, ms)
+    prof = profile_steps(run, lambda: [model.train_batch(*batches[i % len(batches)]) for i in range(PROFILED)],
+                         PROFILED, ms)
     mine = {"rank": mesh.rank, "row_update_launches_per_step": launches / steps, "ms_per_step": ms,
             "peak_memory_gb": peak, "pool_dtype": str(model.get_parameters()[coll.name]["pool"].dtype),
             **prof}
@@ -273,10 +329,184 @@ def train_check(run: Run, rule: str) -> dict:
                            "max_loss_err": max(abs(x - y) for x, y in zip(losses, one_losses)),
                            "loss_atol": LOSS_ATOL}
         run.check(res["one_card"]["max_loss_err"] <= LOSS_ATOL, "losses against one card", res)
-    del model, one, batches
+    del model, one
+    if run.cuda:
+        torch.cuda.empty_cache()
+    res["replays"] = replay_check(run, cfg, rule, batches)
+    res["replays_vs_eager_deterministic"] = bits_check(run, cfg, rule, batches)
+    del batches
     if run.cuda:
         torch.cuda.empty_cache()
     dist.barrier()
+    return res
+
+
+def replay_check(run: Run, cfg, rule: str, batches, plan=None) -> dict:
+    """`train_chunk` replays on the 4 staged global batches, from the
+    seeded weights: the first chunk's first step runs eagerly and the
+    step is captured; then timed chunks of 4, a profiled chunk, and the
+    captured step's kernel nodes a rank."""
+    mesh, b = run.mesh, run.args.batch_size
+    model = kaggle_model(run, cfg, rule, mesh, plan=plan)
+    stack, labels = stacks(batches)
+    model.train_chunk({k: v[:WARMUP] for k, v in stack.items()}, labels[:WARMUP])  # captures
+    run.sync()
+    chunks = max(1, -(-run.args.steps // 4))
+    t0 = time.perf_counter()
+    for _ in range(chunks):
+        loss = model.train_chunk(stack, labels)
+    loss = float(loss)
+    dt = time.perf_counter() - t0
+    steps = 4 * chunks
+    ms = dt / steps * 1e3
+    mine = {"rank": mesh.rank, "ms_per_step": ms, "loss": loss, **graph_kernels(run, model),
+            **profile_steps(run, lambda: model.train_chunk(stack, labels), 4, ms)}
+    by_rank = run.gather(mine)
+    lay = model._embedding_layout
+    res = {"steps": steps, "seconds": dt, "ms_per_step": ms, "examples_per_s": steps * b / dt,
+           "examples_per_s_per_card": steps * b / dt / mesh.size,
+           "all_to_all_gbps": lay.step_exchange_bytes(b, dtype_bytes=2 if run.cuda else 4) * steps / dt / 1e9,
+           "by_rank": by_rank}
+    run.check(all(np.isfinite(r["loss"]) for r in by_rank), "replayed losses", res)
+    run.check(not run.cuda or all(r["k1_kernel_nodes"] == 2 for r in by_rank), "K1 nodes", res)
+    del model
+    return res
+
+
+def bits_check(run: Run, cfg, rule: str, batches) -> dict:
+    """Under deterministic algorithms (the one-hot lookups' backward sums
+    with float atomics otherwise), 8 eager steps against 2 chunks of 4 on
+    fresh models: every loss and every tensor of each rank's state bit
+    for bit."""
+    eager, chunk = (kaggle_model(run, cfg, rule, run.mesh) for _ in range(2))
+    stack, labels = stacks(batches)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        losses_e = [eager.train_batch(*batches[i % 4]) for i in range(DETERMINISTIC_STEPS)]
+        losses_g = [chunk.train_chunk(stack, labels) for _ in range(DETERMINISTIC_STEPS // 4)]
+        run.sync()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = sorted(state_diff(eager, chunk))
+    mine = {"rank": run.mesh.rank, "tensors": len(state_tensors(eager)), "differing_tensors": diff,
+            "losses_bit_identical": all(torch.equal(a, b) for a, b in zip(losses_e[3::4], losses_g)),
+            "step_counts": [eager._step_count, chunk._step_count]}
+    res = {"steps": DETERMINISTIC_STEPS, "by_rank": run.gather(mine)}
+    run.check(all(not r["differing_tensors"] and r["losses_bit_identical"] for r in res["by_rank"]),
+              "replays against eager steps", res)
+    del eager, chunk
+    return res
+
+
+def routed_check(run: Run) -> dict:
+    """Kaggle under exchange="routed" at cap_factor 2.0, the two largest
+    fused tables split two ways (hash_rows on by default there), Zipf(1.05)
+    ids: the drop fraction of a batch, the bytes a step by the JAX
+    package's count (`step_exchange_bytes`) and as the padded buckets carry
+    them (`RoutedPlan.step_bucket_bytes`) against the dense exchange's
+    count, one eager step's K1 launches a rank, then replays."""
+    mesh, dev, b = run.mesh, run.device, run.args.batch_size
+    cfg = kaggle_config(batch_size=b)
+    cfg.embedding_size = [min(v, run.args.vocab_cap) for v in cfg.embedding_size]
+    fused = [v for v in cfg.embedding_size if v > 8192]
+    big = sorted(range(len(fused)), key=lambda t: -fused[t])[:2]
+    plan = dlrm_hybrid_plan()
+    plan.exchange, plan.routed_cap_factor = "routed", 2.0
+    plan.table_split = [2 if t in big else 1 for t in range(len(fused))]
+    feeds, labels = random_batches(cfg, 4 * b, seed=SEED + 3, learnable=False, zipf=1.05)
+    batches = [({k: torch.as_tensor(v[j * b:(j + 1) * b]).to(dev) for k, v in feeds.items()},
+                torch.as_tensor(labels[j * b:(j + 1) * b]).to(dev)) for j in range(4)]
+    model = kaggle_model(run, cfg, "sgd", mesh, plan=plan)
+    lay = model._embedding_layout
+    drop = model.routed_drop_fraction({k: v[:b] for k, v in feeds.items()})
+    dense = pec.ShardedEmbeddingLayout(lay.vocab_sizes, lay.dim, lay.num_shards, lay.owner, split=lay.split,
+                                       packed_pool=lay.packed_pool)
+    row_update.launches = 0
+    loss = float(model.train_batch(*batches[0]))
+    launches = run.gather(row_update.launches)
+    rplan = prx.routed_plan(lay, b // mesh.size, 1, lay.routed_cap_factor)
+    res = {"split": plan.table_split, "hash_rows": lay.hash_rows, "cap_factor": lay.routed_cap_factor,
+           "drop_fraction": drop, "step_exchange_bytes_bf16": lay.step_exchange_bytes(b, dtype_bytes=2),
+           "c_max": rplan.c_max, "slot_caps": int(rplan.slot_cap.sum()),
+           "step_bucket_bytes_bf16": rplan.step_bucket_bytes(lay.dim, 2),
+           "dense_step_exchange_bytes_bf16": dense.step_exchange_bytes(b, dtype_bytes=2),
+           "eager_loss": loss, "row_update_launches_by_rank": launches}
+    run.check(lay.hash_rows and np.isfinite(loss) and all(x == (1 if run.cuda else 0) for x in launches),
+              "routed step", res)
+    del model
+    res["replays"] = replay_check(run, cfg, "sgd", batches, plan=plan)
+    del batches
+    if run.cuda:
+        torch.cuda.empty_cache()
+    return res
+
+
+def host_memory_gib() -> dict:
+    """This process's resident memory now (/proc/self/statm) and its peak
+    so far (getrusage's ru_maxrss, KiB on Linux)."""
+    import os
+    import resource
+
+    with open("/proc/self/statm") as f:
+        rss = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    return {"rss_gib": rss / 2**30, "peak_gib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20}
+
+
+def checkpoint_check(run: Run) -> dict:
+    """The sharded checkpoint round trip at kaggle's full width under Adam
+    (the pool and its m and v sharded): one step, save, restore into a
+    model of another seed, the state bit for bit and the next step's loss
+    within tests/test_sharding.py's rtol 1e-5, atol 1e-6, on every rank;
+    the files' bytes, the save's and the restore's seconds, each rank's
+    host memory before the save and its peak after the save and after the
+    restore, and rank 0's peak device memory in the save (the shards
+    gathered there)."""
+    import shutil
+
+    from ..training.checkpoint import restore_checkpoint, save_checkpoint
+
+    mesh, dev, b = run.mesh, run.device, run.args.batch_size
+    cfg = kaggle_config(batch_size=b)
+    cfg.embedding_size = [min(v, run.args.vocab_cap) for v in cfg.embedding_size]
+    feeds, labels = random_batches(cfg, b, seed=SEED + 4, learnable=False)
+    batch = ({k: torch.as_tensor(v).to(dev) for k, v in feeds.items()}, torch.as_tensor(labels).to(dev))
+    path = Path("build") / "mesh_smoke_checkpoint"
+    first = kaggle_model(run, cfg, "adam", mesh)
+    first.train_batch(*batch)
+    resumed = kaggle_model(run, cfg, "adam", mesh, seed=SEED + 1)
+    differed = bool(state_diff(first, resumed))
+    host = {"before_save": host_memory_gib()}
+    if run.cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    save_checkpoint(str(path), first)
+    save_s = time.perf_counter() - t0
+    host["after_save"] = host_memory_gib()
+    save_device = (torch.cuda.max_memory_allocated() - base) / 2**30 if run.cuda else "not measured (CPU)"
+    t0 = time.perf_counter()
+    manifest = restore_checkpoint(str(path), resumed)
+    restore_s = time.perf_counter() - t0
+    host["after_restore"] = host_memory_gib()
+    after = sorted(state_diff(first, resumed))
+    l1, l2 = float(first.train_batch(*batch)), float(resumed.train_batch(*batch))
+    mine = {"rank": mesh.rank, "differed_before": differed, "differing_after_restore": after,
+            "loss_saved_model": l1, "loss_restored": l2, "step": manifest["step"], "restore_s": restore_s,
+            "host_memory": host, "save_device_peak_gib_above_before": save_device}
+    res = {"vocabs": [v for v in cfg.embedding_size if v > 8192],
+           "pool_dtype": str(first.get_parameters()[first._op("embedding_collection").name]["pool"].dtype),
+           "file_bytes": {f.name: f.stat().st_size for f in sorted(path.iterdir())} if mesh.rank == 0 else None,
+           "save_s": save_s, "by_rank": run.gather(mine)}
+    dist.barrier()
+    if mesh.rank == 0:
+        shutil.rmtree(path, ignore_errors=True)
+    run.check(all(r["differed_before"] and not r["differing_after_restore"] and r["step"] == 1
+                  and abs(r["loss_restored"] - r["loss_saved_model"]) <= 1e-6 + 1e-5 * abs(r["loss_saved_model"])
+                  for r in res["by_rank"]), "checkpoint round trip", res)
+    del first, resumed
+    if run.cuda:
+        torch.cuda.empty_cache()
     return res
 
 
@@ -343,6 +573,8 @@ def main(argv=None) -> None:
             run.log("[mesh-exchange]", exchange_check(run, vocabs, hierarchical))
         for rule in ("sgd", "adam"):
             run.log("[mesh-train]", train_check(run, rule))
+        run.log("[mesh-routed]", routed_check(run))
+        run.log("[mesh-checkpoint]", checkpoint_check(run))
         run.log("[mesh-mlperf-lite]", mlperf_lite_check(run))
         run.log("", {"ok": True, "devices": mesh.size, "device": str(mesh.device.type)})
     finally:

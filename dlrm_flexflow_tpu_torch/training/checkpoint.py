@@ -14,6 +14,17 @@ is written in the layout the port keeps on each route: {"m", "v"} pools on
 the row-update kernel route, one stacked [2, V, D] array on the scatter
 route, as the JAX package keeps its packed and scatter tables.
 
+A model sharded over a mesh (a data axis above 1) holds one shard of the
+fused collection's pool and of its sparse optimizer state a rank. Saving
+is collective: every rank sends its shard of each such tensor to rank 0
+(`torch.distributed.gather`), which writes them stacked shard-leading,
+[N, *shard shape] (the pool as [N, R_pad, D], the shape `get_weights`
+gives it and the JAX package's unpacked pool has), with the replicated
+rest as one device would; then every rank waits at a barrier for the
+files. Restoring is collective too: every rank reads the files and keeps
+its own shard (the JAX package leaves a restored optimizer state
+unsharded, training/checkpoint.py:128; the values are the same).
+
 `restore_checkpoint` writes into the compiled model's own tensors (in
 place), so a train step captured in a CUDA graph (`FFModel.train_chunk`)
 stays valid; it needs the same keys and shapes as the model has, and a
@@ -30,8 +41,10 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..convert import to_torch, unpack_like
+from ..ops.embedding_collection_op import EmbeddingCollection
 
 
 def _flatten(tree, prefix=""):
@@ -84,23 +97,61 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
     return to_torch(arr)
 
 
-def _refuse_sharded(model) -> None:
-    """Each rank of a mesh holds a shard of the fused tables and their
-    optimizer state: a checkpoint would hold one shard. Sharded checkpoints
-    (with the JAX package's unsharded restore of the optimizer state) are a
-    later slice of the port."""
-    if model._data_mesh is not None:
-        raise NotImplementedError("checkpoints of a model sharded over a mesh are ROADMAP.md Queue 1 "
-                                  "item 7, a later slice of the port")
+def _sharded_collection(model) -> Optional[EmbeddingCollection]:
+    """The fused collection when it is sharded over the model's mesh."""
+    return next((op for op in model.graph.compute_ops if isinstance(op, EmbeddingCollection) and op.sharded),
+                None)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return None if tree is None else fn(tree)
+
+
+def _gather_shards(t: torch.Tensor, rank: int, size: int) -> Optional[torch.Tensor]:
+    """[N, *t.shape] on rank 0 (None elsewhere): every rank's t. A bf16
+    tensor travels as its bits viewed as f16, a type both NCCL and gloo
+    move (a gather copies bytes, so no value changes)."""
+    bits = t.detach().contiguous()
+    wire = bits.view(torch.float16) if bits.dtype == torch.bfloat16 else bits
+    parts = [torch.empty_like(wire) for _ in range(size)] if rank == 0 else None
+    dist.gather(wire, parts, dst=0)
+    if rank != 0:
+        return None
+    out = torch.stack(parts)
+    return out.view(torch.bfloat16) if bits.dtype == torch.bfloat16 else out
+
+
+def _own_shard(a: np.ndarray, coll: EmbeddingCollection, size: int) -> np.ndarray:
+    """This rank's [*shard shape] of a stacked [N, *shard shape] array."""
+    if a.ndim == 0 or a.shape[0] != size:
+        raise ValueError(f"restore_checkpoint: {coll.name} holds an array of shape {a.shape}, not one "
+                         f"shard for each of the mesh's {size} ranks")
+    return a[coll.shard]
 
 
 def save_checkpoint(path: str, model, extra: Optional[Dict[str, Any]] = None) -> None:
     """Write train state: params, optimizer state, step counter, metrics.
-    NotImplementedError for a model sharded over a mesh (`_refuse_sharded`)."""
-    _refuse_sharded(model)
+    Under a mesh every rank calls it (the shards gather to rank 0, which
+    writes) and it returns once the files are written."""
+    params, opt = model.get_parameters(), model._opt_state
+    coll = _sharded_collection(model)
+    if coll is not None:
+        rank, size = model.mesh.rank, model.mesh.size
+        params = {**params, coll.name: _map(lambda t: _gather_shards(t, rank, size), params[coll.name])}
+        opt = {**opt, "sparse": {**opt["sparse"], coll.name: _map(lambda t: _gather_shards(t, rank, size),
+                                                                   opt["sparse"][coll.name])}}
+    if coll is None or model.mesh.rank == 0:
+        _write(path, model, params, opt, extra)
+    if coll is not None:
+        dist.barrier()  # every rank returns once the files are there
+
+
+def _write(path: str, model, params, opt, extra) -> None:
     os.makedirs(path, exist_ok=True)
-    np.savez(os.path.join(path, "params.npz"), **_flatten(model.get_parameters()))
-    np.savez(os.path.join(path, "opt_state.npz"), **_flatten(model._opt_state))
+    np.savez(os.path.join(path, "params.npz"), **_flatten(params))
+    np.savez(os.path.join(path, "opt_state.npz"), **_flatten(opt))
     np.savez(os.path.join(path, "metrics.npz"), **_flatten(model._metrics_total))
     ht = model._host_tail
     if ht is not None and ht.entries:
@@ -168,9 +219,9 @@ def restore_checkpoint(path: str, model) -> Dict[str, Any]:
     """Restore state saved by save_checkpoint (by either package) into a
     compiled model, in place, the host-tail stores included. Shapes must
     match (same model/config); ValueError otherwise, and for a checkpoint
-    with host-tail stores into a model without them. Returns the
-    manifest."""
-    _refuse_sharded(model)
+    with host-tail stores into a model without them. Under a mesh every
+    rank reads the files and keeps its shard of the sharded collection's
+    arrays. Returns the manifest."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     ht = model._host_tail
@@ -183,6 +234,12 @@ def restore_checkpoint(path: str, model) -> Dict[str, Any]:
             return _unflatten({k: z[k] for k in z.files})
 
     params, opt, totals = (load_npz(n) for n in ("params.npz", "opt_state.npz", "metrics.npz"))
+    coll = _sharded_collection(model)
+    if coll is not None:
+        params[coll.name] = _map(lambda a: _own_shard(a, coll, model.mesh.size), params.get(coll.name, {}))
+        if isinstance(opt, dict) and isinstance(opt.get("sparse"), dict) and coll.name in opt["sparse"]:
+            opt["sparse"][coll.name] = _map(lambda a: _own_shard(a, coll, model.mesh.size),
+                                            opt["sparse"][coll.name])
     midband = {op.name for op in model.graph.compute_ops if getattr(op, "onehot_packed", False)}
     layout = {op: {k: shape for k, (shape, _) in sub.items()} for op, sub in model._layout.items()}
     params = _unpack_midband(params, layout, midband)

@@ -87,6 +87,21 @@ def apply_sparse_updates(
     return new_sstates
 
 
+_RATES: Dict[tuple, torch.Tensor] = {}
+
+
+def _device_rate(lr, device) -> torch.Tensor:
+    """`lr` as a 0-d f32 tensor on `device`; a host number becomes a
+    tensor made once a (device, value) and kept, so that a step captured
+    in a CUDA graph copies nothing from the host."""
+    if isinstance(lr, torch.Tensor):
+        return torch.as_tensor(lr, dtype=torch.float32, device=device)
+    key = (str(torch.device(device)), float(lr))
+    if key not in _RATES:
+        _RATES[key] = torch.tensor(float(lr), dtype=torch.float32, device=device)
+    return _RATES[key]
+
+
 @torch.no_grad()
 def kernel_route_update(opt, tables, states, rows_l, payloads, lr=None, routes=None) -> None:
     """One group of tables (equal K and D) through the row-update kernel's
@@ -97,7 +112,7 @@ def kernel_route_update(opt, tables, states, rows_l, payloads, lr=None, routes=N
     sharded collection on the kernel route (parallel/embedding_collection.py)."""
     device = tables[0].device
     base = opt.alpha if isinstance(opt, AdamOptimizer) else getattr(opt, "lr", None)
-    rate = torch.as_tensor(base if lr is None else lr, dtype=torch.float32, device=device)
+    rate = _device_rate(base if lr is None else lr, device)
     if isinstance(opt, AdamOptimizer):
         row_update_adam(tables, [s["m"] for s in states], [s["v"] for s in states], rows_l,
                         payloads, rate, opt.beta1, opt.beta2, opt.epsilon, opt.weight_decay, routes)

@@ -15,9 +15,12 @@ Adam and row-wise AdaGrad (the JAX side on its packed pool, the packed
 update kernels interpreted; the port on the kernel route, whose wrappers
 take their plain versions on the CPU), 3 steps of the small hybrid DLRM of
 `__graft_entry__.py` (flat and hierarchical with splits) and `predict`;
-then the replicated parameters after `compile`, the refusals, the
-launcher, `bench --mesh` and the workers' import boundary. The data axis of
-1 runs in this process, in a gloo world of one.
+then the replicated parameters after `compile`, the refusals, `train_chunk`
+and `fit(steps_per_call=2)` under the mesh, the routed exchange (lookup and
+update against the JAX package's and the dense exchange, a routed DLRM),
+sharded checkpoints, the launcher, `bench --mesh` and the workers' import
+boundary. The data axis of 1 runs in this process, in a gloo world of one
+(with int8 serving of a fused collection against the JAX package's).
 
 Tolerances. The lookups gather and sum the same f32 rows: the JAX package
 sums a bag in another order (rtol 1e-5, atol 1e-6). The row updates: both
@@ -60,6 +63,7 @@ from dlrm_flexflow_tpu.data import synthetic as ref_synthetic
 from dlrm_flexflow_tpu.models import dlrm as ref_dlrm
 from dlrm_flexflow_tpu.ops.embedding_collection_op import EmbeddingCollection as RefCollection
 from dlrm_flexflow_tpu.parallel import embedding_collection as ref_ec
+from dlrm_flexflow_tpu.parallel import routed_exchange as ref_rx
 from dlrm_flexflow_tpu.parallel.mesh import make_mesh as ref_make_mesh
 from dlrm_flexflow_tpu.parallel.plan import dlrm_hybrid_plan as ref_hybrid_plan
 
@@ -108,6 +112,7 @@ from dlrm_flexflow_tpu_torch.models import dlrm as pdlrm
 from dlrm_flexflow_tpu_torch.parallel import embedding_collection as pec
 from dlrm_flexflow_tpu_torch.parallel.mesh import make_mesh
 from dlrm_flexflow_tpu_torch.parallel.plan import dlrm_hybrid_plan
+from dlrm_flexflow_tpu_torch.tools.state import state_diff
 mesh = make_mesh(device="cpu")
 assert (mesh.rank, mesh.size, str(mesh.device)) == (rank, world, "cpu")
 
@@ -458,27 +463,17 @@ def test_replicated_parameters_equal_on_every_rank(workers):
 
 
 def test_mesh_refusals(workers):
-    """Under a data axis of 4: train_chunk, fit(steps_per_call > 1),
-    checkpoints and int8 serving of the sharded collection raise, as does
-    a sparse table left outside the collection."""
+    """Under a data axis of 4: int8 serving of the sharded collection
+    raises ValueError (as in the JAX package), and a sparse table left
+    outside the collection NotImplementedError naming its ROADMAP item."""
     got = workers.run("""
-        import tempfile
-        from dlrm_flexflow_tpu_torch.training.checkpoint import save_checkpoint
         model = dlrm(args, ("SGDOptimizer", {"lr": 0.1}), {})
-        feeds = {"dense_features": np.zeros((32, 4), np.float32),
-                 **{f"sparse_{i}": np.zeros((32, 2), np.int64) for i in range(10)}}
-        labels = np.zeros((32, 1), np.float32)
         out = {}
-        for name, call in (
-                ("chunk", lambda: model.train_chunk({k: v[None] for k, v in feeds.items()}, labels[None])),
-                ("fit", lambda: model.fit(feeds, labels, epochs=1, steps_per_call=2, verbose=False)),
-                ("checkpoint", lambda: save_checkpoint(tempfile.mkdtemp(), model)),
-                ("int8", lambda: model.quantize_embeddings("int8"))):
-            try:
-                call()
-                out[name] = None
-            except (NotImplementedError, ValueError) as e:
-                out[name] = f"{type(e).__name__}: {e}"
+        try:
+            model.quantize_embeddings("int8")
+            out["int8"] = None
+        except ValueError as e:
+            out["int8"] = f"ValueError: {e}"
         mixed = dict(args, embedding_size=[64, 200, 48])
         mixed.update(mlp_top=[32, 16, 1])
         cfg = pdlrm.DLRMConfig(**mixed)
@@ -494,9 +489,334 @@ def test_mesh_refusals(workers):
     for r in got:
         assert r == got[0]
     r = got[0]
-    for name in ("chunk", "fit", "checkpoint", "unfused"):
-        assert r[name] and r[name].startswith("NotImplementedError") and "item 7" in r[name], (name, r[name])
+    assert r["unfused"] and r["unfused"].startswith("NotImplementedError") and "item 7" in r["unfused"], r
     assert r["int8"].startswith("ValueError") and "sharded" in r["int8"]
+
+
+# ------------------------------------------------------------------ the multi-step call under the mesh
+
+
+
+def test_train_chunk_under_the_mesh_matches_train_batch_and_jax(workers, jmesh):
+    """`train_chunk` of K = 3 on the global [3, B, ...] stacks under the
+    4-rank mesh (each rank slices axis 1, as the JAX package shards them
+    P(None, batch)). On the CPU a chunk is a loop of the eager steps, so
+    its losses, tables and optimizer pools are bit for bit those of 3
+    `train_batch` calls from the same weights, and so is `fit(
+    steps_per_call=2)` over the same 3 batches (a chunk of 2, then one of
+    1). Against the JAX package's mesh `train_chunk` (one scanned call)
+    from those weights: the last loss, the fused tables and the towers
+    within the bounds of test_hybrid_dlrm_trains_like_jax (f32 on both
+    sides, other summation orders)."""
+    cfg = ref_dlrm.DLRMConfig(**GRAFT)
+    bs = GRAFT["batch_size"]
+    feeds, labels = ref_synthetic.random_batches(cfg, bs * STEPS, seed=3)
+    m = ref_dlrm.make_dlrm_model(cfg, ref.FFConfig(batch_size=bs, compute_dtype="float32",
+                                                   onehot_embedding_threshold=0))
+    m.compile(getattr(ref, OPT[0])(**OPT[1]), ref.LossType.LOSS_BINARY_CROSSENTROPY,
+              [ref.MetricsType.METRICS_ACCURACY], mesh=jmesh, plan=ref_hybrid_plan())
+    weights = {op: m.get_weights(op) for op in m.get_parameters()}
+    stacks = {k: v.reshape((STEPS, bs) + v.shape[1:]) for k, v in feeds.items()}
+    slabels = labels.reshape((STEPS, bs) + labels.shape[1:])
+    jloss = float(m.train_chunk(stacks, slabels))
+    got = workers.run("""
+        models = []
+        for _ in range(3):
+            model = dlrm(args["cfg"], args["opt"], {})
+            model.set_parameters(params_from_jax(args["weights"], like=model.get_parameters(), shard=rank))
+            models.append(model)
+        eager, chunk, fitted = models
+        losses = [float(eager.train_batch({k: v[i] for k, v in args["stacks"].items()}, args["labels"][i]))
+                  for i in range(len(args["labels"]))]
+        last = float(chunk.train_chunk(args["stacks"], args["labels"]))
+        fitted.fit(args["feeds"], args["flat_labels"], epochs=1, steps_per_call=2, verbose=False)
+        coll = chunk._op("embedding_collection")
+        result = {"losses": losses, "last": last, "chunk_equal": not state_diff(eager, chunk),
+                  "fit_equal": not state_diff(eager, fitted),
+                  "steps": [x._step_count for x in models],
+                  "tables": {n: chunk.get_weights(n)["weight"] for n in coll.table_names},
+                  "dense": {n: chunk.get_weights(n) for n in chunk.get_parameters() if n != coll.name}}
+    """, {"cfg": GRAFT, "opt": OPT, "weights": weights, "stacks": stacks, "labels": slabels,
+          "feeds": feeds, "flat_labels": labels})
+    lay = m._embedding_layout
+    pool = m.get_weights("embedding_collection")["pool"]
+    for r in got:
+        assert r["chunk_equal"] and r["fit_equal"] and r["steps"] == [STEPS] * 3
+        assert r["last"] == r["losses"][-1] == got[0]["last"]
+        np.testing.assert_allclose(r["last"], jloss, rtol=1e-5, atol=1e-6)
+        for t, name in enumerate(sorted(r["tables"], key=lambda n: int(n.split("_")[1]))):
+            _close(r["tables"][name], lay.extract_table(pool, t), 1e-4, 1e-5)
+        for name, sub in r["dense"].items():
+            for k, w in sub.items():
+                _close(w, m.get_weights(name)[k], 1e-4, 1e-5)
+
+
+# ------------------------------------------------------------------ the routed exchange
+
+ROUTED_VOCABS = [300, 1000, 50, 120, 700, 90]
+# name -> (split, H, cap_factor, hash_rows, ids); B = 64 global (16 a rank)
+ROUTED = {
+    "exact": (None, 2, 0.0, False, "uniform"),
+    "exact-splits-oov": ([2, 4, 1, 1, 3, 1], 2, 0.0, False, "oov"),
+    "exact-hashed-splits": ([2, 4, 1, 1, 3, 1], 1, 0.0, True, "uniform"),
+    "cap2-splits-skew": ([2, 4, 1, 1, 3, 1], 2, 2.0, False, "skew"),
+    "cap2-hashed-splits-zipf": ([2, 4, 1, 1, 3, 1], 1, 2.0, True, "zipf"),
+}
+
+
+def _routed_layout(split, cap, hashed, packed=False):
+    plan = ref_hybrid_plan()
+    plan.table_split, plan.exchange, plan.routed_cap_factor, plan.hash_rows = split, "routed", cap, hashed
+    lay = plan.make_layout(ROUTED_VOCABS, 8, N)
+    if packed:  # small chunks keep r_pad (and the interpreted kernel) small
+        lay = ref_ec.ShardedEmbeddingLayout(ROUTED_VOCABS, 8, N, lay.owner, split=split, exchange="routed",
+                                            routed_cap_factor=cap, hash_rows=hashed, packed_pool=True,
+                                            pool_chunk_packs=16)
+    assert lay.exchange == "routed" and lay.hash_rows == hashed
+    return lay
+
+
+def _routed_indices(h, ids, seed, b=64):
+    rng = np.random.default_rng(seed)
+    cols = []
+    for v in ROUTED_VOCABS:
+        if ids == "skew":  # the first quarter of the rows: more unique rows than a split slot holds
+            x = rng.integers(0, v // 4, size=(b, h))
+        elif ids == "zipf":
+            x = np.minimum(rng.zipf(1.05, size=(b, h)) - 1, v - 1)
+        else:
+            x = rng.integers(0, v, size=(b, h))
+        if ids == "oov":  # past the vocab and below -1: both drop, as in the dense exchange
+            r = rng.random((b, h))
+            x = np.where(r > 0.85, x + v, np.where(r < 0.05, -2, x))
+        x[rng.random((b, h)) < 0.1] = -1
+        cols.append(x)
+    idx = np.stack(cols, axis=1).astype(np.int32)
+    idx[20:24] = idx[16:20]  # whole examples repeated inside one rank's slice
+    return idx
+
+
+def _routed_args(lay):
+    return dict(_layout_args(lay), exchange="routed", routed_cap_factor=lay.routed_cap_factor,
+                hash_rows=lay.hash_rows)
+
+
+@pytest.mark.parametrize("case", list(ROUTED))
+def test_routed_lookup_matches_jax_and_the_dense_exchange(workers, jmesh, case):
+    """`routed_embedding_lookup` on 4 ranks against the JAX package's at
+    the same cap factor: the same entries drop (an entry's output is its
+    row or nothing, so a different drop would miss by a whole row), the
+    rest within the bag sum's other order (rtol 1e-5, atol 1e-6). In exact
+    mode (cap 0) it equals the port's dense exchange bit for bit: both
+    gather the same f32 rows and add a bag's two members once."""
+    split, h, cap, hashed, ids = ROUTED[case]
+    lay = _routed_layout(split, cap, hashed)
+    pool = np.asarray(lay.init_params(jax.random.PRNGKey(4), RefGlorot()))
+    idx = _routed_indices(h, ids, seed=len(case))
+    lookup = jax.jit(lambda p, i: ref_rx.routed_embedding_lookup(lay, p, i, jmesh, cap_factor=cap))
+    want = np.asarray(lookup(jnp.asarray(pool), jnp.asarray(idx)))
+    got = workers.run("""
+        from dlrm_flexflow_tpu_torch.parallel import routed_exchange as prx
+        lay = pec.ShardedEmbeddingLayout(**args["layout"])
+        p, i = torch.from_numpy(args["pool"][rank]), torch.from_numpy(local(args["idx"]))
+        out = prx.routed_embedding_lookup(lay, p, i, mesh, cap_factor=args["cap"])
+        dense = pec.sharded_embedding_lookup(lay, p, i, mesh)
+        result = (out.numpy(), bool(torch.equal(out, dense)))
+    """, {"layout": _routed_args(lay), "pool": pool, "idx": idx, "cap": cap})
+    _close(np.concatenate([o for o, _ in got]), want, 1e-5, 1e-6)
+    if cap == 0.0:
+        assert all(eq for _, eq in got)
+    if ids == "skew":
+        assert ref_rx.routed_drop_stats(lay, idx, cap_factor=cap)[0] > 0  # the case drops lookups
+
+
+# name -> (optimizer, kwargs, ROUTED case, the kernel route)
+ROUTED_UPDATES = {
+    "sgd-scatter-cap2-skew": ("SGDOptimizer", dict(lr=0.1), "cap2-splits-skew", False),
+    "sgd-kernel-exact-oov": ("SGDOptimizer", dict(lr=0.1), "exact-splits-oov", True),
+    "adagrad-kernel-cap2-zipf": ("RowWiseAdagradOptimizer", dict(lr=0.1), "cap2-hashed-splits-zipf", True),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTED_UPDATES))
+def test_routed_update_matches_jax_and_the_dense_exchange(workers, jmesh, case):
+    """`routed_embedding_sparse_update` on 4 ranks against the JAX
+    package's, the slot state carried over two steps: on the scatter route
+    and on the kernel route (the JAX package's packed pool, its kernel
+    interpreted; the port's row-update kernel's plain version). A rank's
+    duplicate rows' gradients are summed before the exchange: by a
+    cumulative-sum difference in the JAX package, by a segmented scan in
+    the port. Both sum a table's M = B_loc * H <= 32 entries a rank in f32,
+    within 2 M 2^-24 sum|g| (about 2.4e-5 for 32 N(0, 1) gradients) of each
+    other before the rate (0.1) scales them, so on the scatter route the
+    pools agree within rtol 1e-5 and atol 1e-5. The kernel route rounds
+    each (pre-summed) stream entry -lr * g to bf16, so where the two f32
+    sums straddle a bf16 rounding boundary the results part by one bf16
+    step of that entry: within 2^-8 lr sum|g| over the row's entries, a
+    step; the pools are held within that bound, summed over the steps,
+    and almost all entries (99.9%) within rtol 1e-5, atol 1e-5 (AdaGrad's
+    reciprocal square roots add an ulp: rtol 1e-4, as its dense-exchange
+    case holds it). The same bound holds the exact mode's update against
+    the port's dense exchange, which rounds each duplicate's entry to bf16
+    apart and sums them at the owner (there every row a rank repeats
+    differs, so no share within rtol is asked)."""
+    name, kw, rcase, packed = ROUTED_UPDATES[case]
+    split, h, cap, hashed, ids = ROUTED[rcase]
+    rtol, atol = (1e-4, 1e-5) if name == "RowWiseAdagradOptimizer" else (1e-5, 1e-5)
+    lay = _routed_layout(split, cap, hashed, packed=packed)
+    opt = getattr(ref, name)(**kw)
+    pool = lay.init_params(jax.random.PRNGKey(5), RefGlorot())
+    st = RefCollection.sparse_state_init(types.SimpleNamespace(layout=lay), opt)
+    rng = np.random.default_rng(6)
+    steps = [(_routed_indices(h, ids, seed=20 + i), rng.standard_normal((64, len(ROUTED_VOCABS), 8))
+              .astype(np.float32)) for i in range(2)]
+    pool0 = np.asarray(pool).reshape(N, lay.r_pad, 8)
+    update = jax.jit(lambda p, s, i, g: ref_rx.routed_embedding_sparse_update(lay, p, s, i, g, jmesh, opt,
+                                                                              cap_factor=cap))
+    for idx, g in steps:
+        pool, st = update(pool, st, jnp.asarray(idx), jnp.asarray(g))
+    got = workers.run("""
+        from dlrm_flexflow_tpu_torch.parallel import routed_exchange as prx
+        lay = pec.ShardedEmbeddingLayout(**args["layout"])
+        opt = getattr(port, args["opt"])(**args["kw"])
+        pools, states = [], []
+        for routed in (True, False):
+            pool = torch.from_numpy(args["pool"][rank].copy())
+            st = opt.sparse_init((lay.r_pad, lay.dim), "cpu")
+            for idx, g in args["steps"]:
+                i, gg = torch.from_numpy(local(idx)), torch.from_numpy(local(g))
+                if routed:
+                    st = prx.routed_embedding_sparse_update(lay, pool, st, i, gg, mesh, opt, cap_factor=args["cap"])
+                else:
+                    st = pec.sharded_embedding_sparse_update(lay, pool, st, i, gg, mesh, opt)
+            pools.append(pool.numpy())
+            states.append(state_np(st))
+        result = (pools, states)
+    """, {"layout": _routed_args(lay), "opt": name, "kw": kw, "pool": pool0, "steps": steps, "cap": cap})
+    want = np.asarray(pool).reshape(N, lay.r_pad, 8)
+    routed = np.stack([p[0] for p, _ in got])
+    assert not np.array_equal(want, pool0)
+    # a step's largest sum |g| over one row's entries (every rank's)
+    row_abs = 0.0
+    for idx, g in steps:
+        for t, v in enumerate(ROUTED_VOCABS):
+            for r in np.unique(idx[:, t][(idx[:, t] >= 0) & (idx[:, t] < v)]):
+                hits = (idx[:, t] == r).sum(axis=1)
+                row_abs = max(row_abs, float((hits[:, None] * np.abs(g[:, t])).sum(axis=0).max()))
+    bound = len(steps) * 2.0**-8 * kw["lr"] * row_abs + atol
+
+    def held(a, b, share):
+        if not packed:
+            return _close(a, b, rtol, atol)
+        err = np.abs(a - b)
+        assert err.max() <= bound and np.mean(err <= rtol * np.abs(b) + atol) >= share, (err.max(), bound)
+
+    held(routed, want, 0.999)
+    if st is not None:
+        _close(np.stack([s[0] for _, s in got]), _ref_state(st, lay, name == "RowWiseAdagradOptimizer"), rtol, atol)
+    if cap == 0.0:  # each duplicate rounded apart: no share holds, the bound does
+        held(routed, np.stack([p[1] for p, _ in got]), 0.0)
+
+
+def test_routed_dlrm_trains_like_jax(workers, jmesh):
+    """3 Adam steps of the graft DLRM with plan.exchange="routed" at cap
+    2.0 with splits (hash_rows on by default there): the port's losses,
+    tables and towers against the JAX package's as the dense exchange's
+    are held (test_hybrid_dlrm_trains_like_jax), the per-batch
+    `routed_drop_fraction` equal to the JAX package's, and the step's
+    exchange bytes (`step_exchange_bytes`) too."""
+    cfg = ref_dlrm.DLRMConfig(**GRAFT)
+    bs = GRAFT["batch_size"]
+    feeds, labels = ref_synthetic.random_batches(cfg, bs * STEPS, seed=8)
+    plan_kw = {"exchange": "routed", "routed_cap_factor": 2.0, "table_split": [1, 2, 1, 1, 4, 1, 1, 2, 1, 4]}
+    m = ref_dlrm.make_dlrm_model(cfg, ref.FFConfig(batch_size=bs, compute_dtype="float32",
+                                                   onehot_embedding_threshold=0))
+    plan = ref_hybrid_plan()
+    for k, v in plan_kw.items():
+        setattr(plan, k, v)
+    m.compile(getattr(ref, OPT[0])(**OPT[1]), ref.LossType.LOSS_BINARY_CROSSENTROPY,
+              [ref.MetricsType.METRICS_ACCURACY], mesh=jmesh, plan=plan)
+    assert m._embedding_layout.hash_rows
+    weights = {op: m.get_weights(op) for op in m.get_parameters()}
+    batches = [({k: v[i * bs:(i + 1) * bs] for k, v in feeds.items()}, labels[i * bs:(i + 1) * bs])
+               for i in range(STEPS)]
+    drops = [m.routed_drop_fraction(f) for f, _ in batches]
+    losses = [float(m.train_batch(f, lbl)) for f, lbl in batches]
+    got = workers.run("""
+        model = dlrm(args["cfg"], args["opt"], args["plan"])
+        model.set_parameters(params_from_jax(args["weights"], like=model.get_parameters(), shard=rank))
+        coll = model._op("embedding_collection")
+        drops = [model.routed_drop_fraction(f) for f, _ in args["batches"]]
+        losses = [float(model.train_batch(f, l)) for f, l in args["batches"]]
+        result = {"drops": drops, "losses": losses, "layout": (coll.layout.exchange, coll.layout.hash_rows),
+                  "bytes": coll.layout.step_exchange_bytes(64, 2, 2),
+                  "tables": {n: model.get_weights(n)["weight"] for n in coll.table_names},
+                  "dense": {n: model.get_weights(n) for n in model.get_parameters() if n != coll.name}}
+    """, {"cfg": GRAFT, "opt": OPT, "plan": plan_kw, "weights": weights, "batches": batches})
+    lay = m._embedding_layout
+    pool = m.get_weights("embedding_collection")["pool"]
+    for r in got:
+        assert r["layout"] == ("routed", True) and r["drops"] == drops
+        assert r["bytes"] == lay.step_exchange_bytes(64, 2, 2)
+        np.testing.assert_allclose(r["losses"], losses, rtol=1e-5, atol=1e-6)
+        for t, name in enumerate(sorted(r["tables"], key=lambda n: int(n.split("_")[1]))):
+            _close(r["tables"][name], lay.extract_table(pool, t), 1e-4, 1e-5)
+        for name, sub in r["dense"].items():
+            for k, w in sub.items():
+                _close(w, m.get_weights(name)[k], 1e-4, 1e-5)
+
+
+# ------------------------------------------------------------------ sharded checkpoints
+
+
+@pytest.mark.parametrize("opt", [("SGDOptimizer", {"lr": 0.1}), ("AdamOptimizer", {"alpha": 0.01})])
+def test_sharded_checkpoint_roundtrip(workers, tmp_path, opt):
+    """tests/test_sharding.py::test_sharded_checkpoint_roundtrip on 4 ranks:
+    a model sharded over the mesh is saved after a step (the shards of the
+    pool and of its sparse optimizer state gathered to rank 0, stacked
+    [N, ...]), restored into a model built from another seed, and its next
+    step's loss equals the saved model's within the reference test's
+    rtol 1e-5, atol 1e-6; every rank then holds the saved model's state
+    bit for bit."""
+    got = workers.run("""
+        import json
+        from dlrm_flexflow_tpu_torch.training.checkpoint import restore_checkpoint, save_checkpoint
+        cfg = pdlrm.DLRMConfig(**args["cfg"])
+        def build(seed):
+            m = pdlrm.make_dlrm_model(cfg, port.FFConfig(batch_size=cfg.batch_size, compute_dtype="float32",
+                                                         onehot_embedding_threshold=0, seed=seed), device="cpu")
+            m.compile(getattr(port, args["opt"][0])(**args["opt"][1]), port.LossType.LOSS_BINARY_CROSSENTROPY,
+                      [port.MetricsType.METRICS_ACCURACY], mesh=mesh, plan=dlrm_hybrid_plan())
+            return m
+        feeds, labels = args["batch"]
+        m1 = build(5)
+        m1.train_batch(feeds, labels)
+        save_checkpoint(args["path"], m1)
+        m2 = build(6)
+        before = not state_diff(m1, m2)
+        manifest = restore_checkpoint(args["path"], m2)
+        restored = not state_diff(m1, m2)
+        with np.load(args["path"] + "/params.npz") as z:
+            pool_shape = z["embedding_collection/pool"].shape
+        l1, l2 = float(m1.train_batch(feeds, labels)), float(m2.train_batch(feeds, labels))
+        coll = m1._op("embedding_collection")
+        from dlrm_flexflow_tpu_torch.training.checkpoint import _gather_shards
+        shard = (torch.arange(6, dtype=torch.float32).reshape(2, 3) / 7 + rank).to(torch.bfloat16)
+        gathered = _gather_shards(shard, rank, world)  # a bf16 pool's shards, as f16 bits on the wire
+        bf16_gather = (gathered is None if rank else
+                       gathered.dtype == torch.bfloat16 and torch.equal(
+                           gathered, torch.stack([(torch.arange(6.0).reshape(2, 3) / 7 + r).to(torch.bfloat16)
+                                                  for r in range(world)])))
+        result = {"before": before, "restored": restored, "l1": l1, "l2": l2, "step": manifest["step"],
+                  "bf16_gather": bf16_gather,
+                  "pool_shape": pool_shape, "want_shape": (world, coll.layout.r_pad, coll.layout.dim),
+                  "after": not state_diff(m1, m2)}
+    """, {"cfg": GRAFT, "opt": opt, "path": str(tmp_path / "ck"),
+          "batch": ref_synthetic.random_batches(ref_dlrm.DLRMConfig(**GRAFT), GRAFT["batch_size"], seed=6)})
+    for r in got:
+        assert not r["before"] and r["restored"] and r["after"] and r["step"] == 1 and r["bf16_gather"]
+        assert tuple(r["pool_shape"]) == r["want_shape"]
+        np.testing.assert_allclose(r["l2"], r["l1"], rtol=1e-5, atol=1e-6)
 
 
 # ------------------------------------------------------------------ a data axis of 1, in this process
@@ -557,7 +877,7 @@ def test_data_axis_of_one_is_the_flat_collection_off_the_kernel_route(world_of_o
     np.testing.assert_array_equal(mesh_model.predict(feeds), fused.predict(feeds))
 
 
-@pytest.mark.parametrize("what", ["search", "host-tail", "routed", "param-specs", "parameter-parallel"])
+@pytest.mark.parametrize("what", ["search", "host-tail", "param-specs", "parameter-parallel"])
 def test_mesh_compile_refuses_later_slices(world_of_one, what):
     from dlrm_flexflow_tpu_torch.parallel.plan import OpShardSpec
 
@@ -566,8 +886,6 @@ def test_mesh_compile_refuses_later_slices(world_of_one, what):
         ffkw, item = {"search_budget": 10}, "item 10"
     elif what == "host-tail":
         ffkw = {"host_tail_threshold": 100}
-    elif what == "routed":
-        plan_kw = {"exchange": "routed"}
     elif what == "param-specs":
         plan_kw = {"op_specs": {"bot_mlp_0": OpShardSpec(param_specs={"kernel": ["model", None]})}}
     else:
@@ -576,11 +894,102 @@ def test_mesh_compile_refuses_later_slices(world_of_one, what):
         _port_model(world_of_one, plan_kw, **ffkw)
 
 
-def test_flat_collection_int8_is_a_later_slice():
-    m = _port_model(None, fuse_embeddings=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        m.quantize_embeddings("int8")
-    assert m.quantize_embeddings("bfloat16") >= 1
+INT8 = dict(sparse_feature_size=16, embedding_size=[500, 300, 800], embedding_bag_size=2, mlp_bot=[4, 16, 16],
+            mlp_top=[64, 16, 1], batch_size=64)
+
+
+def _int8_port_model(mesh=None):
+    import dlrm_flexflow_tpu_torch as port
+    from dlrm_flexflow_tpu_torch.models import dlrm as pdlrm
+    from dlrm_flexflow_tpu_torch.parallel.plan import dlrm_hybrid_plan
+
+    m = pdlrm.make_dlrm_model(pdlrm.DLRMConfig(**INT8), port.FFConfig(
+        batch_size=64, compute_dtype="float32", onehot_embedding_threshold=0, fuse_embeddings=mesh is None),
+        device="cpu")
+    m.compile(port.SGDOptimizer(lr=0.1), port.LossType.LOSS_BINARY_CROSSENTROPY,
+              [port.MetricsType.METRICS_ACCURACY], mesh=mesh, plan=dlrm_hybrid_plan() if mesh is not None else None)
+    return m
+
+
+def test_int8_serving_of_a_fused_collection_matches_jax():
+    """tests/test_training.py::test_quantize_embeddings_int8_fused_collection
+    against the port: the flat [N * R_pad, D] pool of a fused collection on
+    one device quantizes to `pool_q` and `pool_scale` (one array), equal
+    to the JAX package's bit for bit (f32 pool, the scale computed in f32
+    on both sides); the int8 forward is within the JAX test's atol 0.08 of
+    the f32 one and within rtol 1e-5, atol 1e-6 of the JAX package's int8
+    forward (the same dequantized rows, other f32 summation orders); the
+    quantized model refuses to train."""
+    cfg = ref_dlrm.DLRMConfig(**INT8)
+    jm = ref_dlrm.make_dlrm_model(cfg, ref.FFConfig(batch_size=64, compute_dtype="float32",
+                                                    onehot_embedding_threshold=0, fuse_embeddings=True))
+    jm.compile(ref.SGDOptimizer(lr=0.1), ref.LossType.LOSS_BINARY_CROSSENTROPY, [ref.MetricsType.METRICS_ACCURACY])
+    m = _int8_port_model()
+    from dlrm_flexflow_tpu_torch.convert import params_from_jax
+
+    m.set_parameters(params_from_jax({op: jm.get_weights(op) for op in jm.get_parameters()},
+                                     like=m.get_parameters()))
+    feeds, labels = ref_synthetic.random_batches(cfg, 64, seed=6)
+    y32 = m.predict(feeds)
+    assert jm.quantize_embeddings("int8") == m.quantize_embeddings("int8") == 1
+    sub, jsub = m.get_parameters()["embedding_collection"], jm._params["embedding_collection"]
+    assert set(sub) == {"pool_q", "pool_scale"}
+    np.testing.assert_array_equal(sub["pool_q"].numpy(), np.asarray(jsub["pool_q"]))
+    np.testing.assert_array_equal(sub["pool_scale"].numpy(), np.asarray(jsub["pool_scale"]))
+    y8 = m.predict(feeds)
+    np.testing.assert_allclose(y8, y32, atol=0.08)
+    np.testing.assert_allclose(y8, np.asarray(jm.predict(feeds)), rtol=1e-5, atol=1e-6)
+    with pytest.raises(RuntimeError, match="quantized"):
+        m.train_batch(feeds, labels)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_16bit_serving_of_a_fused_collection_matches_jax(dtype):
+    """quantize_embeddings("bfloat16"/"float16") of a fused collection on
+    one device casts its f32 pool, as the JAX package does: the cast pools
+    are equal bit for bit (both round to nearest even) and the forwards
+    within rtol 1e-5, atol 1e-6 of each other (the same 16-bit rows, other
+    f32 summation orders); the quantized model refuses to train."""
+    cfg = ref_dlrm.DLRMConfig(**INT8)
+    jm = ref_dlrm.make_dlrm_model(cfg, ref.FFConfig(batch_size=64, compute_dtype="float32",
+                                                    onehot_embedding_threshold=0, fuse_embeddings=True))
+    jm.compile(ref.SGDOptimizer(lr=0.1), ref.LossType.LOSS_BINARY_CROSSENTROPY, [ref.MetricsType.METRICS_ACCURACY])
+    m = _int8_port_model()
+    from dlrm_flexflow_tpu_torch.convert import params_from_jax
+
+    m.set_parameters(params_from_jax({op: jm.get_weights(op) for op in jm.get_parameters()},
+                                     like=m.get_parameters()))
+    feeds, labels = ref_synthetic.random_batches(cfg, 64, seed=6)
+    assert m.quantize_embeddings(dtype) == jm.quantize_embeddings(dtype) >= 1
+    pool, jpool = m.get_parameters()["embedding_collection"]["pool"], jm._params["embedding_collection"]["pool"]
+    assert str(pool.dtype) == f"torch.{dtype}" and str(jpool.dtype) == dtype
+    np.testing.assert_array_equal(pool.float().numpy(), np.asarray(jpool.astype(jnp.float32)).reshape(pool.shape))
+    np.testing.assert_allclose(m.predict(feeds), np.asarray(jm.predict(feeds)), rtol=1e-5, atol=1e-6)
+    with pytest.raises(RuntimeError, match="quantized"):
+        m.train_batch(feeds, labels)
+
+
+def test_int8_serving_at_a_data_axis_of_one(world_of_one):
+    """compile(mesh=) in a world of one makes the same flat collection:
+    its int8 forward equals the one-device fused model's bit for bit."""
+    a, b = _int8_port_model(world_of_one), _int8_port_model()
+    b.set_parameters({name: a.get_weights(name) for name in a.get_parameters()})
+    assert a.quantize_embeddings("int8") == b.quantize_embeddings("int8") == 1
+    feeds, _ = ref_synthetic.random_batches(ref_dlrm.DLRMConfig(**INT8), 100, seed=7)
+    np.testing.assert_array_equal(a.predict(feeds), b.predict(feeds))
+
+
+def test_routed_plan_at_a_data_axis_of_one_is_the_flat_collection(world_of_one):
+    """exchange="routed" in a world of one compiles to the flat collection
+    (no exchange), as the dense plan does: the two train bit for bit."""
+    routed = _port_model(world_of_one, {"exchange": "routed", "routed_cap_factor": 2.0})
+    dense = _port_model(world_of_one)
+    assert routed._embedding_layout.exchange == "routed" and routed._data_mesh is None
+    feeds, labels = ref_synthetic.random_batches(ref_dlrm.DLRMConfig(**GRAFT), 64, seed=4)
+    for i in range(2):
+        b = {k: v[i * 32:(i + 1) * 32] for k, v in feeds.items()}
+        assert float(routed.train_batch(b, labels[i * 32:(i + 1) * 32])) == float(
+            dense.train_batch(b, labels[i * 32:(i + 1) * 32]))
 
 
 # ------------------------------------------------------------------ the launcher and the bench
@@ -627,6 +1036,27 @@ def test_launcher_fails_when_a_rank_fails(tmp_path):
     assert res.returncode == 3, (res.returncode, res.stderr[-3000:])
     assert "local rank 1 exited with 3" in res.stderr
     assert not list(tmp_path.glob("out*.txt"))
+
+
+def test_launcher_port_is_free_on_every_address():
+    """The coordinator's port is probed on every local address, where rank
+    0's store listens (a port probed on the loopback alone can be held on
+    another address; a four-card run once failed so, with EADDRINUSE at
+    init_process_group): a port held on another address is never handed
+    out while held, and each port handed out binds on the wildcard address.
+    The race itself is not reproducible in a test."""
+    import socket
+
+    from dlrm_flexflow_tpu_torch.launch import _free_port
+
+    with socket.socket() as held:
+        held.bind(("127.0.0.2", 0))
+        taken = held.getsockname()[1]
+        ports = [_free_port() for _ in range(20)]
+        assert taken not in ports
+    for port in ports[:3]:
+        with socket.socket() as s:
+            s.bind(("", port))
 
 
 def test_launcher_usage(tmp_path):
