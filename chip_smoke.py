@@ -128,6 +128,13 @@ Phases, each of which ends the run with a non-zero exit if it fails:
                `mesh_captured_k1_nodes`); the sharded checkpoint's gather
                to rank 0 and restore's own-shard pick called directly on
                that bf16 pool and an Adam m and v, bit for bit; the
+               replicated tables' update (parallel/replicated_tables.py,
+               the path of a sparse table outside the collection under a
+               data axis > 1, which at N = 1 the model does not reach)
+               called directly on kaggle's 10 route tables at batch 65536,
+               SGD and Adam: bit for bit against apply_sparse_updates on the
+               same stream, its K1 launches counted (`mesh_launches`), and
+               captured in a CUDA graph, the replay bit for bit; the
                checkpoint round trip (of the flat collection: at a data
                axis of 1 nothing is sharded) and int8 serving of the fused
                collection at capped vocabs.
@@ -3060,6 +3067,94 @@ def mesh_one_shards(mesh) -> dict:
     return res
 
 
+def mesh_one_replicated(mesh) -> dict:
+    """The replicated tables' update (parallel/replicated_tables.py, which a
+    sparse table outside the fused collection runs under a data axis > 1)
+    called directly at N = 1 over NCCL on kaggle's 10 route tables ([V, 16]
+    bf16 on K1) with the path's stream at batch 65536 (int64 ids, bf16
+    pooled gradients): `replicated_sparse_update` all-gathers the ids and
+    the gradients (a copy at N = 1) and applies them; under SGD and Adam it
+    is held against `apply_sparse_updates` on the same stream, tables and
+    slot states bit for bit, its K1 launches counted (10 a call). Then the
+    gather and update are captured in a CUDA graph (after an eager warm-up
+    on a side stream) and replayed once, bit for bit against the same call
+    made eagerly; the graph's K1 and NCCL kernel nodes, and the call's ms
+    eager and replayed."""
+    from dlrm_flexflow_tpu_torch import AdamOptimizer, SGDOptimizer
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
+    from dlrm_flexflow_tpu_torch.ops.kernels.row_update import row_update, row_update_adam
+    from dlrm_flexflow_tpu_torch.parallel.replicated_tables import replicated_sparse_update
+    from dlrm_flexflow_tpu_torch.tools.graph_nodes import node_counts
+    from dlrm_flexflow_tpu_torch.training.sparse_engine import apply_sparse_updates
+
+    cfg = kaggle_config(batch_size=TRAIN_BATCH)
+    model = kaggle_model(cfg, TRAIN_BATCH, SEED + 30)
+    ops = [op for op in model._sparse_ops if op.kernel_route]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    xs = {op.name: [torch.randint(0, op.num_entries, (TRAIN_BATCH, 1), generator=gen, device="cuda")] for op in ops}
+    g = {op.name: [(torch.randn((TRAIN_BATCH, op.out_dim), generator=gen, device="cuda") * 0.01).to(torch.bfloat16)]
+         for op in ops}
+    tables = {op.name: model.get_parameters()[op.name]["weight"] for op in ops}
+    out = {"tables": len(ops), "table_dtype": str(tables[ops[0].name].dtype),
+           "gathered_bytes": sum(x[0].numel() * x[0].element_size() + y[0].numel() * y[0].element_size()
+                                 for x, y in zip(xs.values(), g.values()))}
+    for rule, opt, wrapper in (("sgd", SGDOptimizer(lr=0.01), row_update),
+                               ("adam", AdamOptimizer(alpha=ADAM_ALPHA), row_update_adam)):
+        lr = torch.tensor(0.01 if rule == "sgd" else ADAM_ALPHA, device="cuda")
+
+        def fresh():
+            return ({op.name: {"weight": tables[op.name].clone()} for op in ops},
+                    {op.name: op.sparse_state_init(opt, "cuda") for op in ops})
+
+        def call(params, states):
+            return replicated_sparse_update(ops, params, xs, g, opt, states, model._ctx, lr=lr)[0]
+
+        (pa, sa), (pb, sb) = fresh(), fresh()
+        wrapper.launches = 0
+        sa = call(pa, sa)
+        launches = wrapper.launches
+        sb = apply_sparse_updates(ops, pb, xs, g, opt, sb, model._ctx, lr=lr)
+        equal = all(torch.equal(pa[n]["weight"], pb[n]["weight"]) for n in pa) and all(
+            torch.equal(a, b) for n in sa for a, b in zip(_leaves(sa[n]), _leaves(sb[n])))
+        warm = fresh()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call(*warm)
+        torch.cuda.current_stream().wait_stream(side)
+        (pc, sc) = fresh()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            call(pc, sc)
+        graph.instantiate()
+        graph.replay()
+        torch.cuda.synchronize()
+        replay_equal = all(torch.equal(pa[n]["weight"], pc[n]["weight"]) for n in pa) and all(
+            torch.equal(a, b) for n in sa for a, b in zip(_leaves(sa[n]), _leaves(sc[n])))
+        nodes = node_counts(graph, kernel_names=True)
+        params, states = fresh()
+        out[rule] = {"row_update_launches": launches, "bit_equal_to_apply_sparse_updates": equal,
+                     "replay_bit_equal_to_eager": replay_equal,
+                     "k1_kernel_nodes": sum(n for k, n in nodes["kernels"].items() if "row_update" in k),
+                     "nccl_kernel_nodes": sum(n for k, n in nodes["kernels"].items() if "nccl" in k.lower()),
+                     "nodes": {k: v for k, v in nodes.items() if k != "kernels"},
+                     "eager_ms": cuda_ms(lambda: call(params, states)), "replay_ms": cuda_ms(graph.replay)}
+        if not (equal and replay_equal) or launches != len(ops) or out[rule]["k1_kernel_nodes"] < len(ops):
+            raise AssertionError(f"mesh-1 replicated tables: {out}")
+        del graph, pa, pb, pc, sa, sb, sc, warm, params, states
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(state) -> list:
+    """The tensors of a slot state (None, a tensor, or Adam's {"m", "v"})."""
+    if state is None:
+        return []
+    return [state[k] for k in sorted(state)] if isinstance(state, dict) else [state]
+
+
 def phase_mesh_one() -> dict:
     """Phase 24: the hybrid-parallel path in an in-process NCCL world of one
     (destroyed at the end, so later phases run as before)."""
@@ -3084,6 +3179,9 @@ def phase_mesh_one() -> dict:
         log(f"[mesh-1] routed exchange at N = 1, exact mode {json.dumps(res['routed'])}")
         res["captured"] = mesh_one_captured(mesh)
         log(f"[mesh-1] the exchange and an all-reduce captured in a CUDA graph {json.dumps(res['captured'])}")
+        res["replicated"] = mesh_one_replicated(mesh)
+        log(f"[mesh-1] replicated tables: the global stream gathered and applied "
+            f"{json.dumps(res['replicated'])}")
         log(f"[mesh-1] checkpoint shards gathered and kept {json.dumps(mesh_one_shards(mesh))}")
         log(f"[mesh-1] checkpoint and int8 serving {json.dumps(mesh_one_state(mesh))}")
     finally:
@@ -3154,9 +3252,11 @@ def main() -> None:
             "source": "dlrm_flexflow_tpu_torch/csrc/row_update.cu",
             "replaces": f"dlrm_flexflow_tpu/ops/pallas/packed_update.py:{replaces}",
             "launches": train_launches,
-            # the direct sharded and routed updates at N = 1 over NCCL
-            # (phase 24), and K1's kernel nodes in their captured graph
-            "mesh_launches": mesh["row_update_launches"] + mesh["routed"]["row_update_launches"],
+            # the direct sharded, routed and replicated (SGD) updates at
+            # N = 1 over NCCL (phase 24), and K1's kernel nodes in the
+            # exchanges' captured graph
+            "mesh_launches": (mesh["row_update_launches"] + mesh["routed"]["row_update_launches"]
+                              + mesh["replicated"]["sgd"]["row_update_launches"]),
             "mesh_captured_k1_nodes": mesh["captured"]["k1_kernel_nodes"],
             "max_abs_err": max(row_err, mesh["max_abs_err"], mesh["routed"]["max_abs_err"]),
             "ms": c["ms"],
@@ -3199,6 +3299,8 @@ def main() -> None:
             "source": "dlrm_flexflow_tpu_torch/csrc/row_update.cu",
             "replaces": f"dlrm_flexflow_tpu/ops/pallas/packed_update.py:{replaces}",
             "launches": optim_launches[rule],
+            # the replicated tables' direct update under Adam (phase 24)
+            **({"mesh_launches": mesh["replicated"]["adam"]["row_update_launches"]} if case == "adam" else {}),
             "max_abs_err": max([m["max_abs_err"] for k, m in modes.items()
                                 if k.split(":")[0].split("-")[0] == case]
                                + ([full["adagrad"]["row_update"]["max_abs_err"]] if case == "adagrad" else [])),

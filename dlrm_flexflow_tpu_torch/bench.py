@@ -5,6 +5,8 @@
     python -m dlrm_flexflow_tpu_torch.bench --device cpu --config tiny --batch-size 64 --quick
     python -m dlrm_flexflow_tpu_torch.bench --config mlperf-full --quick   # host-tail offload
     python -m dlrm_flexflow_tpu_torch.launch --nproc-per-node 4 -m dlrm_flexflow_tpu_torch.bench --mesh
+    python -m dlrm_flexflow_tpu_torch.launch --nproc-per-node 4 -m dlrm_flexflow_tpu_torch.bench --mesh \
+        --config mlperf-full --quick                             # host-tail offload on 4 cards
 
 The port of the root `bench.py`, with its flags, defaults and protocol
 (`bench.py:245-375`): 4 batches from `random_batches` (indices Zipf with
@@ -41,7 +43,11 @@ numpy batches (`steps=eager`), the host's work included; the `#` line and
 the JSON add `host_tail_tables`, `host_tail_touched_rows` and
 `host_tail_drop_fraction`. `--onehot-packed-threshold N` makes the tables
 with a vocab in (`--onehot-threshold`, N] mid-band tables (one-hot lookup,
-dense gradients), which graph replays capture.
+dense gradients), which graph replays capture. Under `--mesh` the
+host-tail tables are replicated sparse tables beside the sharded collection
+and every rank runs the global batch's host half (`FFModel` under a mesh);
+the steps stay eager, rank 0 prints, and `devices` and
+`examples_per_sec_per_chip` are the world's.
 
 `--mesh` trains (or serves) hybrid-parallel over every rank of the
 launcher's world (`bench.py:190-210`): `launch.initialize`, `make_mesh`,
@@ -242,7 +248,7 @@ def _run(ap, args, mesh, explicit_table_dtype) -> dict:
     zipf = args.zipf if args.zipf > 0 else (1.05 if args.host_tail_threshold > 0 else 0.0)
     feeds_np, labels_np = random_batches(cfg, bs * N_BATCHES, seed=0, learnable=False, zipf=zipf)
     if model._host_tail is not None:
-        return host_tail_run(args, model, feeds_np, labels_np, device, effective_table_dtype,
+        return host_tail_run(args, model, mesh, feeds_np, labels_np, device, effective_table_dtype,
                              packed_engaged)
     if mesh is not None:
         return mesh_run(args, model, mesh, feeds_np, labels_np, effective_table_dtype, packed_engaged)
@@ -358,15 +364,20 @@ def mesh_run(args, model, mesh, feeds_np, labels_np, table_dtype, packed_engaged
     return result
 
 
-def host_tail_run(args, model, feeds_np, labels_np, device, table_dtype, packed_engaged) -> dict:
+def host_tail_run(args, model, mesh, feeds_np, labels_np, device, table_dtype, packed_engaged) -> dict:
     """The host-tail bench (bench.py:254-300): eager train_batch steps on
-    the numpy batches, round robin, the host's work inside the timing."""
+    the numpy batches, round robin, the host's work inside the timing;
+    under a mesh every rank steps on the global batches and rank 0
+    prints."""
     bs = args.batch_size
+    n = 1 if mesh is None else mesh.size
     batches = [({k: v[j * bs:(j + 1) * bs] for k, v in feeds_np.items()}, labels_np[j * bs:(j + 1) * bs])
                for j in range(N_BATCHES)]
     for i in range(max(args.warmup, 1)):
         loss = model.train_batch(*batches[i % N_BATCHES])
     float(loss)
+    if mesh is not None:
+        dist.barrier()
     t0 = time.perf_counter()
     for i in range(args.steps):
         loss = model.train_batch(*batches[i % N_BATCHES])
@@ -376,24 +387,26 @@ def host_tail_run(args, model, feeds_np, labels_np, device, table_dtype, packed_
     entries = model._host_tail.entries
     touched = sum(e[0].touched_rows for e in entries.values())
     drop = model.host_tail_drop_fraction()
-    print(f"# config={args.config} mode=train bs={bs} n_steps={args.steps} dt={dt}s steps=eager "
-          f"device={card(device)} host-tail tables={len(entries)} touched_rows={touched} "
-          f"drop_frac={drop} table_dtype={table_dtype} packed={'yes' if packed_engaged else 'no'} "
-          f"examples/s={examples_per_sec} loss={loss_val}", file=sys.stderr)
     result = {
         "metric": f"dlrm_{args.config}_train_examples_per_sec",
         "value": examples_per_sec,
         "unit": "examples/s",
-        "examples_per_sec_per_chip": examples_per_sec,
+        "examples_per_sec_per_chip": examples_per_sec / n,
         "host_tail_tables": len(entries),
         "host_tail_touched_rows": int(touched),
         "host_tail_drop_fraction": drop,
-        "devices": 1,
+        "devices": n,
         "table_dtype": table_dtype,
         "packed_engaged": packed_engaged,
         "loss": loss_val,
     }
-    print(json.dumps(result))
+    if mesh is None or mesh.rank == 0:
+        print(f"# config={args.config} mode=train bs={bs} n_steps={args.steps} dt={dt}s steps=eager "
+              f"devices={n} device={card(device)} mesh={'yes' if mesh is not None else 'no'} "
+              f"host-tail tables={len(entries)} touched_rows={touched} drop_frac={drop} "
+              f"table_dtype={table_dtype} packed={'yes' if packed_engaged else 'no'} "
+              f"examples/s={examples_per_sec} per-chip={examples_per_sec / n} loss={loss_val}", file=sys.stderr)
+        print(json.dumps(result))
     return result
 
 

@@ -56,19 +56,28 @@ It never moves to another: with no CUDA device a "cuda" model raises.
 
 Several devices (`compile(mesh=, plan=)`, the JAX package's hybrid
 parallelism): one process a device, each with the same model on its own
-card (parallel/mesh.py, launch.py). The planner pass fuses the tables
-above the one-hot threshold into one EmbeddingCollection sharded over the
-ranks (ops/embedding_collection_op.py, parallel/embedding_collection.py);
-the rest is replicated. Every rank is fed the global batch and steps on
-its slice: the collection's lookup and update exchange over the ranks, the
-local loss is the rank's share of the global one, the dense gradients are
-summed over the ranks in one all-reduce, the loss and metrics in another,
-so every rank holds the same replicated parameters and returns the same
-loss (`_loss_and_metrics`). Those collectives have static sizes (equal
-all-to-all chunks, one flat bucket an all-reduce), so `train_chunk`
-captures the step with them on CUDA, as on one device. The exchange is the
-dense one or, under `exchange="routed"`, the routed one (parallel/
-routed_exchange.py).
+card (parallel/mesh.py, launch.py). Under `dlrm_hybrid_plan()` the planner
+pass fuses the tables above the one-hot threshold into one
+EmbeddingCollection sharded over the ranks (ops/embedding_collection_op.py,
+parallel/embedding_collection.py); the rest is replicated, and under
+`data_parallel_plan()` everything is. Every rank is fed the global batch and
+steps on its slice: the collection's lookup and update exchange over the
+ranks; a sparse table outside the collection gathers every rank's index
+feeds and pooled-output gradients and applies the global batch's stream to
+its replica (parallel/replicated_tables.py); the local loss is the rank's
+share of the global one, the dense gradients are summed over the ranks in
+one all-reduce, the loss and metrics in another, so every rank holds the
+same replicated parameters and returns the same loss
+(`_loss_and_metrics`). Those collectives have static sizes (equal
+all-to-all chunks, one flat bucket an all-reduce or all-gather), so
+`train_chunk` captures the step with them on CUDA, as on one device. The
+exchange is the dense one or, under `exchange="routed"`, the routed one
+(parallel/routed_exchange.py). Host-tail offload runs under a mesh too:
+every rank keeps a replica of each store and runs the global batch's host
+half (`build_feeds`, `apply_grads`) as the JAX package's single controller
+does, stages its own block of the partials (`host_tail.rank_block`), and
+takes `g_val` from the gathered global gradient, so every replica makes
+one card's update at the global batch.
 
 The multi-step call. A step reads everything that changes between steps
 from device memory: the batch, its routes, and the step's scalars (Adam's
@@ -109,9 +118,10 @@ from ..ops.embedding_collection_op import EmbeddingCollection
 from ..ops.interaction import DotInteraction
 from ..ops.kernels import resolve_use_pallas
 from ..ops.shape_ops import Concat
-from ..parallel.host_tail import HostTailRuntime, HostTailStore
+from ..parallel.host_tail import HostTailRuntime, HostTailStore, rank_block
 from ..parallel.passes import fuse_embedding_tables, offload_embedding_tails
 from ..parallel.plan import TWO_D_MESH, ShardingPlan, dlrm_hybrid_plan
+from ..parallel.replicated_tables import replicated_sparse_update
 from ..training import losses as losses_lib
 from ..training import metrics as metrics_lib
 from ..training.optimizer import (
@@ -127,7 +137,10 @@ from .tensor import TensorSpec
 # the batch keys of host-computed routes, "_route:<op>:<field>" (the JAX
 # package's reserved feed keys)
 ROUTE_FIELDS = ("rows", "order")
-HOST_TAIL_PREFIX = "_hosttail:"  # the feed keys of the host's tail partials, "_hosttail:<op>:pos|val"
+# the feed keys of the host's tail partials, "_hosttail:<op>:pos|val"; under
+# a data axis > 1 also "_hosttail:<op>:gpos", the global batch's pos staged
+# beside the rank's block (no graph input)
+HOST_TAIL_PREFIX = "_hosttail:"
 # the eager train step's phases, in order, as torch.profiler ranges (the
 # last two only under host-tail offload)
 STEP_PHASES = ("step:build_feeds", "step:h2d_copy", "step:device_step", "step:g_val_readback",
@@ -141,7 +154,6 @@ _QUANTIZED = ("the embedding tables were quantized for serving (quantize_embeddi
               "needs the f32 master tables: compile again, or set_parameters to restore them")
 _HOST_TAIL_CHUNK = ("train_chunk: host-tail offload steps one batch at a time (the host serves and "
                     "updates the tail rows between steps); use train_batch or fit(steps_per_call=1)")
-_ITEM7 = "ROADMAP.md Queue 1 item 7, a later slice of the port"
 QUANTIZED_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "int8": torch.int8}
 _ALIGN = 16  # bytes: each entry of a chunk's packed step buffer starts on a 16-byte boundary
 
@@ -278,10 +290,11 @@ class FFModel:
         AdaGrad.
 
         mesh, plan: the hybrid-parallel path (`parallel/mesh.py`
-        `make_mesh`, `parallel/plan.py` `dlrm_hybrid_plan`), the planner
-        pass of `_plan_embeddings`. Every rank compiles the same model and
-        makes the same replicated parameters (one seed, one order) and its
-        own shard of the fused tables."""
+        `make_mesh`, `parallel/plan.py` `dlrm_hybrid_plan` or
+        `data_parallel_plan`), the planner pass of `_plan_embeddings`.
+        Every rank compiles the same model and makes the same replicated
+        parameters (one seed, one order), host-tail stores included, and
+        its own shard of the fused tables."""
         cfg = self.config
         self.optimizer = optimizer or SGDOptimizer(
             lr=cfg.learning_rate, weight_decay=cfg.weight_decay
@@ -341,12 +354,6 @@ class FFModel:
         if coll is not None and coll not in sparse_ops:
             raise ValueError(f"compile: the fused embedding collection needs a sparse optimizer "
                              f"(supports_sparse), got {type(sopt).__name__}")
-        if self._data_mesh is not None and any(op is not coll for op in sparse_ops):
-            raise NotImplementedError(
-                f"compile: {sorted(op.name for op in sparse_ops if op is not coll)} would be sparse "
-                f"tables outside the fused collection under a mesh (each rank would update its "
-                f"replica with its own batch slice); that is {_ITEM7}. Fuse them (dlrm_hybrid_plan, "
-                f"one D and pooling) or keep them at or under onehot_embedding_threshold")
         if self._host_tail is not None:
             missing = sorted(set(self._host_tail.entries) - {op.name for op in sparse_ops})
             if missing:
@@ -453,22 +460,23 @@ class FFModel:
         No mesh: host-tail offload, then, under config.fuse_embeddings,
         every table of one D and pooling fused on one device. A mesh: the
         plan's defaults from the config (a strategy file to import,
-        `exchange`, `chips_per_host`), the kernel-route decision, the
-        tables above onehot_embedding_threshold fused and sharded over the
-        data axis, the strategy exported (by rank 0). At a data axis of 1
-        the collection is the flat one and stays off the kernel route
-        whatever the plan says: the JAX package sets `packed_pool` there
-        too and its flat fallback then asserts (`ops/
-        embedding_collection_op.py:176-181`; ROADMAP.md Queue 3).
+        `exchange`, `chips_per_host`), the kernel-route decision, host-tail
+        offload (before fusion: a host-tail table is never fused), under a
+        table-parallel plan the tables above onehot_embedding_threshold
+        fused and sharded over the data axis, the strategy exported (by
+        rank 0). At a data axis of 1 the collection is the flat one and
+        stays off the kernel route whatever the plan says: the JAX package
+        sets `packed_pool` there too and its flat fallback then asserts
+        (`ops/embedding_collection_op.py:176-181`; ROADMAP.md Queue 3).
 
         Raises NotImplementedError, naming its ROADMAP.md item, for what
         the port does not run under a mesh yet: a 2-D mesh or parameter
-        specs, config.search_budget > 0, host-tail tables."""
+        specs, config.search_budget > 0."""
         cfg = self.config
         existing = next((op for op in self.graph.compute_ops if isinstance(op, EmbeddingCollection)), None)
         self.mesh, self.plan = mesh, plan
         if mesh is None:
-            self._setup_host_tail()
+            self._setup_host_tail(plan)
             if existing is None and cfg.fuse_embeddings:
                 existing = fuse_embedding_tables(self.graph, dlrm_hybrid_plan(), 1)
             return self._bind_collection(existing, 1, None)
@@ -497,11 +505,10 @@ class FFModel:
                                       f"{TWO_D_MESH}")
         if plan.exchange not in ("dense", "routed"):
             raise ValueError(f"compile(mesh=): exchange={plan.exchange!r}: 'dense' or 'routed'")
-        if cfg.host_tail_threshold > 0 or any(plan.host_tail_rows or []):
-            raise NotImplementedError(f"compile(mesh=): host-tail offload under a mesh is {_ITEM7}")
         n = mesh.size
         if plan.packed_pool is None or n == 1:
             plan.packed_pool = route_enable and n > 1
+        self._setup_host_tail(plan)
         if existing is None and plan.embedding_mode == "table_parallel":
             existing = fuse_embedding_tables(self.graph, plan, n, min_vocab=cfg.onehot_embedding_threshold,
                                              shard=mesh.rank if n > 1 else None)
@@ -522,14 +529,17 @@ class FFModel:
         return coll
 
     # ------------------------------------------------------------------ host-tail offload
-    def _setup_host_tail(self) -> None:
-        """The offload pass (parallel/passes.py) and the host stores, before
-        the parameters are made (the JAX package's `_setup_host_tail`,
-        :1409-1467). The tail rows follow the table's row rule: plain SGD
-        or row-wise AdaGrad (a per-row accumulator in the store); any other
-        rule would update the two halves of one table differently, so it
-        raises ValueError. A second compile keeps the runtime it has."""
-        entries = offload_embedding_tails(self.graph, self.config)
+    def _setup_host_tail(self, plan: Optional[ShardingPlan]) -> None:
+        """The offload pass (parallel/passes.py, placed by the plan's
+        `host_tail_rows` or config.host_tail_threshold) and the host
+        stores, before the parameters are made (the JAX package's
+        `_setup_host_tail`, :1409-1467). The tail rows follow the table's
+        row rule: plain SGD or row-wise AdaGrad (a per-row accumulator in
+        the store); any other rule would update the two halves of one
+        table differently, so it raises ValueError. A second compile keeps
+        the runtime it has. Under a mesh every rank makes the same stores
+        (one seed): replicas."""
+        entries = offload_embedding_tails(self.graph, plan, self.config)
         if not entries:
             return
         row_opt = self.sparse_optimizer or self.optimizer
@@ -627,21 +637,37 @@ class FFModel:
         Tensors already on the model's device pass through. The host's tail
         partials go through pinned memory, without waiting. Under a mesh
         each rank is fed the global batch and stages its slice
-        (`Mesh.batch_slice`)."""
+        (`Mesh.batch_slice`); of the global batch's tail partials it stages
+        its block (`host_tail.rank_block`) and, as `_hosttail:<op>:gpos`,
+        the global pos, at which `_step` gathers `g_val`."""
         staged = {}
         mesh = self._data_mesh
+        if mesh is not None and self._host_tail is not None:
+            feeds = dict(feeds)
+            for name, (_, sfeed, *_rest) in self._host_tail.entries.items():
+                pname, vname = self._host_tail.feed_names(name)
+                feeds[f"{HOST_TAIL_PREFIX}{name}:gpos"] = feeds[pname]
+                feeds[pname], feeds[vname] = rank_block(feeds[pname], feeds[vname], len(feeds[sfeed]),
+                                                        mesh.rank, mesh.size)
         for iop in self.graph.inputs:
             if iop.name not in feeds:
                 raise KeyError(f"missing feed {iop.name!r}")
             x = feeds[iop.name]
-            if mesh is not None:
+            if mesh is not None and not iop.name.startswith(HOST_TAIL_PREFIX):
                 x = x[mesh.batch_slice(x.shape[0])]
-            t = torch.as_tensor(x, dtype=iop.outputs[0].dtype.to_torch())
-            if iop.name.startswith(HOST_TAIL_PREFIX) and self.device.type == "cuda" and t.device.type == "cpu":
-                staged[iop.name] = t.pin_memory().to(self.device, non_blocking=True)
-            else:
-                staged[iop.name] = t.to(self.device)
+            staged[iop.name] = self._to_device(x, iop.outputs[0].dtype.to_torch(),
+                                               iop.name.startswith(HOST_TAIL_PREFIX))
+        if mesh is not None and self._host_tail is not None:
+            for name in self._host_tail.entries:
+                key = f"{HOST_TAIL_PREFIX}{name}:gpos"
+                staged[key] = self._to_device(feeds[key], torch.int32, True)
         return staged
+
+    def _to_device(self, x, dtype: torch.dtype, pinned: bool) -> torch.Tensor:
+        t = torch.as_tensor(x, dtype=dtype)
+        if pinned and self.device.type == "cuda" and t.device.type == "cpu":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
 
     def _stage_labels(self, labels) -> torch.Tensor:
         if self._data_mesh is not None:
@@ -718,10 +744,17 @@ class FFModel:
         `_scalar_table` row on the device. Reads no host state that changes
         between steps and syncs nothing, so a CUDA graph can capture it.
 
+        Under a data axis > 1 the sparse tables outside the fused
+        collection are updated with the global batch's stream
+        (`replicated_sparse_update`: two all-gathers, then the one-card
+        update), after the dense gradients' all-reduce and before the
+        collection's exchange, in that order on every rank.
+
         Returns (loss, aux): aux holds, under host-tail offload, each tail
         table's `g_val` [K_cap, D], its pooled-output gradient at the
         partials' slots (pos == B clipped to B - 1, as `jnp.take(mode=
-        "clip")` does; the host reads only the filled slots), and the
+        "clip")` does; the host reads only the filled slots; under a data
+        axis > 1 the gathered global gradient at the global pos), and the
         gradient of each input named in `grad_inputs` (autograd on leaves
         that require grad; training/host_offload.py)."""
         opt = self.optimizer
@@ -761,25 +794,35 @@ class FFModel:
         g_dense = {name: {k: next(it) for k in sub} for name, sub in leaves.items()}
         g_over = {op.name: [next(it) for _ in overrides[op.name]] for op in sparse_ops}
         aux = {name: next(it) for name in inputs}
-        if self._host_tail is not None:
-            for name in self._host_tail.entries:
-                g = g_over[name][0]
-                pos = staged[f"{HOST_TAIL_PREFIX}{name}:pos"].long().clamp(0, g.shape[0] - 1)
-                aux[name] = g[pos]
 
-        if self._data_mesh is not None:
+        mesh = self._data_mesh
+        if mesh is not None:
             _all_reduce_flat([g for sub in g_dense.values() for g in sub.values()])
         dense_params = {name: self._params[name] for name in g_dense}
         if sparse_ops:
             st = self._opt_state
             dstate = self._dense_update(g_dense, st["dense"], dense_params, scalars)
-            sstates = apply_sparse_updates(
-                sparse_ops, self._params, sparse_xs, g_over, self.sparse_optimizer,
-                st["sparse"], ctx, lr=self._sparse_rate(dstate, scalars), routes=routes,
-            )
+            lr = self._sparse_rate(dstate, scalars)
+            sstates, rest = st["sparse"], sparse_ops
+            replicated = [op for op in sparse_ops if not isinstance(op, EmbeddingCollection)]
+            if mesh is not None and replicated:
+                sstates, g_global = replicated_sparse_update(
+                    replicated, self._params, sparse_xs, g_over, self.sparse_optimizer, sstates, ctx,
+                    lr=lr, routes=routes)
+                g_over = {**g_over, **g_global}
+                rest, routes = [op for op in sparse_ops if op not in replicated], None
+            if rest:
+                sstates = apply_sparse_updates(rest, self._params, sparse_xs, g_over, self.sparse_optimizer,
+                                               sstates, ctx, lr=lr, routes=routes)
             self._opt_state = {"dense": dstate, "sparse": sstates}
         else:
             self._opt_state = self._dense_update(g_dense, self._opt_state, dense_params, scalars)
+        if self._host_tail is not None:
+            suffix = "gpos" if mesh is not None else "pos"
+            for name in self._host_tail.entries:
+                g = g_over[name][0]
+                pos = staged[f"{HOST_TAIL_PREFIX}{name}:{suffix}"].long().clamp(0, g.shape[0] - 1)
+                aux[name] = g[pos]
         return loss_out, aux
 
     def _loss_and_metrics(self, logits, labels) -> tuple:

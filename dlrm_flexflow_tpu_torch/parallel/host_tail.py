@@ -22,6 +22,12 @@ so training means the same as with one dense [vocab, D] table. A batch
 with more tail lookups than K_cap drops the excess (example-major, the
 order of `np.nonzero`), counted in `HostTailRuntime.dropped`
 (`FFModel.host_tail_dropped`).
+
+Under a data axis above 1 every rank keeps a replica of each store (one
+seed, so the same rows) and runs the global batch's host half, as the JAX
+package's single controller does: the same partials, drops, counters and
+updates on every rank. A rank stages only its block of the partials
+(`rank_block`).
 """
 from __future__ import annotations
 
@@ -36,6 +42,28 @@ def _splitmix64(x: np.ndarray) -> np.ndarray:
     z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
     z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
     return z ^ (z >> np.uint64(31))
+
+
+def rank_block(pos: np.ndarray, val: np.ndarray, batch: int, rank: int, size: int) -> tuple:
+    """This rank's block of a global batch's tail partials: (pos [K_cap]
+    int32, val [K_cap, D]) of `build_feeds` for a global batch of `batch`
+    examples, of which rank `rank` of `size` holds the contiguous slice
+    [rank * b, (rank + 1) * b), b = batch / size (`Mesh.batch_slice`). The
+    filled slots come first, their pos ascending (row-major `np.nonzero`),
+    so the slice's partials are one contiguous run of them; they come first
+    in the block with pos shifted by the slice start, and every other slot
+    has pos b, which `add_tail_partials` drops, and a zero val. No slot of
+    the block points outside [0, b]: the device clamps pos to [0, b], so a
+    partial of another slice would land on a row of this one."""
+    b = batch // size
+    pos = np.asarray(pos)
+    filled = int(np.count_nonzero(pos < batch))
+    lo, hi = np.searchsorted(pos[:filled], [rank * b, (rank + 1) * b])
+    out_pos = np.full(pos.shape, b, np.int32)
+    out_val = np.zeros_like(val)
+    out_pos[:hi - lo] = pos[lo:hi] - rank * b
+    out_val[:hi - lo] = val[lo:hi]
+    return out_pos, out_val
 
 
 class HostTailStore:

@@ -1,8 +1,8 @@
 """Compile-time graph passes.
 
 The port's counterpart of `dlrm_flexflow_tpu/parallel/passes.py`:
-`offload_embedding_tails` (`:21-92`, one device: placement from
-`config.host_tail_threshold`, not from the plan's `host_tail_rows`) and
+`offload_embedding_tails` (`:21-92`: placement from the plan's
+`host_tail_rows`, else from `config.host_tail_threshold`) and
 `fuse_embedding_tables` (`:95-164`), which puts the large tables into one
 EmbeddingCollection for the hybrid-parallel path.
 """
@@ -19,15 +19,21 @@ from ..ops.embedding_collection_op import EmbeddingCollection
 from .plan import ShardingPlan
 
 
-def offload_embedding_tails(graph: Graph, config) -> List[tuple]:
-    """Rewrite each Embedding op whose vocab is above
-    `config.host_tail_threshold` (SUM pooling) for host-tail offload: the
-    device keeps rows [0, threshold), rows [threshold, vocab) live in a
+def offload_embedding_tails(graph: Graph, plan: Optional[ShardingPlan], config) -> List[tuple]:
+    """Rewrite each Embedding op to offload (SUM pooling) for host-tail
+    offload: the device keeps rows [0, hot), rows [hot, vocab) live in a
     host store (parallel/host_tail.py), and the op gains the inputs
     `_hosttail:<op>:pos` [K_cap] int32 and `_hosttail:<op>:val` [K_cap, D]
     f32 that carry the host's pooled tail partials. K_cap is
-    `host_tail_cap_frac` of the batch's lookups, rounded up to a multiple
-    of 8 (at least 8).
+    `host_tail_cap_frac` of the global batch's lookups, rounded up to a
+    multiple of 8 (at least 8).
+
+    Placement: `plan.host_tail_rows` where the plan has it (each Embedding
+    op's device prefix in graph order, 0 or missing: the whole table on the
+    device), else every table above `config.host_tail_threshold` keeps
+    exactly that many rows. The decision taken from the threshold is written
+    into `plan.host_tail_rows`, so that an exported strategy carries it, as
+    the JAX package's pass does (`:27-43`, `:88-91`).
 
     The device table shrinks to the hot prefix here, before the parameters
     are made: the full table need never exist (292,775,614 x 128 in f32 is
@@ -37,15 +43,21 @@ def offload_embedding_tails(graph: Graph, config) -> List[tuple]:
     `op.host_tail_init_scale` for the store's rows.
 
     Returns [(op, index feed name, full vocab, hot, k_cap)]."""
+    embeds = [op for op in graph.compute_ops if isinstance(op, Embedding)]
+    tail_rows = plan.host_tail_rows if plan is not None else None
     thr = int(config.host_tail_threshold or 0)
-    if thr <= 0:
+    if tail_rows is None and thr <= 0:
         return []
     cap_frac = float(config.host_tail_cap_frac)
     out = []
-    for e in [op for op in graph.compute_ops if isinstance(op, Embedding)]:
-        if e.host_tail_vocab or e.num_entries <= thr or e.aggr is not AggrMode.AGGR_MODE_SUM:
+    for t, e in enumerate(embeds):
+        if tail_rows is not None:
+            hot = int(tail_rows[t]) if t < len(tail_rows) else 0
+        else:
+            hot = thr if e.num_entries > thr else 0
+        if e.host_tail_vocab or not 0 < hot < e.num_entries or e.aggr is not AggrMode.AGGR_MODE_SUM:
             continue
-        full, hot = e.num_entries, thr
+        full = e.num_entries
         idx_spec = e.inputs[0]
         bag = idx_spec.shape[1] if idx_spec.num_dims > 1 else 1
         k_cap = max(8, int(-(-idx_spec.shape[0] * bag * cap_frac // 8)) * 8)
@@ -60,6 +72,9 @@ def offload_embedding_tails(graph: Graph, config) -> List[tuple]:
         e.params[0].shape = (hot, e.out_dim)
         e.enable_host_tail(full, pos_in.outputs[0], val_in.outputs[0])
         out.append((e, idx_spec.owner_op.name, full, hot, k_cap))
+    if out and plan is not None and plan.host_tail_rows is None:
+        hots = {id(e): hot for e, _, _, hot, _ in out}
+        plan.host_tail_rows = [hots.get(id(e), 0) for e in embeds]
     return out
 
 

@@ -2,7 +2,8 @@
 
     python -m dlrm_flexflow_tpu_torch.launch --nproc-per-node 4 -m dlrm_flexflow_tpu_torch.tools.mesh_smoke
     python -m dlrm_flexflow_tpu_torch.launch --nproc-per-node 4 -m dlrm_flexflow_tpu_torch.tools.mesh_smoke \\
-        --device cpu --batch-size 256 --vocab-cap 20000 --steps 2      # a rehearsal on gloo, small
+        --device cpu --batch-size 256 --vocab-cap 20000 --steps 2 --hot 4096   # a rehearsal on gloo, small
+    ... -m dlrm_flexflow_tpu_torch.tools.mesh_smoke --phases dp,full     # some of the checks
 
 Every rank of the launcher's world runs it; rank 0 prints one line a
 check, with every rank's numbers gathered, and last `{"ok": true, ...}`.
@@ -55,7 +56,28 @@ D = 16) and a global batch of `--batch-size` (65536: 16384 a rank on 4):
                   restore seconds, each rank's peak host memory and rank
                   0's peak device memory in the save;
   [mesh-mlperf-lite] `predict` of 4 global batches and a ragged one, then 3
-                  train steps, K3 (dot_interaction) and K1 launches a rank.
+                  train steps, K3 (dot_interaction) and K1 launches a rank;
+  [mesh-dp]       kaggle under `data_parallel_plan()` (every table
+                  replicated; the 10 large ones on K1 with the global
+                  batch's stream, parallel/replicated_tables.py), SGD and
+                  Adam: eager steps (ms, K1 launches a rank and step, the
+                  losses against one card's model trained on the same
+                  batches from the same weights), then `train_chunk`
+                  replays (ms a step, the captured step's K1 and NCCL
+                  kernel nodes, kernel ms against NCCL kernel ms and busy
+                  share a rank), replays against eager steps bit for bit,
+                  and every rank's replicated state equal bit for bit to
+                  rank 0's;
+  [mesh-full]     mlperf-full (882,774,559 rows; `--vocab-cap` cuts it in a
+                  rehearsal) under `dlrm_hybrid_plan()` and host-tail
+                  offload at hot = `--hot` (2^20), Zipf(1.05) ids, SGD and
+                  row-wise AdaGrad tables: eager steps (ms a step, the step
+                  by phase from the `STEP_PHASES` profiler ranges and
+                  kernel ms a rank), touched tail rows, drop fraction and
+                  host memory a rank, every rank's store replicas (a hash
+                  of each store's state) and replicated state equal, the
+                  losses against one card's model (rank 0) trained on the
+                  same batches from the same weights and stores.
 
 The weights are random, from seeds; the indices uniform, the labels noise.
 """
@@ -76,19 +98,20 @@ from .. import AdamOptimizer, FFConfig, LossType, MetricsType, SGDOptimizer
 from ..data.synthetic import random_batches
 from ..ffconst import AggrMode
 from ..launch import initialize
-from ..models.dlrm import kaggle_config, make_dlrm_model, mlperf_lite_config
+from ..models.dlrm import kaggle_config, make_dlrm_model, mlperf_config, mlperf_lite_config
 from ..ops.embedding import embedding_bag
 from ..ops.kernels.dot_interaction import dot_interaction
-from ..ops.kernels.row_update import row_update, row_update_adam
+from ..ops.kernels.row_update import row_update, row_update_adagrad, row_update_adam
 from ..parallel import embedding_collection as pec
 from ..parallel import routed_exchange as prx
 from ..parallel.mesh import make_mesh
-from ..parallel.plan import dlrm_hybrid_plan
+from ..parallel.plan import data_parallel_plan, dlrm_hybrid_plan
 from .state import state_diff, state_tensors
 
 SEED = 0
 WARMUP, PROFILED = 2, 3
 DETERMINISTIC_STEPS = 8  # eager steps against chunks of 4
+PHASES = ("exchange", "train", "routed", "checkpoint", "mlperf-lite", "dp", "full")
 F32_UNIT, BF16_UNIT = 2.0**-24, 2.0**-8
 # one card's step against the mesh's: the same operations but for f32
 # summation orders, so a flipped bf16 rounding (of an activation or a
@@ -117,9 +140,12 @@ class Run:
         dist.all_gather_object(out, obj)
         return out
 
-    def sync(self) -> None:
+    def sync_device(self) -> None:
         if self.cuda:
             torch.cuda.synchronize(self.device)
+
+    def sync(self) -> None:
+        self.sync_device()
         dist.barrier()
 
     def check(self, ok: bool, what: str, res) -> None:
@@ -232,6 +258,12 @@ def stacks(batches) -> tuple:
             torch.stack([lbl for _, lbl in batches]))
 
 
+def staged_batches(cfg, b: int, dev, seed: int, zipf: float = 0.0) -> list:
+    feeds, labels = random_batches(cfg, 4 * b, seed=seed, learnable=False, zipf=zipf)
+    return [({k: torch.as_tensor(v[j * b:(j + 1) * b]).to(dev) for k, v in feeds.items()},
+             torch.as_tensor(labels[j * b:(j + 1) * b]).to(dev)) for j in range(4)]
+
+
 def graph_kernels(run: Run, model) -> dict:
     """The kernel nodes of the model's captured step (tools/graph_nodes.py):
     K1's (a row-update launch runs 2 kernels under SGD and Adam) and
@@ -281,9 +313,7 @@ def train_check(run: Run, rule: str) -> dict:
     model = kaggle_model(run, cfg, rule, mesh)
     coll = model._op("embedding_collection")
     lay = coll.layout
-    feeds, labels = random_batches(cfg, 4 * b, seed=SEED + 1, learnable=False)
-    batches = [({k: torch.as_tensor(v[j * b:(j + 1) * b]).to(dev) for k, v in feeds.items()},
-                torch.as_tensor(labels[j * b:(j + 1) * b]).to(dev)) for j in range(4)]
+    batches = staged_batches(cfg, b, dev, SEED + 1)
     one = kaggle_model(run, cfg, rule, None) if mesh.rank == 0 else None
     for name in coll.table_names + [n for n in model.get_parameters() if n != coll.name]:
         w = model.get_weights(name)  # a fused table: collective
@@ -341,11 +371,11 @@ def train_check(run: Run, rule: str) -> dict:
     return res
 
 
-def replay_check(run: Run, cfg, rule: str, batches, plan=None) -> dict:
+def replay_check(run: Run, cfg, rule: str, batches, plan=None, k1_nodes: int = 2) -> dict:
     """`train_chunk` replays on the 4 staged global batches, from the
     seeded weights: the first chunk's first step runs eagerly and the
     step is captured; then timed chunks of 4, a profiled chunk, and the
-    captured step's kernel nodes a rank."""
+    captured step's kernel nodes a rank (`k1_nodes` of K1's)."""
     mesh, b = run.mesh, run.args.batch_size
     model = kaggle_model(run, cfg, rule, mesh, plan=plan)
     stack, labels = stacks(batches)
@@ -365,20 +395,21 @@ def replay_check(run: Run, cfg, rule: str, batches, plan=None) -> dict:
     lay = model._embedding_layout
     res = {"steps": steps, "seconds": dt, "ms_per_step": ms, "examples_per_s": steps * b / dt,
            "examples_per_s_per_card": steps * b / dt / mesh.size,
-           "all_to_all_gbps": lay.step_exchange_bytes(b, dtype_bytes=2 if run.cuda else 4) * steps / dt / 1e9,
+           "all_to_all_gbps": None if lay is None else (
+               lay.step_exchange_bytes(b, dtype_bytes=2 if run.cuda else 4) * steps / dt / 1e9),
            "by_rank": by_rank}
     run.check(all(np.isfinite(r["loss"]) for r in by_rank), "replayed losses", res)
-    run.check(not run.cuda or all(r["k1_kernel_nodes"] == 2 for r in by_rank), "K1 nodes", res)
+    run.check(not run.cuda or all(r["k1_kernel_nodes"] == k1_nodes for r in by_rank), "K1 nodes", res)
     del model
     return res
 
 
-def bits_check(run: Run, cfg, rule: str, batches) -> dict:
+def bits_check(run: Run, cfg, rule: str, batches, plan=None) -> dict:
     """Under deterministic algorithms (the one-hot lookups' backward sums
     with float atomics otherwise), 8 eager steps against 2 chunks of 4 on
     fresh models: every loss and every tensor of each rank's state bit
     for bit."""
-    eager, chunk = (kaggle_model(run, cfg, rule, run.mesh) for _ in range(2))
+    eager, chunk = (kaggle_model(run, cfg, rule, run.mesh, plan=plan) for _ in range(2))
     stack, labels = stacks(batches)
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
@@ -541,6 +572,216 @@ def mlperf_lite_check(run: Run) -> dict:
     return res
 
 
+def replicas_equal(run: Run, model) -> dict:
+    """Every tensor of this rank's state that the ranks replicate (all but
+    a sharded collection's) against rank 0's, bit for bit: each tensor's
+    bytes broadcast from rank 0 (one tensor at a time) and compared here."""
+    differing, n = [], 0
+    for path, t in sorted(state_tensors(model).items()):
+        if "embedding_collection" in path:
+            continue
+        mine = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        theirs = mine.clone() if run.mesh.rank == 0 else torch.empty_like(mine)
+        dist.broadcast(theirs, src=0)
+        n += 1
+        if not torch.equal(mine, theirs):
+            differing.append(path)
+    return {"rank": run.mesh.rank, "tensors": n, "differing_from_rank_0": differing}
+
+
+def one_card_losses(run: Run, one, batches, steps: int) -> tuple:
+    """(losses, ms a step) of `steps` eager steps of rank 0's one-card model
+    after WARMUP, round robin."""
+    losses = [one.train_batch(*batches[i % 4]) for i in range(WARMUP)]
+    run.sync_device()
+    t0 = time.perf_counter()
+    losses += [one.train_batch(*batches[(WARMUP + i) % 4]) for i in range(steps)]
+    losses = [float(x) for x in losses]
+    return losses, (time.perf_counter() - t0) / steps * 1e3
+
+
+def dp_check(run: Run, rule: str) -> dict:
+    """Kaggle under data_parallel_plan(): every table replicated, the 10
+    above 8192 rows sparse on K1 (bf16), each rank applying the global
+    batch's gathered stream. Eager steps against one card's model from the
+    same weights, every rank's replicas against rank 0's, then replays."""
+    mesh, dev, args = run.mesh, run.device, run.args
+    b, steps = args.batch_size, args.steps
+    cfg = kaggle_config(batch_size=b)
+    cfg.embedding_size = [min(v, args.vocab_cap) for v in cfg.embedding_size]
+    model = kaggle_model(run, cfg, rule, mesh, plan=data_parallel_plan())
+    route = [op for op in model._sparse_ops if op.kernel_route]
+    run.check(model._op("embedding_collection") is None and len(model._sparse_ops) == 10
+              and len(route) == (10 if run.cuda else 0), "the replicated tables", {"sparse": len(model._sparse_ops)})
+    batches = staged_batches(cfg, b, dev, SEED + 5)
+    one = kaggle_model(run, cfg, rule, None) if mesh.rank == 0 else None
+    for name in model.get_parameters() if one is not None else []:
+        one.set_weights(name, model.get_weights(name))
+    wrapper = row_update_adam if rule == "adam" else row_update
+    losses = [model.train_batch(*batches[i % 4]) for i in range(WARMUP)]
+    run.sync()
+    wrapper.launches = 0
+    if run.cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    losses += [model.train_batch(*batches[(WARMUP + i) % 4]) for i in range(steps)]
+    losses = [float(x) for x in losses]
+    dt = time.perf_counter() - t0
+    ms = dt / steps * 1e3
+    mine = {"rank": mesh.rank, "row_update_launches_per_step": wrapper.launches / steps, "eager_ms_per_step": ms,
+            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if run.cuda else "not measured (CPU)",
+            "table_dtype": str(model.get_parameters()[model._sparse_ops[0].name]["weight"].dtype),
+            **replicas_equal(run, model)}
+    res = {"rule": rule, "global_batch": b, "steps": steps, "eager_ms_per_step": ms,
+           "eager_examples_per_s": steps * b / dt, "losses": losses, "by_rank": run.gather(mine)}
+    run.check(all(np.isfinite(losses)), "losses", res)
+    run.check(all(r["row_update_launches_per_step"] == (10 if run.cuda else 0) and not r["differing_from_rank_0"]
+                  for r in res["by_rank"]), "launches and replicas", res)
+    if one is not None:
+        one_losses, one_ms = one_card_losses(run, one, batches, steps)
+        res["one_card"] = {"losses": one_losses, "ms_per_step": one_ms,
+                           "max_loss_err": max(abs(x - y) for x, y in zip(losses, one_losses)),
+                           "loss_atol": LOSS_ATOL}
+        run.check(res["one_card"]["max_loss_err"] <= LOSS_ATOL, "losses against one card", res)
+    del model, one
+    if run.cuda:
+        torch.cuda.empty_cache()
+    res["replays"] = replay_check(run, cfg, rule, batches, plan=data_parallel_plan(), k1_nodes=20)
+    res["replays_vs_eager_deterministic"] = bits_check(run, cfg, rule, batches, plan=data_parallel_plan())
+    del batches
+    if run.cuda:
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def step_phases(run: Run, model, batches, steps: int) -> dict:
+    """This rank's step by phase over `steps` profiled eager steps: each
+    `STEP_PHASES` range's host ms and the span of the device work launched
+    in it, and kernel ms a step (torch.profiler)."""
+    if not run.cuda:
+        return {"phases": "not measured (CPU)"}
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..core.ffmodel import STEP_PHASES
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            model.train_batch(*batches[i % len(batches)])
+        torch.cuda.synchronize(run.device)
+    rows = prof.key_averages()
+    spans = {e.key: e.device_time_total / 1e3 / steps for e in rows
+             if e.device_type == DeviceType.CUDA and e.key in STEP_PHASES}
+    phases = {e.key.split(":")[1]: {"host_ms": e.cpu_time_total / 1e3 / steps,
+                                    "device_span_ms": spans.get(e.key, "not measured")}
+              for e in rows if e.device_type == DeviceType.CPU and e.key in STEP_PHASES}
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA and e.key not in STEP_PHASES
+               and not e.key.startswith(("Memcpy", "Memset", "nccl:"))]
+    nccl = sum(e.self_device_time_total for e in kernels if e.key.startswith("ncclDevKernel")) / 1e3 / steps
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps - nccl
+    return {"phases": phases, "kernel_ms_per_step": busy, "nccl_kernel_ms_per_step": nccl}
+
+
+def full_model(run: Run, cfg, rule: str, mesh):
+    from .. import RowWiseAdagradOptimizer
+
+    b = cfg.batch_size
+    model = make_dlrm_model(cfg, FFConfig(batch_size=b, seed=SEED, compute_dtype="bfloat16", table_dtype="bfloat16",
+                                          host_tail_threshold=run.args.hot, host_tail_cap_frac=0.25),
+                            device=run.device)
+    model.compile(SGDOptimizer(lr=0.01), LossType.LOSS_BINARY_CROSSENTROPY, [MetricsType.METRICS_ACCURACY],
+                  sparse_optimizer=RowWiseAdagradOptimizer(lr=0.01) if rule == "adagrad" else None,
+                  mesh=mesh, plan=dlrm_hybrid_plan() if mesh is not None else None)
+    return model
+
+
+def store_digests(model) -> dict:
+    """{table: sha256 of its store's state (rows, values, accumulators)}."""
+    import hashlib
+
+    out = {}
+    for name, (store, *_rest) in sorted(model._host_tail.entries.items()):
+        h = hashlib.sha256()
+        for a in store.state():
+            h.update(a.tobytes())
+        out[name] = h.hexdigest()[:16]
+    return out
+
+
+def full_check(run: Run, rule: str) -> dict:
+    """mlperf-full under the hybrid plan and host-tail offload: the tables
+    above `--hot` rows replicated with their tails in each rank's replica
+    stores, the other tables above 8192 rows fused and sharded; Zipf(1.05)
+    ids at the global batch; eager steps (the host's half between steps)
+    against one card's model (rank 0) from the same weights and the same
+    stores (one seed)."""
+    mesh, dev, args = run.mesh, run.device, run.args
+    b, steps = args.batch_size, args.full_steps
+    cfg = mlperf_config(batch_size=b)
+    cfg.embedding_size = [min(v, args.vocab_cap) for v in cfg.embedding_size]
+    t0 = time.perf_counter()
+    model = full_model(run, cfg, rule, mesh)
+    coll = model._op("embedding_collection")
+    ht = model._host_tail
+    one = full_model(run, cfg, rule, None) if mesh.rank == 0 else None
+    for name in (coll.table_names if coll is not None else []) + [
+            n for n in model.get_parameters() if coll is None or n != coll.name]:
+        w = model.get_weights(name)  # a fused table: collective
+        if one is not None:
+            one.set_weights(name, w)
+    feeds, labels = random_batches(cfg, 4 * b, seed=SEED + 6, learnable=False, zipf=1.05)
+    batches = [({k: v[j * b:(j + 1) * b] for k, v in feeds.items()}, labels[j * b:(j + 1) * b]) for j in range(4)]
+    setup = {"rows": sum(cfg.embedding_size), "hot": args.hot, "host_tail_tables": sorted(ht.entries),
+             "fused_tables": len(coll.table_names) if coll is not None else 0,
+             "replicated_sparse_tables": len([op for op in model._sparse_ops if op is not coll]),
+             "k_cap": sorted({e[4] for e in ht.entries.values()}), "rule": ht.rule,
+             "set_up_s": time.perf_counter() - t0}
+    run.check(len(ht.entries) == len([v for v in cfg.embedding_size if v > args.hot]) > 0, "the split", setup)
+    losses = [model.train_batch(*batches[i % 4]) for i in range(WARMUP)]
+    float(losses[-1])
+    run.sync()
+    wrapper = row_update_adagrad if rule == "adagrad" else row_update
+    wrapper.launches = dot_interaction.launches = 0
+    t0 = time.perf_counter()
+    losses += [model.train_batch(*batches[(WARMUP + i) % 4]) for i in range(steps)]
+    losses = [float(x) for x in losses]
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    # K1: one launch a replicated table on the kernel route and one for the
+    # shard of a collection on it; K3: the interaction's forward
+    k1 = len([op for op in model._sparse_ops if op.kernel_route]) + int(bool(coll and coll.layout.packed_pool))
+    launches = {"row_update_per_step": wrapper.launches / steps, "dot_interaction_per_step":
+                dot_interaction.launches / steps}
+    run.check(not run.cuda or launches == {"row_update_per_step": k1, "dot_interaction_per_step": 1},
+              "launches", {"launches": launches, "k1": k1})
+    prof = step_phases(run, model, batches, 2)
+    mine = {"rank": mesh.rank, "ms_per_step": ms, **launches, **prof, "touched_tail_rows": sum(
+        e[0].touched_rows for e in ht.entries.values()), "tail_lookups": ht.total, "dropped": ht.dropped,
+        "drop_fraction": model.host_tail_drop_fraction(), "host_memory": host_memory_gib(),
+        "store_digests": store_digests(model), **replicas_equal(run, model)}
+    by_rank = run.gather(mine)
+    res = {"rule": rule, "global_batch": b, "steps": steps, "set_up": setup, "ms_per_step": ms,
+           "examples_per_s": b / ms * 1e3, "examples_per_s_per_card": b / ms * 1e3 / mesh.size, "losses": losses,
+           "by_rank": by_rank}
+    run.check(all(np.isfinite(losses)), "losses", res)
+    run.check(all(r["store_digests"] == by_rank[0]["store_digests"] and not r["differing_from_rank_0"]
+                  and (r["touched_tail_rows"], r["dropped"]) == (by_rank[0]["touched_tail_rows"], by_rank[0]["dropped"])
+                  for r in by_rank), "replicas", res)
+    if one is not None:
+        one_losses, one_ms = one_card_losses(run, one, batches, steps)
+        res["one_card"] = {"losses": one_losses, "ms_per_step": one_ms, "examples_per_s": b / one_ms * 1e3,
+                           "max_loss_err": max(abs(x - y) for x, y in zip(losses, one_losses)),
+                           "loss_atol": LOSS_ATOL, "dropped": one._host_tail.dropped,
+                           "touched_tail_rows": sum(e[0].touched_rows for e in one._host_tail.entries.values())}
+        run.check(res["one_card"]["max_loss_err"] <= LOSS_ATOL and res["one_card"]["dropped"] == ht.dropped,
+                  "losses against one card", res)
+    del model, one, batches, feeds
+    if run.cuda:
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", help="cuda (NCCL), or cpu (gloo) for a rehearsal")
@@ -548,7 +789,13 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=10, help="timed kaggle steps a rule")
     ap.add_argument("--vocab-cap", type=int, default=1 << 40, help="cap on every vocab (rehearsals)")
     ap.add_argument("--out", default="", help="rank 0 also writes its lines to this file")
+    ap.add_argument("--hot", type=int, default=1 << 20, help="[mesh-full]: the rows a host-tail table keeps on a card")
+    ap.add_argument("--full-steps", type=int, default=5, help="[mesh-full]: timed steps a rule")
+    ap.add_argument("--phases", default=",".join(PHASES), help=f"a comma list of {','.join(PHASES)}")
     args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    if set(phases) - set(PHASES):
+        ap.error(f"--phases: {sorted(set(phases) - set(PHASES))} not among {PHASES}")
     initialize(args.device)
     try:
         mesh = make_mesh(device=args.device)
@@ -569,14 +816,25 @@ def main(argv=None) -> None:
                                   "pool_bytes_per_card_bf16": lay.hbm_bytes_per_shard(2),
                                   "step_exchange_bytes_bf16": lay.step_exchange_bytes(args.batch_size,
                                                                                       dtype_bytes=2)})
-        for hierarchical in (False, True):
-            run.log("[mesh-exchange]", exchange_check(run, vocabs, hierarchical))
-        for rule in ("sgd", "adam"):
-            run.log("[mesh-train]", train_check(run, rule))
-        run.log("[mesh-routed]", routed_check(run))
-        run.log("[mesh-checkpoint]", checkpoint_check(run))
-        run.log("[mesh-mlperf-lite]", mlperf_lite_check(run))
-        run.log("", {"ok": True, "devices": mesh.size, "device": str(mesh.device.type)})
+        if "exchange" in phases:
+            for hierarchical in (False, True):
+                run.log("[mesh-exchange]", exchange_check(run, vocabs, hierarchical))
+        if "train" in phases:
+            for rule in ("sgd", "adam"):
+                run.log("[mesh-train]", train_check(run, rule))
+        if "routed" in phases:
+            run.log("[mesh-routed]", routed_check(run))
+        if "checkpoint" in phases:
+            run.log("[mesh-checkpoint]", checkpoint_check(run))
+        if "mlperf-lite" in phases:
+            run.log("[mesh-mlperf-lite]", mlperf_lite_check(run))
+        if "dp" in phases:
+            for rule in ("sgd", "adam"):
+                run.log("[mesh-dp]", dp_check(run, rule))
+        if "full" in phases:
+            for rule in ("sgd", "adagrad"):
+                run.log("[mesh-full]", full_check(run, rule))
+        run.log("", {"ok": True, "devices": mesh.size, "device": str(mesh.device.type), "phases": phases})
     finally:
         dist.destroy_process_group()
 

@@ -14,16 +14,18 @@ is written in the layout the port keeps on each route: {"m", "v"} pools on
 the row-update kernel route, one stacked [2, V, D] array on the scatter
 route, as the JAX package keeps its packed and scatter tables.
 
-A model sharded over a mesh (a data axis above 1) holds one shard of the
-fused collection's pool and of its sparse optimizer state a rank. Saving
-is collective: every rank sends its shard of each such tensor to rank 0
-(`torch.distributed.gather`), which writes them stacked shard-leading,
-[N, *shard shape] (the pool as [N, R_pad, D], the shape `get_weights`
-gives it and the JAX package's unpacked pool has), with the replicated
-rest as one device would; then every rank waits at a barrier for the
-files. Restoring is collective too: every rank reads the files and keeps
-its own shard (the JAX package leaves a restored optimizer state
-unsharded, training/checkpoint.py:128; the values are the same).
+Under a mesh (a data axis above 1) saving is collective and rank 0 writes
+while every other rank waits at a barrier for the files. A model sharded
+over the mesh holds one shard of the fused collection's pool and of its
+sparse optimizer state a rank: every rank sends its shard of each such
+tensor to rank 0 (`torch.distributed.gather`), which writes them stacked
+shard-leading, [N, *shard shape] (the pool as [N, R_pad, D], the shape
+`get_weights` gives it and the JAX package's unpacked pool has), with the
+replicated rest as one device would. Host-tail stores are replicas, the
+same on every rank: `host_tail.npz` holds rank 0's. Restoring is collective
+too: every rank reads the files, keeps its own shard (the JAX package
+leaves a restored optimizer state unsharded, training/checkpoint.py:128;
+the values are the same) and restores its store replicas.
 
 `restore_checkpoint` writes into the compiled model's own tensors (in
 place), so a train step captured in a CUDA graph (`FFModel.train_chunk`)
@@ -133,18 +135,19 @@ def _own_shard(a: np.ndarray, coll: EmbeddingCollection, size: int) -> np.ndarra
 
 def save_checkpoint(path: str, model, extra: Optional[Dict[str, Any]] = None) -> None:
     """Write train state: params, optimizer state, step counter, metrics.
-    Under a mesh every rank calls it (the shards gather to rank 0, which
-    writes) and it returns once the files are written."""
+    Under a data axis > 1 every rank calls it (the shards gather to rank
+    0, which writes) and it returns once the files are written."""
     params, opt = model.get_parameters(), model._opt_state
+    mesh = model._data_mesh
     coll = _sharded_collection(model)
     if coll is not None:
-        rank, size = model.mesh.rank, model.mesh.size
+        rank, size = mesh.rank, mesh.size
         params = {**params, coll.name: _map(lambda t: _gather_shards(t, rank, size), params[coll.name])}
         opt = {**opt, "sparse": {**opt["sparse"], coll.name: _map(lambda t: _gather_shards(t, rank, size),
                                                                    opt["sparse"][coll.name])}}
-    if coll is None or model.mesh.rank == 0:
+    if mesh is None or mesh.rank == 0:
         _write(path, model, params, opt, extra)
-    if coll is not None:
+    if mesh is not None:
         dist.barrier()  # every rank returns once the files are there
 
 

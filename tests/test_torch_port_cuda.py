@@ -1087,3 +1087,79 @@ def test_int8_predict_on_cuda_matches_the_cpu_port(cuda, use_pallas):
     y_cpu = cpu.predict(feeds)
     assert np.isfinite(y_gpu).all()
     np.testing.assert_allclose(y_gpu, y_cpu, rtol=0, atol=2.0**-7)
+
+
+
+@pytest.mark.parametrize("rule", ["sgd", "adam"])
+def test_replicated_tables_update_in_a_world_of_one(cuda, rule):
+    """parallel/replicated_tables.py at a small size in an NCCL world of
+    one: `replicated_sparse_update` on capped kaggle's 10 route tables (bf16
+    on the row-update kernel) and a 256-example stream (int64 ids, bf16
+    pooled gradients). At N = 1 its all-gathers copy, so it equals
+    `apply_sparse_updates` on the same stream bit for bit, tables and slot
+    states, with one K1 launch a table. Captured in a CUDA graph (after an
+    eager warm-up on a side stream) its replay equals the eager call bit for
+    bit. Under SGD the CUDA tables are held against the same update on the
+    CPU (`apply_sparse_updates` there takes the kernel's plain version)
+    within the row-update kernel's tolerance (`_row_tolerance`)."""
+    import torch.distributed as dist
+
+    from dlrm_flexflow_tpu_torch.parallel.replicated_tables import replicated_sparse_update
+    from dlrm_flexflow_tpu_torch.training.sparse_engine import apply_sparse_updates
+
+    bs = 256
+    _, model = _capped_kaggle(bs, rule, "cuda")
+    ops = [op for op in model._sparse_ops if op.kernel_route]
+    assert len(ops) == 10
+    rng = np.random.default_rng(5)
+    xs = {op.name: [torch.from_numpy(rng.integers(0, op.num_entries, (bs, 1))).cuda()] for op in ops}
+    g = {op.name: [torch.from_numpy(rng.standard_normal((bs, op.out_dim)).astype(np.float32) * 0.1).cuda()
+                   .to(torch.bfloat16)] for op in ops}
+    opt = SGDOptimizer(lr=0.05) if rule == "sgd" else AdamOptimizer(alpha=0.001)
+    lr = 0.05 if rule == "sgd" else 0.001
+    weights = {op.name: model.get_parameters()[op.name]["weight"] for op in ops}
+
+    def fresh(device="cuda"):
+        return ({n: {"weight": w.clone().to(device)} for n, w in weights.items()},
+                {op.name: op.sparse_state_init(opt, device) for op in ops})
+
+    def leaves(params, states):
+        return list(_tensors(params).values()) + list(_tensors(states).values())
+
+    rate = torch.tensor(lr, device="cuda")  # made before the capture: no host copy inside it
+
+    def update(params, states):
+        return replicated_sparse_update(ops, params, xs, g, opt, states, model._ctx, lr=rate)[0]
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        wrapper = ru.row_update if rule == "sgd" else ru.row_update_adam
+        (pa, sa), (pb, sb), (pc, sc), warm = fresh(), fresh(), fresh(), fresh()
+        wrapper.launches = 0
+        sa = update(pa, sa)
+        assert wrapper.launches == len(ops)
+        sb = apply_sparse_updates(ops, pb, xs, g, opt, sb, model._ctx, lr=rate)
+        assert len(leaves(pa, sa)) == len(ops) * (1 if rule == "sgd" else 3)
+        assert all(torch.equal(a, b) for a, b in zip(leaves(pa, sa), leaves(pb, sb)))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            update(*warm)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            sc = update(pc, sc)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(leaves(pa, sa), leaves(pc, sc)))
+    finally:
+        dist.destroy_process_group()
+    if rule == "sgd":
+        pd, sd = fresh("cpu")
+        apply_sparse_updates(ops, pd, {n: [x[0].cpu()] for n, x in xs.items()},
+                             {n: [y[0].cpu()] for n, y in g.items()}, opt, sd, model._ctx, lr=torch.tensor(lr))
+        for op in ops:
+            rows, src = xs[op.name][0].cpu().reshape(-1), g[op.name][0].float().cpu()
+            tol = _row_tolerance(weights[op.name].cpu(), rows, src, 1, lr, True)
+            err = (pa[op.name]["weight"].float().cpu() - pd[op.name]["weight"].float()).abs()
+            assert torch.all(err <= tol), (op.name, float((err - tol).max()))

@@ -176,6 +176,41 @@ def test_tail_partials_add_as_the_jax_scatter_adds(bag):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("bag, cap", [(1, 64), (2, 48)], ids=["bag1", "bag2-overflow"])
+def test_rank_blocks_of_the_partials_add_as_the_whole_batch(bag, cap):
+    """A global batch's partials (`build_feeds` of 32 examples, hot 100 of
+    1000 rows) split into the blocks of 4 ranks (`rank_block`): each
+    block's pos lies in [0, 8], its filled slots come first and, shifted
+    back by the slice start, concatenate to the global list in order, and
+    every other slot is empty (pos 8, val 0). Each rank's
+    `add_tail_partials` of its block on its slice of the pooled outputs
+    adds what the whole batch's call adds there, bit for bit: with bags of
+    2 an example holds up to 2 partials, and at K_cap 48 some drop."""
+    rng = np.random.default_rng(bag)
+    b, n, d = 32, 4, 4
+    rt = port_ht.HostTailRuntime(rule="sgd")
+    rt.add("t", port_ht.HostTailStore(d, 0.1, seed=7), "sparse_0", 100, 1000, cap)
+    feeds = rt.build_feeds({"sparse_0": rng.integers(-1, 1000, (b, bag))})
+    pos, val = feeds["_hosttail:t:pos"], feeds["_hosttail:t:val"]
+    filled = int((pos < b).sum())
+    assert filled == cap if bag == 2 else filled < cap
+    pooled = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32))
+    whole = port_emb.add_tail_partials(pooled.clone(), torch.from_numpy(pos), torch.from_numpy(val), bag)
+    parts = []
+    for r in range(n):
+        p, v = port_ht.rank_block(pos, val, b, r, n)
+        assert p.shape == pos.shape and v.shape == val.shape and p.dtype == np.int32
+        assert p.min() >= 0 and p.max() <= b // n
+        k = int((p < b // n).sum())
+        assert np.all(p[k:] == b // n) and not v[k:].any()
+        parts.append((p[:k] + r * (b // n), v[:k]))
+        sl = slice(r * (b // n), (r + 1) * (b // n))
+        got = port_emb.add_tail_partials(pooled[sl].clone(), torch.from_numpy(p), torch.from_numpy(v), bag)
+        assert torch.equal(got, whole[sl])
+    np.testing.assert_array_equal(np.concatenate([p for p, _ in parts]), pos[:filled])
+    np.testing.assert_array_equal(np.concatenate([v for _, v in parts]), val[:filled])
+
+
 # ----------------------------------------------------------------- against the JAX package
 
 

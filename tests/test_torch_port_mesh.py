@@ -65,6 +65,7 @@ from dlrm_flexflow_tpu.ops.embedding_collection_op import EmbeddingCollection as
 from dlrm_flexflow_tpu.parallel import embedding_collection as ref_ec
 from dlrm_flexflow_tpu.parallel import routed_exchange as ref_rx
 from dlrm_flexflow_tpu.parallel.mesh import make_mesh as ref_make_mesh
+from dlrm_flexflow_tpu.parallel.plan import data_parallel_plan as ref_data_parallel_plan
 from dlrm_flexflow_tpu.parallel.plan import dlrm_hybrid_plan as ref_hybrid_plan
 
 REPO = Path(__file__).resolve().parent.parent
@@ -111,8 +112,8 @@ from dlrm_flexflow_tpu_torch.convert import params_from_jax
 from dlrm_flexflow_tpu_torch.models import dlrm as pdlrm
 from dlrm_flexflow_tpu_torch.parallel import embedding_collection as pec
 from dlrm_flexflow_tpu_torch.parallel.mesh import make_mesh
-from dlrm_flexflow_tpu_torch.parallel.plan import dlrm_hybrid_plan
-from dlrm_flexflow_tpu_torch.tools.state import state_diff
+from dlrm_flexflow_tpu_torch.parallel.plan import data_parallel_plan, dlrm_hybrid_plan
+from dlrm_flexflow_tpu_torch.tools.state import state_diff, state_tensors
 mesh = make_mesh(device="cpu")
 assert (mesh.rank, mesh.size, str(mesh.device)) == (rank, world, "cpu")
 
@@ -136,6 +137,43 @@ def dlrm(kw, opt, plan_kw, **ffkw):
     m.compile(getattr(port, opt[0])(**opt[1]), port.LossType.LOSS_BINARY_CROSSENTROPY,
               [port.MetricsType.METRICS_ACCURACY], mesh=mesh, plan=plan)
     return m
+
+# a DLRM of config `kw` under `plan` ("dp": data_parallel_plan(), "hybrid":
+# dlrm_hybrid_plan()) on the 4-rank mesh, or on one device with mesh None;
+# f32, FFConfig(**ffkw) over these defaults
+def build(kw, opt, plan, mesh=mesh, **ffkw):
+    cfg = pdlrm.DLRMConfig(**kw)
+    ff = dict(batch_size=cfg.batch_size, compute_dtype="float32", onehot_embedding_threshold=0)
+    m = pdlrm.make_dlrm_model(cfg, port.FFConfig(**{**ff, **ffkw}), device="cpu")
+    m.compile(getattr(port, opt[0])(**opt[1]), port.LossType.LOSS_BINARY_CROSSENTROPY,
+              [port.MetricsType.METRICS_ACCURACY], mesh=mesh,
+              plan=None if mesh is None else data_parallel_plan() if plan == "dp" else dlrm_hybrid_plan())
+    return m
+
+# one hash of every tensor of the state that the ranks replicate (all but
+# a sharded collection's) and of every host-tail store's state
+def replica_digest(m):
+    import hashlib
+    h = hashlib.sha256()
+    for path, t in sorted(state_tensors(m).items()):
+        if "embedding_collection" not in path:
+            h.update(path.encode() + t.numpy().tobytes())
+    for name, (store, *_rest) in sorted((m._host_tail.entries if m._host_tail else {}).items()):
+        for a in store.state():
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+# tests/test_host_tail.py's tables: table t from RandomState(100 + t), its
+# hot prefix on the device and its tail rows in the store
+def preseed_tails(m, vocabs, hot, dim):
+    for t, name in enumerate(sorted((n for n in m.get_parameters() if n.startswith("table_")),
+                                    key=lambda n: int(n.split("_")[1]))):
+        full = np.random.RandomState(100 + t).randn(vocabs[t], dim).astype(np.float32) * 0.05
+        if m._host_tail is not None and name in m._host_tail.entries:
+            m.set_weights(name, {"weight": full[:hot]})
+            m._host_tail.entries[name][0].load_state(np.arange(hot, vocabs[t]), full[hot:])
+        else:
+            m.set_weights(name, {"weight": full})
 """
 
 
@@ -463,34 +501,280 @@ def test_replicated_parameters_equal_on_every_rank(workers):
 
 
 def test_mesh_refusals(workers):
-    """Under a data axis of 4: int8 serving of the sharded collection
-    raises ValueError (as in the JAX package), and a sparse table left
-    outside the collection NotImplementedError naming its ROADMAP item."""
+    """Under a data axis of 4, int8 serving of the sharded collection
+    raises ValueError, as in the JAX package."""
     got = workers.run("""
         model = dlrm(args, ("SGDOptimizer", {"lr": 0.1}), {})
-        out = {}
         try:
             model.quantize_embeddings("int8")
-            out["int8"] = None
+            result = None
         except ValueError as e:
-            out["int8"] = f"ValueError: {e}"
-        mixed = dict(args, embedding_size=[64, 200, 48])
-        mixed.update(mlp_top=[32, 16, 1])
-        cfg = pdlrm.DLRMConfig(**mixed)
-        m = pdlrm.make_dlrm_model(cfg, port.FFConfig(batch_size=32, compute_dtype="float32",
-                                                     onehot_embedding_threshold=100), device="cpu")
-        try:
-            m.compile(port.SGDOptimizer(lr=0.1), mesh=mesh, plan=dlrm_hybrid_plan())
-            out["unfused"] = None
-        except NotImplementedError as e:
-            out["unfused"] = f"NotImplementedError: {e}"
-        result = out
+            result = f"ValueError: {e}"
     """, GRAFT)
     for r in got:
         assert r == got[0]
-    r = got[0]
-    assert r["unfused"] and r["unfused"].startswith("NotImplementedError") and "item 7" in r["unfused"], r
-    assert r["int8"].startswith("ValueError") and "sharded" in r["int8"]
+    assert got[0].startswith("ValueError") and "sharded" in got[0]
+
+
+# ------------------------------------------------------------------ sparse tables outside the collection
+
+
+def _jax_dlrm(kw, opt, plan, jmesh, **ffkw):
+    cfg = ref_dlrm.DLRMConfig(**kw)
+    m = ref_dlrm.make_dlrm_model(cfg, ref.FFConfig(**{**dict(batch_size=kw["batch_size"], compute_dtype="float32",
+                                                             onehot_embedding_threshold=0), **ffkw}))
+    m.compile(getattr(ref, opt[0])(**opt[1]), ref.LossType.LOSS_BINARY_CROSSENTROPY,
+              [ref.MetricsType.METRICS_ACCURACY], mesh=jmesh,
+              plan=ref_data_parallel_plan() if plan == "dp" else ref_hybrid_plan())
+    return m
+
+
+def _batches(kw, steps, seed):
+    feeds, labels = ref_synthetic.random_batches(ref_dlrm.DLRMConfig(**kw), kw["batch_size"] * steps, seed=seed)
+    bs = kw["batch_size"]
+    return [({k: v[i * bs:(i + 1) * bs] for k, v in feeds.items()}, labels[i * bs:(i + 1) * bs])
+            for i in range(steps)]
+
+
+# name -> (config, plan, optimizer, FFConfig keywords)
+UNFUSED = dict(GRAFT, embedding_size=[64, 200, 48], mlp_top=[32, 16, 1])
+DP_SGD, DP_ADAM = ("SGDOptimizer", {"lr": 0.1}), OPT
+REPLICATED = {
+    "hybrid-lone-table": (UNFUSED, "hybrid", DP_ADAM, {"onehot_embedding_threshold": 100}),
+    "dp-sgd-scatter": (GRAFT, "dp", DP_SGD, {}),
+    "dp-adam-scatter": (GRAFT, "dp", DP_ADAM, {}),
+    "dp-sgd-kernel": (GRAFT, "dp", DP_SGD, {"packed_tables": "on"}),
+    "dp-adam-kernel": (GRAFT, "dp", DP_ADAM, {"packed_tables": "on"}),
+}
+
+
+@pytest.fixture(scope="module")
+def jax_replicated(jmesh):
+    """{(config, plan, optimizer, the one-hot threshold): (the JAX model's
+    initial weights, its 3 steps' losses, its weights after)} on the
+    4-device mesh; the JAX package scatters on both of the port's routes."""
+    out = {}
+
+    def get(case):
+        kw, plan, opt, ffkw = REPLICATED[case]
+        thr = ffkw.get("onehot_embedding_threshold", 0)
+        key = (tuple(kw["embedding_size"]), plan, opt[0], thr)
+        if key not in out:
+            m = _jax_dlrm(kw, opt, plan, jmesh, onehot_embedding_threshold=thr)
+            w0 = {op: m.get_weights(op) for op in m.get_parameters()}
+            losses = [float(m.train_batch(f, lbl)) for f, lbl in _batches(kw, STEPS, seed=11)]
+            out[key] = (w0, losses, {op: m.get_weights(op) for op in m.get_parameters()})
+        return out[key]
+    return get
+
+
+@pytest.mark.parametrize("case", list(REPLICATED))
+def test_replicated_sparse_tables_train_like_jax(workers, jax_replicated, case):
+    """Sparse tables outside a fused collection under a data axis of 4,
+    against the JAX package's 4-device run (GSPMD: every table updated by
+    the global batch's gradient) and the port's one-device model, all from
+    the same weights, 3 steps at a global batch of 32: the hybrid plan with
+    a lone sparse table (vocab 200 above the one-hot threshold 100, the
+    others one-hot: no collection), and `data_parallel_plan()` (every table
+    replicated) on the graft DLRM under SGD and Adam, on the scatter route
+    and on the kernel route (packed_tables="on"; the row-update kernel's
+    plain version here). Every rank gathers the global stream and applies
+    it, so the ranks' replicas and states are equal bit for bit (one
+    digest), and every rank's losses are the JAX package's and one
+    device's within rtol 1e-5, atol 1e-6. The weights within the file's
+    DLRM bound (rtol 1e-4, atol 1e-5; f32 on both sides, other summation
+    orders): on the scatter route against the JAX package's; on the kernel
+    route against one device's kernel route, since the JAX package
+    scatters under a mesh (its kernel route needs mesh None), so there the
+    port rounds each stream entry to bf16 where the JAX package adds f32
+    (the kernel route's own tests hold it against the JAX package's packed
+    kernel)."""
+    kw, plan, opt, ffkw = REPLICATED[case]
+    w0, losses, w1 = jax_replicated(case)
+    got = workers.run("""
+        models = [build(args["kw"], args["opt"], args["plan"], mesh=mesh_, **args["ffkw"]) for mesh_ in (mesh, None)]
+        out = []
+        for m in models:
+            m.set_parameters(params_from_jax(args["w0"], like=m.get_parameters()))
+            losses = [float(m.train_batch(f, l)) for f, l in args["batches"]]
+            out.append({"losses": losses, "digest": replica_digest(m),
+                        "kernel_route": [op.kernel_route for op in m._sparse_ops],
+                        "sparse": sorted(op.name for op in m._sparse_ops),
+                        "coll": m._op("embedding_collection") is not None,
+                        "weights": {n: m.get_weights(n) for n in m.get_parameters()}})
+        result = out
+    """, {"kw": kw, "opt": opt, "plan": plan, "ffkw": ffkw, "w0": w0, "batches": _batches(kw, STEPS, seed=11)})
+    assert len({r[0]["digest"] for r in got}) == 1
+    r, one = got[0]
+    kernel = ffkw.get("packed_tables") == "on"
+    assert not r["coll"] and r["kernel_route"] == [kernel] * len(r["kernel_route"]) == one["kernel_route"]
+    assert r["sparse"] == (["table_1"] if plan == "hybrid" else [f"table_{t}" for t in range(10)])
+    np.testing.assert_allclose(r["losses"], losses, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(r["losses"], one["losses"], rtol=1e-5, atol=1e-6)
+    # the kernel route against one card's kernel route; the scatter route
+    # against the JAX package's
+    want = one["weights"] if kernel else w1
+    for name, sub in r["weights"].items():
+        for k, w in sub.items():
+            _close(w, want[name][k], 1e-4, 1e-5)
+
+
+def test_host_routing_under_the_mesh_matches_device_sorted_steps(workers):
+    """Under config.host_routing the routes of a replicated table on the
+    kernel route are `compute_routes` of the global batch's feeds, given to
+    every rank (the gathered stream is in their order; `_route:` keys are
+    no graph input and are not sliced): 3 steps under data_parallel_plan()
+    and Adam, with the routes given in the feeds and computed inside, equal
+    bit for bit on every rank to steps that sort on the device."""
+    got = workers.run("""
+        sorted_, inside, given = (build(args["kw"], args["opt"], "dp", packed_tables="on", host_routing=h)
+                                  for h in (False, True, True))
+        losses = [[float(m.train_batch(f, l)) for f, l in args["batches"]] for m in (sorted_, inside)]
+        losses.append([float(given.train_batch({**f, **given.compute_routes(f)}, l)) for f, l in args["batches"]])
+        result = {"losses": losses, "inside": sorted(state_diff(sorted_, inside)),
+                  "given": sorted(state_diff(sorted_, given)), "digest": replica_digest(given),
+                  "route_keys": sorted(given.compute_routes(args["batches"][0][0]))}
+    """, {"kw": GRAFT, "opt": DP_ADAM, "batches": _batches(GRAFT, STEPS, seed=12)})
+    assert len({r["digest"] for r in got}) == 1
+    for r in got:
+        assert r["losses"][0] == r["losses"][1] == r["losses"][2] and not r["inside"] and not r["given"], r
+        assert len(r["route_keys"]) == 2 * len(GRAFT["embedding_size"])
+
+
+def test_train_chunk_with_replicated_tables_under_the_mesh(workers, jax_replicated):
+    """`train_chunk` of K = 3 on the global [3, B, ...] stacks under
+    data_parallel_plan() (every table replicated, SGD on the kernel route).
+    On the CPU a chunk is a loop of the eager steps, so it is bit for bit 3
+    `train_batch` calls from the same weights, and so is `fit(
+    steps_per_call=2)`; the ranks' replicas are equal bit for bit, and every
+    loss is the JAX package's 4-device run's within rtol 1e-5, atol 1e-6.
+    (The captured step's two all-gathers are held on four cards by
+    tools/mesh_smoke.py `[mesh-dp]`.)"""
+    w0, jlosses, _ = jax_replicated("dp-sgd-kernel")
+    batches = _batches(GRAFT, STEPS, seed=11)
+    stacks = {k: np.stack([f[k] for f, _ in batches]) for k in batches[0][0]}
+    labels = np.stack([lbl for _, lbl in batches])
+    got = workers.run("""
+        eager, chunk, fitted = (build(args["kw"], args["opt"], "dp", packed_tables="on") for _ in range(3))
+        for m in (eager, chunk, fitted):
+            m.set_parameters(params_from_jax(args["w0"], like=m.get_parameters()))
+        losses = [float(eager.train_batch({k: v[i] for k, v in args["stacks"].items()}, args["labels"][i]))
+                  for i in range(3)]
+        last = float(chunk.train_chunk(args["stacks"], args["labels"]))
+        flat = {k: v.reshape((-1,) + v.shape[2:]) for k, v in args["stacks"].items()}
+        fitted.fit(flat, args["labels"].reshape(-1, 1), epochs=1, steps_per_call=2, verbose=False)
+        result = {"losses": losses, "last": last, "chunk": sorted(state_diff(eager, chunk)),
+                  "fit": sorted(state_diff(eager, fitted)), "digest": replica_digest(chunk),
+                  "steps": [m._step_count for m in (eager, chunk, fitted)]}
+    """, {"kw": GRAFT, "opt": DP_SGD, "w0": w0, "stacks": stacks, "labels": labels})
+    assert len({r["digest"] for r in got}) == 1
+    for r in got:
+        assert not r["chunk"] and not r["fit"] and r["steps"] == [STEPS] * 3 and r["last"] == r["losses"][-1]
+        np.testing.assert_allclose(r["losses"], jlosses, rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------------------------------ host-tail offload under the mesh
+
+HT_VOCABS, HT_HOT, HT_STEPS, HT_OPT = [50, 200, 120], 40, 5, ("SGDOptimizer", {"lr": 0.05})
+# tests/test_host_tail.py::_cfg at batch 16 (4 a rank)
+HOST_TAIL = dict(sparse_feature_size=8, embedding_size=HT_VOCABS, embedding_bag_size=2, mlp_bot=[4, 16, 8],
+                 mlp_top=[32, 16, 1], batch_size=16)
+
+
+def _ht_ffkw(cap):
+    return dict(host_tail_threshold=HT_HOT, host_tail_cap_frac=cap, fuse_embeddings=False)
+
+
+@pytest.mark.parametrize("cap", [1.0, 0.25])
+def test_host_tail_under_the_mesh_matches_jax_and_one_device(workers, jmesh, cap):
+    """tests/test_host_tail.py::test_host_tail_composes_with_8device_mesh on
+    a data axis of 4 (vocabs [50, 200, 120], hot 40, a global batch of 16,
+    5 SGD steps, every table with a tail and none fused): every rank runs
+    the global batch's host half on its replica stores and stages its block
+    of the partials, and g_val comes from the gathered global gradient. At
+    cap 1.0 nothing drops; at cap 0.25 (K_cap 8 of about 25 tail lookups a
+    batch) the drop counters equal the JAX package's. The losses of every
+    rank are the JAX package's 4-device run's and the port's one-device
+    run's within rtol 1e-5, atol 1e-6, as are the hot prefixes, the towers
+    and every store row (the same rows touched) against one device's;
+    every rank's replicas, stores included, are equal bit for bit."""
+    jm = _jax_dlrm(HOST_TAIL, HT_OPT, "hybrid", jmesh, **_ht_ffkw(cap))
+    from dlrm_flexflow_tpu.ops.embedding import Embedding as RefEmbedding
+
+    for t, op in enumerate(o for o in jm.graph.compute_ops if isinstance(o, RefEmbedding)):
+        full = np.random.RandomState(100 + t).randn(HT_VOCABS[t], 8).astype(np.float32) * 0.05
+        jm.set_weights(op.name, {"weight": full[:op.num_entries]})
+        jm._host_tail.entries[op.name][0].load_state(np.arange(HT_HOT, HT_VOCABS[t]), full[HT_HOT:])
+    dense = {op: jm.get_weights(op) for op in jm.get_parameters() if not op.startswith("table_")}
+    batches = _batches(HOST_TAIL, HT_STEPS, seed=3)
+    jlosses = [float(jm.train_batch(f, lbl)) for f, lbl in batches]
+    got = workers.run("""
+        out = []
+        for mesh_ in (mesh, None):
+            m = build(args["kw"], args["opt"], "hybrid", mesh=mesh_, **args["ffkw"])
+            m.set_parameters(params_from_jax({**args["dense"], **{n: m.get_weights(n) for n in m.get_parameters()
+                                                                 if n.startswith("table_")}},
+                                             like=m.get_parameters()))
+            preseed_tails(m, args["kw"]["embedding_size"], args["hot"], 8)
+            losses = [float(m.train_batch(f, l)) for f, l in args["batches"]]
+            out.append({"losses": losses, "digest": replica_digest(m), "dropped": m.host_tail_dropped,
+                        "total": m._host_tail.total, "tails": sorted(m._host_tail.entries),
+                        "weights": {n: m.get_weights(n) for n in m.get_parameters()},
+                        "stores": {n: e[0].state() for n, e in m._host_tail.entries.items()}})
+        result = out
+    """, {"kw": HOST_TAIL, "opt": HT_OPT, "ffkw": _ht_ffkw(cap), "dense": dense, "batches": batches,
+          "hot": HT_HOT})
+    assert len({r[0]["digest"] for r in got}) == 1
+    r, one = got[0]
+    assert r["tails"] == ["table_0", "table_1", "table_2"]
+    assert (r["dropped"], r["total"]) == (one["dropped"], one["total"]) == (jm.host_tail_dropped, jm._host_tail.total)
+    assert (r["dropped"] == 0) == (cap == 1.0)
+    np.testing.assert_allclose(r["losses"], jlosses, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(r["losses"], one["losses"], rtol=1e-5, atol=1e-6)
+    for name, sub in r["weights"].items():
+        for k, w in sub.items():
+            np.testing.assert_allclose(w, one["weights"][name][k], rtol=1e-5, atol=1e-6)
+    for name, (rows, vals, _) in r["stores"].items():
+        np.testing.assert_array_equal(rows, one["stores"][name][0])
+        np.testing.assert_allclose(vals, one["stores"][name][1], rtol=1e-5, atol=1e-6)
+
+
+def test_host_tail_checkpoint_under_the_mesh(workers, tmp_path):
+    """A host-tail model under a data axis of 4 after 2 steps: save (rank 0
+    writes, with `host_tail.npz` from its replica stores), restore into
+    another model on every rank: the state and every store bit for
+    bit, the next step's loss within rtol 1e-5, atol 1e-6 (tests/
+    test_host_tail.py's round trip). The restored model has the saved one's
+    seed (a store's untouched rows are drawn from it) and has taken a step
+    of its own on another batch. `train_chunk` refuses a host-tail model
+    under the mesh as on one device."""
+    got = workers.run("""
+        from dlrm_flexflow_tpu_torch.training.checkpoint import restore_checkpoint, save_checkpoint
+        first, second = (build(args["kw"], args["opt"], "hybrid", **args["ffkw"]) for _ in range(2))
+        for f, l in args["batches"][:2]:
+            first.train_batch(f, l)
+        save_checkpoint(args["path"], first)
+        second.train_batch(*args["batches"][3])
+        before = replica_digest(second) != replica_digest(first)
+        manifest = restore_checkpoint(args["path"], second)
+        same = replica_digest(second) == replica_digest(first) and not state_diff(first, second)
+        l1, l2 = (float(m.train_batch(*args["batches"][2])) for m in (first, second))
+        try:
+            first.train_chunk({k: v[None] for k, v in args["batches"][3][0].items()}, args["batches"][3][1][None])
+            refused = None
+        except RuntimeError as e:
+            refused = str(e)
+        import os
+        result = {"before": before, "same": same, "l1": l1, "l2": l2, "step": manifest["step"],
+                  "host_tail": manifest["host_tail"], "refused": refused,
+                  "files": sorted(os.listdir(args["path"])),
+                  "touched": first._host_tail.entries["table_1"][0].touched_rows}
+    """, {"kw": HOST_TAIL, "opt": HT_OPT, "ffkw": _ht_ffkw(1.0), "batches": _batches(HOST_TAIL, 4, seed=5),
+          "path": str(tmp_path / "ck")})
+    for r in got:
+        assert r["before"] and r["same"] and r["step"] == 2 and r["host_tail"] and r["touched"] > 0
+        assert "host_tail.npz" in r["files"] and "train_chunk" in r["refused"]
+        np.testing.assert_allclose(r["l2"], r["l1"], rtol=1e-5, atol=1e-6)
 
 
 # ------------------------------------------------------------------ the multi-step call under the mesh
@@ -877,15 +1161,13 @@ def test_data_axis_of_one_is_the_flat_collection_off_the_kernel_route(world_of_o
     np.testing.assert_array_equal(mesh_model.predict(feeds), fused.predict(feeds))
 
 
-@pytest.mark.parametrize("what", ["search", "host-tail", "param-specs", "parameter-parallel"])
+@pytest.mark.parametrize("what", ["search", "param-specs", "parameter-parallel"])
 def test_mesh_compile_refuses_later_slices(world_of_one, what):
     from dlrm_flexflow_tpu_torch.parallel.plan import OpShardSpec
 
     ffkw, plan_kw, item = {}, {}, "item 7"
     if what == "search":
         ffkw, item = {"search_budget": 10}, "item 10"
-    elif what == "host-tail":
-        ffkw = {"host_tail_threshold": 100}
     elif what == "param-specs":
         plan_kw = {"op_specs": {"bot_mlp_0": OpShardSpec(param_specs={"kernel": ["model", None]})}}
     else:
@@ -1078,6 +1360,24 @@ def test_bench_mesh_on_two_cpu_ranks(tmp_path):
     assert doc["devices"] == 2 and doc["all_to_all_gbps"] > 0, doc
     assert doc["value"] > 0 and doc["examples_per_sec_per_chip"] == doc["value"] / 2
     assert np.isfinite(doc["loss"]) and "steps=eager" in res.stderr
+
+
+def test_bench_mesh_trains_mlperf_full_under_host_tail_offload(tmp_path):
+    """`bench --mesh --config mlperf-full` on 2 CPU ranks at a cut batch
+    (64) and hot prefix (16384 rows, where the cards keep 2^20; the one-hot
+    threshold at 1000, so that tables of 1543-12973 rows fuse into the
+    sharded collection beside the 11 host-tail tables): eager steps on
+    every rank, rank 0 prints bench.py's host-tail keys with `devices` 2."""
+    res = _launch(["--nproc-per-node", "2", "-m", "dlrm_flexflow_tpu_torch.bench", "--mesh", "--device", "cpu",
+                   "--config", "mlperf-full", "--batch-size", "64", "--steps", "2", "--warmup", "1",
+                   "--host-tail-threshold", "16384", "--onehot-threshold", "1000"], REPO)
+    assert res.returncode == 0, res.stderr[-3000:]
+    lines = [line for line in res.stdout.splitlines() if line.startswith("{")]
+    assert len(lines) == 1, res.stdout
+    doc = json.loads(lines[0])
+    assert doc["devices"] == 2 and doc["host_tail_tables"] == 11 and doc["host_tail_touched_rows"] > 0, doc
+    assert 0.0 <= doc["host_tail_drop_fraction"] < 1.0 and doc["examples_per_sec_per_chip"] == doc["value"] / 2
+    assert np.isfinite(doc["loss"]) and "steps=eager" in res.stderr and "mesh=yes" in res.stderr
 
 
 def test_workers_import_no_jax(workers):
