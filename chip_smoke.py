@@ -3155,6 +3155,63 @@ def _leaves(state) -> list:
     return [state[k] for k in sorted(state)] if isinstance(state, dict) else [state]
 
 
+def mesh_one_tensor_parallel(mesh) -> dict:
+    """The column-parallel Dense's two autograd functions
+    (parallel/tensor_parallel.py `copy_in`, `gather_out`) in a process
+    group of one (a subgroup of the world of one, `Mesh.subgroup`) around
+    the port's `dense` at kaggle's widest tensor-parallel layer a rank of a
+    (2, 2) mesh sees (bot_mlp_1: [16384, 512] -> 256, bf16 compute, ReLU):
+    the output and the gradients of the input, the kernel and the bias
+    against plain `dense` without them, eagerly and as a CUDA-graph replay
+    of the forward and backward (the gather and the backward's all-reduce
+    captured after one eager warm-up), bit for bit; the graph's nodes."""
+    from dlrm_flexflow_tpu_torch.ffconst import ActiMode
+    from dlrm_flexflow_tpu_torch.ops.dense import dense
+    from dlrm_flexflow_tpu_torch.parallel.tensor_parallel import copy_in, gather_out
+    from dlrm_flexflow_tpu_torch.tools.graph_nodes import node_counts
+
+    group = mesh.subgroup([[0]])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    x = torch.randn((TRAIN_BATCH // 4, 512), generator=gen, device="cuda")
+    kernel = torch.randn((256, 512), generator=gen, device="cuda") * 0.05
+    bias = torch.randn((256,), generator=gen, device="cuda") * 0.05
+    w = torch.randn((TRAIN_BATCH // 4, 256), generator=gen, device="cuda")
+
+    def step(tp: bool):
+        leaves = [t.detach().requires_grad_(True) for t in (x, kernel, bias)]
+        xi = copy_in(leaves[0], group) if tp else leaves[0]
+        y = dense(xi, leaves[1], leaves[2], ActiMode.AC_MODE_RELU, torch.bfloat16)
+        if tp:
+            y = gather_out(y, 1, 0, group)
+        return [y.detach()] + list(torch.autograd.grad((y * w).sum(), leaves))
+
+    want = step(False)
+    eager = step(True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(True)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        got = step(True)
+    graph.instantiate()
+    graph.replay()
+    torch.cuda.synchronize()
+    nodes = node_counts(graph, kernel_names=True)
+    names = ("output", "input_grad", "kernel_grad", "bias_grad")
+    res = {"shape": [TRAIN_BATCH // 4, 512, 256],
+           "eager_bit_equal": {n: bool(torch.equal(a, b)) for n, a, b in zip(names, eager, want)},
+           "replay_bit_equal": {n: bool(torch.equal(a, b)) for n, a, b in zip(names, got, want)},
+           "max_abs_err": max(float((a.float() - b.float()).abs().max()) for a, b in zip(eager + got, want + want)),
+           "nodes": {k: v for k, v in nodes.items() if k != "kernels"},
+           "nccl_kernel_nodes": sum(n for name, n in nodes["kernels"].items() if "nccl" in name.lower())}
+    if not (all(res["eager_bit_equal"].values()) and all(res["replay_bit_equal"].values())):
+        raise AssertionError(f"mesh-1 tensor parallel: {res}")
+    return res
+
+
 def phase_mesh_one() -> dict:
     """Phase 24: the hybrid-parallel path in an in-process NCCL world of one
     (destroyed at the end, so later phases run as before)."""
@@ -3184,6 +3241,7 @@ def phase_mesh_one() -> dict:
             f"{json.dumps(res['replicated'])}")
         log(f"[mesh-1] checkpoint shards gathered and kept {json.dumps(mesh_one_shards(mesh))}")
         log(f"[mesh-1] checkpoint and int8 serving {json.dumps(mesh_one_state(mesh))}")
+        log(f"[mesh-1] tensor-parallel Dense in a group of one {json.dumps(mesh_one_tensor_parallel(mesh))}")
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()

@@ -10,7 +10,8 @@ with SGD, momentum, Adam or row-wise AdaGrad, the tables optionally under a
 sparse optimizer of their own, trains it hybrid-parallel on several cards
 (`compile(mesh=, plan=)`, one process a card started by `launch.py`: the
 large tables sharded and exchanged by NCCL all-to-all, the rest
-data-parallel), checkpoints it (`training/checkpoint.py`), and carries
+data-parallel, the wide Dense layers column-parallel on a 2-D data x model
+mesh), checkpoints it (`training/checkpoint.py`), and carries
 weights over from the JAX package (`convert.py`).
 """
 

@@ -18,7 +18,7 @@ kernel route with `table_dtype="bfloat16"`, f32 otherwise):
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -55,6 +55,8 @@ def params_from_jax(
     np_params: Dict[str, Dict[str, np.ndarray]],
     like: Optional[Dict[str, Dict[str, tuple]]] = None,
     shard: Optional[int] = None,
+    model: Optional[int] = None,
+    column_parallel: Optional[Dict[str, Iterable[str]]] = None,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """{op_name: {key: numpy}} from the JAX package -> {op_name: {key: tensor}}.
     `like` ({op_name: {key: shape}}, e.g. from the port model's
@@ -66,7 +68,20 @@ def params_from_jax(
     128] in the JAX package (P * 128 = R_pad * D: the packed layout's
     r_pad is chunk-aligned), becomes shard `shard`'s rows [R_pad, D] (a
     rank of a mesh), or with `shard` None the flat [N * R_pad, D] of one
-    device; D comes from `like`, else from an unpacked pool's shape."""
+    device; D comes from `like`, else from an unpacked pool's shape.
+
+    `model`, a rank's model index on a 2-D mesh, with `column_parallel`
+    ({op_name: keys} of the column-parallel Dense ops, the port model's
+    `_model_parallel`): each array named there (a kernel [out, in] or a
+    bias [out], whole in the JAX package) becomes that index's row block,
+    [out / M, in] or [out / M], with the rows `like` holds for it (`like`
+    is then needed); an array whose shape does not split so raises
+    ValueError."""
+    if model is not None and (like is None or column_parallel is None):
+        raise ValueError("params_from_jax(model=): pass like= (the port model's parameters, which give the "
+                         "row blocks' shapes) and column_parallel= (the column-parallel ops' keys)")
+    cut = {op: frozenset(keys) for op, keys in (column_parallel or {}).items()} if model is not None else {}
+
     def fit(op_name, key, arr):
         shape = (like or {}).get(op_name, {}).get(key)
         shape = None if shape is None else tuple(shape.shape) if isinstance(shape, torch.Tensor) else tuple(shape)
@@ -76,6 +91,12 @@ def params_from_jax(
             return (arr if shard is None else arr[shard]).reshape(-1, d)
         if shape is None:
             return arr
+        if key in cut.get(op_name, ()):
+            arr = np.asarray(arr)
+            if arr.shape[1:] != shape[1:] or arr.shape[0] % shape[0] or arr.shape[0] // shape[0] <= model:
+                raise ValueError(f"params_from_jax: {op_name}/{key} {arr.shape} has no row block {model} of "
+                                 f"{shape}")
+            return arr[model * shape[0]:(model + 1) * shape[0]]
         return unpack_like(arr, shape)
 
     return {

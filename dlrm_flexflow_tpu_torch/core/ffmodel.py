@@ -79,6 +79,21 @@ does, stages its own block of the partials (`host_tail.rank_block`), and
 takes `g_val` from the gathered global gradient, so every replica makes
 one card's update at the global batch.
 
+On a 2-D ("data", "model") mesh the batch, the collection's shards and
+every collective above belong to the data axis (its data group); the
+ranks of one data index hold the same slice and the same replicas. The
+Dense ops that the plan's specs make column-parallel
+(`enable_parameter_parallel`, `_model_parallel`) hold a row block of
+their kernel and bias a model index, drawn whole and cut so that the
+model starts from one card's weights, and gather their outputs over the
+model group (parallel/tensor_parallel.py); their gradients, shard-sized,
+join the replicated towers' in the data group's one bucket, and their
+optimizer state is shard-sized. The replicated gradients are then
+broadcast from model index 0 over the model group in a bucket of their
+own (`_reduce_dense_grads`), and the scatter rules that update replicated
+tables add in one fixed order on the card (`ops.common.index_add_rows`), so
+that the model peers' replicas stay equal bit for bit.
+
 The multi-step call. A step reads everything that changes between steps
 from device memory: the batch, its routes, and the step's scalars (Adam's
 bias correction, `Optimizer.step_scalars`, computed on the host in f32 as
@@ -120,8 +135,9 @@ from ..ops.kernels import resolve_use_pallas
 from ..ops.shape_ops import Concat
 from ..parallel.host_tail import HostTailRuntime, HostTailStore, rank_block
 from ..parallel.passes import fuse_embedding_tables, offload_embedding_tails
-from ..parallel.plan import TWO_D_MESH, ShardingPlan, dlrm_hybrid_plan
+from ..parallel.plan import ShardingPlan, dlrm_hybrid_plan, enable_parameter_parallel, tensor_parallel_ops
 from ..parallel.replicated_tables import replicated_sparse_update
+from ..parallel.tensor_parallel import row_block
 from ..training import losses as losses_lib
 from ..training import metrics as metrics_lib
 from ..training.optimizer import (
@@ -189,6 +205,8 @@ class FFModel:
         self.mesh = None  # the compiled mesh (parallel/mesh.py), or None
         self.plan: Optional[ShardingPlan] = None
         self._embedding_layout = None  # the fused collection's layout, or None
+        # column-parallel Dense ops over the mesh's model axis: {op: sharded keys}
+        self._model_parallel: Dict[str, tuple] = {}
 
     # ------------------------------------------------------------------ build
     def create_tensor(
@@ -329,6 +347,11 @@ class FFModel:
         gen.manual_seed(cfg.seed if seed is None else seed)
         with torch.no_grad():
             params = self.graph.init_params(gen, self.device)
+            # a column-parallel Dense draws its kernel and bias whole (so
+            # every later draw is one card's) and keeps its row block
+            for name, keys in self._model_parallel.items():
+                for k in keys:
+                    params[name][k] = row_block(params[name][k], self.mesh.model_size, self.mesh.model_index)
         use_pallas = cfg.use_pallas
         if not resolve_use_pallas(use_pallas, self.device):
             use_pallas = "off"
@@ -424,6 +447,7 @@ class FFModel:
             use_pallas=use_pallas,
             device=self.device,
             mesh=self.mesh,
+            model_parallel=frozenset(self._model_parallel),
         )
         self._metrics_total = {}
         self.reset_metrics()
@@ -450,8 +474,9 @@ class FFModel:
     def _data_mesh(self):
         """The compiled mesh when its data axis is above 1, else None: the
         batch is then sliced, the dense gradients, losses and metrics
-        reduced, and the fused tables sharded."""
-        return self.mesh if self.mesh is not None and self.mesh.size > 1 else None
+        reduced over the data group, and the fused tables sharded over the
+        data indices."""
+        return self.mesh if self.mesh is not None and self.mesh.data_size > 1 else None
 
     def _plan_embeddings(self, mesh, plan: Optional[ShardingPlan], route_enable: bool):
         """The planner pass of compile (the JAX package's :609-699), before
@@ -469,19 +494,26 @@ class FFModel:
         sets `packed_pool` there too and its flat fallback then asserts
         (`ops/embedding_collection_op.py:176-181`; ROADMAP.md Queue 3).
 
-        Raises NotImplementedError, naming its ROADMAP.md item, for what
-        the port does not run under a mesh yet: a 2-D mesh or parameter
-        specs, config.search_budget > 0."""
+        A 2-D ("data", "model") mesh (the JAX package's :626-645, 670-674):
+        config.chips_per_host is divided by the model axis (a data index
+        spans M cards), config.enable_parameter_parallel adds the plan's
+        column-parallel Dense specs (`enable_parameter_parallel`), the
+        collection is sharded over the data axis and replicated along the
+        model axis, and the plan's specs name the Dense ops that run
+        column-parallel (`tensor_parallel_ops`, over a model axis above 1).
+
+        Raises NotImplementedError, naming its ROADMAP.md item, for
+        config.search_budget > 0 (the strategy search), and for a parameter
+        spec of another form than the column-parallel Dense one."""
         cfg = self.config
         existing = next((op for op in self.graph.compute_ops if isinstance(op, EmbeddingCollection)), None)
         self.mesh, self.plan = mesh, plan
+        self._model_parallel = {}
         if mesh is None:
             self._setup_host_tail(plan)
             if existing is None and cfg.fuse_embeddings:
                 existing = fuse_embedding_tables(self.graph, dlrm_hybrid_plan(), 1)
             return self._bind_collection(existing, 1, None)
-        if len(mesh.shape) != 1 or cfg.enable_parameter_parallel:
-            raise NotImplementedError(f"compile(mesh=): {TWO_D_MESH}")
         if self.device.type != mesh.device.type or (
                 self.device.type == "cuda" and self.device.index not in (None, mesh.device.index)):
             raise ValueError(f"compile(mesh=): the model lives on {self.device}, the mesh's rank on "
@@ -494,31 +526,37 @@ class FFModel:
         if plan.exchange == "dense" and cfg.exchange != "dense":
             plan.exchange = cfg.exchange
         if plan.chips_per_host is None and cfg.chips_per_host:
-            plan.chips_per_host = cfg.chips_per_host
+            # a data index spans the model axis's cards of a host
+            plan.chips_per_host = max(1, cfg.chips_per_host // mesh.model_size)
         if cfg.search_budget > 0:
             raise NotImplementedError("compile(mesh=): the strategy search (config.search_budget > 0) is "
                                       "ROADMAP.md Queue 1 item 10, a later slice of the port")
-        if any(spec.param_specs for spec in plan.op_specs.values()) or any(
-                axis not in (None, plan.batch_axis) for spec in plan.op_specs.values()
-                for out in (spec.output_specs or []) for axis in out):
-            raise NotImplementedError(f"compile(mesh=): the plan's op specs shard over a model axis: "
-                                      f"{TWO_D_MESH}")
+        if cfg.enable_parameter_parallel and "model" in mesh.axis_names:
+            enable_parameter_parallel(plan, self.graph)
+        tp = tensor_parallel_ops(plan, self.graph, mesh.axis_names)
+        if mesh.model_size > 1:
+            odd = [name for name in tp if self._op(name).out_dim % mesh.model_size]
+            if odd:
+                raise ValueError(f"compile(mesh=): the column-parallel Dense ops {odd} have an out_dim that "
+                                 f"does not split over the model axis of {mesh.model_size}")
+            self._model_parallel = tp
         if plan.exchange not in ("dense", "routed"):
             raise ValueError(f"compile(mesh=): exchange={plan.exchange!r}: 'dense' or 'routed'")
-        n = mesh.size
+        n = mesh.data_size
+        shard = mesh.data_index if n > 1 else None
         if plan.packed_pool is None or n == 1:
             plan.packed_pool = route_enable and n > 1
         self._setup_host_tail(plan)
         if existing is None and plan.embedding_mode == "table_parallel":
             existing = fuse_embedding_tables(self.graph, plan, n, min_vocab=cfg.onehot_embedding_threshold,
-                                             shard=mesh.rank if n > 1 else None)
+                                             shard=shard)
         if n > 1 and existing is not None and existing.layout.hierarchical:
             # the subgroups, made once on every rank (Mesh.subgroup)
-            mesh.subgroup(existing.layout._host_groups())
-            mesh.subgroup(existing.layout._cross_host_groups())
+            mesh.data_subgroup(existing.layout._host_groups())
+            mesh.data_subgroup(existing.layout._cross_host_groups())
         if cfg.export_strategy_file and mesh.rank == 0:
             plan.save(cfg.export_strategy_file)
-        return self._bind_collection(existing, n, mesh.rank if n > 1 else None)
+        return self._bind_collection(existing, n, shard)
 
     def _bind_collection(self, coll, num_shards: int, shard):
         if coll is not None and (coll.layout.num_shards != num_shards or coll.shard != shard):
@@ -648,7 +686,7 @@ class FFModel:
                 pname, vname = self._host_tail.feed_names(name)
                 feeds[f"{HOST_TAIL_PREFIX}{name}:gpos"] = feeds[pname]
                 feeds[pname], feeds[vname] = rank_block(feeds[pname], feeds[vname], len(feeds[sfeed]),
-                                                        mesh.rank, mesh.size)
+                                                        mesh.data_index, mesh.data_size)
         for iop in self.graph.inputs:
             if iop.name not in feeds:
                 raise KeyError(f"missing feed {iop.name!r}")
@@ -796,8 +834,7 @@ class FFModel:
         aux = {name: next(it) for name in inputs}
 
         mesh = self._data_mesh
-        if mesh is not None:
-            _all_reduce_flat([g for sub in g_dense.values() for g in sub.values()])
+        self._reduce_dense_grads(g_dense)
         dense_params = {name: self._params[name] for name in g_dense}
         if sparse_ops:
             st = self._opt_state
@@ -825,23 +862,42 @@ class FFModel:
                 aux[name] = g[pos]
         return loss_out, aux
 
+    def _reduce_dense_grads(self, g_dense) -> None:
+        """The dense gradients, in place: under a data axis > 1 summed over
+        the data group in one bucket. Under a model axis > 1 the replicated
+        ones (all but the column-parallel blocks) are then broadcast from
+        model index 0 over the model group in one bucket: the model peers
+        of a data index compute them from the same inputs, and the
+        broadcast keeps their replicas equal bit for bit whatever order a
+        kernel of the backward sums in (the one-hot lookups' backward adds
+        by float atomics)."""
+        tp = self._model_parallel
+        mesh = self.mesh
+        if self._data_mesh is not None:
+            _all_reduce_flat([g for sub in g_dense.values() for g in sub.values()], mesh.data_group())
+        rep = [g for name, sub in g_dense.items() for k, g in sub.items() if k not in tp.get(name, ())]
+        if tp and rep:
+            _broadcast_flat(rep, mesh.data_index * mesh.model_size, mesh.model_group())
+
     def _loss_and_metrics(self, logits, labels) -> tuple:
         """(the loss to differentiate, the loss to return) of one batch,
-        its metrics added to the totals. Under a mesh the first is this
-        rank's share of the global batch's loss (a mean loss divided by the
-        ranks), whose gradients sum over the ranks to the global ones; the
-        second, the global loss, and the metrics are reduced over the ranks
-        in one all-reduce, so every rank returns the same loss and keeps
-        the same totals."""
+        its metrics added to the totals. Under a data axis > 1 the first is
+        this rank's share of the global batch's loss (a mean loss divided
+        by the data axis), whose gradients sum over the data group to the
+        global ones; the second, the global loss, and the metrics are
+        reduced over the data group in one all-reduce, so every rank
+        returns the same loss and keeps the same totals (the ranks of one
+        data index compute the same ones: no sum along the model axis)."""
         loss = losses_lib.compute_loss(self.loss_type, logits, labels)
         with torch.no_grad():
             step = metrics_lib.compute_perf_metrics(self.metrics_mask, logits, labels, self._binary_acc)
         mesh = self._data_mesh
         if mesh is not None:
             if self.loss_type is not LossType.LOSS_MEAN_SQUARED_ERROR_SUM_REDUCE:
-                loss = loss / mesh.size
+                loss = loss / mesh.data_size
             with torch.no_grad():
-                out, *values = _all_reduce_flat([loss.detach().clone()] + list(step.values()))
+                out, *values = _all_reduce_flat([loss.detach().clone()] + list(step.values()),
+                                                mesh.data_group())
                 step = dict(zip(step, values))
         else:
             out = loss.detach()
@@ -1190,7 +1246,7 @@ class FFModel:
         chunks of the compiled batch size; the last partial chunk is padded
         by repeating its final row, then trimmed. Under a mesh every rank
         is given all the examples, serves its slice of each chunk, and
-        returns them all (an all-gather a chunk)."""
+        returns them all (an all-gather a chunk over the data group)."""
         self._require_compiled()
         bs = batch_size or self.config.batch_size
         n = next(iter(feeds.values())).shape[0]
@@ -1206,10 +1262,11 @@ class FFModel:
                     for k, v in chunk.items()
                 }
             y = self.forward(chunk, training=False)
-            if self._data_mesh is not None:
-                parts = torch.empty((self._data_mesh.size * y.shape[0],) + tuple(y.shape[1:]),
+            mesh = self._data_mesh
+            if mesh is not None:
+                parts = torch.empty((mesh.data_size * y.shape[0],) + tuple(y.shape[1:]),
                                     dtype=y.dtype, device=y.device)
-                dist.all_gather_into_tensor(parts, y.contiguous())
+                dist.all_gather_into_tensor(parts, y.contiguous(), group=mesh.data_group())
                 y = parts
             outs.append(y[:m].float().cpu().numpy())
         return np.concatenate(outs, axis=0)
@@ -1255,13 +1312,18 @@ class FFModel:
         fused into it gives {"weight": [V, D]} in logical row order (the
         layout's `extract_table`). Under a mesh those come from the ranks
         that hold the rows (an all-gather, or a broadcast from each owner),
-        so every rank must ask for them alike."""
+        so every rank must ask for them alike. So does a column-parallel
+        Dense's name: its kernel and bias come whole, gathered over the
+        model group."""
         self._require_compiled()
         fused = self._fused_table(op_name)
         if fused is not None:
             params = {"weight": self._table_weight(*fused)}
         elif isinstance(self._op(op_name), EmbeddingCollection):
             params = {"pool": self._global_pool(self._op(op_name))}
+        elif op_name in self._model_parallel:
+            params = {k: self._gather_model(v) if k in self._model_parallel[op_name] else v
+                      for k, v in self._params[op_name].items()}
         else:
             params = self._params[op_name]
         return {k: (v.float() if v.dtype == torch.bfloat16 else v).detach().cpu().numpy()
@@ -1274,7 +1336,8 @@ class FFModel:
         collection's "pool" takes this rank's rows, or the global [N, R_pad,
         D] (or the JAX package's packed [N, P, 128]), of which each rank
         keeps its own (no collective: every rank is given the same
-        arrays)."""
+        arrays); so does a column-parallel Dense's kernel and bias, whole
+        ([out, in] and [out]) or this rank's row block."""
         self._require_compiled()
         fused = self._fused_table(op_name)
         if fused is not None:
@@ -1288,6 +1351,8 @@ class FFModel:
             arrs[k] = w if isinstance(w, torch.Tensor) else to_torch(np.asarray(w))
             if k == "pool" and tuple(arrs[k].shape) != tuple(cur[k].shape):
                 arrs[k] = self._local_pool(self._op(op_name), arrs[k])
+            if k in self._model_parallel.get(op_name, ()) and tuple(arrs[k].shape) != tuple(cur[k].shape):
+                arrs[k] = row_block(arrs[k], self.mesh.model_size, self.mesh.model_index)
             if tuple(arrs[k].shape) != tuple(cur[k].shape):
                 raise ValueError(
                     f"{op_name}/{k}: shape {tuple(arrs[k].shape)} != {tuple(cur[k].shape)}"
@@ -1321,7 +1386,7 @@ class FFModel:
             else:
                 buf = torch.empty((sum(length for _, length, _ in mine), lay.dim), dtype=pool.dtype,
                                   device=pool.device)
-            dist.broadcast(buf, src=shard)
+            dist.broadcast(buf, src=self.mesh.data_peer(shard), group=self.mesh.data_group())
             pieces += list(zip([start for start, _, _ in mine],
                                torch.split(buf, [length for _, length, _ in mine])))
         full = torch.cat([rows for _, rows in sorted(pieces, key=lambda p: p[0])])
@@ -1353,9 +1418,17 @@ class FFModel:
         pool = self._params[coll.name]["pool"]
         if coll.sharded:
             out = torch.empty((lay.num_shards * lay.r_pad, lay.dim), dtype=pool.dtype, device=pool.device)
-            dist.all_gather_into_tensor(out, pool.contiguous())
+            dist.all_gather_into_tensor(out, pool.contiguous(), group=self.mesh.data_group())
             pool = out
         return pool.reshape(lay.num_shards, lay.r_pad, lay.dim)
+
+    def _gather_model(self, t: torch.Tensor) -> torch.Tensor:
+        """A column-parallel parameter's row blocks gathered over the model
+        group: the whole tensor."""
+        mesh = self.mesh
+        out = t.new_empty((mesh.model_size * t.shape[0],) + tuple(t.shape[1:]))
+        dist.all_gather_into_tensor(out, t.detach().contiguous(), group=mesh.model_group())
+        return out
 
     @staticmethod
     def _local_pool(coll: EmbeddingCollection, arr: torch.Tensor) -> torch.Tensor:
@@ -1503,11 +1576,22 @@ def _view(buf: torch.Tensor, off: int, shape, dtype) -> torch.Tensor:
     return buf[off:off + _nbytes(shape, dtype)].view(dtype).view(shape)
 
 
-def _all_reduce_flat(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
-    """Sum `tensors` over the ranks in one all-reduce of an f32 bucket (one
-    collective a step however many tensors), in place; returns them."""
+def _all_reduce_flat(tensors: List[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """Sum `tensors` over the ranks of `group` (None: the world) in one
+    all-reduce of an f32 bucket (one collective a step however many
+    tensors), in place; returns them."""
+    return _in_bucket(tensors, lambda flat: dist.all_reduce(flat, group=group))
+
+
+def _broadcast_flat(tensors: List[torch.Tensor], src: int, group) -> List[torch.Tensor]:
+    """`tensors` of world rank `src` on every rank of `group`, in one
+    broadcast of an f32 bucket, in place; returns them."""
+    return _in_bucket(tensors, lambda flat: dist.broadcast(flat, src=src, group=group))
+
+
+def _in_bucket(tensors: List[torch.Tensor], collective) -> List[torch.Tensor]:
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat)
+    collective(flat)
     off = 0
     for t in tensors:
         t.copy_(flat[off:off + t.numel()].view(t.shape))

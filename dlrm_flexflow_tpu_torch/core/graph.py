@@ -37,8 +37,11 @@ class OpContext:
     # autograd and injects their pooled outputs here)
     overrides: Optional[Dict[str, List[torch.Tensor]]] = None
     # the compiled mesh (parallel/mesh.py): a sharded embedding collection
-    # exchanges over it
+    # exchanges over it, a column-parallel Dense gathers over its model axis
     mesh: Optional[object] = None
+    # the Dense ops that hold a row block of their kernel over the mesh's
+    # model axis (parallel/tensor_parallel.py)
+    model_parallel: frozenset = frozenset()
 
 
 class Op:

@@ -14,6 +14,11 @@ Under use_pallas="on" a rank-2 input goes to the fused dense kernel
 (`ops/kernels/fused_mlp.py`), as the JAX package sends it to `dense_pallas`
 (`ops/dense.py:58-67`): that route also rounds the bias and the output to
 the compute dtype.
+
+A Dense named in `ctx.model_parallel` is column-parallel over the mesh's
+"model" axis (parallel/tensor_parallel.py): its parameters are this rank's
+row block, and it runs as copy-in, the same product on the block, then the
+blocks gathered into the whole output.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from ..ffconst import ActiMode, OperatorType, as_acti_mode
 from ..core.graph import Op
 from ..core.initializers import DefaultBiasInit, DefaultWeightInit
 from ..core.tensor import TensorSpec
+from ..parallel.tensor_parallel import copy_in, gather_out
 from .common import apply_activation
 from .kernels.fused_mlp import fused_dense
 
@@ -75,22 +81,15 @@ class Dense(Op):
 
     def forward(self, params, inputs, ctx):
         (x,) = inputs
+        tp = self.name in ctx.model_parallel
+        if tp:
+            mesh = ctx.mesh
+            x = copy_in(x, mesh.model_group())
+        bias = params["bias"] if self.use_bias else None
         if ctx.use_pallas == "on" and x.dim() == 2:
-            return [
-                fused_dense(
-                    x.contiguous(),
-                    params["kernel"],
-                    params["bias"] if self.use_bias else None,
-                    self.activation,
-                    ctx.compute_dtype,
-                )
-            ]
-        return [
-            dense(
-                x,
-                params["kernel"],
-                params["bias"] if self.use_bias else None,
-                self.activation,
-                ctx.compute_dtype,
-            )
-        ]
+            y = fused_dense(x.contiguous(), params["kernel"], bias, self.activation, ctx.compute_dtype)
+        else:
+            y = dense(x, params["kernel"], bias, self.activation, ctx.compute_dtype)
+        if tp:
+            y = gather_out(y, mesh.model_size, mesh.model_index, mesh.model_group())
+        return [y]

@@ -31,6 +31,12 @@ combined in f32, then an all-to-all across hosts that carries one partial a
 rank. A degenerate C (1, not dividing N, or N itself) falls back to the
 flat exchange, as the JAX package does.
 
+The shards are the mesh's data indices: on a 2-D ("data", "model") mesh
+every exchange runs over this rank's data group (`Mesh.data_group`, the
+ranks of its model index), the hierarchical groups are the layout's
+blocks of data indices taken at every model index (`Mesh.data_subgroup`),
+and the ranks of one data index hold the same shard.
+
 All functions here run outside autograd: the train step looks the
 collection up without gradients and differentiates its pooled outputs
 (core/ffmodel.py). Indices travel as int32, as in the JAX package.
@@ -381,8 +387,8 @@ def _a2a(x: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def _check(layout: ShardedEmbeddingLayout, mesh, aggr: AggrMode) -> None:
-    if layout.num_shards != mesh.size:
-        raise ValueError(f"the layout has {layout.num_shards} shards, the mesh {mesh.size} ranks")
+    if layout.num_shards != mesh.data_size:
+        raise ValueError(f"the layout has {layout.num_shards} shards, the mesh's data axis {mesh.data_size}")
     if layout.has_splits and aggr is not AggrMode.AGGR_MODE_SUM:
         raise ValueError("row-split tables need SUM pooling (per-slot partials sum exactly; "
                          "AVG counts would need a second exchange)")
@@ -428,14 +434,15 @@ def _expand_by_slot(layout: ShardedEmbeddingLayout, idx_local: torch.Tensor) -> 
     return torch.where(keep, g - s + o, -1)
 
 
-def _exchange_indices(layout, idx: torch.Tensor) -> torch.Tensor:
-    """Each owner's slots' indices from every rank: [B_loc, T, H] ->
-    [N*B_loc, t_max, H] int64, rows in global batch order."""
+def _exchange_indices(layout, idx: torch.Tensor, group=None) -> torch.Tensor:
+    """Each owner's slots' indices from every rank of the data group:
+    [B_loc, T, H] -> [N*B_loc, t_max, H] int64, rows in global batch
+    order."""
     n, t_max = layout.num_shards, layout.t_max
     b_loc, _, h = idx.shape
     by_owner = _expand_by_slot(layout, idx).to(torch.int32)  # [B_loc, N*t_max, H]
     send = by_owner.reshape(b_loc, n, t_max, h).permute(1, 0, 2, 3)
-    return _a2a(send).reshape(n * b_loc, t_max, h).long()
+    return _a2a(send, group).reshape(n * b_loc, t_max, h).long()
 
 
 @torch.no_grad()
@@ -454,12 +461,12 @@ def sharded_embedding_lookup(
     idx = layout.perm_rows(indices.long())
     n, t_max, d = layout.num_shards, layout.t_max, layout.dim
     b_loc, _, h = idx.shape
-    sent = _exchange_indices(layout, idx)  # [nb, t_max, H]
+    sent = _exchange_indices(layout, idx, mesh.data_group())  # [nb, t_max, H]
     nb = n * b_loc
     pooled = embedding_bag(pool, sent.reshape(nb * t_max, h), aggr).reshape(nb, t_max, d)
     if layout.hierarchical:
         return _hierarchical_lookup_tail(layout, pooled, mesh, b_loc)
-    back = _a2a(pooled).reshape(n, b_loc, t_max, d).permute(1, 0, 2, 3).reshape(b_loc, n * t_max, d)
+    back = _a2a(pooled, mesh.data_group()).reshape(n, b_loc, t_max, d).permute(1, 0, 2, 3).reshape(b_loc, n * t_max, d)
     c = device_consts(layout, back.device)
     if not layout.has_splits:
         return back[:, c["out_slot"]]  # one slot a table: a gather
@@ -477,12 +484,12 @@ def _hierarchical_lookup_tail(layout, pooled: torch.Tensor, mesh, b_loc: int) ->
     # block c*H + h of the new order is block h*C + c of the batch, so the
     # chip split then the host split lands every rank its own block
     p = pooled.reshape(hosts, c, b_loc, t_max, d).transpose(0, 1).reshape(nb, t_max, d)
-    intra = _a2a(p, mesh.subgroup(layout._host_groups()))  # [C(src), nb/C, t_max, D]
+    intra = _a2a(p, mesh.data_subgroup(layout._host_groups()))  # [C(src), nb/C, t_max, D]
     intra = intra.reshape(c, nb // c, t_max, d).transpose(0, 1).reshape(nb // c, c * t_max, d)
     consts = device_consts(layout, p.device)
-    sel1 = consts["sel_host"][mesh.rank // c]
+    sel1 = consts["sel_host"][mesh.data_index // c]
     part = torch.einsum("bsd,st->btd", intra.float(), sel1).to(pooled.dtype)  # [nb/C, th, D]
-    inter = _a2a(part, mesh.subgroup(layout._cross_host_groups()))  # [H(src), B_loc, th, D]
+    inter = _a2a(part, mesh.data_subgroup(layout._cross_host_groups()))  # [H(src), B_loc, th, D]
     inter = inter.reshape(hosts, b_loc, th, d).transpose(0, 1).reshape(b_loc, hosts * th, d)
     return torch.einsum("bsd,st->btd", inter.float(), consts["sel_global"]).to(pooled.dtype)
 
@@ -499,11 +506,11 @@ def _hierarchical_grads(layout, g_local: torch.Tensor, mesh) -> torch.Tensor:
     # [B_loc, H*th, D]
     g_ht = torch.einsum("btd,st->bsd", g_local.float(), consts["sel_global"]).to(g_local.dtype)
     send = g_ht.reshape(b_loc, hosts, th, d).transpose(0, 1)
-    inter = _a2a(send, mesh.subgroup(layout._cross_host_groups())).reshape(hosts * b_loc, th, d)
-    sel1 = consts["sel_host"][mesh.rank // c]
+    inter = _a2a(send, mesh.data_subgroup(layout._cross_host_groups())).reshape(hosts * b_loc, th, d)
+    sel1 = consts["sel_host"][mesh.data_index // c]
     expanded = torch.einsum("btd,st->bsd", inter.float(), sel1).to(g_local.dtype)  # [H*B_loc, C*t_max, D]
     send = expanded.reshape(hosts * b_loc, c, t_max, d).transpose(0, 1)
-    intra = _a2a(send, mesh.subgroup(layout._host_groups()))  # [C(src), H*B_loc, t_max, D]
+    intra = _a2a(send, mesh.data_subgroup(layout._host_groups()))  # [C(src), H*B_loc, t_max, D]
     return (intra.reshape(c, hosts, b_loc, t_max, d).transpose(0, 1)
             .reshape(hosts * c * b_loc, t_max, d))
 
@@ -547,7 +554,7 @@ def sharded_embedding_sparse_update(
     idx = layout.perm_rows(indices.long())
     n, t_max, d = layout.num_shards, layout.t_max, layout.dim
     b_loc, _, h = idx.shape
-    sent_idx = _exchange_indices(layout, idx)  # [nb, t_max, H]
+    sent_idx = _exchange_indices(layout, idx, mesh.data_group())  # [nb, t_max, H]
     nb = n * b_loc
     if layout.hierarchical:
         sent_g = _hierarchical_grads(layout, g_pooled, mesh)
@@ -557,7 +564,7 @@ def sharded_embedding_sparse_update(
         # lookups use it; the others are padding and drop)
         g_by_slot = torch.where(c["is_real"][None, :, None], g_pooled[:, c["tid"]], 0)
         send = g_by_slot.reshape(b_loc, n, t_max, d).permute(1, 0, 2, 3)
-        sent_g = _a2a(send).reshape(nb, t_max, d)
+        sent_g = _a2a(send, mesh.data_group()).reshape(nb, t_max, d)
     valid = sent_idx >= 0
     g = sent_g.float()
     if aggr is AggrMode.AGGR_MODE_AVG:

@@ -9,9 +9,12 @@ form in `OpShardSpec`. The JAX-only parts (input shardings, output
 constraints, placing parameters on a mesh) have no counterpart: one process
 a device holds its own shard and batch slice (parallel/mesh.py).
 
-What the port cannot run yet raises when a model compiles with the plan
-(core/ffmodel.py): parameter specs (tensor parallelism over a "model" axis)
-and `enable_parameter_parallel` are ROADMAP.md Queue 1 item 7's 2-D mesh.
+Parameter specs: `enable_parameter_parallel` writes the JAX package's
+column-parallel Dense specs (the kernel [out, in] sharded on its output
+rows over the "model" axis, the bias with it, the output on [batch, ...,
+model]); `tensor_parallel_ops` reads them back for `compile`, which runs
+each such layer on parallel/tensor_parallel.py over a 2-D mesh. A spec of
+any other form raises there: the port has no GSPMD to place it.
 """
 from __future__ import annotations
 
@@ -26,10 +29,6 @@ from .embedding_collection import (
     expand_subtables,
     round_robin_assignment,
 )
-
-TWO_D_MESH = ("a 2-D data x model mesh (tensor parallelism: enable_parameter_parallel, parameter "
-              "specs) is ROADMAP.md Queue 1 item 7, a later slice of the port")
-
 
 def hierarchical_subtable_assignment(subs, sub_vocabs, num_shards: int, chips_per_host: int):
     """Host-aware placement for the hierarchical exchange: a table's split
@@ -226,5 +225,66 @@ def dlrm_hybrid_plan(policy: str = "greedy") -> ShardingPlan:
 
 def enable_parameter_parallel(plan: ShardingPlan, graph, model_axis: str = "model",
                               min_out_dim: int = 64, only=None) -> ShardingPlan:
-    """Tensor parallelism over a "model" axis: a later slice of the port."""
-    raise NotImplementedError(f"enable_parameter_parallel: {TWO_D_MESH}")
+    """Tensor-parallel (the reference's parameter-parallel) specs for the
+    Dense layers, the JAX package's rule (`parallel/plan.py:343-376`): every
+    Dense with out_dim >= `min_out_dim` and an even out_dim (and, with
+    `only`, named there) gets its kernel [out, in] sharded on the output
+    rows over `model_axis`, its bias with them, and its output on [batch,
+    ..., model]; `model_axis` joins `plan.mesh_axes`. Narrower layers and
+    the odd ones (a final out_dim of 1) stay replicated."""
+    from ..ops.dense import Dense
+
+    if model_axis not in plan.mesh_axes:
+        plan.mesh_axes = tuple(plan.mesh_axes) + (model_axis,)
+    for op in graph.compute_ops:
+        if not isinstance(op, Dense) or op.out_dim < min_out_dim:
+            continue
+        if only is not None and op.name not in only:
+            continue
+        if op.out_dim % 2 != 0:
+            continue
+        specs = {"kernel": [model_axis, None]}
+        if op.use_bias:
+            specs["bias"] = [model_axis]
+        out_nd = len(op.outputs[0].shape)
+        plan.op_specs[op.name] = OpShardSpec(
+            output_specs=[[plan.batch_axis] + [None] * (out_nd - 2) + [model_axis]], param_specs=specs)
+    return plan
+
+
+def tensor_parallel_ops(plan: ShardingPlan, graph, axis_names: Sequence[str],
+                        model_axis: str = "model") -> Dict[str, Tuple[str, ...]]:
+    """{Dense op name: its sharded parameter keys} of the plan's op specs,
+    each checked to be `enable_parameter_parallel`'s column-parallel form
+    over `model_axis`. A spec naming an axis the mesh (`axis_names`) lacks
+    raises ValueError; a spec of another form (another axis sharding a
+    parameter, a row-parallel kernel, an op other than a Dense) raises
+    NotImplementedError: the port places no other spec."""
+    from ..ops.dense import Dense
+
+    ops = {op.name: op for op in graph.compute_ops}
+    out: Dict[str, Tuple[str, ...]] = {}
+    for name, spec in plan.op_specs.items():
+        named = {a for s in list((spec.param_specs or {}).values()) + list(spec.output_specs or [])
+                 for x in s for a in (x if isinstance(x, (list, tuple)) else [x]) if a is not None}
+        missing = named - set(axis_names)
+        if missing:
+            raise ValueError(f"the plan's spec of {name!r} names the axes {sorted(missing)}, which the mesh "
+                             f"{tuple(axis_names)} lacks")
+        if not spec.param_specs and all(a in (None, plan.batch_axis) for s in (spec.output_specs or [])
+                                        for a in s):
+            continue  # a batch-sharded output: what every op has
+        op = ops.get(name)
+        want = {"kernel": [model_axis, None]}
+        if isinstance(op, Dense) and op.use_bias:
+            want["bias"] = [model_axis]
+        out_nd = len(op.outputs[0].shape) if op is not None else 0
+        form = [[plan.batch_axis] + [None] * (out_nd - 2) + [model_axis]]
+        if not (isinstance(op, Dense) and {k: list(v) for k, v in (spec.param_specs or {}).items()} == want
+                and [list(s) for s in (spec.output_specs or form)] == form):
+            raise NotImplementedError(
+                f"the plan's spec of {name!r} ({spec.to_json()}): the port runs only the column-parallel "
+                f"Dense spec of enable_parameter_parallel (kernel {want['kernel']}, bias [{model_axis!r}], "
+                "output [batch, ..., model])")
+        out[name] = tuple(want)
+    return out

@@ -11,7 +11,10 @@ from its slice alone would drift from the others.
 `replicated_sparse_update` all-gathers each such table's index feeds
 ([B_local, ...]) and its pooled-output gradients ([B_local, ...], already
 the rank's share of the global loss's gradient) into [B_global, ...]
-tensors in rank order, which is the global batch's order: one all-gather
+tensors in data-index order, which is the global batch's order (on a 2-D
+mesh over the data group: the ranks of one data index hold the same
+slice and the same replicas, so nothing goes along the model axis): one
+all-gather
 for every table's indices (a dtype) and one more for every gradient,
 whatever the number of tables. It then applies the global stream to this
 rank's replica through the route it has on one card (the row-update kernel
@@ -30,20 +33,21 @@ import torch.distributed as dist
 from ..training.sparse_engine import apply_sparse_updates
 
 
-def _all_gather_rows(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """[N * b, ...] of each [b, ...] part, every rank's rows in rank order:
-    the parts of one dtype go as the columns of one [b, sum] tensor in one
-    all-gather."""
+def _all_gather_rows(parts: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """[N * b, ...] of each [b, ...] part, every data index's rows in order
+    (N the mesh's data axis, the gathers over its data group; with mesh
+    None, every rank of the world): the parts of one dtype go as the
+    columns of one [b, sum] tensor in one all-gather."""
     out: List[torch.Tensor] = [None] * len(parts)
     by_dtype: Dict[torch.dtype, List[int]] = {}
     for i, p in enumerate(parts):
         by_dtype.setdefault(p.dtype, []).append(i)
-    world = dist.get_world_size()
+    world, group = (dist.get_world_size(), None) if mesh is None else (mesh.data_size, mesh.data_group())
     for ids in by_dtype.values():  # dict order: the same on every rank
         b = int(parts[ids[0]].shape[0])
         flat = torch.cat([parts[i].reshape(b, -1) for i in ids], dim=1)
         got = flat.new_empty((world * b, flat.shape[1]))
-        dist.all_gather_into_tensor(got, flat)
+        dist.all_gather_into_tensor(got, flat, group=group)
         cols = got.split([parts[i][0].numel() for i in ids], dim=1)
         for i, c in zip(ids, cols):
             out[i] = c.reshape((world * b,) + tuple(parts[i].shape[1:])).contiguous()
@@ -61,8 +65,8 @@ def replicated_sparse_update(ops, params, sparse_xs, g_over, opt, sstates, ctx, 
     under host routing, are those of the global batch's feeds). Returns
     (the slot states, {op: the gathered gradients})."""
     names = [op.name for op in ops]
-    xs = iter(_all_gather_rows([x for n in names for x in sparse_xs[n]]))
-    gs = iter(_all_gather_rows([g for n in names for g in g_over[n]]))
+    xs = iter(_all_gather_rows([x for n in names for x in sparse_xs[n]], ctx.mesh))
+    gs = iter(_all_gather_rows([g for n in names for g in g_over[n]], ctx.mesh))
     xs_g = {n: [next(xs) for _ in sparse_xs[n]] for n in names}
     g_g = {n: [next(gs) for _ in g_over[n]] for n in names}
     return apply_sparse_updates(ops, params, xs_g, g_g, opt, sstates, ctx, lr=lr, routes=routes), g_g

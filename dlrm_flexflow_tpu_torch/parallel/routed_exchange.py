@@ -255,19 +255,21 @@ def _segment_sums(x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def routed_lookup_local(plan: RoutedPlan, layout, pool: torch.Tensor, idx_local: torch.Tensor) -> torch.Tensor:
+def routed_lookup_local(plan: RoutedPlan, layout, pool: torch.Tensor, idx_local: torch.Tensor,
+                        group=None) -> torch.Tensor:
     """One rank's routed pooled lookup: `pool` its shard [R_pad, D],
-    `idx_local` its slice [B_loc, T, H] (rows already permuted). Returns
-    [B_loc, T, D] in the pool's dtype."""
+    `idx_local` its slice [B_loc, T, H] (rows already permuted), the
+    exchange over `group` (the mesh's data group; None: the world).
+    Returns [B_loc, T, D] in the pool's dtype."""
     b, t, h = idx_local.shape
     slot, lrow = _classify(plan, layout, idx_local)
     ustart, uend, keys_s, lrow_s, order, uq, order2 = _route_sorted(plan, layout, slot, lrow)
     lrow_u = lrow_s.gather(1, order2)  # compacted
     bucket = _fill_buckets(plan, layout, lrow_u.reshape(-1), ustart, uend, layout.r_pad)
-    recv = _a2a(bucket.to(torch.int32)).reshape(-1).long()  # rows of my sub-tables, [N_src * C_max]
+    recv = _a2a(bucket.to(torch.int32), group).reshape(-1).long()  # rows of my sub-tables, [N_src * C_max]
     rows = pool[recv.clamp(max=layout.r_pad - 1)]
     rows = torch.where((recv < layout.r_pad)[:, None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
-    reply = _a2a(rows.reshape(plan.n, plan.c_max, -1))  # my unique entries, bucket order
+    reply = _a2a(rows.reshape(plan.n, plan.c_max, -1), group)  # my unique entries, bucket order
     d = reply.shape[-1]
     pos_sorted = _entry_bucket_pos(plan, layout, keys_s, uq, ustart)
     pos = torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)  # back to the entries' order
@@ -280,12 +282,13 @@ def routed_lookup_local(plan: RoutedPlan, layout, pool: torch.Tensor, idx_local:
 
 
 def routed_update_local(plan: RoutedPlan, layout, pool: torch.Tensor, sstate, idx_local: torch.Tensor,
-                        g_local: torch.Tensor, optimizer, lr=None):
+                        g_local: torch.Tensor, optimizer, lr=None, group=None):
     """One rank's routed backward and row update: duplicate rows'
     gradients (an entry's is its table's pooled gradient, SUM pooling) are
     summed into their unique representative, so the wire carries one
     (row, gradient) a unique row; the owner updates its shard in place.
-    Returns the shard's slot state."""
+    The exchange runs over `group`, as `routed_lookup_local`'s. Returns the
+    shard's slot state."""
     b, t, h = idx_local.shape
     d = g_local.shape[-1]
     slot, lrow = _classify(plan, layout, idx_local)
@@ -304,8 +307,8 @@ def routed_update_local(plan: RoutedPlan, layout, pool: torch.Tensor, sstate, id
     g_u = sums.gather(1, (ends - 1)[..., None].expand(t, m, d))
     bucket_rows = _fill_buckets(plan, layout, lrow_u.reshape(-1), ustart, uend, layout.r_pad)
     bucket_g = _fill_buckets(plan, layout, g_u.reshape(-1, d), ustart, uend, 0.0)
-    recv_rows = _a2a(bucket_rows.to(torch.int32)).reshape(-1).long()
-    recv_g = _a2a(bucket_g).reshape(-1, d)
+    recv_rows = _a2a(bucket_rows.to(torch.int32), group).reshape(-1).long()
+    recv_g = _a2a(bucket_g, group).reshape(-1, d)
     return local_pool_row_update(layout, pool, sstate, recv_rows, (recv_g, 1), optimizer, lr=lr)
 
 
@@ -356,8 +359,8 @@ def routed_drop_stats(layout, indices_np, num_shards: int = 0, cap_factor: float
 
 
 def _check(layout, mesh, aggr: AggrMode) -> None:
-    if layout.num_shards != mesh.size:
-        raise ValueError(f"the layout has {layout.num_shards} shards, the mesh {mesh.size} ranks")
+    if layout.num_shards != mesh.data_size:
+        raise ValueError(f"the layout has {layout.num_shards} shards, the mesh's data axis {mesh.data_size}")
     if aggr is not AggrMode.AGGR_MODE_SUM:
         raise ValueError("the routed exchange needs SUM pooling (the partials must sum exactly)")
 
@@ -372,7 +375,7 @@ def routed_embedding_lookup(layout, pool: torch.Tensor, indices: torch.Tensor, m
     _check(layout, mesh, aggr)
     idx = layout.perm_rows(indices.long())
     plan = routed_plan(layout, idx.shape[0], idx.shape[2], cap_factor)
-    return routed_lookup_local(plan, layout, pool, idx)
+    return routed_lookup_local(plan, layout, pool, idx, mesh.data_group())
 
 
 @torch.no_grad()
@@ -385,4 +388,5 @@ def routed_embedding_sparse_update(layout, pool: torch.Tensor, sstate, indices: 
     _check(layout, mesh, aggr)
     idx = layout.perm_rows(indices.long())
     plan = routed_plan(layout, idx.shape[0], idx.shape[2], cap_factor)
-    return routed_update_local(plan, layout, pool, sstate, idx, g_pooled, optimizer, lr=lr)
+    return routed_update_local(plan, layout, pool, sstate, idx, g_pooled, optimizer, lr=lr,
+                               group=mesh.data_group())

@@ -4,6 +4,7 @@
     python -m dlrm_flexflow_tpu_torch.launch --nproc-per-node 4 -m dlrm_flexflow_tpu_torch.tools.mesh_smoke \\
         --device cpu --batch-size 256 --vocab-cap 20000 --steps 2 --hot 4096   # a rehearsal on gloo, small
     ... -m dlrm_flexflow_tpu_torch.tools.mesh_smoke --phases dp,full     # some of the checks
+    ... -m dlrm_flexflow_tpu_torch.tools.mesh_smoke --phases 2d          # the (2, 2) mesh (4 ranks)
 
 Every rank of the launcher's world runs it; rank 0 prints one line a
 check, with every rank's numbers gathered, and last `{"ok": true, ...}`.
@@ -77,7 +78,35 @@ D = 16) and a global batch of `--batch-size` (65536: 16384 a rank on 4):
                   host memory a rank, every rank's store replicas (a hash
                   of each store's state) and replicated state equal, the
                   losses against one card's model (rank 0) trained on the
-                  same batches from the same weights and stores.
+                  same batches from the same weights and stores;
+  [mesh-2d-scatter-order] a scatter-add at a (2, 2) rank's one-hot
+                  backward shapes, 5 times by `index_add_` and by
+                  `ops.common.index_add_rows`: the distinct results (the
+                  second must give one);
+  [mesh-2d]       kaggle on the 2-D ("data", "model") mesh of shape (2, 2)
+                  under `dlrm_hybrid_plan()` and enable_parameter_parallel
+                  (the 512, 256 and 64 wide Dense layers column-parallel
+                  over the model axis, parallel/tensor_parallel.py; the
+                  collection sharded over the 2 data indices), SGD and
+                  Adam: eager steps against the (4,) mesh's model of the
+                  same seed and one card's model of the same weights (the
+                  losses of every step), the state's digests (each model
+                  peer's non-column-parallel state alike, each data peer's
+                  column-parallel blocks alike), NCCL kernel ms a step by
+                  process group (model, data) from profiled eager steps
+                  (every `tensor_parallel:*` range must show device time),
+                  then `train_chunk` replays on (2, 2) and on (4,)
+                  (ms a step, busy share, kernel nodes) and replays against
+                  eager steps bit for bit; the column-parallel layers'
+                  collectives timed alone, a layer;
+  [mesh-2d-dp]    [mesh-dp] on (2, 2) under enable_parameter_parallel, SGD
+                  and Adam: the replicated tables' digests alike on every
+                  rank, the column-parallel blocks' on their data peers;
+  [mesh-2d-mlperf-lite] mlperf-lite on (2, 2) and on (1, 4) (`predict` of 4
+                  global batches and a ragged one, 3 train steps, K3
+                  launches a rank, the collectives a layer, the digests as
+                  in [mesh-2d]; on (1, 4) the flat collection takes the
+                  scatter rule).
 
 The weights are random, from seeds; the indices uniform, the labels noise.
 """
@@ -95,10 +124,12 @@ import torch
 import torch.distributed as dist
 
 from .. import AdamOptimizer, FFConfig, LossType, MetricsType, SGDOptimizer
+from ..core.graph import InputOp
 from ..data.synthetic import random_batches
 from ..ffconst import AggrMode
 from ..launch import initialize
 from ..models.dlrm import kaggle_config, make_dlrm_model, mlperf_config, mlperf_lite_config
+from ..ops.common import index_add_rows
 from ..ops.embedding import embedding_bag
 from ..ops.kernels.dot_interaction import dot_interaction
 from ..ops.kernels.row_update import row_update, row_update_adagrad, row_update_adam
@@ -111,7 +142,7 @@ from .state import state_diff, state_tensors
 SEED = 0
 WARMUP, PROFILED = 2, 3
 DETERMINISTIC_STEPS = 8  # eager steps against chunks of 4
-PHASES = ("exchange", "train", "routed", "checkpoint", "mlperf-lite", "dp", "full")
+PHASES = ("exchange", "train", "routed", "checkpoint", "mlperf-lite", "dp", "full", "2d")
 F32_UNIT, BF16_UNIT = 2.0**-24, 2.0**-8
 # one card's step against the mesh's: the same operations but for f32
 # summation orders, so a flipped bf16 rounding (of an activation or a
@@ -243,9 +274,9 @@ def exchange_check(run: Run, vocabs, hierarchical: bool) -> dict:
     return res
 
 
-def kaggle_model(run: Run, cfg, rule: str, mesh, seed: int = SEED, plan=None):
+def kaggle_model(run: Run, cfg, rule: str, mesh, seed: int = SEED, plan=None, **ffkw):
     model = make_dlrm_model(cfg, FFConfig(batch_size=cfg.batch_size, seed=seed, compute_dtype="bfloat16",
-                                          table_dtype="bfloat16"), device=run.device)
+                                          table_dtype="bfloat16", **ffkw), device=run.device)
     opt = AdamOptimizer(alpha=0.001) if rule == "adam" else SGDOptimizer(lr=0.01)
     model.compile(opt, LossType.LOSS_BINARY_CROSSENTROPY, [MetricsType.METRICS_ACCURACY], mesh=mesh,
                   plan=(plan or dlrm_hybrid_plan()) if mesh is not None else None)
@@ -371,13 +402,14 @@ def train_check(run: Run, rule: str) -> dict:
     return res
 
 
-def replay_check(run: Run, cfg, rule: str, batches, plan=None, k1_nodes: int = 2) -> dict:
+def replay_check(run: Run, cfg, rule: str, batches, plan=None, k1_nodes: int = 2, mesh=None, **ffkw) -> dict:
     """`train_chunk` replays on the 4 staged global batches, from the
     seeded weights: the first chunk's first step runs eagerly and the
     step is captured; then timed chunks of 4, a profiled chunk, and the
-    captured step's kernel nodes a rank (`k1_nodes` of K1's)."""
-    mesh, b = run.mesh, run.args.batch_size
-    model = kaggle_model(run, cfg, rule, mesh, plan=plan)
+    captured step's kernel nodes a rank (`k1_nodes` of K1's). `mesh`:
+    the run's unless given."""
+    mesh, b = mesh or run.mesh, run.args.batch_size
+    model = kaggle_model(run, cfg, rule, mesh, plan=plan, **ffkw)
     stack, labels = stacks(batches)
     model.train_chunk({k: v[:WARMUP] for k, v in stack.items()}, labels[:WARMUP])  # captures
     run.sync()
@@ -404,12 +436,12 @@ def replay_check(run: Run, cfg, rule: str, batches, plan=None, k1_nodes: int = 2
     return res
 
 
-def bits_check(run: Run, cfg, rule: str, batches, plan=None) -> dict:
+def bits_check(run: Run, cfg, rule: str, batches, plan=None, mesh=None, **ffkw) -> dict:
     """Under deterministic algorithms (the one-hot lookups' backward sums
     with float atomics otherwise), 8 eager steps against 2 chunks of 4 on
     fresh models: every loss and every tensor of each rank's state bit
-    for bit."""
-    eager, chunk = (kaggle_model(run, cfg, rule, run.mesh, plan=plan) for _ in range(2))
+    for bit. `mesh`: the run's unless given."""
+    eager, chunk = (kaggle_model(run, cfg, rule, mesh or run.mesh, plan=plan, **ffkw) for _ in range(2))
     stack, labels = stacks(batches)
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
@@ -541,12 +573,18 @@ def checkpoint_check(run: Run) -> dict:
     return res
 
 
-def mlperf_lite_check(run: Run) -> dict:
-    mesh, dev, args = run.mesh, run.device, run.args
+def mlperf_lite_check(run: Run, mesh=None, **ffkw) -> dict:
+    """mlperf-lite on `mesh` (the run's unless given): `predict` of 4 global
+    batches and a ragged one, then 3 train steps; K3 launches a rank (5 and
+    3) and K1's (one a step for a sharded collection on the kernel route,
+    none for the flat one at a data axis of 1, which takes the scatter
+    rule); under column-parallel layers, the replicas' digests
+    (`replicas_alike`)."""
+    mesh, dev, args = mesh or run.mesh, run.device, run.args
     b = args.batch_size
     cfg = mlperf_lite_config(batch_size=b, vocab_cap=min(2_000_000, args.vocab_cap))
     model = make_dlrm_model(cfg, FFConfig(batch_size=b, seed=SEED, compute_dtype="bfloat16",
-                                          table_dtype="bfloat16"), device=dev)
+                                          table_dtype="bfloat16", **ffkw), device=dev)
     model.compile(SGDOptimizer(lr=0.01), LossType.LOSS_BINARY_CROSSENTROPY, [MetricsType.METRICS_ACCURACY],
                   mesh=mesh, plan=dlrm_hybrid_plan())
     coll = model._op("embedding_collection")
@@ -557,18 +595,28 @@ def mlperf_lite_check(run: Run) -> dict:
     predict_s = time.perf_counter() - t0
     k3_predict = dot_interaction.launches
     dot_interaction.launches = row_update.launches = 0
+    run.sync()
+    t0 = time.perf_counter()
     losses = [float(model.train_batch({k: v[i * b:(i + 1) * b] for k, v in feeds.items()},
                                       labels[i * b:(i + 1) * b])) for i in range(3)]
-    mine = {"rank": mesh.rank, "k3_predict": k3_predict, "k3_train": dot_interaction.launches,
-            "row_update_train": row_update.launches, "predict_s": predict_s}
+    mine = {"rank": mesh.rank, "index": [mesh.data_index, mesh.model_index], "k3_predict": k3_predict,
+            "k3_train": dot_interaction.launches, "row_update_train": row_update.launches, "predict_s": predict_s,
+            "eager_ms_per_step": (time.perf_counter() - t0) / 3 * 1e3}
+    if model._model_parallel:
+        mine.update(split_digests(model), tp_collectives=tp_collective_ms(run, model, b // mesh.data_size))
     by_rank = run.gather(mine)
-    res = {"fused_tables": len(coll.table_names), "t_max": coll.layout.t_max, "r_pad": coll.layout.r_pad,
+    res = {"mesh": list(mesh.shape), "tensor_parallel": sorted(model._model_parallel),
+           "fused_tables": len(coll.table_names), "shards": coll.layout.num_shards, "t_max": coll.layout.t_max,
+           "r_pad": coll.layout.r_pad,
            "pool_dtype": str(model.get_parameters()[coll.name]["pool"].dtype), "predicted": list(y.shape),
            "predict_in_0_1": bool(np.all((y > 0) & (y < 1))), "losses": losses, "by_rank": by_rank}
-    want = (5, 3, 3) if run.cuda else (0, 0, 0)
+    want = (5, 3, 3 if coll.layout.packed_pool else 0) if run.cuda else (0, 0, 0)
     run.check(res["predict_in_0_1"] and y.shape == (4 * b + 1000, 1) and all(np.isfinite(losses))
               and all((r["k3_predict"], r["k3_train"], r["row_update_train"]) == want for r in by_rank),
               "mlperf-lite", res)
+    if model._model_parallel:
+        res["replicas_alike_by_digest"] = replicas_alike(by_rank)
+        run.check(res["replicas_alike_by_digest"], "mlperf-lite model-axis replicas and data-axis blocks", res)
     return res
 
 
@@ -600,23 +648,28 @@ def one_card_losses(run: Run, one, batches, steps: int) -> tuple:
     return losses, (time.perf_counter() - t0) / steps * 1e3
 
 
-def dp_check(run: Run, rule: str) -> dict:
-    """Kaggle under data_parallel_plan(): every table replicated, the 10
-    above 8192 rows sparse on K1 (bf16), each rank applying the global
-    batch's gathered stream. Eager steps against one card's model from the
-    same weights, every rank's replicas against rank 0's, then replays."""
-    mesh, dev, args = run.mesh, run.device, run.args
+def dp_check(run: Run, rule: str, mesh=None, **ffkw) -> dict:
+    """Kaggle under data_parallel_plan() on `mesh` (the run's unless
+    given): every table replicated, the 10 above 8192 rows sparse on K1
+    (bf16), each rank applying the global batch's gathered stream. Eager
+    steps against one card's model from the same weights, every rank's
+    replicas against rank 0's (on a 2-D mesh by digest, `replicas_alike`:
+    the tables alike on every rank, a column-parallel block on its data
+    peers), then replays."""
+    mesh, dev, args = mesh or run.mesh, run.device, run.args
     b, steps = args.batch_size, args.steps
     cfg = kaggle_config(batch_size=b)
     cfg.embedding_size = [min(v, args.vocab_cap) for v in cfg.embedding_size]
-    model = kaggle_model(run, cfg, rule, mesh, plan=data_parallel_plan())
+    model = kaggle_model(run, cfg, rule, mesh, plan=data_parallel_plan(), **ffkw)
     route = [op for op in model._sparse_ops if op.kernel_route]
     run.check(model._op("embedding_collection") is None and len(model._sparse_ops) == 10
               and len(route) == (10 if run.cuda else 0), "the replicated tables", {"sparse": len(model._sparse_ops)})
     batches = staged_batches(cfg, b, dev, SEED + 5)
     one = kaggle_model(run, cfg, rule, None) if mesh.rank == 0 else None
-    for name in model.get_parameters() if one is not None else []:
-        one.set_weights(name, model.get_weights(name))
+    for name in model.get_parameters():
+        w = model.get_weights(name)  # collective for a column-parallel Dense
+        if one is not None:
+            one.set_weights(name, w)
     wrapper = row_update_adam if rule == "adam" else row_update
     losses = [model.train_batch(*batches[i % 4]) for i in range(WARMUP)]
     run.sync()
@@ -628,15 +681,20 @@ def dp_check(run: Run, rule: str) -> dict:
     losses = [float(x) for x in losses]
     dt = time.perf_counter() - t0
     ms = dt / steps * 1e3
-    mine = {"rank": mesh.rank, "row_update_launches_per_step": wrapper.launches / steps, "eager_ms_per_step": ms,
+    two_d = bool(model._model_parallel)
+    mine = {"rank": mesh.rank, "index": [mesh.data_index, mesh.model_index],
+            "row_update_launches_per_step": wrapper.launches / steps, "eager_ms_per_step": ms,
             "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if run.cuda else "not measured (CPU)",
             "table_dtype": str(model.get_parameters()[model._sparse_ops[0].name]["weight"].dtype),
-            **replicas_equal(run, model)}
-    res = {"rule": rule, "global_batch": b, "steps": steps, "eager_ms_per_step": ms,
+            **(split_digests(model) if two_d else replicas_equal(run, model))}
+    res = {"rule": rule, "mesh": list(mesh.shape), "tensor_parallel": sorted(model._model_parallel),
+           "global_batch": b, "steps": steps, "eager_ms_per_step": ms,
            "eager_examples_per_s": steps * b / dt, "losses": losses, "by_rank": run.gather(mine)}
+    res["replicas_alike"] = (replicas_alike(res["by_rank"], everywhere=True) if two_d
+                             else not any(r["differing_from_rank_0"] for r in res["by_rank"]))
     run.check(all(np.isfinite(losses)), "losses", res)
-    run.check(all(r["row_update_launches_per_step"] == (10 if run.cuda else 0) and not r["differing_from_rank_0"]
-                  for r in res["by_rank"]), "launches and replicas", res)
+    run.check(all(r["row_update_launches_per_step"] == (10 if run.cuda else 0) for r in res["by_rank"])
+              and res["replicas_alike"], "launches and replicas", res)
     if one is not None:
         one_losses, one_ms = one_card_losses(run, one, batches, steps)
         res["one_card"] = {"losses": one_losses, "ms_per_step": one_ms,
@@ -646,8 +704,10 @@ def dp_check(run: Run, rule: str) -> dict:
     del model, one
     if run.cuda:
         torch.cuda.empty_cache()
-    res["replays"] = replay_check(run, cfg, rule, batches, plan=data_parallel_plan(), k1_nodes=20)
-    res["replays_vs_eager_deterministic"] = bits_check(run, cfg, rule, batches, plan=data_parallel_plan())
+    res["replays"] = replay_check(run, cfg, rule, batches, plan=data_parallel_plan(), k1_nodes=20, mesh=mesh,
+                                  **ffkw)
+    res["replays_vs_eager_deterministic"] = bits_check(run, cfg, rule, batches, plan=data_parallel_plan(),
+                                                       mesh=mesh, **ffkw)
     del batches
     if run.cuda:
         torch.cuda.empty_cache()
@@ -782,6 +842,228 @@ def full_check(run: Run, rule: str) -> dict:
     return res
 
 
+def tp_collective_ms(run: Run, model, b_loc: int, reps: int = 20) -> dict:
+    """The collectives of each column-parallel layer of `model`, timed alone
+    at the step's shapes a rank (b_loc rows of the layer's compute dtype
+    and width): the forward's all-gather of [b_loc, out / M] blocks and,
+    where the layer's input takes a gradient (not the first layer's dense
+    features), the backward's all-reduce of [b_loc, in] in f32; ms a call
+    from CUDA events over `reps` eager calls after a warm-up, with the bytes
+    each rank sends (not measured on the CPU)."""
+    if not run.cuda:
+        return {"tp_collective_ms": "not measured (CPU)"}
+    mesh, dev = model.mesh, run.device
+    group, m = mesh.model_group(), mesh.model_size
+    out = {}
+    for name in model._model_parallel:
+        op = model._op(name)
+        blk = torch.zeros((b_loc, op.out_dim // m), dtype=model._ctx.compute_dtype, device=dev)
+        full = torch.empty((m * b_loc, op.out_dim // m), dtype=blk.dtype, device=dev)
+        grad = torch.zeros((b_loc, op.in_dim), dtype=torch.float32, device=dev)
+        takes_grad = not isinstance(op.inputs[0].owner_op, InputOp)
+        row = {}
+        for kind, call in (("all_gather", lambda: dist.all_gather_into_tensor(full, blk, group=group)),
+                           ("all_reduce", lambda: dist.all_reduce(grad, group=group))):
+            if kind == "all_reduce" and not takes_grad:
+                continue
+            call()
+            run.sync()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                call()
+            end.record()
+            end.synchronize()
+            row[f"{kind}_ms"] = start.elapsed_time(end) / reps
+            row[f"{kind}_bytes"] = (blk if kind == "all_gather" else grad).numel() * (
+                blk if kind == "all_gather" else grad).element_size()
+        out[name] = row
+    return out
+
+
+def device_digest(tensors) -> str:
+    """One sha256 over a digest of each tensor computed on the device: its
+    bytes as int64 words (zero-padded), their sum and their sum weighted by
+    position (mod 1,000,003), each wrapping in int64; any two tensors that
+    differ in a byte differ here but for a collision."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        b = torch.cat([b, b.new_zeros((-b.numel()) % 8)]).view(torch.int64)
+        a = w = torch.zeros((), dtype=torch.int64, device=b.device)
+        for lo in range(0, b.numel(), 1 << 24):
+            part = b[lo:lo + (1 << 24)]
+            pos = torch.arange(lo, lo + part.numel(), dtype=torch.int64, device=b.device) % 1_000_003 + 1
+            a = a + part.sum()
+            w = w + (part * pos).sum()
+        h.update(np.array([a.item(), w.item(), b.numel()], np.int64).tobytes())
+    return h.hexdigest()[:16]
+
+
+def split_digests(model) -> dict:
+    """The state a rank's model peers must hold alike (every tensor but the
+    column-parallel ones: the collection shard and its slot state, the
+    replicated towers and their optimizer state, the metrics) and the
+    column-parallel blocks its data peers must hold alike, a digest each."""
+    rest, tp = [], []
+    for path, t in sorted(state_tensors(model).items()):
+        op, key = path.split("/")[-2:]
+        (tp if key in model._model_parallel.get(op, ()) else rest).append(t)
+    return {"replicated": device_digest(rest), "column_parallel": device_digest(tp),
+            "tensors": [len(rest), len(tp)]}
+
+
+def replicas_alike(by_rank, everywhere: bool = False) -> bool:
+    """Whether the ranks' `split_digests` (with their "index", [data,
+    model]) agree as a 2-D mesh must: the replicated state alike on the
+    model peers of a data index (on every rank when `everywhere`: no
+    collection shard), the column-parallel blocks alike on the data peers
+    of a model index, and, as a check on the digests, unlike where the
+    shard or the block differs."""
+    return all(
+        (r["replicated"] == q["replicated"]) == (everywhere or r["index"][0] == q["index"][0])
+        and (r["column_parallel"] == q["column_parallel"]) == (r["index"][1] == q["index"][1])
+        for r in by_rank for q in by_rank)
+
+
+def scatter_order_probe(run: Run, b_loc: int, rows: int = 1460, d: int = 16, reps: int = 5) -> dict:
+    """A scatter-add of b_loc rows of f32 into `rows` x `d` zeros (a (2, 2)
+    rank's one-hot backward on kaggle's first table; one seed), `reps`
+    times by `index_add_` and by `ops.common.index_add_rows`: the distinct
+    results of each. Float atomics may give more than one on the card,
+    which is why the model peers' dense gradients are broadcast and the
+    scatter rules take index_add_rows; index_add_rows must give one."""
+    g = torch.Generator().manual_seed(SEED)
+    idx = torch.randint(0, rows, (b_loc,), generator=g).to(run.device)
+    src = torch.randn((b_loc, d), generator=g).to(run.device)
+    zeros = torch.zeros((rows, d), device=run.device)
+    atomics = {device_digest([zeros.clone().index_add_(0, idx, src)]) for _ in range(reps)}
+    ordered = {device_digest([index_add_rows(zeros.clone(), idx, src)]) for _ in range(reps)}
+    return {"lookups": b_loc, "rows": rows, "dim": d, "reps": reps,
+            "index_add_distinct": len(atomics), "index_add_rows_distinct": len(ordered)}
+
+
+def nccl_by_group(run: Run, model, batches, steps: int) -> dict:
+    """NCCL kernel ms a step over `steps` profiled eager steps, by
+    collective (the kernels' names: AllGather, AllReduce, Broadcast,
+    SendRecv, the all-to-all's) and by process group: the model group's is
+    the device time of the column-parallel layers' collectives (the
+    `tensor_parallel.RANGES` ranges; under the hybrid plan every
+    all-gather of a step is theirs), the data group's the rest but the
+    replicated gradients' broadcast over the model group; and the compute
+    kernels' ms a step. A collective's kernel runs from its launch until
+    the slowest peer joins, so its time holds the waits."""
+    if not run.cuda:
+        return {"nccl_ms_per_step_by_group": "not measured (CPU)"}
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..parallel.tensor_parallel import RANGES
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            model.train_batch(*batches[i % len(batches)])
+        torch.cuda.synchronize(run.device)
+    rows = prof.key_averages()
+    ranges = {}
+    for e in rows:  # a range's device time: its kernels', on the CPU row or a GPU annotation row
+        if e.key in RANGES:
+            ranges[e.key] = max(ranges.get(e.key, 0.0), e.device_time_total / 1e3 / steps)
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA and e.key not in RANGES
+               and not e.key.startswith(("Memcpy", "Memset", "nccl:", "step:"))]
+    by_kind = {}
+    for e in kernels:
+        if e.key.startswith("ncclDevKernel"):
+            kind = next((k for k in ("AllGather", "AllReduce", "Broadcast", "SendRecv") if k in e.key), "other")
+            by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3 / steps
+    nccl = sum(by_kind.values())
+    model_ms = sum(ranges.values()) + by_kind.get("Broadcast", 0.0)
+    return {"nccl_ms_per_step_by_kind": by_kind, "tensor_parallel_range_ms_per_step": ranges,
+            "nccl_ms_per_step_by_group": {"model": model_ms, "data": nccl - model_ms},
+            "eager_compute_kernel_ms_per_step": sum(e.self_device_time_total for e in kernels) / 1e3 / steps - nccl}
+
+
+def twod_check(run: Run, rule: str, mesh2, mesh1) -> dict:
+    """Kaggle on the (2, 2) mesh (`mesh2`) under the hybrid plan and
+    enable_parameter_parallel against the (4,) mesh (`mesh1`) from the same
+    seed (a column-parallel kernel is drawn whole, so both start alike) and
+    one card's model (rank 0) from the same weights: each step's loss
+    within LOSS_ATOL of both (the same operations but for f32 summation
+    orders: the input gradients' partial sums all-reduced over the model
+    group), eager ms a step on both meshes, the replicas' digests, NCCL ms
+    by group; then replays on both meshes and replays against eager steps
+    bit for bit."""
+    dev, args = run.device, run.args
+    b, steps = args.batch_size, args.steps
+    cfg = kaggle_config(batch_size=b)
+    cfg.embedding_size = [min(v, args.vocab_cap) for v in cfg.embedding_size]
+    model = kaggle_model(run, cfg, rule, mesh2, enable_parameter_parallel=True)
+    coll = model._op("embedding_collection")
+    flat = kaggle_model(run, cfg, rule, mesh1)
+    one = kaggle_model(run, cfg, rule, None) if run.mesh.rank == 0 else None
+    for name in coll.table_names + [n for n in model.get_parameters() if n != coll.name]:
+        w = model.get_weights(name)  # collective: a fused table, a column-parallel Dense
+        if one is not None:
+            one.set_weights(name, w)
+    batches = staged_batches(cfg, b, dev, SEED + 7)
+    wrapper = row_update_adam if rule == "adam" else row_update
+    out = {}
+    for key, m in (("2d", model), ("1d", flat)):
+        losses = [m.train_batch(*batches[i % 4]) for i in range(WARMUP)]
+        run.sync()
+        wrapper.launches = 0
+        t0 = time.perf_counter()
+        losses += [m.train_batch(*batches[(WARMUP + i) % 4]) for i in range(steps)]
+        losses = [float(x) for x in losses]
+        out[key] = (losses, (time.perf_counter() - t0) / steps * 1e3, wrapper.launches / steps)
+    losses, ms, launches = out["2d"]
+    mine = {"rank": run.mesh.rank, "index": [mesh2.data_index, mesh2.model_index], "eager_ms_per_step": ms,
+            "row_update_launches_per_step": launches, "shard": coll.shard,
+            "blocks": {n: list(model.get_parameters()[n]["kernel"].shape) for n in model._model_parallel},
+            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if run.cuda else "not measured (CPU)",
+            **split_digests(model), **nccl_by_group(run, model, batches, PROFILED)}
+    by_rank = run.gather(mine)
+    res = {"rule": rule, "mesh": list(mesh2.shape), "global_batch": b, "steps": steps,
+           "tensor_parallel": sorted(model._model_parallel), "shards": coll.layout.num_shards,
+           "eager_ms_per_step": ms, "eager_examples_per_s": b / ms * 1e3, "losses": losses,
+           "one_d": {"eager_ms_per_step": out["1d"][1], "losses": out["1d"][0],
+                     "max_loss_err": max(abs(x - y) for x, y in zip(losses, out["1d"][0])), "loss_atol": LOSS_ATOL},
+           "by_rank": by_rank}
+    run.check(all(np.isfinite(losses)) and res["one_d"]["max_loss_err"] <= LOSS_ATOL, "losses against (4,)", res)
+    run.check(all(r["row_update_launches_per_step"] == (1 if run.cuda else 0) for r in by_rank), "launches", res)
+    peers_alike = replicas_alike(by_rank)
+    res["replicas_alike_by_digest"] = peers_alike
+    run.check(peers_alike, "model-axis replicas and data-axis blocks", res)
+    if run.cuda:
+        from ..parallel.tensor_parallel import RANGES
+
+        res["tensor_parallel_ranges_timed"] = all(
+            r["tensor_parallel_range_ms_per_step"].get(k, 0.0) > 0.0 for r in by_rank for k in RANGES)
+        run.check(res["tensor_parallel_ranges_timed"], "device time in every tensor_parallel range", res)
+    if one is not None:
+        one_losses, one_ms = one_card_losses(run, one, batches, steps)
+        res["one_card"] = {"losses": one_losses, "ms_per_step": one_ms,
+                           "max_loss_err": max(abs(x - y) for x, y in zip(losses, one_losses)),
+                           "loss_atol": LOSS_ATOL}
+        run.check(res["one_card"]["max_loss_err"] <= LOSS_ATOL, "losses against one card", res)
+    if rule == "sgd":
+        res["tp_collectives_by_layer"] = run.gather(tp_collective_ms(run, model, b // mesh2.data_size))
+    del model, flat, one
+    if run.cuda:
+        torch.cuda.empty_cache()
+    res["replays"] = replay_check(run, cfg, rule, batches, mesh=mesh2, enable_parameter_parallel=True)
+    res["replays_one_d"] = replay_check(run, cfg, rule, batches, mesh=mesh1)
+    res["replays_vs_eager_deterministic"] = bits_check(run, cfg, rule, batches, mesh=mesh2,
+                                                       enable_parameter_parallel=True)
+    del batches
+    if run.cuda:
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", help="cuda (NCCL), or cpu (gloo) for a rehearsal")
@@ -834,6 +1116,20 @@ def main(argv=None) -> None:
         if "full" in phases:
             for rule in ("sgd", "adagrad"):
                 run.log("[mesh-full]", full_check(run, rule))
+        if "2d" in phases:
+            if mesh.size != 4:
+                raise SystemExit(f"--phases 2d runs on 4 ranks (a (2, 2) and a (1, 4) mesh), not {mesh.size}")
+            mesh2 = make_mesh((2, 2), ("data", "model"), device=args.device)
+            probe = run.gather(scatter_order_probe(run, args.batch_size // 2))
+            run.log("[mesh-2d-scatter-order]", probe)
+            run.check(all(p["index_add_rows_distinct"] == 1 for p in probe), "index_add_rows in one order", probe)
+            for rule in ("sgd", "adam"):
+                run.log("[mesh-2d]", twod_check(run, rule, mesh2, mesh))
+            for rule in ("sgd", "adam"):
+                run.log("[mesh-2d-dp]", dp_check(run, rule, mesh2, enable_parameter_parallel=True))
+            for shape in ((2, 2), (1, 4)):
+                m = mesh2 if shape == (2, 2) else make_mesh(shape, ("data", "model"), device=args.device)
+                run.log("[mesh-2d-mlperf-lite]", mlperf_lite_check(run, m, enable_parameter_parallel=True))
         run.log("", {"ok": True, "devices": mesh.size, "device": str(mesh.device.type), "phases": phases})
     finally:
         dist.destroy_process_group()

@@ -14,18 +14,23 @@ is written in the layout the port keeps on each route: {"m", "v"} pools on
 the row-update kernel route, one stacked [2, V, D] array on the scatter
 route, as the JAX package keeps its packed and scatter tables.
 
-Under a mesh (a data axis above 1) saving is collective and rank 0 writes
+Under a mesh of several ranks saving is collective and rank 0 writes
 while every other rank waits at a barrier for the files. A model sharded
-over the mesh holds one shard of the fused collection's pool and of its
-sparse optimizer state a rank: every rank sends its shard of each such
-tensor to rank 0 (`torch.distributed.gather`), which writes them stacked
-shard-leading, [N, *shard shape] (the pool as [N, R_pad, D], the shape
-`get_weights` gives it and the JAX package's unpacked pool has), with the
-replicated rest as one device would. Host-tail stores are replicas, the
-same on every rank: `host_tail.npz` holds rank 0's. Restoring is collective
-too: every rank reads the files, keeps its own shard (the JAX package
-leaves a restored optimizer state unsharded, training/checkpoint.py:128;
-the values are the same) and restores its store replicas.
+over the data axis holds one shard of the fused collection's pool and of
+its sparse optimizer state a data index: the ranks of model index 0 send
+their shard of each such tensor to rank 0 (`torch.distributed.gather`
+over the data group), which writes them stacked shard-leading, [N, *shard
+shape] (the pool as [N, R_pad, D], the shape `get_weights` gives it and
+the JAX package's unpacked pool has), with the replicated rest as one
+device would. A column-parallel Dense (a model axis above 1) holds a row
+block of its kernel, its bias and their dense optimizer state: the ranks
+of data index 0 gather the blocks over the model group to rank 0, which
+writes them whole, in the JAX package's shapes ([out, in], [out]).
+Host-tail stores are replicas, the same on every rank: `host_tail.npz`
+holds rank 0's. Restoring is collective too: every rank reads the files,
+keeps its own shard and its own row blocks (the JAX package leaves a
+restored optimizer state unsharded, training/checkpoint.py:128; the
+values are the same) and restores its store replicas.
 
 `restore_checkpoint` writes into the compiled model's own tensors (in
 place), so a train step captured in a CUDA graph (`FFModel.train_chunk`)
@@ -111,18 +116,46 @@ def _map(fn, tree):
     return None if tree is None else fn(tree)
 
 
-def _gather_shards(t: torch.Tensor, rank: int, size: int) -> Optional[torch.Tensor]:
-    """[N, *t.shape] on rank 0 (None elsewhere): every rank's t. A bf16
-    tensor travels as its bits viewed as f16, a type both NCCL and gloo
-    move (a gather copies bytes, so no value changes)."""
+def _gather_shards(t: torch.Tensor, rank: int, size: int, group=None) -> Optional[torch.Tensor]:
+    """[N, *t.shape] on the group's rank 0 (None elsewhere): the t of each
+    of the `size` ranks of `group` (None: the world), `rank` this rank's
+    place in it. A bf16 tensor travels as its bits viewed as f16, a type
+    both NCCL and gloo move (a gather copies bytes, so no value changes)."""
     bits = t.detach().contiguous()
     wire = bits.view(torch.float16) if bits.dtype == torch.bfloat16 else bits
     parts = [torch.empty_like(wire) for _ in range(size)] if rank == 0 else None
-    dist.gather(wire, parts, dst=0)
+    dist.gather(wire, parts, dst=0 if group is None else dist.get_global_rank(group, 0), group=group)
     if rank != 0:
         return None
     out = torch.stack(parts)
     return out.view(torch.bfloat16) if bits.dtype == torch.bfloat16 else out
+
+
+def _map_model_parallel(fn, tree, tp, path=()):
+    """`tree` with `fn` applied to each array of a column-parallel
+    parameter: a leaf under .../<op>/<key> with key in tp[op] (the
+    parameters and every dense optimizer state keyed by op and key)."""
+    if isinstance(tree, dict):
+        return {k: _map_model_parallel(fn, v, tp, path + (k,)) for k, v in tree.items()}
+    if tree is not None and len(path) >= 2 and path[-1] in tp.get(path[-2], ()):
+        return fn(tree)
+    return tree
+
+
+def _whole(t: torch.Tensor, mesh) -> Optional[torch.Tensor]:
+    """A column-parallel tensor's row blocks gathered over the model group,
+    whole on the group's first rank (None elsewhere)."""
+    out = _gather_shards(t, mesh.model_index, mesh.model_size, mesh.model_group())
+    return None if out is None else out.reshape((-1,) + tuple(t.shape[1:]))
+
+
+def _own_rows(a: np.ndarray, mesh) -> np.ndarray:
+    """This rank's row block of a column-parallel array saved whole."""
+    if a.ndim == 0 or a.shape[0] % mesh.model_size:
+        raise ValueError(f"restore_checkpoint: a column-parallel array of shape {a.shape} does not split "
+                         f"over the model axis of {mesh.model_size}")
+    n = a.shape[0] // mesh.model_size
+    return a[mesh.model_index * n:(mesh.model_index + 1) * n]
 
 
 def _own_shard(a: np.ndarray, coll: EmbeddingCollection, size: int) -> np.ndarray:
@@ -135,19 +168,26 @@ def _own_shard(a: np.ndarray, coll: EmbeddingCollection, size: int) -> np.ndarra
 
 def save_checkpoint(path: str, model, extra: Optional[Dict[str, Any]] = None) -> None:
     """Write train state: params, optimizer state, step counter, metrics.
-    Under a data axis > 1 every rank calls it (the shards gather to rank
-    0, which writes) and it returns once the files are written."""
+    Under a mesh of several ranks every rank calls it (the shards and row
+    blocks gather to rank 0, which writes) and it returns once the files
+    are written."""
     params, opt = model.get_parameters(), model._opt_state
-    mesh = model._data_mesh
+    mesh = model.mesh
     coll = _sharded_collection(model)
-    if coll is not None:
-        rank, size = mesh.rank, mesh.size
-        params = {**params, coll.name: _map(lambda t: _gather_shards(t, rank, size), params[coll.name])}
-        opt = {**opt, "sparse": {**opt["sparse"], coll.name: _map(lambda t: _gather_shards(t, rank, size),
-                                                                   opt["sparse"][coll.name])}}
+    if coll is not None and mesh.model_index == 0:
+        rank, size, group = mesh.data_index, mesh.data_size, mesh.data_group()
+
+        def gather(t):
+            return _gather_shards(t, rank, size, group)
+
+        params = {**params, coll.name: _map(gather, params[coll.name])}
+        opt = {**opt, "sparse": {**opt["sparse"], coll.name: _map(gather, opt["sparse"][coll.name])}}
+    tp = model._model_parallel
+    if tp and mesh.data_index == 0:
+        params, opt = (_map_model_parallel(lambda t: _whole(t, mesh), tree, tp) for tree in (params, opt))
     if mesh is None or mesh.rank == 0:
         _write(path, model, params, opt, extra)
-    if mesh is not None:
+    if mesh is not None and mesh.size > 1:
         dist.barrier()  # every rank returns once the files are there
 
 
@@ -224,7 +264,8 @@ def restore_checkpoint(path: str, model) -> Dict[str, Any]:
     match (same model/config); ValueError otherwise, and for a checkpoint
     with host-tail stores into a model without them. Under a mesh every
     rank reads the files and keeps its shard of the sharded collection's
-    arrays. Returns the manifest."""
+    arrays and its row block of each column-parallel array. Returns the
+    manifest."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     ht = model._host_tail
@@ -239,10 +280,13 @@ def restore_checkpoint(path: str, model) -> Dict[str, Any]:
     params, opt, totals = (load_npz(n) for n in ("params.npz", "opt_state.npz", "metrics.npz"))
     coll = _sharded_collection(model)
     if coll is not None:
-        params[coll.name] = _map(lambda a: _own_shard(a, coll, model.mesh.size), params.get(coll.name, {}))
+        size = model.mesh.data_size
+        params[coll.name] = _map(lambda a: _own_shard(a, coll, size), params.get(coll.name, {}))
         if isinstance(opt, dict) and isinstance(opt.get("sparse"), dict) and coll.name in opt["sparse"]:
-            opt["sparse"][coll.name] = _map(lambda a: _own_shard(a, coll, model.mesh.size),
-                                            opt["sparse"][coll.name])
+            opt["sparse"][coll.name] = _map(lambda a: _own_shard(a, coll, size), opt["sparse"][coll.name])
+    tp = model._model_parallel
+    if tp:
+        params, opt = (_map_model_parallel(lambda a: _own_rows(a, model.mesh), tree, tp) for tree in (params, opt))
     midband = {op.name for op in model.graph.compute_ops if getattr(op, "onehot_packed", False)}
     layout = {op: {k: shape for k, (shape, _) in sub.items()} for op, sub in model._layout.items()}
     params = _unpack_midband(params, layout, midband)

@@ -26,7 +26,11 @@ and the scatter rules for embedding rows (rows < 0 or >= V dropped):
                   occurrence adds -lr * rsqrt(acc[r] + eps) * g (:266-278).
 Every tensor of a scatter rule is sized by the stream's length K, never by
 its data (`_segments`), so that a train step captured in a CUDA graph
-replays it.
+replays it, and every scatter-add takes its repeated rows in one fixed
+order (`ops.common.index_add_rows`) while the segment rules write each
+touched row once (`_assign_rows`), so that ranks that apply the same
+stream to a replicated table (the model peers of a 2-D mesh) keep the
+same bits.
 Tables on the row-update kernel route take the kernel's own rounding
 sequence instead (training/sparse_engine.py). The learning rate lives in
 the state as a 0-d f32 tensor on the device, so `FFModel.set_learning_rate`
@@ -43,6 +47,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from ..ops.common import index_add_rows
 
 
 def _rate(lr, default: float, device) -> torch.Tensor:
@@ -69,8 +75,11 @@ def _segments(rows: torch.Tensor, g32: torch.Tensor, num_rows: int, squares: boo
     once with its own values, and a padding slot repeats slot 0's write,
     the same bits to the same row, which is race-free; a stream that drops
     every entry has no real segment, and its callers write slot 0's old
-    values back unchanged. A write-back that adds uses `row` and adds
-    exactly 0.0 at the padding slots. Sq is None unless `squares`."""
+    values back unchanged. Sq is None unless `squares`. The sums add each
+    segment's entries in one fixed order (`index_add_rows`); a dropped
+    entry adds into its own sorted position, a slot past the real
+    segments, so that dropped entries form no run of one slot (a run is
+    summed in one thread on the card)."""
     k, d = rows.shape[0], g32.shape[1]
     dev = g32.device
     key = torch.where((rows >= 0) & (rows < num_rows), rows.long(), num_rows)
@@ -79,9 +88,11 @@ def _segments(rows: torch.Tensor, g32: torch.Tensor, num_rows: int, squares: boo
     head[1:] = skey[1:] != skey[:-1]
     seg = torch.cumsum(head, 0) - 1
     gs = g32[order]
-    G = torch.zeros((k, d), dtype=torch.float32, device=dev).index_add_(0, seg, gs)
-    Sq = torch.zeros((k, d), dtype=torch.float32, device=dev).index_add_(0, seg, gs * gs) if squares else None
     slots = torch.arange(k, device=dev)
+    into = torch.where(skey < num_rows, seg, slots)
+    vals = torch.cat([gs, gs * gs], 1) if squares else gs  # one sum for both
+    sums = index_add_rows(torch.zeros((k, vals.shape[1]), dtype=torch.float32, device=dev), into, vals)
+    G, Sq = (sums[:, :d], sums[:, d:]) if squares else (sums, None)
     row = skey[torch.searchsorted(seg, slots).clamp_max(k - 1)]
     valid = (slots <= seg[-1]) & (row < num_rows)
     src = torch.where(valid, slots, 0)
@@ -95,6 +106,17 @@ def _assign_rows(pool: torch.Tensor, row, valid, src, new_rows: torch.Tensor) ->
     old = pool[row]
     vals = torch.where(valid.reshape((-1,) + (1,) * (old.dim() - 1)), new_rows, old)
     pool.index_copy_(0, row[src], vals[src])
+
+
+def _kept(rows: torch.Tensor, num_rows: int):
+    """(keep, safe) of an update stream: whether each entry's row is in
+    [0, num_rows), and the row each entry adds to, a dropped entry's its
+    slot's index mod num_rows, where it adds exactly 0.0: dropped entries
+    spread over the rows form no long run of one row, which
+    `index_add_rows` would sum in one thread on the card."""
+    keep = (rows >= 0) & (rows < num_rows)
+    spread = torch.arange(rows.shape[0], device=rows.device) % num_rows
+    return keep, torch.where(keep, rows.long(), spread)
 
 
 def _decayed(table, rows, row_grads, weight_decay: float) -> torch.Tensor:
@@ -184,20 +206,20 @@ class SGDOptimizer(Optimizer):
         rate = _rate(lr, self.lr, table.device)
         if self.momentum == 0.0:
             # one add per kept entry, as the JAX scatter adds them; a
-            # dropped entry adds exactly 0.0 to a clamped row
-            keep = ((rows >= 0) & (rows < table.shape[0]))[:, None]
-            safe = rows.long().clamp(0, table.shape[0] - 1)
+            # dropped entry adds exactly 0.0 (`_kept`)
+            keep, safe = _kept(rows, table.shape[0])
+            keep = keep[:, None]
             if self.weight_decay != 0.0:
                 row_grads = row_grads + self.weight_decay * table[safe]
             delta = torch.where(keep, -rate * row_grads, 0.0)
-            table.index_add_(0, safe, delta.to(table.dtype))
+            index_add_rows(table, safe, delta.to(table.dtype))
             return state
         g32 = _decayed(table, rows, row_grads, self.weight_decay)
         row, valid, src, G, _ = _segments(rows, g32, table.shape[0])
         v2 = self.momentum * state[row] + G
         step = G + self.momentum * v2 if self.nesterov else v2
         _assign_rows(state, row, valid, src, v2)
-        table.index_add_(0, row, torch.where(valid[:, None], -rate * step, 0.0).to(table.dtype))
+        _assign_rows(table, row, valid, src, table[row] + (-rate * step).to(table.dtype))
         return state
 
 
@@ -275,7 +297,7 @@ class AdamOptimizer(Optimizer):
         upd = alpha_t * m2 / (torch.sqrt(v2) + self.epsilon)
         _assign_rows(m, row, valid, src, m2)
         _assign_rows(v, row, valid, src, v2)
-        table.index_add_(0, row, torch.where(valid[:, None], -upd, 0.0).to(table.dtype))
+        _assign_rows(table, row, valid, src, table[row] + (-upd).to(table.dtype))
         return state
 
 
@@ -340,13 +362,12 @@ class RowWiseAdagradOptimizer(Optimizer):
 
     @torch.no_grad()
     def sparse_row_update(self, table, acc, rows, row_grads, lr=None):
-        # per entry, as the JAX rule: a dropped entry adds exactly 0.0 to a
-        # clamped row of the accumulator and of the table
+        # per entry, as the JAX rule: a dropped entry adds exactly 0.0 to
+        # the accumulator and the table (`_kept`)
         rate = _rate(lr, self.lr, table.device)
-        keep = (rows >= 0) & (rows < table.shape[0])
-        r = rows.long().clamp(0, table.shape[0] - 1)
+        keep, r = _kept(rows, table.shape[0])
         g32 = row_grads.float()
-        acc.index_add_(0, r, torch.where(keep, torch.mean(g32 * g32, dim=-1), 0.0))
+        index_add_rows(acc, r, torch.where(keep, torch.mean(g32 * g32, dim=-1), 0.0))
         scale = -rate * torch.rsqrt(acc[r] + self.epsilon)
-        table.index_add_(0, r, torch.where(keep[:, None], scale[:, None] * g32, 0.0).to(table.dtype))
+        index_add_rows(table, r, torch.where(keep[:, None], scale[:, None] * g32, 0.0).to(table.dtype))
         return acc

@@ -1163,3 +1163,85 @@ def test_replicated_tables_update_in_a_world_of_one(cuda, rule):
             tol = _row_tolerance(weights[op.name].cpu(), rows, src, 1, lr, True)
             err = (pa[op.name]["weight"].float().cpu() - pd[op.name]["weight"].float()).abs()
             assert torch.all(err <= tol), (op.name, float((err - tol).max()))
+
+
+def test_tensor_parallel_dense_captured_in_a_group_of_one(cuda):
+    """parallel/tensor_parallel.py on the card, in an NCCL subgroup of one
+    (a model axis of one rank): `copy_in`, the port's `dense` (bf16 compute,
+    ReLU) and `gather_out` give the output and the gradients of the input,
+    the kernel and the bias of plain `dense` bit for bit (the gather and
+    the backward's all-reduce move one rank's bytes), eagerly and as the
+    replay of a CUDA graph that captured them after an eager warm-up on a
+    side stream. Four cards run them over two and four ranks
+    (tools/mesh_smoke.py's `2d` phase)."""
+    import torch.distributed as dist
+
+    from dlrm_flexflow_tpu_torch.ffconst import ActiMode
+    from dlrm_flexflow_tpu_torch.ops.dense import dense
+    from dlrm_flexflow_tpu_torch.parallel.mesh import make_mesh
+    from dlrm_flexflow_tpu_torch.parallel.tensor_parallel import copy_in, gather_out
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        group = make_mesh().subgroup([[0]])
+        gen = torch.Generator(device="cuda").manual_seed(41)
+        x, kernel, bias, w = (torch.randn(s, generator=gen, device="cuda") for s in
+                              ((300, 96), (64, 96), (64,), (300, 64)))
+
+        def step(tp):
+            leaves = [t.detach().requires_grad_(True) for t in (x, kernel, bias)]
+            xi = copy_in(leaves[0], group) if tp else leaves[0]
+            y = dense(xi, leaves[1], leaves[2], ActiMode.AC_MODE_RELU, torch.bfloat16)
+            y = gather_out(y, 1, 0, group) if tp else y
+            return [y.detach()] + list(torch.autograd.grad((y * w).sum(), leaves))
+
+        want, eager = step(False), step(True)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step(True)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            got = step(True)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(eager, want))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_index_add_rows_adds_in_one_order(cuda, dtype):
+    """ops.common.index_add_rows on the card: 32768 adds into 1460 rows
+    give the same bits on every call and as the replay of a CUDA graph
+    that captured it, and agree with an f64 sum (bf16: about 22 adds a row, each of which
+    may round to the 8-bit mantissa, so rtol 5e-2 and atol 0.1 on sums of
+    magnitude up to about 20); the optimizers' scatter rules take it, so
+    ranks that apply the same stream to a replicated table keep the same
+    bits."""
+    from dlrm_flexflow_tpu_torch.ops.common import index_add_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    idx = torch.randint(0, 1460, (32768,), generator=gen, device="cuda")
+    src = torch.randn((32768, 16), generator=gen, device="cuda").to(dtype)
+    zeros = torch.zeros((1460, 16), dtype=dtype, device="cuda")
+    first = index_add_rows(zeros.clone(), idx, src)
+    assert all(torch.equal(index_add_rows(zeros.clone(), idx, src), first) for _ in range(5))
+    out = zeros.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        index_add_rows(out, idx, src)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out.zero_()
+        index_add_rows(out, idx, src)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, first)
+    want = torch.zeros((1460, 16), dtype=torch.float64, device="cuda").index_add_(0, idx, src.double())
+    tol = (1e-4, 1e-4) if dtype == torch.float32 else (5e-2, 0.1)
+    torch.testing.assert_close(first.double(), want, rtol=tol[0], atol=tol[1])

@@ -18,9 +18,13 @@ take their plain versions on the CPU), 3 steps of the small hybrid DLRM of
 then the replicated parameters after `compile`, the refusals, `train_chunk`
 and `fit(steps_per_call=2)` under the mesh, the routed exchange (lookup and
 update against the JAX package's and the dense exchange, a routed DLRM),
-sharded checkpoints, the launcher, `bench --mesh` and the workers' import
-boundary. The data axis of 1 runs in this process, in a gloo world of one
-(with int8 serving of a fused collection against the JAX package's).
+sharded checkpoints, the 2-D ("data", "model") mesh with column-parallel
+Dense layers (against the JAX package's (2, 2) mesh under
+`enable_parameter_parallel`, the port's (4,) mesh, one device, its CUDA-
+graph path, checkpoints and strategy files), the launcher, `bench --mesh`
+and the workers' import boundary. The data axis of 1 runs in this process,
+in a gloo world of one (with int8 serving of a fused collection against
+the JAX package's).
 
 Tolerances. The lookups gather and sum the same f32 rows: the JAX package
 sums a bag in another order (rtol 1e-5, atol 1e-6). The row updates: both
@@ -38,7 +42,9 @@ weights within that bound with almost all (99%) within rtol 1e-5, atol
 1e-6. The DLRM steps are f32 on both sides with the same operations but
 for f32 summation orders (the losses within rtol 1e-5, atol 1e-6; weights
 within rtol 1e-4, atol 1e-5, as tests/test_torch_port_training.py holds
-its Adam models).
+its Adam models). The 2-D mesh's cases take tests/test_sharding.py's
+bound for tensor parallelism against a 1-D mesh (losses within rtol 2e-4,
+atol 2e-5) and the weights' bound above.
 """
 import json
 import os
@@ -174,6 +180,56 @@ def preseed_tails(m, vocabs, hot, dim):
             m._host_tail.entries[name][0].load_state(np.arange(hot, vocabs[t]), full[hot:])
         else:
             m.set_weights(name, {"weight": full})
+
+# the meshes over the 4 ranks, each made once (a 2-D one makes its groups,
+# a collective every rank reaches in one order)
+_meshes = {(world,): mesh}
+def mesh_of(shape):
+    if shape not in _meshes:
+        _meshes[shape] = make_mesh(shape, ("data", "model")[:len(shape)], device="cpu")
+    return _meshes[shape]
+
+# tests/test_sharding.py's model of the parameter-parallel case on `mesh`
+# (None: one device), FFConfig(enable_parameter_parallel=epp), under the
+# plan `plan`: "hybrid", "routed" (the hybrid plan's exchange routed, exact)
+# or "dp" (data_parallel_plan())
+def tp_dlrm(kw, opt, mesh, seed=11, epp=True, plan="hybrid", **ffkw):
+    cfg = pdlrm.DLRMConfig(**kw)
+    m = pdlrm.make_dlrm_model(cfg, port.FFConfig(batch_size=cfg.batch_size, compute_dtype="float32", seed=seed,
+                                                 onehot_embedding_threshold=0, enable_parameter_parallel=epp,
+                                                 **ffkw), device="cpu")
+    p = data_parallel_plan() if plan == "dp" else dlrm_hybrid_plan()
+    if plan == "routed":
+        p.exchange, p.routed_cap_factor = "routed", 0.0
+    m.compile(getattr(port, opt[0])(**opt[1]), port.LossType.LOSS_BINARY_CROSSENTROPY,
+              [port.MetricsType.METRICS_ACCURACY], mesh=mesh, plan=None if mesh is None else p)
+    return m
+
+# a hash of every host-tail store's state
+def store_digest(m):
+    import hashlib
+    h = hashlib.sha256()
+    for name, (store, *_rest) in sorted((m._host_tail.entries if m._host_tail else {}).items()):
+        for a in store.state():
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+# every op's weights whole: the towers (a column-parallel one gathered over
+# the model group) and the tables fused into the collection (collective)
+def whole_weights(m):
+    coll = m._op("embedding_collection")
+    names = [n for n in m.get_parameters() if coll is None or n != coll.name]
+    return {n: m.get_weights(n) for n in names + (coll.table_names if coll is not None else [])}
+
+# (a hash of the state a rank's model peers hold alike: all but the
+# column-parallel tensors; a hash of those, which its data peers hold alike)
+def split_digests(m):
+    import hashlib
+    rest, tp = hashlib.sha256(), hashlib.sha256()
+    for path, t in sorted(state_tensors(m).items()):
+        op, key = path.split("/")[-2:]
+        (tp if key in m._model_parallel.get(op, ()) else rest).update(path.encode() + t.numpy().tobytes())
+    return rest.hexdigest(), tp.hexdigest()
 """
 
 
@@ -1103,6 +1159,369 @@ def test_sharded_checkpoint_roundtrip(workers, tmp_path, opt):
         np.testing.assert_allclose(r["l2"], r["l1"], rtol=1e-5, atol=1e-6)
 
 
+# ------------------------------------------------------------------ the 2-D data x model mesh
+
+# tests/test_sharding.py::test_parameter_parallel_matches_single_device's
+# model: bot_mlp_0 (4 -> 64) and top_mlp_0 (32 -> 64) column-parallel
+TPM = dict(sparse_feature_size=8, embedding_size=[64, 96, 300], embedding_bag_size=2, mlp_bot=[4, 64, 8],
+           mlp_top=[32, 64, 1], batch_size=16)
+TP_OPTS = {"sgd": ("SGDOptimizer", {"lr": 0.05}), "adam": ("AdamOptimizer", {"alpha": 0.01})}
+TP_OPS = ["bot_mlp_0", "top_mlp_0"]
+TP_LOSS = dict(rtol=2e-4, atol=2e-5)  # tests/test_sharding.py:220
+
+
+@pytest.fixture(scope="module")
+def jmesh22():
+    return ref_make_mesh((2, 2), ("data", "model"), jax.devices()[:N])
+
+
+def _jax_tp(opt, jmesh):
+    ffc = ref.FFConfig(batch_size=TPM["batch_size"], compute_dtype="float32", seed=11, onehot_embedding_threshold=0)
+    ffc.enable_parameter_parallel = True
+    m = ref_dlrm.make_dlrm_model(ref_dlrm.DLRMConfig(**TPM), ffc)
+    m.compile(getattr(ref, opt[0])(**opt[1]), ref.LossType.LOSS_BINARY_CROSSENTROPY,
+              [ref.MetricsType.METRICS_ACCURACY], mesh=jmesh, plan=ref_hybrid_plan())
+    return m
+
+
+@pytest.mark.parametrize("opt", list(TP_OPTS))
+def test_two_d_mesh_trains_like_jax(workers, jmesh22, opt):
+    """The port's (2, 2) mesh under enable_parameter_parallel against the
+    JAX package's, from the JAX model's weights (`params_from_jax(...,
+    shard=data index, model=model index, column_parallel=)`: the
+    column-parallel kernels and biases cut to each rank's row block): 3 steps' losses within the
+    reference test's bound, the weights (whole) and, under Adam, the
+    column-parallel layers' m and v (each rank's row block, shard-sized)
+    within the module's weight bound; the collection has 2 shards, one a
+    data index; `predict` of 40 examples against the JAX model's."""
+    m = _jax_tp(TP_OPTS[opt], jmesh22)
+    assert sorted(m.plan.op_specs) == TP_OPS
+    weights = {op: m.get_weights(op) for op in m.get_parameters()}
+    batches = _batches(TPM, STEPS, seed=5)
+    feeds = {k: np.concatenate([f[k] for f, _ in batches])[:40] for k in batches[0][0]}
+    got = workers.run("""
+        mesh2 = mesh_of((2, 2))
+        model = tp_dlrm(args["cfg"], args["opt"], mesh2)
+        model.set_parameters(params_from_jax(args["weights"], like=model.get_parameters(), shard=mesh2.data_index,
+                                             model=mesh2.model_index, column_parallel=model._model_parallel))
+        losses = [float(model.train_batch(f, l)) for f, l in args["batches"]]
+        coll = model._op("embedding_collection")
+        st = model._opt_state["dense"]
+        result = {"losses": losses, "metrics": model.get_metrics(), "shards": coll.layout.num_shards,
+                  "shard": coll.shard, "index": (mesh2.data_index, mesh2.model_index),
+                  "tp": sorted(model._model_parallel), "weights": whole_weights(model),
+                  "pool": model.get_weights(coll.name)["pool"],
+                  "blocks": {n: {k: tuple(model.get_parameters()[n][k].shape) for k in keys}
+                             for n, keys in model._model_parallel.items()},
+                  "moments": {n: {k: [st[s][n][k].numpy().copy() for s in ("m", "v")] for k in keys}
+                              for n, keys in model._model_parallel.items()} if "m" in st else None,
+                  "predict": model.predict(args["feeds"])}
+    """, {"cfg": TPM, "opt": TP_OPTS[opt], "weights": weights, "batches": batches, "feeds": feeds})
+    losses = [float(m.train_batch(f, lbl)) for f, lbl in batches]
+    lay = m._embedding_layout
+    pool = m.get_weights("embedding_collection")["pool"]
+    want_predict = m.predict(feeds)
+    assert [r["index"] for r in got] == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    for r in got:
+        assert r["shards"] == lay.num_shards == 2 and r["shard"] == r["index"][0]
+        assert r["tp"] == TP_OPS
+        assert r["blocks"] == {"bot_mlp_0": {"kernel": (32, 4), "bias": (32,)},
+                               "top_mlp_0": {"kernel": (32, 32), "bias": (32,)}}
+        np.testing.assert_allclose(r["losses"], losses, **TP_LOSS)
+        assert r["metrics"]["samples"] == TPM["batch_size"] * STEPS
+        for name, sub in r["weights"].items():
+            for k, w in sub.items():
+                want = lay.extract_table(pool, int(name.split("_")[1])) if name.startswith("table_") else \
+                    m.get_weights(name)[k]
+                assert w.shape == want.shape
+                _close(w, want, 1e-4, 1e-5)
+        _close(r["pool"], pool, 1e-4, 1e-5)
+        if opt == "adam":
+            for name, sub in r["moments"].items():
+                for k, (mo, ve) in sub.items():
+                    rows = slice(r["index"][1] * mo.shape[0], (r["index"][1] + 1) * mo.shape[0])
+                    _close(mo, np.asarray(m._opt_state["dense"]["m"][name][k])[rows], 1e-4, 1e-5)
+                    _close(ve, np.asarray(m._opt_state["dense"]["v"][name][k])[rows], 1e-4, 1e-5)
+        assert r["predict"].shape == (40, 1)
+        _close(r["predict"], want_predict, 1e-4, 1e-5)
+
+
+# name -> (plan, optimizer, FFConfig keywords): the collection's dense and
+# routed exchanges, every table replicated (parallel/replicated_tables.py),
+# every table with a host tail (hot 40, none fused: replicated hot prefixes,
+# `rank_block` by data index). The routed case trains under SGD: its
+# duplicate rows' partial sums follow the batch's split over the ranks,
+# and Adam moves a weight whose summed gradient is near 0 by up to 3.2
+# alpha_t whatever its sign (the module's note), which the (4,) mesh's
+# routed and dense exchanges already show against each other (2-3e-4 in a
+# loss); under SGD the two meshes agree within an ulp
+TWO_D_CASES = {"hybrid": ("hybrid", "adam", {}), "routed": ("routed", "sgd", {}), "dp": ("dp", "adam", {}),
+               "host-tail": ("hybrid", "sgd", dict(host_tail_threshold=40, host_tail_cap_frac=1.0))}
+
+
+@pytest.mark.parametrize("case", list(TWO_D_CASES))
+def test_two_d_mesh_matches_the_one_d_mesh(workers, case):
+    """tests/test_sharding.py::test_parameter_parallel_matches_single_device
+    ported: the port's (2, 2) mesh with enable_parameter_parallel against
+    its (4,) mesh from the same seed (every rank draws a column-parallel
+    kernel whole, so both start from the same weights, bit for bit): the
+    plan's param_specs name "model", 3 steps' losses within the reference's
+    bound and the weights within the module's; the invariants: along the
+    model axis every tensor of the state but the column-parallel ones
+    (the collection shard, the replicated towers and tables, their
+    optimizer state, the metrics) equal bit for bit, and along the data
+    axis the column-parallel tensors equal bit for bit (a hash each); the
+    host-tail stores equal on every rank. Under the hybrid plan (dense or
+    routed exchange) the two data indices hold different shards; under
+    data_parallel_plan() and host-tail offload every rank holds the same
+    replicas. The groups: rank r at data index r // 2, model index r % 2; a
+    partition of the data indices taken at each model index
+    (`data_subgroup`)."""
+    plan, opt, ffkw = TWO_D_CASES[case]
+    got = workers.run("""
+        one_d = tp_dlrm(args["cfg"], args["opt"], mesh, plan=args["plan"], **args["ffkw"])
+        two_d = tp_dlrm(args["cfg"], args["opt"], mesh_of((2, 2)), plan=args["plan"], **args["ffkw"])
+        start = whole_weights(one_d), whole_weights(two_d)
+        same_start = all(np.array_equal(start[0][n][k], start[1][n][k]) for n in start[0] for k in start[0][n])
+        l1 = [float(one_d.train_batch(f, l)) for f, l in args["batches"]]
+        l2 = [float(two_d.train_batch(f, l)) for f, l in args["batches"]]
+        specs = [s for e in two_d.plan.op_specs.values() for s in (e.param_specs or {}).values()]
+        coll = two_d._op("embedding_collection")
+        result = {"same_start": same_start, "l1": l1, "l2": l2, "model_in_specs": any("model" in s for s in specs),
+                  "w1": whole_weights(one_d), "w2": whole_weights(two_d), "digests": split_digests(two_d),
+                  "stores": store_digest(two_d), "sharded": coll is not None and coll.sharded,
+                  "tails": sorted(two_d._host_tail.entries) if two_d._host_tail else [],
+                  "exchange": None if coll is None else coll.layout.exchange,
+                  "one_d_tp": one_d._model_parallel, "eval": two_d.evaluate(args["feeds"], args["labels"]),
+                  "eval_1d": one_d.evaluate(args["feeds"], args["labels"]),
+                  "groups": [torch.distributed.get_process_group_ranks(g) for g in (
+                      mesh_of((2, 2)).data_group(), mesh_of((2, 2)).model_group(),
+                      mesh_of((2, 2)).data_subgroup([[0], [1]]))]}
+    """, {"cfg": TPM, "opt": TP_OPTS[opt], "plan": plan, "ffkw": ffkw, "batches": _batches(TPM, STEPS, seed=7),
+          **dict(zip(("feeds", "labels"), ref_synthetic.random_batches(ref_dlrm.DLRMConfig(**TPM), 32, seed=8)))})
+    for rank, r in enumerate(got):
+        d, m = divmod(rank, 2)
+        assert r["groups"] == [[m, 2 + m], [2 * d, 2 * d + 1], [rank]]
+        assert r["same_start"] and r["model_in_specs"] and r["one_d_tp"] == {}
+        assert r["sharded"] == (plan != "dp" and case != "host-tail")
+        assert r["tails"] == (["table_0", "table_1", "table_2"] if case == "host-tail" else [])
+        assert r["exchange"] == {"hybrid": "dense", "routed": "routed"}.get(case)
+        assert r["stores"] == got[0]["stores"]
+        np.testing.assert_allclose(r["l2"], r["l1"], **TP_LOSS)
+        for name, sub in r["w1"].items():
+            for k, w in sub.items():
+                _close(r["w2"][name][k], w, 1e-4, 1e-5)
+        assert r["eval"]["samples"] == r["eval_1d"]["samples"] == 32
+        np.testing.assert_allclose(r["eval"]["accuracy"], r["eval_1d"]["accuracy"], atol=1 / 32)
+    rest = [r["digests"][0] for r in got]
+    tp = [r["digests"][1] for r in got]
+    assert rest[0] == rest[1] and rest[2] == rest[3] and (rest[0] != rest[2]) == got[0]["sharded"]
+    assert tp[0] == tp[2] and tp[1] == tp[3] and tp[0] != tp[1]
+
+
+def test_pure_tensor_parallel_matches_one_device(workers):
+    """A (1, 4) mesh (data axis 1: the flat collection, no batch split;
+    every Dense of 64 outputs in blocks of 16 over 4 ranks) against one
+    device's model of the same seed with the flat collection
+    (fuse_embeddings): the same start bit for bit, 3 SGD steps' losses
+    within the reference's bound, the weights within the module's, every
+    rank's `predict` of 40 examples within the weights' bound."""
+    got = workers.run("""
+        one = tp_dlrm(args["cfg"], args["opt"], None, fuse_embeddings=True)
+        pure = tp_dlrm(args["cfg"], args["opt"], mesh_of((1, 4)))
+        start = whole_weights(one), whole_weights(pure)
+        same_start = all(np.array_equal(start[0][n][k], start[1][n][k]) for n in start[0] for k in start[0][n])
+        l1 = [float(one.train_batch(f, l)) for f, l in args["batches"]]
+        l2 = [float(pure.train_batch(f, l)) for f, l in args["batches"]]
+        result = {"same_start": same_start, "l1": l1, "l2": l2, "w1": whole_weights(one), "w2": whole_weights(pure),
+                  "blocks": {n: tuple(pure.get_parameters()[n]["kernel"].shape) for n in pure._model_parallel},
+                  "shards": pure._op("embedding_collection").layout.num_shards, "data_mesh": pure._data_mesh,
+                  "p1": one.predict(args["feeds"]), "p2": pure.predict(args["feeds"])}
+    """, {"cfg": TPM, "opt": TP_OPTS["sgd"], "batches": _batches(TPM, STEPS, seed=9),
+          "feeds": ref_synthetic.random_batches(ref_dlrm.DLRMConfig(**TPM), 40, seed=10)[0]})
+    for r in got:
+        assert r["same_start"] and r["shards"] == 1 and r["data_mesh"] is None
+        assert r["blocks"] == {"bot_mlp_0": (16, 4), "top_mlp_0": (16, 32)}
+        np.testing.assert_allclose(r["l2"], r["l1"], **TP_LOSS)
+        for name, sub in r["w1"].items():
+            for k, w in sub.items():
+                _close(r["w2"][name][k], w, 1e-4, 1e-5)
+        _close(r["p2"], r["p1"], 1e-4, 1e-5)
+
+
+def test_two_d_mesh_train_chunk_matches_eager_steps(workers):
+    """`train_chunk` of K = 3 and `fit(steps_per_call=2)` on the (2, 2)
+    mesh from one seed, against 3 `train_batch` calls: every loss and every
+    tensor of each rank's state bit for bit (on the CPU a chunk is a loop of
+    eager steps; on CUDA one step captured with the model group's gathers
+    and all-reduces, which tools/mesh_smoke.py's `2d` phase holds against
+    eager steps on four cards)."""
+    got = workers.run("""
+        models = [tp_dlrm(args["cfg"], args["opt"], mesh_of((2, 2))) for _ in range(3)]
+        eager, chunk, fitted = models
+        losses = [float(eager.train_batch({k: v[i] for k, v in args["stacks"].items()}, args["labels"][i]))
+                  for i in range(len(args["labels"]))]
+        last = float(chunk.train_chunk(args["stacks"], args["labels"]))
+        fitted.fit(args["feeds"], args["flat_labels"], epochs=1, steps_per_call=2, verbose=False)
+        result = {"losses": losses, "last": last, "chunk": state_diff(eager, chunk), "fit": state_diff(eager, fitted),
+                  "steps": [x._step_count for x in models]}
+    """, _chunk_args(TPM, TP_OPTS["adam"], 11))
+    for r in got:
+        assert r["chunk"] == {} and r["fit"] == {} and r["steps"] == [STEPS] * 3
+        assert r["last"] == r["losses"][-1] == got[0]["last"]
+
+
+def _chunk_args(kw, opt, seed):
+    feeds, labels = ref_synthetic.random_batches(ref_dlrm.DLRMConfig(**kw), kw["batch_size"] * STEPS, seed=seed)
+    bs = kw["batch_size"]
+    return {"cfg": kw, "opt": opt, "feeds": feeds, "flat_labels": labels,
+            "stacks": {k: v.reshape((STEPS, bs) + v.shape[1:]) for k, v in feeds.items()},
+            "labels": labels.reshape((STEPS, bs) + labels.shape[1:])}
+
+
+def test_two_d_mesh_checkpoint_roundtrip(workers, tmp_path):
+    """A (2, 2) model under Adam saved after a step: the column-parallel
+    kernels, biases and their m and v are written whole in the JAX
+    package's shapes ([out, in], [out]), the collection's pool and sparse
+    state stacked [2, ...] (2 data indices); restored into a model of
+    another seed, every rank's state equals the saved model's bit for bit,
+    and so does the next step's loss."""
+    got = workers.run("""
+        from dlrm_flexflow_tpu_torch.training.checkpoint import restore_checkpoint, save_checkpoint
+        mesh2 = mesh_of((2, 2))
+        feeds, labels = args["batch"]
+        m1 = tp_dlrm(args["cfg"], args["opt"], mesh2, seed=5)
+        m1.train_batch(feeds, labels)
+        save_checkpoint(args["path"], m1)
+        m2 = tp_dlrm(args["cfg"], args["opt"], mesh2, seed=6)
+        before = bool(state_diff(m1, m2))
+        manifest = restore_checkpoint(args["path"], m2)
+        restored = state_diff(m1, m2)
+        with np.load(args["path"] + "/params.npz") as z, np.load(args["path"] + "/opt_state.npz") as o:
+            shapes = {k: z[k].shape for k in z.files if k.split("/")[0] in ("bot_mlp_0", "top_mlp_0", "embedding_collection")}
+            shapes.update({k: o[k].shape for k in o.files if "bot_mlp_0" in k})
+        l1, l2 = float(m1.train_batch(feeds, labels)), float(m2.train_batch(feeds, labels))
+        result = {"before": before, "restored": restored, "after": state_diff(m1, m2), "l1": l1, "l2": l2,
+                  "step": manifest["step"], "shapes": shapes}
+    """, {"cfg": TPM, "opt": TP_OPTS["adam"], "path": str(tmp_path / "ck"),
+          "batch": ref_synthetic.random_batches(ref_dlrm.DLRMConfig(**TPM), TPM["batch_size"], seed=12)})
+    for r in got:
+        assert r["before"] and r["restored"] == {} and r["after"] == {} and r["step"] == 1
+        assert r["l2"] == r["l1"]
+        assert r["shapes"]["bot_mlp_0/kernel"] == (64, 4) and r["shapes"]["top_mlp_0/kernel"] == (64, 32)
+        assert r["shapes"]["bot_mlp_0/bias"] == r["shapes"]["top_mlp_0/bias"] == (64,)
+        assert r["shapes"]["dense/m/bot_mlp_0/kernel"] == r["shapes"]["dense/v/bot_mlp_0/kernel"] == (64, 4)
+        assert r["shapes"]["embedding_collection/pool"][0] == 2
+
+
+def test_four_by_one_mesh_is_the_one_d_mesh(workers):
+    """A (4, 1) mesh (model axis 1, enable_parameter_parallel on: the plan
+    gets its specs, nothing runs column-parallel) is the (4,) mesh: 3 Adam
+    steps' losses and every tensor of each rank's state bit for bit."""
+    got = workers.run("""
+        a = tp_dlrm(args["cfg"], args["opt"], mesh)
+        b = tp_dlrm(args["cfg"], args["opt"], mesh_of((4, 1)))
+        la = [float(a.train_batch(f, l)) for f, l in args["batches"]]
+        lb = [float(b.train_batch(f, l)) for f, l in args["batches"]]
+        result = {"la": la, "lb": lb, "diff": state_diff(a, b), "tp": b._model_parallel,
+                  "specs": sorted(b.plan.op_specs), "groups": mesh_of((4, 1)).data_group()}
+    """, {"cfg": TPM, "opt": TP_OPTS["adam"], "batches": _batches(TPM, STEPS, seed=13)})
+    for r in got:
+        assert r["la"] == r["lb"] and r["diff"] == {} and r["tp"] == {} and r["groups"] is None
+        assert r["specs"] == TP_OPS
+
+
+_EIGHT = """
+import json, sys
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+import dlrm_flexflow_tpu_torch as port
+from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
+from dlrm_flexflow_tpu_torch.launch import initialize
+from dlrm_flexflow_tpu_torch.models import dlrm as pdlrm
+from dlrm_flexflow_tpu_torch.parallel.mesh import make_mesh
+from dlrm_flexflow_tpu_torch.parallel.plan import dlrm_hybrid_plan
+initialize("cpu")
+meshes = {"1d": make_mesh(device="cpu"), "2d": make_mesh((4, 2), ("data", "model"), device="cpu")}
+cfg = pdlrm.DLRMConfig(**json.loads(sys.argv[1]))
+feeds, labels = random_batches(cfg, cfg.batch_size, seed=5)
+out = {}
+for case, cph in (("flat", 0), ("hierarchical", 4)):
+    for key, mesh in meshes.items():
+        m = pdlrm.make_dlrm_model(cfg, port.FFConfig(
+            batch_size=cfg.batch_size, compute_dtype="float32", seed=11, onehot_embedding_threshold=0,
+            enable_parameter_parallel=True, chips_per_host=cph), device="cpu")
+        m.compile(port.SGDOptimizer(lr=0.05), port.LossType.LOSS_BINARY_CROSSENTROPY,
+                  [port.MetricsType.METRICS_ACCURACY], mesh=mesh, plan=dlrm_hybrid_plan())
+        lay = m._embedding_layout
+        out[case + "/" + key] = {"losses": [float(m.train_batch(feeds, labels)) for _ in range(3)],
+                                 "shards": lay.num_shards, "hosts": lay.num_hosts if lay.hierarchical else 0,
+                                 "tp": sorted(m._model_parallel)}
+with open(f"out{dist.get_rank()}.json", "w") as f:
+    json.dump(out, f)
+dist.destroy_process_group()
+"""
+
+
+def test_the_reference_eight_device_case_on_eight_ranks(tmp_path):
+    """tests/test_sharding.py::test_parameter_parallel_matches_single_device
+    at its own mesh shapes, on 8 gloo ranks under the launcher: the (4, 2)
+    mesh with enable_parameter_parallel against the (8,) mesh, the same
+    plan and seed, 3 SGD steps on one batch within the reference's bound;
+    flat, and with FFConfig(chips_per_host=4), which the model axis cuts
+    to 2 cards a host along the data axis (the JAX package's
+    `core/ffmodel.py:626-634`): the (4, 2) collection's hierarchical
+    exchange then runs 2 hosts of 2 shards over each model index's data
+    ranks (`Mesh.data_subgroup`), the (8,) one 2 hosts of 4."""
+    (tmp_path / "job.py").write_text(_EIGHT)
+    res = _launch(["--nproc-per-node", "8", "job.py", json.dumps(TPM)], tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    got = [json.loads((tmp_path / f"out{r}.json").read_text()) for r in range(8)]
+    for r in got:
+        assert r == got[0]
+        for case in ("flat", "hierarchical"):
+            one, two = r[f"{case}/1d"], r[f"{case}/2d"]
+            assert (one["shards"], two["shards"]) == (8, 4) and one["tp"] == [] and two["tp"] == TP_OPS
+            assert (one["hosts"], two["hosts"]) == ((0, 0) if case == "flat" else (2, 2))
+            np.testing.assert_allclose(two["losses"], one["losses"], **TP_LOSS)
+
+
+def test_strategy_files_with_model_specs_load_in_either_package(tmp_path):
+    """`enable_parameter_parallel` writes the same specs in both packages on
+    one model, and a plan holding them, saved by either, loads in the other
+    with its specs and mesh axes."""
+    from dlrm_flexflow_tpu.parallel import plan as ref_plan
+
+    from dlrm_flexflow_tpu_torch.models import dlrm as pdlrm
+    from dlrm_flexflow_tpu_torch.parallel import plan as port_plan
+
+    ref_model = ref_dlrm.make_dlrm_model(ref_dlrm.DLRMConfig(**{**TPM, "mlp_top": [32, 64, 64, 1]}),
+                                         ref.FFConfig(batch_size=16))
+    port_model = pdlrm.make_dlrm_model(pdlrm.DLRMConfig(**{**TPM, "mlp_top": [32, 64, 64, 1]}),
+                                       __import__("dlrm_flexflow_tpu_torch").FFConfig(batch_size=16), device="cpu")
+    jp = ref_plan.enable_parameter_parallel(ref_plan.dlrm_hybrid_plan(), ref_model.graph, only=["top_mlp_1",
+                                                                                             "bot_mlp_0"])
+    pp = port_plan.enable_parameter_parallel(port_plan.dlrm_hybrid_plan(), port_model.graph,
+                                             only=["top_mlp_1", "bot_mlp_0"])
+    assert {k: v.to_json() for k, v in jp.op_specs.items()} == {k: v.to_json() for k, v in pp.op_specs.items()}
+    assert sorted(pp.op_specs) == ["bot_mlp_0", "top_mlp_1"] and pp.mesh_axes == jp.mesh_axes == ("data", "model")
+    assert port_plan.tensor_parallel_ops(pp, port_model.graph, ("data", "model")) == {
+        "bot_mlp_0": ("kernel", "bias"), "top_mlp_1": ("kernel", "bias")}
+    jp.save(str(tmp_path / "jax.json"))
+    pp.save(str(tmp_path / "port.json"))
+    into_port = port_plan.ShardingPlan.load(str(tmp_path / "jax.json"))
+    into_jax = ref_plan.ShardingPlan.load(str(tmp_path / "port.json"))
+    assert {k: v.to_json() for k, v in into_port.op_specs.items()} == {k: v.to_json() for k, v in jp.op_specs.items()}
+    assert into_jax.op_specs["bot_mlp_0"].param_specs == jp.op_specs["bot_mlp_0"].param_specs
+    assert into_jax.op_specs["top_mlp_1"].output_specs == jp.op_specs["top_mlp_1"].output_specs
+    assert into_port.mesh_axes == into_jax.mesh_axes == ("data", "model")
+    with pytest.raises(NotImplementedError, match="column-parallel"):
+        bad = port_plan.dlrm_hybrid_plan()
+        bad.op_specs["bot_mlp_0"] = port_plan.OpShardSpec(param_specs={"kernel": [None, "model"]})
+        port_plan.tensor_parallel_ops(bad, port_model.graph, ("data", "model"))
+
+
 # ------------------------------------------------------------------ a data axis of 1, in this process
 
 
@@ -1163,17 +1582,24 @@ def test_data_axis_of_one_is_the_flat_collection_off_the_kernel_route(world_of_o
 
 @pytest.mark.parametrize("what", ["search", "param-specs", "parameter-parallel"])
 def test_mesh_compile_refuses_later_slices(world_of_one, what):
+    """The strategy search is a later slice (item 10). On a 1-D mesh a spec
+    naming the "model" axis it lacks raises ValueError, and
+    enable_parameter_parallel does nothing, as in the JAX package (no
+    "model" axis: no specs, the model trains as without it)."""
     from dlrm_flexflow_tpu_torch.parallel.plan import OpShardSpec
 
-    ffkw, plan_kw, item = {}, {}, "item 7"
     if what == "search":
-        ffkw, item = {"search_budget": 10}, "item 10"
+        with pytest.raises(NotImplementedError, match="item 10"):
+            _port_model(world_of_one, {}, search_budget=10)
     elif what == "param-specs":
-        plan_kw = {"op_specs": {"bot_mlp_0": OpShardSpec(param_specs={"kernel": ["model", None]})}}
+        with pytest.raises(ValueError, match="lacks"):
+            _port_model(world_of_one, {"op_specs": {"bot_mlp_0": OpShardSpec(param_specs={"kernel": ["model", None]})}})
     else:
-        ffkw = {"enable_parameter_parallel": True}
-    with pytest.raises(NotImplementedError, match=item):
-        _port_model(world_of_one, plan_kw, **ffkw)
+        epp = _port_model(world_of_one, {}, enable_parameter_parallel=True)
+        plain = _port_model(world_of_one, {})
+        assert epp.plan.op_specs == {} and epp._model_parallel == {}
+        feeds, labels = ref_synthetic.random_batches(ref_dlrm.DLRMConfig(**GRAFT), 32, seed=4)
+        assert float(epp.train_batch(feeds, labels)) == float(plain.train_batch(feeds, labels))
 
 
 INT8 = dict(sparse_feature_size=16, embedding_size=[500, 300, 800], embedding_bag_size=2, mlp_bot=[4, 16, 16],

@@ -235,11 +235,27 @@ def test_strategy_file_loads_in_both_packages(tmp_path, writer):
 
 
 def test_data_parallel_plan_and_two_d_refusals():
+    """The plans' defaults; enable_parameter_parallel's specs on a graph as
+    the JAX package writes them (every even Dense of 64 outputs or more:
+    kaggle's 512, 256 and 64 wide layers, not its 16 or 1 wide ones); a 2-D
+    mesh needs a process group and ("data", "model") axes of a world's
+    size."""
+    from dlrm_flexflow_tpu.models import dlrm as ref_dlrm
+
+    from dlrm_flexflow_tpu_torch.models import dlrm as port_dlrm
+
     assert port_plan.data_parallel_plan().embedding_mode == ref_plan.data_parallel_plan().embedding_mode
     assert port_plan.dlrm_hybrid_plan("round_robin").assignment_policy == "round_robin"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port_plan.enable_parameter_parallel(port_plan.dlrm_hybrid_plan(), None)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_mesh((2, 2), ("data", "model"))
+    port_graph = port_dlrm.make_dlrm_model(port_dlrm.kaggle_config(batch_size=8), device="cpu").graph
+    ref_graph = ref_dlrm.make_dlrm_model(ref_dlrm.kaggle_config(batch_size=8)).graph
+    pp = port_plan.enable_parameter_parallel(port_plan.dlrm_hybrid_plan(), port_graph)
+    jp = ref_plan.enable_parameter_parallel(ref_plan.dlrm_hybrid_plan(), ref_graph)
+    assert {k: v.to_json() for k, v in pp.op_specs.items()} == {k: v.to_json() for k, v in jp.op_specs.items()}
+    assert sorted(pp.op_specs) == ["bot_mlp_0", "bot_mlp_1", "bot_mlp_2", "top_mlp_0", "top_mlp_1"]
+    assert pp.mesh_axes == ("data", "model")
+    with pytest.raises(RuntimeError, match="initialize"):
+        make_mesh((2, 2), ("data", "model"))  # no process group in this process
+    with pytest.raises(ValueError, match="2-D mesh"):
+        make_mesh((2, 2), ("model", "data"))
     with pytest.raises(RuntimeError, match="initialize"):
         make_mesh(device="cpu")  # no process group in this process
