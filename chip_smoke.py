@@ -168,12 +168,40 @@ Phases, each of which ends the run with a non-zero exit if it fails:
                at the probe's shape in f32 and bf16 at every depth, at a
                ragged K, on the narrow [1000000, 16] table, at widths of 5
                and 6 chunks, with indices < 0 and >= P, twice.
- 27. summary - a {"kernels": [...]} line, then the last line
-               {"ok": true, "device": {...}}.
-Around each path (4, 6, 8, 10, 11, 13, 14, 15, 18, 20 and 24) the kernel
-launch counts are zeroed just before and read just after, and must show
-every kernel of that path; phase 17 counts its replays' launches from the
-graph.
+ 27. zoo-moe  - models/zoo.py's moe_mlp at its default widths (784 in, 4
+               experts, top 2, alpha 2.0, 64-wide gate and experts, 10
+               classes), batch 16384, on examples/moe.py's clustered data:
+               Adam, sparse CE, 3 warm-up and 20 timed eager steps (the
+               loss must fall), kernel time and busy share; train_chunk
+               (K = 4) against eager steps bit for bit; recompile drops the
+               captured step and the next chunk captures again; predict of
+               4 x 16384 + 1000 under "on" (K6: 10 a chunk) against "auto"
+               on the rows the two route alike (under 1% may route
+               otherwise: a bf16 near-tie in the gate).
+ 28. zoo-candle - candle_uno at its defaults, batch 8192: 3 warm-up
+               and 10 timed SGD steps on MSE, replays bit for bit, predict
+               under "on" (K6: 19 a chunk) against "auto".
+ 29. zoo-attention - transformer (seq 64, hidden 128, 8 heads, 2 layers) at
+               batch 64 and bert_proxy (batch 8, seq 128, hidden 1024, 16
+               heads) cut to 2 layers (24 overflow f32 in the JAX package
+               itself): timed Adam steps, replays bit for bit, predict; a
+               fresh bert_proxy at seq_length 64 gives zeros past row 64;
+               mnist_mlp served under "on" (K6: 3).
+ 30. zoo-parity - the five zoo models at small widths, CUDA against the CPU
+               port from the same weights: predict under "auto" and, for
+               the rank-2 models, "on"; 5 SGD steps; a dropout model's masks
+               alike on both devices and its replays bit for bit.
+ 31. kernels, continued - K6 at the zoo's 12 Dense shapes at their path's M
+               against its plain version, timed beside addmm with its
+               bound, the rounding pass's share where x cannot go to TMA as
+               it lies (K = 942, 5270, 5002), and a moe bucket of half zero
+               rows.
+ 32. summary - a {"kernels": [...]} line (K6's entry with the zoo's
+               launches), then the last line {"ok": true, "device": {...}}.
+Around each path (4, 6, 8, 10, 11, 13, 14, 15, 18, 20, 24 and 27-29) the
+kernel launch counts are zeroed just before and read just after, and must
+show every kernel of that path; phase 17 counts its replays' launches from
+the graph.
 The script imports nothing of JAX: it runs the port alone.
 """
 from __future__ import annotations
@@ -3248,6 +3276,477 @@ def phase_mesh_one() -> dict:
     return res
 
 
+# ------------------------------------------------------------------ the zoo (phases 27-31)
+ZOO_MOE_BATCH = 16384
+ZOO_CANDLE_BATCH = 8192
+ZOO_WARMUP, ZOO_MOE_STEPS, ZOO_STEPS = 3, 20, 10
+ZOO_CHUNK = 4  # train_chunk's K in the zoo's replay checks (2 chunks against 8 eager steps)
+# K6 launches of one request chunk under "on": every rank-2 Dense
+ZOO_K6_A_CHUNK = {"mnist_mlp": 3, "moe_mlp": 10, "candle_uno": 19}
+# the zoo's rank-2 Dense layers at their chip-path M: (M, K, N, activation, layers)
+ZOO_K6_SHAPES = [
+    (16384, 784, 512, "relu", "mnist_mlp dense"), (16384, 512, 512, "relu", "mnist_mlp dense_1"),
+    (16384, 512, 10, "none", "mnist_mlp dense_2"),
+    (16384, 784, 64, "relu", "moe_mlp gate_h and expert{0..3}_h"), (16384, 64, 4, "none", "moe_mlp gate_out"),
+    (16384, 64, 10, "none", "moe_mlp expert{0..3}_out"),
+    (8192, 942, 1000, "relu", "candle_uno cell.rnaseq tower"),
+    (8192, 5270, 1000, "relu", "candle_uno drug{1,2}.descriptors towers"),
+    (8192, 2048, 1000, "relu", "candle_uno drug{1,2}.fingerprints towers"),
+    (8192, 1000, 1000, "relu", "candle_uno towers' layers 2-3, head layers 2-3"),
+    (8192, 5002, 1000, "relu", "candle_uno head layer 1"), (8192, 1000, 1, "none", "candle_uno output"),
+]
+
+
+def zoo_inputs(model, n: int, gen, scale: float = 1.0) -> dict:
+    """Normal inputs (std `scale`) of every graph input, n rows, on the card."""
+    return {iop.name: torch.randn((n,) + tuple(iop.outputs[0].shape[1:]), generator=gen, device="cuda") * scale
+            for iop in model.graph.inputs}
+
+
+def moe_clustered(n: int, gen, in_dim: int = 784, classes: int = 10) -> tuple:
+    """examples/moe.py's data on the card: a center a class in `in_dim`
+    dims plus noise of 0.3; class ids as [n, 1]."""
+    centers = torch.randn((classes, in_dim), generator=gen, device="cuda")
+    y = torch.randint(0, classes, (n,), generator=gen, device="cuda")
+    return centers[y] + 0.3 * torch.randn((n, in_dim), generator=gen, device="cuda"), y[:, None].float()
+
+
+def zoo_train(tag: str, card: str, model, staged, steps: int, batch: int) -> dict:
+    """ZOO_WARMUP warm-up and `steps` timed eager train_batch steps on the
+    staged batches (the launch counts zeroed around the timed steps: "auto"
+    reaches no kernel), then the kernel time and busy share."""
+    for i in range(ZOO_WARMUP):
+        model.train_batch(*staged[i % len(staged)])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    losses = [model.train_batch(*staged[i % len(staged)]) for i in range(steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counts.items() if fn.launches}
+    losses = [float(v) for v in losses]
+    res = {"card": card, "steps": steps, "batch": batch, "ms_per_step": dt / steps * 1e3,
+           "examples_per_s": steps * batch / dt, "first_loss": losses[0], "last_loss": losses[-1],
+           "launches": launches, "metrics": model.get_metrics(), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"{tag} {json.dumps(res)}")
+    if not all(math.isfinite(v) for v in losses) or launches:
+        raise AssertionError(f"{tag}: losses not finite, or a kernel launched under 'auto': {res}")
+    log(f"{tag} device kernels over {PROFILED_STEPS} profiled steps: "
+        f"{json.dumps({'card': card, **train_profile(model, staged, res['ms_per_step'], route_tables=1)})}")
+    return {**res, "losses": losses}
+
+
+def zoo_replays(tag: str, card: str, make, staged) -> dict:
+    """Two models from `make()` (one seed: the same weights), 2 chunks of
+    ZOO_CHUNK graph replays (train_chunk on the staged batches stacked)
+    against as many eager steps under deterministic algorithms: every loss
+    and every tensor of the state bit for bit. Then 2 more chunks timed
+    against as many eager steps."""
+    from dlrm_flexflow_tpu_torch.tools.state import state_diff, state_tensors
+
+    eager, chunk = make(), make()
+    stack, labels = chunk_stacks(staged)
+    k = len(staged)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        losses_e = [eager.train_batch(*staged[i % k]) for i in range(2 * k)]
+        losses_g = [chunk.train_chunk(stack, labels) for _ in range(2)]
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = state_diff(eager, chunk)
+    same = all(torch.equal(a, b) for a, b in zip(losses_e[k - 1::k], losses_g))
+    t0 = time.perf_counter()
+    for i in range(2 * k):
+        loss_e = eager.train_batch(*staged[i % k])
+    float(loss_e)
+    eager_ms = (time.perf_counter() - t0) / (2 * k) * 1e3
+    t0 = time.perf_counter()
+    for _ in range(2):
+        loss_g = chunk.train_chunk(stack, labels)
+    float(loss_g)
+    graph_ms = (time.perf_counter() - t0) / (2 * k) * 1e3
+    res = {"card": card, "chunk_k": k, "deterministic_steps": 2 * k, "tensors": len(state_tensors(eager)),
+           "differing_tensors": len(diff), "max_abs_diff": max(diff.values(), default=0.0),
+           "losses_bit_identical": same, "captured": chunk._step_graph is not None,
+           "eager_ms_per_step": eager_ms, "graph_ms_per_step": graph_ms}
+    log(f"{tag} replays vs eager steps, deterministic: {json.dumps(res)}")
+    if diff or not same or chunk._step_graph is None or not math.isfinite(float(loss_g)):
+        raise AssertionError(f"{tag}: graph replays and eager steps differ: {res} {diff}")
+    return {"res": res, "chunk": chunk, "stack": (stack, labels)}
+
+
+def zoo_serve(card: str, on, auto, feeds: dict, want_k6: int, relative: bool = False) -> tuple:
+    """predict under "on" (K6 counted) against the same weights under
+    "auto": (the numbers, both outputs, whether K6 launched `want_k6`
+    times and nothing else did). The tolerance is E2E_ON_ATOL, times the
+    larger of 1 and the outputs' largest magnitude if `relative`."""
+    counts = launch_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    y_on = on.predict(feeds)
+    on_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counts.items() if fn.launches}
+    t0 = time.perf_counter()
+    y_auto = auto.predict(feeds)
+    auto_s = time.perf_counter() - t0
+    n = next(iter(feeds.values())).shape[0]
+    res = {"card": card, "examples": n, "launches_on": launches, "on_predict_s": on_s, "auto_predict_s": auto_s,
+           "max_abs_err": float(np.abs(y_on - y_auto).max()),
+           "atol": E2E_ON_ATOL * (max(1.0, float(np.abs(y_auto).max())) if relative else 1.0),
+           "finite": bool(np.isfinite(y_on).all() and np.isfinite(y_auto).all())}
+    return res, y_on, y_auto, launches == {"fused_dense": want_k6}
+
+
+def phase_zoo_moe(card: str) -> dict:
+    """moe_mlp at its default widths (784 in, 4 experts, k 2, alpha 2.0,
+    64-wide gate and experts, 10 classes), batch 16384, on examples/moe.py's
+    clustered data: Adam (alpha 0.001), sparse CE and accuracy, eager steps
+    (the loss must fall), graph replays bit for bit, recompile, then serving
+    under "on" (K6, 10 launches a chunk) against "auto"."""
+    from dlrm_flexflow_tpu_torch import AdamOptimizer, FFConfig, LossType, MetricsType
+    from dlrm_flexflow_tpu_torch.models import zoo
+    from dlrm_flexflow_tpu_torch.tools.state import state_tensors
+
+    tag, b = "[zoo-moe]", ZOO_MOE_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+
+    def make(use_pallas="auto"):
+        m = zoo.moe_mlp(batch_size=b, num_experts=4, k=2, alpha=2.0, in_dim=784, num_classes=10,
+                        config=FFConfig(batch_size=b, seed=SEED + 50, use_pallas=use_pallas))
+        m.compile(AdamOptimizer(alpha=ADAM_ALPHA), LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                  [MetricsType.METRICS_ACCURACY])
+        return m
+
+    t0 = time.perf_counter()
+    model = make()
+    x, y = moe_clustered(4 * b, gen)
+    staged = [({"input": x[i * b:(i + 1) * b]}, y[i * b:(i + 1) * b]) for i in range(4)]
+    cap = model.get_layer_by_name("group_by").capacity
+    log(f"{tag} moe_mlp: 784 -> gate 64 -> 4 experts (top 2, capacity {cap}) of 784 -> 64 -> 10, batch {b}; "
+        f"set-up {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    train = zoo_train(tag, card, model, staged, ZOO_MOE_STEPS, b)
+    head, tail = np.mean(train["losses"][:5]), np.mean(train["losses"][-5:])
+    if not tail < head:
+        raise AssertionError(f"{tag}: the loss did not fall over the timed steps: {head} -> {tail}")
+    rep = zoo_replays(tag, card, make, staged)
+    replays, chunk, (stack, labels) = rep["res"], rep["chunk"], rep["stack"]
+    before = {k: v.clone() for k, v in state_tensors(chunk).items()}
+    old = chunk._step_graph
+    chunk.recompile()
+    dropped = chunk._step_graph is None
+    kept = all(torch.equal(before[k], v) for k, v in state_tensors(chunk).items())
+    loss = float(chunk.train_chunk(stack, labels))
+    recap = {"card": card, "graph_dropped": dropped, "state_kept": kept, "step_count": chunk._step_count,
+             "captured_again": chunk._step_graph is not None and chunk._step_graph is not old, "loss": loss}
+    log(f"{tag} recompile: {json.dumps(recap)}")
+    if not (dropped and kept and recap["captured_again"] and math.isfinite(loss)):
+        raise AssertionError(f"{tag}: recompile: {recap}")
+    del chunk, stack, labels, rep
+
+    # serving: the trained weights under "on" and "auto"
+    on, auto = make("on"), make()
+    for m in (on, auto):
+        m.set_parameters({name: model.get_weights(name) for name in model.get_parameters()})
+    n = 4 * b + 1000
+    xs, _ = moe_clustered(n, gen)
+    feeds = {"input": xs.cpu().numpy()}
+    chunks = -(-n // b)
+    res, y_on, y_auto, k6_ok = zoo_serve(card, on, auto, feeds, ZOO_K6_A_CHUNK["moe_mlp"] * chunks)
+    # the top 2 experts of each row under each route: a gate near-tie that
+    # the bf16 rounding of K6's outputs flips sends a row to another expert
+    same = np.ones(n, bool)
+    topk = on.get_layer_by_name("topk")
+    with torch.inference_mode():
+        for i in range(0, n, b):
+            part = xs[i:i + b]
+            pad = torch.cat([part, part[-1:].expand(b - part.shape[0], -1)]) if part.shape[0] < b else part
+            sets = [m.graph.execute(m.get_parameters(), {"input": pad}, m._ctx, fetch=[topk.outputs[1]])[0]
+                    .sort(dim=1).values[:part.shape[0]] for m in (on, auto)]
+            same[i:i + part.shape[0]] = (sets[0] == sets[1]).all(dim=1).cpu().numpy()
+    res["rows_routed_alike"] = int(same.sum())
+    res["max_abs_err_routed_alike"] = float(np.abs(y_on - y_auto)[same].max())
+    res["mean_score"] = float(y_on.mean())
+    log(f"{tag} predict under 'on' vs 'auto': {json.dumps(res)}")
+    if not (k6_ok and res["finite"] and y_on.shape == (n, 10) and res["max_abs_err_routed_alike"] <= res["atol"]
+            and n - res["rows_routed_alike"] <= 0.01 * n):
+        raise AssertionError(f"{tag}: serving under 'on': {res}")
+    out = {"train": train, "replays": replays, "k6_launches": res["launches_on"].get("fused_dense", 0),
+           "max_abs_err": res["max_abs_err_routed_alike"]}
+    del model, on, auto, staged, x, y, xs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo_candle(card: str) -> dict:
+    """candle_uno at its defaults (towers 942 / 5270 / 2048 ->
+    1000 -> 1000 -> 1000, head 5002 -> 1000 -> 1000 -> 1000 -> 1), batch
+    8192: SGD on MSE under "auto", eager steps, graph replays bit for bit,
+    then serving under "on" (K6, 19 launches a chunk) against "auto"."""
+    from dlrm_flexflow_tpu_torch import FFConfig, LossType, MetricsType, SGDOptimizer
+    from dlrm_flexflow_tpu_torch.models import zoo
+
+    tag, b = "[zoo-candle]", ZOO_CANDLE_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+
+    def make(use_pallas="auto"):
+        m = zoo.candle_uno(batch_size=b, config=FFConfig(batch_size=b, seed=SEED + 51, use_pallas=use_pallas))
+        m.compile(SGDOptimizer(lr=1e-3), LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE,
+                  [MetricsType.METRICS_MEAN_SQUARED_ERROR])
+        return m
+
+    t0 = time.perf_counter()
+    model = make()
+    staged = [(zoo_inputs(model, b, gen), torch.randn((b, 1), generator=gen, device="cuda")) for _ in range(4)]
+    widths = {iop.name: iop.outputs[0].shape[1] for iop in model.graph.inputs}
+    log(f"{tag} candle_uno: inputs {widths}, "
+        f"{sum(p.numel() for sub in model.get_parameters().values() for p in sub.values())} parameters, batch {b}; "
+        f"set-up {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    train = zoo_train(tag, card, model, staged, ZOO_STEPS, b)
+    rep = zoo_replays(tag, card, make, staged)
+    del rep, staged
+    on, auto = make("on"), make()
+    for m in (on, auto):
+        m.set_parameters({name: model.get_weights(name) for name in model.get_parameters()})
+    n = 2 * b + 1000
+    feeds = {k: v.cpu().numpy() for k, v in zoo_inputs(model, n, gen).items()}
+    chunks = -(-n // b)
+    res, y_on, y_auto, k6_ok = zoo_serve(card, on, auto, feeds, ZOO_K6_A_CHUNK["candle_uno"] * chunks,
+                                         relative=True)
+    log(f"{tag} predict under 'on' vs 'auto' (atol E2E_ON_ATOL times the outputs' largest magnitude): "
+        f"{json.dumps(res)}")
+    if not (k6_ok and res["finite"] and y_on.shape == (n, 1) and res["max_abs_err"] <= res["atol"]
+            and all(math.isfinite(v) for v in train["losses"])):
+        raise AssertionError(f"{tag}: serving under 'on': {res}")
+    out = {"train": train, "k6_launches": res["launches_on"]["fused_dense"], "max_abs_err": res["max_abs_err"]}
+    del model, on, auto, feeds
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo_attention(card: str) -> dict:
+    """transformer at its default widths (seq 64, hidden 128, 8 heads, 2
+    layers) at batch 64, and bert_proxy at its widths (batch 8, seq 128,
+    hidden 1024, 16 heads) cut to 2 layers (its 24 overflow f32 in the JAX
+    package itself: no softmax, no normalization): Adam (alpha 1e-4) on MSE,
+    eager steps, graph replays bit for bit, predict; a fresh bert_proxy
+    (zero biases) at seq_length 64 gives zeros past row 64, and the
+    seq_length drops a captured step. Then mnist_mlp served under "on"
+    (K6, 3 launches)."""
+    from dlrm_flexflow_tpu_torch import AdamOptimizer, FFConfig, LossType
+    from dlrm_flexflow_tpu_torch.models import zoo
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 52)
+    out = {}
+    for name, b, kw in (("transformer", 64, dict(seq_len=64, hidden=128, num_heads=8, num_layers=2)),
+                        ("bert_proxy", 8, dict(seq_length=128, hidden=1024, num_heads=16, num_layers=2))):
+        tag = f"[zoo-attention] {name}"
+
+        def make(name=name, b=b, kw=kw):
+            m = getattr(zoo, name)(batch_size=b, config=FFConfig(batch_size=b, seed=SEED + 52), **kw)
+            m.compile(AdamOptimizer(alpha=1e-4), LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE)
+            return m
+
+        model = make()
+        shape = tuple(model.graph.inputs[0].outputs[0].shape)
+        staged = [(zoo_inputs(model, b, gen), torch.randn(shape, generator=gen, device="cuda")) for _ in range(4)]
+        log(f"{tag}: input {shape}, {kw}")
+        torch.cuda.reset_peak_memory_stats()
+        train = zoo_train(tag, card, model, staged, ZOO_STEPS, b)
+        rep = zoo_replays(tag, card, make, staged)
+        y = model.predict({k: torch.cat([f[k] for f, _ in staged]).cpu().numpy() for k in staged[0][0]})
+        res = {"card": card, "predict_shape": list(y.shape), "finite": bool(np.isfinite(y).all()),
+               "max_abs_output": float(np.abs(y).max())}
+        if name == "bert_proxy":
+            chunk, (stack, labels) = rep["chunk"], rep["stack"]
+            chunk.set_iteration_config_sequence_length(64)
+            res["seq_length_drops_the_graph"] = chunk._step_graph is None
+            res["seq_length_chunk_loss"] = float(chunk.train_chunk(stack, labels))
+            fresh = make()
+            fresh.set_iteration_config_sequence_length(64)
+            z = fresh.forward(staged[0][0])
+            res["fresh_rows_past_64_zero"] = bool((z[:, 64:] == 0).all())
+            res["fresh_rows_to_64_nonzero"] = bool((z[:, :64] != 0).any())
+            ok = (res["seq_length_drops_the_graph"] and math.isfinite(res["seq_length_chunk_loss"])
+                  and res["fresh_rows_past_64_zero"] and res["fresh_rows_to_64_nonzero"])
+            del chunk, stack, labels, fresh
+        else:
+            ok = True
+        log(f"{tag} predict: {json.dumps(res)}")
+        if not (ok and res["finite"] and tuple(y.shape) == (4 * b,) + shape[1:]):
+            raise AssertionError(f"{tag}: {res}")
+        out[name] = {"train": train, "replays": rep["res"]}
+        del model, staged, rep
+        torch.cuda.empty_cache()
+
+    tag, b = "[zoo-attention] mnist_mlp", ZOO_MOE_BATCH
+    on, auto = (zoo.mnist_mlp(batch_size=b, config=FFConfig(batch_size=b, seed=SEED + 53, use_pallas=up))
+                for up in ("on", "auto"))
+    on.compile()
+    auto.compile()
+    auto.set_parameters({name: on.get_weights(name) for name in on.get_parameters()})
+    feeds = {"image": torch.randn((b, 784), generator=gen, device="cuda").cpu().numpy()}
+    res, y_on, _, k6_ok = zoo_serve(card, on, auto, feeds, ZOO_K6_A_CHUNK["mnist_mlp"])
+    log(f"{tag} predict under 'on' vs 'auto': {json.dumps(res)}")
+    if not (k6_ok and res["finite"] and y_on.shape == (b, 10) and res["max_abs_err"] <= res["atol"]):
+        raise AssertionError(f"{tag}: serving under 'on': {res}")
+    out["mnist_mlp"] = {"k6_launches": res["launches_on"]["fused_dense"], "max_abs_err": res["max_abs_err"]}
+    del on, auto
+    torch.cuda.empty_cache()
+    return out
+
+
+ZOO_SMALL = {
+    "mnist_mlp": dict(batch_size=64),
+    "moe_mlp": dict(batch_size=64, in_dim=32, num_classes=10),
+    "transformer": dict(batch_size=4, seq_len=16, hidden=32, num_heads=4, num_layers=2),
+    "candle_uno": dict(batch_size=64, dense_layers=(64, 32), dense_feature_layers=(48, 24),
+                       feature_shapes={"dose": 1, "cell.rnaseq": 94, "drug.descriptors": 527,
+                                       "drug.fingerprints": 204}),
+    "bert_proxy": dict(batch_size=2, seq_length=16, hidden=64, num_heads=4, num_layers=2),
+}
+
+
+def phase_zoo_parity(card: str) -> None:
+    """Each zoo model at small widths, CUDA against the CPU port from the
+    same weights (bf16 compute): predict under "auto" and, for the rank-2
+    models, under "on" (K6 against its plain version), then 5 SGD steps
+    under "auto" (losses and weights). Outputs and losses within E2E_ATOL
+    ("on": E2E_ON_ATOL) times the larger of 1 and their magnitude (the
+    attention models' outputs are unnormalized). Then a dropout model: its
+    masks on the card and the CPU alike, and graph replays bit for bit with
+    eager steps (the step count read from the captured step's buffer)."""
+    from dlrm_flexflow_tpu_torch import FFConfig, FFModel, LossType, SGDOptimizer
+    from dlrm_flexflow_tpu_torch.models import zoo
+    from dlrm_flexflow_tpu_torch.ops.kernels.fused_mlp import fused_dense
+    from dlrm_flexflow_tpu_torch.tools.state import state_diff
+
+    rank2 = ("mnist_mlp", "moe_mlp", "candle_uno")
+    rng = np.random.default_rng(SEED + 54)
+    for name, kw in ZOO_SMALL.items():
+        b = kw["batch_size"]
+        res = {"card": card}
+        for up in ("auto", "on") if name in rank2 else ("auto",):
+            gpu, cpu = (getattr(zoo, name)(config=FFConfig(batch_size=b, seed=SEED + 54, use_pallas=up), device=dev,
+                                           **kw) for dev in ("cuda", "cpu"))
+            for m in (gpu, cpu):
+                m.compile(SGDOptimizer(lr=1e-3), LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE)
+            cpu._ctx.use_pallas = gpu._ctx.use_pallas  # "auto" resolves to "off" on the CPU
+            cpu.set_parameters({n: gpu.get_weights(n) for n in gpu.get_parameters()})
+            n = 2 * b + 3
+            # bert_proxy's layers are cubic in their input (no softmax, no
+            # normalization): at 0.5 its steps at lr 1e-3 overflow
+            scale = 0.2 if name in ("transformer", "bert_proxy") else 1.0
+            feeds = {iop.name: (scale * rng.standard_normal((n,) + tuple(iop.outputs[0].shape[1:]))).astype(np.float32)
+                     for iop in gpu.graph.inputs}
+            before = fused_dense.launches
+            y_gpu, y_cpu = gpu.predict(feeds), cpu.predict(feeds)
+            k6 = fused_dense.launches - before
+            mag = max(1.0, float(np.abs(y_cpu).max()))
+            atol = (E2E_ON_ATOL if up == "on" else E2E_ATOL) * mag
+            res[f"predict_{up}"] = {"max_abs_err": float(np.abs(y_gpu - y_cpu).max()), "atol": atol, "k6": k6}
+            want_k6 = ZOO_K6_A_CHUNK.get(name, 0) * 3 if up == "on" else 0
+            if name == "candle_uno" and up == "on":
+                want_k6 = 13 * 3  # 5 towers of 2 and a head of 3 at these widths
+            if not (np.isfinite(y_gpu).all() and res[f"predict_{up}"]["max_abs_err"] <= atol) or k6 != want_k6:
+                raise AssertionError(f"[zoo-parity] {name} predict under {up!r}: {res}")
+            if up != "auto":
+                continue
+            shape = tuple(gpu._out_spec.shape[1:])
+            errs = []
+            for i in range(5):
+                bf = {k: scale * rng.standard_normal((b,) + v.shape[1:]).astype(np.float32) for k, v in feeds.items()}
+                lbl = rng.standard_normal((b,) + shape).astype(np.float32)
+                lg, lc = float(gpu.train_batch(bf, lbl)), float(cpu.train_batch(bf, lbl))
+                errs.append(abs(lg - lc) / max(1.0, abs(lc)))
+            w_err = max(float(np.abs(w - cpu.get_weights(op)[k]).max() / max(1.0, float(np.abs(w).max())))
+                        for op in gpu.get_parameters() for k, w in gpu.get_weights(op).items())
+            res["train"] = {"steps": 5, "max_loss_err": max(errs), "max_weight_err": w_err, "atol": E2E_ATOL}
+            if not (max(errs) <= E2E_ATOL and w_err <= E2E_ATOL):  # NaN fails
+                raise AssertionError(f"[zoo-parity] {name} training: {res}")
+        log(f"[zoo-parity] {name} CUDA vs CPU {json.dumps(res)}")
+
+    def dropout_model(dev):
+        m = FFModel(FFConfig(batch_size=64, seed=SEED + 55), device=dev)
+        m.dropout(m.dense(m.create_tensor([64, 32], name="x"), 64, name="h"), 0.5)
+        m.compile(SGDOptimizer(lr=0.05))
+        return m
+
+    x = rng.standard_normal((4, 64, 32)).astype(np.float32)
+    y = rng.standard_normal((4, 64, 64)).astype(np.float32)
+    gpu, cpu = dropout_model("cuda"), dropout_model("cpu")
+    cpu.set_parameters({n: gpu.get_weights(n) for n in gpu.get_parameters()})
+    mask_gpu = gpu.forward({"x": x[0]}, training=True).cpu().numpy() != 0
+    mask_cpu = cpu.forward({"x": x[0]}, training=True).numpy() != 0
+    eager, chunk = dropout_model("cuda"), dropout_model("cuda")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for i in range(8):
+            eager.train_batch({"x": x[i % 4]}, y[i % 4])
+        for _ in range(2):
+            chunk.train_chunk({"x": x}, y)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = state_diff(eager, chunk)
+    res = {"card": card, "masks_alike": bool(np.array_equal(mask_gpu, mask_cpu)), "kept_share": float(mask_gpu.mean()),
+           "replays_differing_tensors": len(diff), "captured": chunk._step_graph is not None,
+           "step_entry": "_step" in chunk._step_graph.views if chunk._step_graph is not None else False}
+    log(f"[zoo-parity] dropout (rate 0.5 on a 32 -> 64 Dense's output): {json.dumps(res)}")
+    if not (res["masks_alike"] and not diff and res["captured"] and res["step_entry"]):
+        raise AssertionError(f"[zoo-parity] dropout: {res} {diff}")
+
+
+def phase_zoo_fused_dense(card: str) -> dict:
+    """K6 at every zoo shape at its chip-path M (bf16 compute, f32 x):
+    against its plain version (dense_tolerance), timed beside addmm of the
+    operands cast to bf16 beforehand, with its bound; where x goes through
+    the rounding pass (K = 942, 5270, 5002: a row is no whole number of
+    16-byte units) the pass's share of the call from the profiler; and a
+    moe bucket whose second half is zero rows."""
+    from dlrm_flexflow_tpu_torch import ActiMode
+    from dlrm_flexflow_tpu_torch.ops.kernels.fused_mlp import fused_dense, fused_dense_reference, x_goes_direct
+
+    acts = {"relu": ActiMode.AC_MODE_RELU, "none": ActiMode.AC_MODE_NONE}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 56)
+    errs, rows = [], []
+    for m, k, n, act, layers in ZOO_K6_SHAPES:
+        x = randn((m, k), gen)
+        w = randn((n, k), gen, scale=k**-0.5)
+        b = randn((n,), gen, scale=0.1)
+        errs.append(check_fused_dense(f"zoo {layers}", x, w, b, acts[act], torch.bfloat16))
+        xb, wb, bb = x.to(torch.bfloat16), w.to(torch.bfloat16).t(), b.to(torch.bfloat16)
+        lb = (m * k + n * k + n + m * n) * 4 / HBM_BYTES_PER_S * 1e3
+        lo = 2.0 * m * n * k / BF16_FLOP_PER_S * 1e3
+        row = {"card": card, "M": m, "K": k, "N": n, "layers": layers,
+               "ms": graph_ms(lambda: fused_dense(x, w, b, acts[act], torch.bfloat16)),
+               "plain_ms": graph_ms(lambda: fused_dense_reference(x, w, b, acts[act], torch.bfloat16)),
+               "library_ms": graph_ms(lambda: torch.addmm(bb, xb, wb)),
+               "bound_ms": max(lb, lo), "bound_by": "bytes" if lb >= lo else "operations",
+               "x_direct": x_goes_direct(k, x.dtype, x.data_ptr())}
+        if not row["x_direct"]:
+            kernels = cuda_kernels_of(lambda: fused_dense(x, w, b, acts[act], torch.bfloat16))
+            total = sum(v["a_call"] * v["us"] for v in kernels.values())
+            rounds = {name: v for name, v in kernels.items() if "round_pad" in name}
+            row["kernels_us"] = kernels
+            row["round_pass_share"] = sum(v["a_call"] * v["us"] for v in rounds.values()) / total
+        rows.append(row)
+        log(f"[kernels] fused_dense zoo timing at M={m} K={k} N={n} bf16: {json.dumps(row)}")
+        del x, w, b, xb, wb, bb
+    m, k, n, _, _ = ZOO_K6_SHAPES[3]
+    x = randn((m, k), gen)
+    x[m // 2:] = 0.0  # a moe bucket: the slots past the arrivals are zero rows
+    errs.append(check_fused_dense("zoo moe bucket, half zero rows", x, randn((n, k), gen, scale=k**-0.5),
+                                  randn((n,), gen, scale=0.1), ActiMode.AC_MODE_RELU, torch.bfloat16))
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max(e["max_abs_err"] for e in errs), "shapes": rows}
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -3279,9 +3778,12 @@ def main() -> None:
     phase_train_chunk_scatter()
     mesh = phase_mesh_one()
     phase_bench()
+    zoo = {"moe_mlp": phase_zoo_moe(card), "candle_uno": phase_zoo_candle(card), **phase_zoo_attention(card)}
+    phase_zoo_parity(card)
     # after the paths: run before them, these cases left about 0.5 GB
     # allocated, which showed in the paths' peak memory
     k6 = phase_fused_dense()
+    k6_zoo = phase_zoo_fused_dense(card)
     k4, k5f = phase_lookups()
     k5b = phase_onehot_backward()
     modes = phase_optim_kernels()
@@ -3337,6 +3839,11 @@ def main() -> None:
             **{key: res[key] for key in
                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
+        if name == "fused_dense":
+            # the zoo's serving paths under "on" (phases 27-29): launches of
+            # each model's predict, and the zoo shapes' check (phase 31)
+            entries[-1]["zoo_launches"] = {m: zoo[m]["k6_launches"] for m in ZOO_K6_A_CHUNK}
+            entries[-1]["max_abs_err"] = max(k6["max_abs_err"], k6_zoo["max_abs_err"])
     entries.append({
         "name": "onehot_embedding_backward",
         "route": "cuda",

@@ -12,7 +12,10 @@ sparse optimizer of their own, trains it hybrid-parallel on several cards
 large tables sharded and exchanged by NCCL all-to-all, the rest
 data-parallel, the wide Dense layers column-parallel on a 2-D data x model
 mesh), checkpoints it (`training/checkpoint.py`), and carries
-weights over from the JAX package (`convert.py`).
+weights over from the JAX package (`convert.py`). The op library's
+elementwise, shape, attention and MoE ops build the zoo's mnist_mlp,
+moe_mlp, transformer, candle_uno and bert_proxy (`models/zoo.py`), which
+train and serve on one device.
 """
 
 from .config import FFConfig, FFIterationConfig

@@ -1,13 +1,24 @@
 """FFModel: graph-builder facade, single-device training and serving.
 
-PyTorch counterpart of `dlrm_flexflow_tpu/core/ffmodel.py`, for the verbs
-DLRM needs: the builder verbs (`create_tensor`, `dense`, `embedding`,
-`dot_interaction`, `concat`), `compile` (parameters, optimizer state and
-kernel routing), `train_batch`, `train_chunk`, `fit`, `eval_batch`,
-`evaluate`, `forward`, `predict`, `quantize_embeddings`, the learning rate
-and the weight IO. PyTorch runs eagerly, so `compile` builds no step
-function: it makes the parameters and the optimizer state on the model's
-device and fixes the routing.
+PyTorch counterpart of `dlrm_flexflow_tpu/core/ffmodel.py`: the graph
+verbs (`create_tensor`, `create_constant`, `dense`, `embedding`,
+`dot_interaction`, the shape, elementwise, softmax, dropout, batch_matmul,
+attention and MoE verbs, `cache`), the graph's introspection, `compile`
+(parameters, optimizer state and kernel routing), `recompile`,
+`train_batch`, `train_chunk`, `fit`, `eval_batch`, `evaluate`, `forward`,
+`predict`, `quantize_embeddings`, the learning rate, the iteration
+config's seq_length and the weight IO. PyTorch runs eagerly, so `compile`
+builds no step function: it makes the parameters, the optimizer state and
+the constants on the model's device and fixes the routing. The
+convolutional and recurrent verbs (`conv2d`, `pool2d`, `batch_norm`,
+`lstm`) raise NotImplementedError: they are a later slice.
+
+Static state that a captured train step cannot see (`set_iteration_config_
+sequence_length`, a Cache's `use_cached` through `recompile`) drops the
+captured step, so the next `train_chunk` captures again, as the JAX
+package re-traces. Ops that draw random bits (dropout) read the step's key
+(`_step_key`: config.seed and the step count), which a captured step reads
+from its static buffer, so replays draw the eager steps' bits.
 
 `train_chunk` runs K steps on [K, B, ...] stacks, the counterpart of the
 JAX package's scanned multi-step call: on CUDA one train step is captured
@@ -122,7 +133,7 @@ import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
-from ..config import FFConfig
+from ..config import FFConfig, FFIterationConfig
 from ..convert import to_torch
 from ..data import native_batcher
 from ..data.loader import DataLoader
@@ -132,7 +143,13 @@ from ..ops.embedding import Embedding, quantize_table_int8
 from ..ops.embedding_collection_op import EmbeddingCollection
 from ..ops.interaction import DotInteraction
 from ..ops.kernels import resolve_use_pallas
-from ..ops.shape_ops import Concat
+from ..ops.attention import MultiHeadAttention
+from ..ops.batch_matmul import BatchMatmul
+from ..ops.cache import Cache
+from ..ops.elementwise import ElementBinary, ElementUnary
+from ..ops.moe import Aggregate, AggregateSpec, GroupBy, TopK
+from ..ops.regularizers import Dropout, Softmax
+from ..ops.shape_ops import Concat, Flat, Reshape, Reverse, Split, Transpose
 from ..parallel.host_tail import HostTailRuntime, HostTailStore, rank_block
 from ..parallel.passes import fuse_embedding_tables, offload_embedding_tails
 from ..parallel.plan import ShardingPlan, dlrm_hybrid_plan, enable_parameter_parallel, tensor_parallel_ops
@@ -147,7 +164,7 @@ from ..training.optimizer import (
     SGDOptimizer,
 )
 from ..training.sparse_engine import apply_sparse_updates
-from .graph import Graph, InputOp, OpContext
+from .graph import Graph, InputOp, OpContext, step_key
 from .tensor import TensorSpec
 
 # the batch keys of host-computed routes, "_route:<op>:<field>" (the JAX
@@ -170,6 +187,12 @@ _QUANTIZED = ("the embedding tables were quantized for serving (quantize_embeddi
               "needs the f32 master tables: compile again, or set_parameters to restore them")
 _HOST_TAIL_CHUNK = ("train_chunk: host-tail offload steps one batch at a time (the host serves and "
                     "updates the tail rows between steps); use train_batch or fit(steps_per_call=1)")
+_LATER_OPS = ("FFModel.{verb} is a later slice of the port: ROADMAP.md Queue 1 item 9b (ops/conv.py, "
+              "ops/rnn.py)")
+# the ops a mesh runs (the DLRM path); any other under compile(mesh=) raises
+_MESH_OPS = (Dense, Embedding, EmbeddingCollection, DotInteraction, Concat)
+_MESH_LATER = ("compile(mesh=) of a graph with {what}: training the op library's models on several "
+               "cards is ROADMAP.md Queue 1 item 9b, a later slice of the port")
 QUANTIZED_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "int8": torch.int8}
 _ALIGN = 16  # bytes: each entry of a chunk's packed step buffer starts on a 16-byte boundary
 
@@ -184,6 +207,11 @@ class FFModel:
                 "pass device='cpu' to run on the CPU"
             )
         self.graph = Graph()
+        self.iter_config = FFIterationConfig()
+        self._constant_feeds: Dict[str, tuple] = {}  # input name -> (dims, value, DataType)
+        self._constants: Dict[str, torch.Tensor] = {}  # made at compile
+        self._stochastic = False  # an op reads the step's random key
+        self._compile_args: Dict[str, Any] = {}
         self.loss_type: Optional[LossType] = None
         self.metrics_mask: MetricsType = MetricsType.METRICS_NONE
         self._params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
@@ -279,6 +307,224 @@ class FFModel:
         op = Concat(self.graph.unique_name(name or "concat"), tensors, axis)
         return self.graph.add_op(op).outputs[0]
 
+    def create_constant(self, dims, value: float, dtype=DataType.DT_FLOAT,
+                        name: Optional[str] = None) -> TensorSpec:
+        """reference: FFModel.create_constant (flexflow_cffi.py): an input
+        filled with `value` in `dtype`, made on the model's device at
+        compile and fed to every call that is not given it."""
+        t = self.create_tensor(dims, dtype=dtype, name=name or "constant")
+        self._constant_feeds[t.owner_op.name] = (tuple(int(d) for d in dims), float(value), dtype)
+        return t
+
+    # --- introspection (reference: get_layers/print_layers, flexflow_cffi.py)
+    def get_layers(self):
+        return list(self.graph.compute_ops)
+
+    def get_layer_by_name(self, name: str):
+        op = self._op(name)
+        if op is None:
+            raise KeyError(name)
+        return op
+
+    def get_layer_by_id(self, guid: int):
+        for op in self.graph.ops:
+            if op.guid == guid:
+                return op
+        raise KeyError(guid)
+
+    def print_layers(self) -> None:
+        """reference: FFModel.print_layers."""
+        for op in self.graph.compute_ops:
+            ins = ", ".join(t.owner_op.name for t in op.inputs)
+            outs = ", ".join(str(tuple(t.shape)) for t in op.outputs)
+            print(f"[{op.guid}] {type(op).__name__} '{op.name}' ({ins}) -> {outs}")
+
+    # --- shape ops (JAX package :218-261)
+    def split(self, input: TensorSpec, sizes, axis: int, name: Optional[str] = None) -> List[TensorSpec]:
+        """`sizes` a list of sizes, or a number of equal parts."""
+        if isinstance(sizes, int):
+            if input.shape[axis] % sizes:
+                raise ValueError(f"split: {input.shape[axis]} does not split into {sizes} equal parts")
+            sizes = [input.shape[axis] // sizes] * sizes
+        op = Split(self.graph.unique_name(name or "split"), input, sizes, axis)
+        return list(self.graph.add_op(op).outputs)
+
+    def flat(self, input: TensorSpec, name: Optional[str] = None) -> TensorSpec:
+        return self.graph.add_op(Flat(self.graph.unique_name(name or "flat"), input)).outputs[0]
+
+    def reshape(self, input: TensorSpec, shape: Sequence[int], name: Optional[str] = None) -> TensorSpec:
+        op = Reshape(self.graph.unique_name(name or "reshape"), input, shape)
+        return self.graph.add_op(op).outputs[0]
+
+    def transpose(self, input: TensorSpec, perm: Sequence[int], name: Optional[str] = None) -> TensorSpec:
+        op = Transpose(self.graph.unique_name(name or "transpose"), input, perm)
+        return self.graph.add_op(op).outputs[0]
+
+    def reverse(self, input: TensorSpec, axis: int, name: Optional[str] = None) -> TensorSpec:
+        op = Reverse(self.graph.unique_name(name or "reverse"), input, axis)
+        return self.graph.add_op(op).outputs[0]
+
+    # --- elementwise (JAX package :263-321)
+    def _binary(self, t: OperatorType, x, y, name=None) -> TensorSpec:
+        base = t.name.lower().replace("op_ew_", "")
+        op = ElementBinary(self.graph.unique_name(name or base), t, x, y)
+        return self.graph.add_op(op).outputs[0]
+
+    def _unary(self, t: OperatorType, x, scalar=0.0, name=None) -> TensorSpec:
+        base = t.name.lower().replace("op_", "")
+        op = ElementUnary(self.graph.unique_name(name or base), t, x, scalar)
+        return self.graph.add_op(op).outputs[0]
+
+    def add(self, x, y, name=None):
+        return self._binary(OperatorType.OP_EW_ADD, x, y, name)
+
+    def subtract(self, x, y, name=None):
+        return self._binary(OperatorType.OP_EW_SUB, x, y, name)
+
+    def multiply(self, x, y, name=None):
+        return self._binary(OperatorType.OP_EW_MUL, x, y, name)
+
+    def divide(self, x, y, name=None):
+        return self._binary(OperatorType.OP_EW_DIV, x, y, name)
+
+    def exp(self, x, name=None):
+        return self._unary(OperatorType.OP_EXP, x, name=name)
+
+    def relu(self, x, name=None):
+        return self._unary(OperatorType.OP_RELU, x, name=name)
+
+    def sigmoid(self, x, name=None):
+        return self._unary(OperatorType.OP_SIGMOID, x, name=name)
+
+    def tanh(self, x, name=None):
+        return self._unary(OperatorType.OP_TANH, x, name=name)
+
+    def elu(self, x, name=None):
+        return self._unary(OperatorType.OP_ELU, x, name=name)
+
+    def gelu(self, x, name=None):
+        return self._unary(OperatorType.OP_GELU, x, name=name)
+
+    def identity(self, x, name=None):
+        return self._unary(OperatorType.OP_IDENTITY, x, name=name)
+
+    def scalar_multiply(self, x, scalar, name=None):
+        return self._unary(OperatorType.OP_SCALAR_MULTIPLY, x, scalar, name)
+
+    def scalar_add(self, x, scalar, name=None):
+        return self._unary(OperatorType.OP_SCALAR_ADD, x, scalar, name)
+
+    def scalar_sub(self, x, scalar, name=None):
+        return self._unary(OperatorType.OP_SCALAR_SUB, x, scalar, name)
+
+    def scalar_truediv(self, x, scalar, name=None):
+        return self._unary(OperatorType.OP_SCALAR_TRUE_DIV, x, scalar, name)
+
+    # --- regularizers (JAX package :323-337)
+    def softmax(self, input: TensorSpec, name: Optional[str] = None) -> TensorSpec:
+        return self.graph.add_op(Softmax(self.graph.unique_name(name or "softmax"), input)).outputs[0]
+
+    def dropout(self, input: TensorSpec, rate: float, seed: int = 0, name=None) -> TensorSpec:
+        op = Dropout(self.graph.unique_name(name or "dropout"), input, rate, seed)
+        return self.graph.add_op(op).outputs[0]
+
+    # --- linear algebra, attention (JAX package :339-436)
+    def batch_matmul(self, A: TensorSpec, B: TensorSpec, a_seq_length_dim: int = -1,
+                     b_seq_length_dim: int = -1, name: Optional[str] = None) -> TensorSpec:
+        op = BatchMatmul(self.graph.unique_name(name or "batch_matmul"), A, B, a_seq_length_dim,
+                         b_seq_length_dim)
+        return self.graph.add_op(op).outputs[0]
+
+    def multihead_attention(
+        self,
+        query: TensorSpec,
+        key: TensorSpec,
+        value: TensorSpec,
+        embed_dim: int,
+        num_heads: int,
+        kdim: int = 0,
+        vdim: int = 0,
+        dropout: float = 0.0,
+        bias: bool = True,
+        add_bias_kv: bool = False,
+        add_zero_attn: bool = False,
+        kernel_initializer=None,
+        name: Optional[str] = None,
+    ) -> TensorSpec:
+        op = MultiHeadAttention(
+            self.graph.unique_name(name or "attention"),
+            query, key, value, embed_dim, num_heads, kdim, vdim,
+            dropout, bias, add_bias_kv, add_zero_attn, kernel_initializer,
+        )
+        return self.graph.add_op(op).outputs[0]
+
+    def lstm(self, *args, **kwargs):
+        raise NotImplementedError(_LATER_OPS.format(verb="lstm"))
+
+    def conv2d(self, *args, **kwargs):
+        raise NotImplementedError(_LATER_OPS.format(verb="conv2d"))
+
+    def pool2d(self, *args, **kwargs):
+        raise NotImplementedError(_LATER_OPS.format(verb="pool2d"))
+
+    def batch_norm(self, *args, **kwargs):
+        raise NotImplementedError(_LATER_OPS.format(verb="batch_norm"))
+
+    # --- MoE (JAX package :438-490)
+    def top_k(self, input: TensorSpec, k: int, sorted: bool = True, name: Optional[str] = None):
+        op = self.graph.add_op(TopK(self.graph.unique_name(name or "topk"), input, k, sorted))
+        return op.outputs[0], op.outputs[1]
+
+    def group_by(self, data: TensorSpec, assign: TensorSpec, n: int, alpha: float,
+                 name: Optional[str] = None) -> List[TensorSpec]:
+        op = GroupBy(self.graph.unique_name(name or "group_by"), data, assign, n, alpha)
+        return list(self.graph.add_op(op).outputs)
+
+    def aggregate(self, inputs: Sequence[TensorSpec], n: int, lambda_bal: float = 0.0,
+                  name: Optional[str] = None) -> TensorSpec:
+        op = Aggregate(self.graph.unique_name(name or "aggregate"), inputs, n, lambda_bal)
+        return self.graph.add_op(op).outputs[0]
+
+    def aggregate_spec(self, inputs: Sequence[TensorSpec], n: int, lambda_bal: float = 0.0,
+                       name: Optional[str] = None) -> TensorSpec:
+        op = AggregateSpec(self.graph.unique_name(name or "aggregate_spec"), inputs, n, lambda_bal)
+        return self.graph.add_op(op).outputs[0]
+
+    def cache(self, input: TensorSpec, num_batches: int, score_func=None,
+              name: Optional[str] = None) -> TensorSpec:
+        op = Cache(self.graph.unique_name(name or "cache"), input, num_batches, score_func)
+        return self.graph.add_op(op).outputs[0]
+
+    def recompile_on_condition(self, recompile_state) -> bool:
+        """reference: FFModel::recompile_on_condition (model.cc:1424-1428):
+        call the user's trigger; if it fires, apply alter_func and
+        recompile."""
+        if recompile_state.trigger():
+            recompile_state.alter()
+            self.recompile()
+            return True
+        return False
+
+    def recompile(self) -> None:
+        """Compile again after a change to the graph's static state (a
+        Cache's `use_cached`), keeping the parameters, the optimizer state,
+        the step count and the metric totals; the captured train step is
+        dropped, so the next `train_chunk` captures again (the JAX
+        package's re-trace)."""
+        self._require_compiled()
+        kept = self._params, self._opt_state, self._step_count, self._metrics_total
+        self.compile(**self._compile_args)
+        self._params, self._opt_state, self._step_count, self._metrics_total = kept
+
+    def set_iteration_config_sequence_length(self, seq_length: int) -> None:
+        """reference: model.h:551. BatchMatmul reads it from the next call
+        on; the captured train step is dropped (its shapes were fixed at
+        capture), as the JAX package re-traces."""
+        self.iter_config.seq_length = int(seq_length)
+        if self._ctx is not None:
+            self._ctx.seq_length = self.iter_config.seq_length
+        self._step_graph = None
+
     # ------------------------------------------------------------------ compile
     def compile(
         self,
@@ -314,6 +560,13 @@ class FFModel:
         parameters (one seed, one order), host-tail stores included, and
         its own shard of the fused tables."""
         cfg = self.config
+        self._compile_args = dict(optimizer=optimizer, loss_type=loss_type, metrics=tuple(metrics), seed=seed,
+                                  sparse_optimizer=sparse_optimizer, mesh=mesh, plan=plan)
+        if mesh is not None:
+            later = sorted({type(op).__name__ for op in self.graph.compute_ops if not isinstance(op, _MESH_OPS)})
+            if later or self._constant_feeds:
+                raise NotImplementedError(_MESH_LATER.format(
+                    what=f"the ops {later}" if later else f"the constants {sorted(self._constant_feeds)}"))
         self.optimizer = optimizer or SGDOptimizer(
             lr=cfg.learning_rate, weight_decay=cfg.weight_decay
         )
@@ -448,7 +701,15 @@ class FFModel:
             device=self.device,
             mesh=self.mesh,
             model_parallel=frozenset(self._model_parallel),
+            seq_length=self.iter_config.seq_length,
         )
+        # constants (JAX package :707-719), each once, in its declared dtype
+        self._constants = {name: torch.full(dims, value, dtype=dt.to_torch(), device=self.device)
+                           for name, (dims, value, dt) in self._constant_feeds.items()}
+        self._stochastic = any(op.stochastic for op in self.graph.compute_ops)
+        for op in self.graph.compute_ops:
+            if isinstance(op, Cache):
+                op.stage(self.device)
         self._metrics_total = {}
         self.reset_metrics()
         self._compiled = True
@@ -671,8 +932,9 @@ class FFModel:
             raise NotImplementedError(_FORCED_TRAINING)
 
     def _stage(self, feeds: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """Host -> device batch staging; every graph input must be fed.
-        Tensors already on the model's device pass through. The host's tail
+        """Host -> device batch staging; every graph input must be fed, but
+        a constant (`create_constant`), which is fed its compiled tensor
+        unless given. Tensors already on the model's device pass through. The host's tail
         partials go through pinned memory, without waiting. Under a mesh
         each rank is fed the global batch and stages its slice
         (`Mesh.batch_slice`); of the global batch's tail partials it stages
@@ -689,6 +951,9 @@ class FFModel:
                                                         mesh.data_index, mesh.data_size)
         for iop in self.graph.inputs:
             if iop.name not in feeds:
+                if iop.name in self._constants:
+                    staged[iop.name] = self._constants[iop.name]
+                    continue
                 raise KeyError(f"missing feed {iop.name!r}")
             x = feeds[iop.name]
             if mesh is not None and not iop.name.startswith(HOST_TAIL_PREFIX):
@@ -708,6 +973,8 @@ class FFModel:
         return t.to(self.device)
 
     def _stage_labels(self, labels) -> torch.Tensor:
+        """Labels as f32 on the device. Sparse categorical CE reads class
+        ids back from them, which is exact for ids below 2^24."""
         if self._data_mesh is not None:
             labels = labels[self._data_mesh.batch_slice(labels.shape[0])]
         return torch.as_tensor(labels, dtype=torch.float32).to(self.device)
@@ -718,7 +985,8 @@ class FFModel:
         a mesh, this rank's slice of it (`predict` puts the slices
         together)."""
         self._require_compiled()
-        ctx = dataclasses.replace(self._ctx, training=training)
+        ctx = dataclasses.replace(self._ctx, training=training,
+                                  rng=self._step_key(None) if training else None)
         feeds = self._host_tail_feeds(feeds, train=False)
         with torch.inference_mode():
             (out,) = self.graph.execute(
@@ -776,7 +1044,18 @@ class FFModel:
             scalars = scalars.pin_memory().to(self.device, non_blocking=True)
         return scalars
 
-    def _step(self, staged, labels, routes, scalars, grad_inputs: Sequence[str] = ()) -> tuple:
+    def _step_key(self, step: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """The step's random key on the device (`core/graph.py` `step_key`
+        of config.seed and the step count before the step, read from
+        `step` where a captured step stages it, else from the host's
+        count), or None when no op draws random bits."""
+        if not self._stochastic:
+            return None
+        if step is None:
+            step = torch.tensor(self._step_count, dtype=torch.int64, device=self.device)
+        return step_key(self.config.seed, step)
+
+    def _step(self, staged, labels, routes, scalars, grad_inputs: Sequence[str] = (), step=None) -> tuple:
         """The device work of one train step on staged tensors: `routes`
         None or {op: (rows_sorted, order)}, `scalars` this step's
         `_scalar_table` row on the device. Reads no host state that changes
@@ -794,11 +1073,12 @@ class FFModel:
         "clip")` does; the host reads only the filled slots; under a data
         axis > 1 the gathered global gradient at the global pos), and the
         gradient of each input named in `grad_inputs` (autograd on leaves
-        that require grad; training/host_offload.py)."""
+        that require grad; training/host_offload.py). `step`: the step count
+        on the device where random ops need it (`_step_key`)."""
         opt = self.optimizer
         sparse_ops = self._sparse_ops
         sparse_names = {op.name for op in sparse_ops}
-        ctx = dataclasses.replace(self._ctx, training=True)
+        ctx = dataclasses.replace(self._ctx, training=True, rng=self._step_key(step))
 
         sparse_xs: Dict[str, List[torch.Tensor]] = {}
         overrides: Dict[str, List[torch.Tensor]] = {}
@@ -970,7 +1250,8 @@ class FFModel:
                 loss = self._eager_step(feeds, stacked_labels[i],
                                         self._routes_for(feeds, route_ops) if keys else None)
             return loss
-        missing = [iop.name for iop in self.graph.inputs if iop.name not in stacked_feeds]
+        fed = [iop for iop in self.graph.inputs if iop.name in stacked_feeds or iop.name not in self._constants]
+        missing = [iop.name for iop in fed if iop.name not in stacked_feeds]
         if missing:
             raise KeyError(f"train_chunk: missing feed {missing[0]!r}")
         mesh = self._data_mesh
@@ -979,15 +1260,20 @@ class FFModel:
             return stack if mesh is None else stack[:, mesh.batch_slice(stack.shape[1])]
 
         entries = [(iop.name, local(stacked_feeds[iop.name]), iop.outputs[0].dtype.to_torch())
-                   for iop in self.graph.inputs]
+                   for iop in fed]
         entries += [("_labels", local(stacked_labels), torch.float32)]
         entries += [(key, stacked_feeds[key], torch.int32) for key in keys]
         entries += [("_scalars", self._scalar_table(self._step_count + 1, k), torch.float32)]
+        if self._stochastic:  # each step's count before the step: the eager steps' keys
+            entries += [("_step", np.arange(self._step_count, self._step_count + k, dtype=np.int64),
+                         torch.int64)]
         plan = _StepGraph.plan(entries, k)
         graph = self._step_graph
         if graph is None or graph.layout != plan:
             self._step_graph = None  # frees the old graph's memory first
-            graph = self._step_graph = _StepGraph(self.device, plan, route_ops if keys else [])
+            graph = self._step_graph = _StepGraph(self.device, plan, route_ops if keys else [],
+                                                  {n: c for n, c in self._constants.items()
+                                                   if n not in stacked_feeds})
         stacks = graph.stage(entries, k)
         done = 0
         try:
@@ -1492,8 +1778,9 @@ class _StepGraph:
     the plan the buffer was cut by; a stack of another shape, dtype or
     route set makes a new graph."""
 
-    def __init__(self, device: torch.device, layout, route_ops):
+    def __init__(self, device: torch.device, layout, route_ops, constants=None):
         self.layout = layout
+        self.constants = constants or {}  # the model's constant inputs, fed as they lie
         _, off, shape, dt = layout[-1]
         self.static = torch.empty(off + _aligned(_nbytes(shape, dt)), dtype=torch.uint8, device=device)
         self.views = {key: _view(self.static, off, shape, dt) for key, off, shape, dt in layout}
@@ -1538,7 +1825,7 @@ class _StepGraph:
         side = torch.cuda.Stream(dev)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            loss, _ = model._step(*self._args())
+            loss, _ = model._step(*self._args(), step=self.views.get("_step"))
         current.wait_stream(side)
         loss.record_stream(current)
         return loss
@@ -1552,13 +1839,13 @@ class _StepGraph:
         # queries its work's events during the capture, which the default
         # global mode refuses; one mode on every device count
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self.loss, _ = model._step(*self._args())
+            self.loss, _ = model._step(*self._args(), step=self.views.get("_step"))
         graph.instantiate()
         self.graph = graph
 
     def _args(self) -> tuple:
         v = self.views
-        feeds = {key: t for key, t in v.items() if not key.startswith("_")}
+        feeds = {**self.constants, **{key: t for key, t in v.items() if not key.startswith("_")}}
         routes = ({op.name: tuple(v[f"_route:{op.name}:{f}"] for f in ROUTE_FIELDS)
                    for op in self.route_ops} or None)
         return feeds, v["_labels"], routes, v["_scalars"]

@@ -9,12 +9,41 @@ weights carry between the packages one to one.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import math
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from ..ffconst import DataType, OperatorType
 from .tensor import ParameterSpec, TensorSpec
+
+
+_M32 = 0xFFFFFFFF
+
+
+def hash32(x: Union[int, torch.Tensor]) -> Union[int, torch.Tensor]:
+    """An xorshift-multiply hash of the low 32 bits of x (a Python int or
+    an int64 tensor, elementwise), in [0, 2^32). Each multiplier is below
+    2^31, so no product leaves int64: the same bits on every device."""
+    x = x & _M32
+    x = ((x ^ (x >> 16)) * 0x7FEB352D) & _M32
+    x = ((x ^ (x >> 15)) * 0x2C1B3C6D) & _M32
+    return x ^ (x >> 16)
+
+
+def step_key(seed: int, step: torch.Tensor) -> torch.Tensor:
+    """The random key of train step `step` (an int64 tensor, the step count
+    before the step) under config.seed `seed`."""
+    return hash32(step ^ hash32(seed))
+
+
+def keep_mask(key: torch.Tensor, shape, keep: float) -> torch.Tensor:
+    """A bool mask of `shape`, each entry kept with probability `keep`: the
+    hash of (key, the entry's row-major index) below keep * 2^32. A
+    function of the key alone; `key` lies on the device the mask is made
+    on."""
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=key.device)
+    return (hash32(hash32(idx) ^ key) < int(keep * 2**32)).reshape(shape)
 
 
 @dataclasses.dataclass
@@ -42,6 +71,16 @@ class OpContext:
     # the Dense ops that hold a row block of their kernel over the mesh's
     # model axis (parallel/tensor_parallel.py)
     model_parallel: frozenset = frozenset()
+    # the reference's FFIterationConfig.seq_length (BatchMatmul); -1: none
+    seq_length: int = -1
+    # the step's random key (`step_key`, a 0-d int64 tensor on the device)
+    # while training, else None; the JAX package's per-step PRNG key
+    rng: Optional[torch.Tensor] = None
+
+    def op_rng(self, op: "Op") -> Optional[torch.Tensor]:
+        """The key of `op` this step: the step's key with its guid folded
+        in (the JAX package folds `op.guid` into its key the same way)."""
+        return None if self.rng is None else hash32(self.rng ^ hash32(op.guid))
 
 
 class Op:
@@ -49,6 +88,9 @@ class Op:
     and implement `forward(params, inputs, ctx) -> list of tensors`."""
 
     op_type: OperatorType = OperatorType.OP_INPUT
+    # whether forward reads `ctx.op_rng` while training (the train step then
+    # stages the step count on the device)
+    stochastic: bool = False
 
     def __init__(self, name: str, inputs: Sequence[TensorSpec]):
         self.name = name

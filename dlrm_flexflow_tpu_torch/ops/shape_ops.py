@@ -1,12 +1,14 @@
-"""Shape ops: concat.
+"""Shape ops: concat, split, flat, reshape, transpose, reverse.
 
-PyTorch counterpart of `Concat` in `dlrm_flexflow_tpu/ops/shape_ops.py`;
-the other shape ops of that file come with the slices that use them.
+PyTorch counterpart of `dlrm_flexflow_tpu/ops/shape_ops.py`. Transpose
+returns a strided view, as `torch.permute` does; the ops that need a
+contiguous input make it so.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from ..ffconst import OperatorType
@@ -26,3 +28,79 @@ class Concat(Op):
 
     def forward(self, params, inputs, ctx):
         return [torch.cat(inputs, dim=self.axis)]
+
+
+class Split(Op):
+    op_type = OperatorType.OP_SPLIT
+
+    def __init__(self, name: str, input: TensorSpec, sizes: Sequence[int], axis: int):
+        super().__init__(name, [input])
+        self.axis = axis if axis >= 0 else axis + input.num_dims
+        self.sizes = [int(s) for s in sizes]
+        if sum(self.sizes) != input.shape[self.axis]:
+            raise ValueError(f"split sizes {self.sizes} do not add up to {input.shape[self.axis]}")
+        for i, s in enumerate(self.sizes):
+            shape = list(input.shape)
+            shape[self.axis] = s
+            self._out(tuple(shape), input.dtype, idx=i)
+
+    def forward(self, params, inputs, ctx):
+        (x,) = inputs
+        return list(torch.split(x, self.sizes, dim=self.axis))
+
+
+class Flat(Op):
+    """Collapse all non-batch dims (reference: src/ops/flat.cu)."""
+
+    op_type = OperatorType.OP_FLAT
+
+    def __init__(self, name: str, input: TensorSpec):
+        super().__init__(name, [input])
+        self._out((input.shape[0], int(np.prod(input.shape[1:]))), input.dtype)
+
+    def forward(self, params, inputs, ctx):
+        (x,) = inputs
+        return [x.reshape(self.outputs[0].shape)]
+
+
+class Reshape(Op):
+    op_type = OperatorType.OP_RESHAPE
+
+    def __init__(self, name: str, input: TensorSpec, shape: Sequence[int]):
+        super().__init__(name, [input])
+        shape = tuple(int(d) for d in shape)
+        if int(np.prod(shape)) != input.volume:
+            raise ValueError(f"reshape {tuple(input.shape)} to {shape}: the sizes differ")
+        self._out(shape, input.dtype)
+
+    def forward(self, params, inputs, ctx):
+        (x,) = inputs
+        return [x.reshape(self.outputs[0].shape)]
+
+
+class Transpose(Op):
+    op_type = OperatorType.OP_TRANSPOSE
+
+    def __init__(self, name: str, input: TensorSpec, perm: Sequence[int]):
+        super().__init__(name, [input])
+        self.perm = tuple(int(p) for p in perm)
+        if sorted(self.perm) != list(range(input.num_dims)):
+            raise ValueError(f"transpose: {self.perm} is no permutation of {input.num_dims} dims")
+        self._out(tuple(input.shape[p] for p in self.perm), input.dtype)
+
+    def forward(self, params, inputs, ctx):
+        (x,) = inputs
+        return [x.permute(self.perm)]
+
+
+class Reverse(Op):
+    op_type = OperatorType.OP_REVERSE
+
+    def __init__(self, name: str, input: TensorSpec, axis: int):
+        super().__init__(name, [input])
+        self.axis = axis if axis >= 0 else axis + input.num_dims
+        self._out(input.shape, input.dtype)
+
+    def forward(self, params, inputs, ctx):
+        (x,) = inputs
+        return [torch.flip(x, dims=(self.axis,))]

@@ -1245,3 +1245,54 @@ def test_index_add_rows_adds_in_one_order(cuda, dtype):
     want = torch.zeros((1460, 16), dtype=torch.float64, device="cuda").index_add_(0, idx, src.double())
     tol = (1e-4, 1e-4) if dtype == torch.float32 else (5e-2, 0.1)
     torch.testing.assert_close(first.double(), want, rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.parametrize("name", ["moe_mlp", "transformer", "dropout"])
+def test_zoo_train_chunk_replays_eager_steps_bit_for_bit(cuda, name):
+    """moe_mlp (dispatch by slot index, its gradients summed over k in
+    order), a transformer and a dropout model (the step's key read from the
+    captured step's buffer) at small widths: 2 chunks of 4 graph replays
+    against 8 eager steps under deterministic algorithms, every tensor of
+    the state and every chunk's last loss bit for bit."""
+    from dlrm_flexflow_tpu_torch.core.ffmodel import FFModel
+    from dlrm_flexflow_tpu_torch.models import zoo
+    from dlrm_flexflow_tpu_torch.tools.state import state_diff
+
+    def make():
+        cfg = FFConfig(batch_size=32, seed=9)
+        if name == "moe_mlp":
+            m = zoo.moe_mlp(batch_size=32, in_dim=48, num_classes=10, config=cfg)
+        elif name == "transformer":
+            m = zoo.transformer(batch_size=4, seq_len=8, hidden=16, num_heads=2, config=FFConfig(batch_size=4))
+        else:
+            m = FFModel(cfg)
+            m.dropout(m.dense(m.create_tensor([32, 48], name="x"), 16), 0.5)
+        m.compile(AdamOptimizer(alpha=1e-3), LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE)
+        return m
+
+    eager, chunk = make(), make()
+    rng = np.random.default_rng(3)
+    x = {iop.name: rng.standard_normal((4,) + iop.outputs[0].shape).astype(np.float32) for iop in eager.graph.inputs}
+    y = rng.standard_normal((4,) + tuple(eager._out_spec.shape)).astype(np.float32)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        losses = [eager.train_batch({k: v[i % 4] for k, v in x.items()}, y[i % 4]) for i in range(8)]
+        replayed = [chunk.train_chunk(x, y) for _ in range(2)]
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert chunk._step_graph is not None and ("_step" in chunk._step_graph.views) == (name == "dropout")
+    assert not state_diff(eager, chunk)
+    assert torch.equal(losses[3], replayed[0]) and torch.equal(losses[7], replayed[1])
+
+
+def test_dropout_mask_on_the_card_is_the_cpus(cuda):
+    """core/graph.py keep_mask: integer tensor arithmetic, the same bits on
+    both devices."""
+    from dlrm_flexflow_tpu_torch.core.graph import keep_mask, step_key
+
+    for step in (0, 1, 12345):
+        key = step_key(42, torch.tensor(step))
+        want = keep_mask(key, (64, 257), 0.7)
+        got = keep_mask(key.to(cuda), (64, 257), 0.7)
+        assert torch.equal(got.cpu(), want)

@@ -219,6 +219,11 @@ def test_port_imports_no_jax_and_refuses_cuda_without_a_card():
         "import dlrm_flexflow_tpu_torch.ops.embedding_collection_op, dlrm_flexflow_tpu_torch.tools.mesh_smoke\n"
         "import dlrm_flexflow_tpu_torch.parallel.routed_exchange, dlrm_flexflow_tpu_torch.training.checkpoint\n"
         "import dlrm_flexflow_tpu_torch.parallel.tensor_parallel, dlrm_flexflow_tpu_torch.parallel.replicated_tables\n"
+        "import dlrm_flexflow_tpu_torch.ops.elementwise, dlrm_flexflow_tpu_torch.ops.regularizers\n"
+        "import dlrm_flexflow_tpu_torch.ops.shape_ops, dlrm_flexflow_tpu_torch.ops.batch_matmul\n"
+        "import dlrm_flexflow_tpu_torch.ops.attention, dlrm_flexflow_tpu_torch.ops.moe, dlrm_flexflow_tpu_torch.ops.cache\n"
+        "import dlrm_flexflow_tpu_torch.models.zoo\n"
+        "import dlrm_flexflow_tpu_torch.examples.mnist_mlp, dlrm_flexflow_tpu_torch.examples.moe\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dlrm_flexflow_tpu')]\n"
         "assert not bad, bad\n"
         "if not torch.cuda.is_available():\n"
