@@ -187,18 +187,33 @@ Phases, each of which ends the run with a non-zero exit if it fails:
                itself): timed Adam steps, replays bit for bit, predict; a
                fresh bert_proxy at seq_length 64 gives zeros past row 64;
                mnist_mlp served under "on" (K6: 3).
- 30. zoo-parity - the five zoo models at small widths, CUDA against the CPU
+ 30. zoo-cnn  - resnet (ResNet-50, no BatchNorm, as the reference) at
+               batch 64 on 224 x 224 images that carry their class, SGD:
+               eager steps (the loss must fall), replays bit for bit with
+               eager steps, the replays' kernel time; alexnet (batch 64) and
+               inception_v3 (batch 32), a few eager steps each; ms a step,
+               TFLOP/s, busy share, the top kernels, peak memory.
+ 31. zoo-nmt  - nmt at the reference's defaults (batch 64, length 20,
+               hidden and embed 2048, vocab 20480, 2 layers) on the copy
+               task, SGD, its tables on the sparse path's scatter rule: the
+               same figures, the loss falling, replays bit for bit.
+ 32. zoo-cnn-on - alexnet served at a batch of 256 (4 x 256 + 100 images)
+               under "on" (K6: 3 a chunk) against "auto".
+ 33. zoo-parity - the zoo models at small widths, CUDA against the CPU
                port from the same weights: predict under "auto" and, for
                the rank-2 models, "on"; 5 SGD steps; a dropout model's masks
-               alike on both devices and its replays bit for bit.
- 31. kernels, continued - K6 at the zoo's 12 Dense shapes at their path's M
-               against its plain version, timed beside addmm with its
-               bound, the rounding pass's share where x cannot go to TMA as
-               it lies (K = 942, 5270, 5002), and a moe bucket of half zero
-               rows.
- 32. summary - a {"kernels": [...]} line (K6's entry with the zoo's
+               alike on both devices and its replays bit for bit; then
+               mnist_cnn, cifar10_cnn, a small nmt (its tables sparse), a
+               ResNet bottleneck at stride 2, each Inception block and a
+               BatchNorm / Pool2D model: predict and 5 SGD steps.
+ 34. kernels, continued - K6 at the zoo's 16 Dense shapes at their path's M
+               (the CNN heads at M = 256) against its plain version, timed
+               beside addmm with its bound, the rounding pass's share where
+               x cannot go to TMA as it lies (K = 942, 5270, 5002), and a
+               moe bucket of half zero rows.
+ 35. summary - a {"kernels": [...]} line (K6's entry with the zoo's
                launches), then the last line {"ok": true, "device": {...}}.
-Around each path (4, 6, 8, 10, 11, 13, 14, 15, 18, 20, 24 and 27-29) the
+Around each path (4, 6, 8, 10, 11, 13, 14, 15, 18, 20, 24, 27-30 and 32) the
 kernel launch counts are zeroed just before and read just after, and must
 show every kernel of that path; phase 17 counts its replays' launches from
 the graph.
@@ -1133,6 +1148,10 @@ def train_profile(model, staged, ms_per_step: float, steps: int = PROFILED_STEPS
     # a row-update wrapper launch runs 2 to 4 CUDA kernels, all named row_update_*
     row = [e for e in kernels if "row_update" in e.key]
     top = sorted(per_step.items(), key=lambda kv: -kv[1])[:8]
+    by_kind = {}
+    for name, ms in per_step.items():
+        kind = kernel_kind(name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
     return {
         "kernel_ms_per_step": busy,
         "busy_share_of_unprofiled_step": busy / ms_per_step,
@@ -1140,8 +1159,23 @@ def train_profile(model, staged, ms_per_step: float, steps: int = PROFILED_STEPS
         "row_update_kernel_ms_per_launch": (
             sum(e.self_device_time_total for e in row) / 1e3 / (steps * route_tables)),
         "top_kernels_ms_per_step": {k[:60]: v for k, v in top},
+        "kernel_ms_per_step_by_kind": by_kind,
         "phases": phases,
     }
+
+
+def kernel_kind(name: str) -> str:
+    """A CUDA kernel's kind by its name: cuDNN's layout transposes, its
+    convolutions, GEMMs (cuBLAS, CUTLASS), pools, reductions, elementwise
+    kernels, the rest."""
+    low = name.lower()
+    for kind, marks in (("layout", ("nchwtonhwc", "nhwctonchw")),
+                        ("convolution", ("conv", "fprop", "dgrad", "wgrad", "cudnn")),
+                        ("gemm", ("gemm", "xmma", "cutlass")), ("pool", ("pool",)), ("reduce", ("reduce",)),
+                        ("elementwise", ("elementwise",))):
+        if any(m in low for m in marks):
+            return kind
+    return "other"
 
 
 def train_breakdown(model, feeds, labels, routes=None) -> dict:
@@ -3276,13 +3310,13 @@ def phase_mesh_one() -> dict:
     return res
 
 
-# ------------------------------------------------------------------ the zoo (phases 27-31)
+# ------------------------------------------------------------------ the zoo (phases 27-34)
 ZOO_MOE_BATCH = 16384
 ZOO_CANDLE_BATCH = 8192
 ZOO_WARMUP, ZOO_MOE_STEPS, ZOO_STEPS = 3, 20, 10
 ZOO_CHUNK = 4  # train_chunk's K in the zoo's replay checks (2 chunks against 8 eager steps)
 # K6 launches of one request chunk under "on": every rank-2 Dense
-ZOO_K6_A_CHUNK = {"mnist_mlp": 3, "moe_mlp": 10, "candle_uno": 19}
+ZOO_K6_A_CHUNK = {"mnist_mlp": 3, "moe_mlp": 10, "candle_uno": 19, "alexnet": 3}
 # the zoo's rank-2 Dense layers at their chip-path M: (M, K, N, activation, layers)
 ZOO_K6_SHAPES = [
     (16384, 784, 512, "relu", "mnist_mlp dense"), (16384, 512, 512, "relu", "mnist_mlp dense_1"),
@@ -3294,6 +3328,9 @@ ZOO_K6_SHAPES = [
     (8192, 2048, 1000, "relu", "candle_uno drug{1,2}.fingerprints towers"),
     (8192, 1000, 1000, "relu", "candle_uno towers' layers 2-3, head layers 2-3"),
     (8192, 5002, 1000, "relu", "candle_uno head layer 1"), (8192, 1000, 1, "none", "candle_uno output"),
+    # the CNN heads after `flat`, at the serving batch of zoo-cnn-on
+    (256, 9216, 4096, "relu", "alexnet dense"), (256, 4096, 4096, "relu", "alexnet dense_1"),
+    (256, 4096, 10, "none", "alexnet dense_2"), (256, 2048, 10, "none", "resnet and inception_v3 dense"),
 ]
 
 
@@ -3601,6 +3638,187 @@ def phase_zoo_attention(card: str) -> dict:
     return out
 
 
+ZOO_CNN_BATCH = {"resnet": 64, "alexnet": 64, "inception_v3": 32}
+ZOO_CNN_FEW_STEPS = 4  # alexnet's and inception_v3's timed eager steps
+ZOO_FALL_STEPS = 20  # resnet's and nmt's timed eager steps, over which the loss must fall
+# SGD on the class-pattern images: ResNet-50's loss falls within 10 steps;
+# inception_v3 (no BatchNorm either) overshoots at 0.005 within a few
+ZOO_CNN_LR = {"resnet": 0.02, "alexnet": 0.02, "inception_v3": 0.001}
+ZOO_NMT_BATCH = 64
+ZOO_NMT_LR = 2.0  # SGD on the copy task (the loss starts at ln 20480 = 9.93)
+ZOO_CNN_SERVE_BATCH = 256
+
+
+def class_images(n: int, shape: tuple, gen, classes: int = 10) -> tuple:
+    """Images that carry their class: a random pattern a class plus noise of
+    0.5, on the card; class ids as [n, 1]."""
+    centers = torch.randn((classes,) + shape, generator=gen, device="cuda")
+    y = torch.randint(0, classes, (n,), generator=gen, device="cuda")
+    return centers[y] + 0.5 * torch.randn((n,) + shape, generator=gen, device="cuda"), y[:, None].float()
+
+
+def step_flop(model) -> float:
+    """The forward's multiply-adds of the convolutions, the LSTMs and the
+    Dense layers, times 2, times 3 for the backward: a train step's FLOP."""
+    from dlrm_flexflow_tpu_torch.ops.conv import Conv2D
+    from dlrm_flexflow_tpu_torch.ops.dense import Dense
+    from dlrm_flexflow_tpu_torch.ops.rnn import LSTM
+
+    fwd = 0.0
+    for op in model.graph.compute_ops:
+        if isinstance(op, (Conv2D, LSTM)):
+            fwd += op.cost_stats()["flops"]
+        elif isinstance(op, Dense):
+            fwd += 2.0 * op.outputs[0].volume * op.in_dim
+    return 3.0 * fwd
+
+
+def replay_profile(tag: str, rep: dict, flop: float) -> dict:
+    """The replays' kernel time a step and busy share (`chunk_profile`),
+    and the TFLOP/s of the eager and the replayed step."""
+    res, (stack, labels) = rep["res"], rep["stack"]
+    prof = chunk_profile(rep["chunk"], stack, labels, res["graph_ms_per_step"])
+    prof.update(eager_tflop_per_s=flop / res["eager_ms_per_step"] / 1e9,
+                graph_tflop_per_s=flop / res["graph_ms_per_step"] / 1e9)
+    log(f"{tag} replays: {json.dumps(prof)}")
+    return prof
+
+
+def loss_fell(tag: str, losses: list, cycle: int = 4) -> None:
+    """The mean of the first `cycle` timed losses (one of each staged
+    batch) above that of the last `cycle`."""
+    head, tail = float(np.mean(losses[:cycle])), float(np.mean(losses[-cycle:]))
+    log(f"{tag} loss over the timed steps: first {cycle} {head}, last {cycle} {tail}")
+    if not tail < head:
+        raise AssertionError(f"{tag}: the loss did not fall over the timed steps: {head} -> {tail}")
+
+
+def phase_zoo_cnn(card: str) -> dict:
+    """resnet (ResNet-50: 3-4-6-3 bottlenecks, no BatchNorm, as the
+    reference builds it) at batch 64 on 224 x 224 images, SGD on sparse CE:
+    eager steps (the loss must fall), graph replays bit for bit with eager
+    steps; then alexnet (batch 64, 229 x 229) and inception_v3 (batch 32,
+    299 x 299), a few eager steps each. bf16 compute: the convolutions
+    run in cuDNN on bf16 operands (ops/conv.py)."""
+    from dlrm_flexflow_tpu_torch import FFConfig, LossType, MetricsType, SGDOptimizer
+    from dlrm_flexflow_tpu_torch.models import zoo
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 57)
+    out = {}
+    for name, b in ZOO_CNN_BATCH.items():
+        tag = f"[zoo-cnn] {name}"
+
+        def make(name=name, b=b):
+            m = getattr(zoo, name)(batch_size=b, config=FFConfig(batch_size=b, seed=SEED + 57))
+            m.compile(SGDOptimizer(lr=ZOO_CNN_LR[name]), LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                      [MetricsType.METRICS_ACCURACY])
+            return m
+
+        t0 = time.perf_counter()
+        model = make()
+        shape = tuple(model.graph.inputs[0].outputs[0].shape[1:])
+        staged = [({"image": x}, y) for x, y in (class_images(b, shape, gen) for _ in range(4))]
+        flop = step_flop(model)
+        convs = sum(type(op).__name__ == "Conv2D" for op in model.graph.compute_ops)
+        log(f"{tag}: input {shape}, {convs} convolutions, "
+            f"{sum(p.numel() for sub in model.get_parameters().values() for p in sub.values())} parameters, "
+            f"batch {b}, {flop / 1e12:.4f} TFLOP a step; set-up {time.perf_counter() - t0:.3f} s")
+        torch.cuda.reset_peak_memory_stats()
+        steps = ZOO_FALL_STEPS if name == "resnet" else ZOO_CNN_FEW_STEPS
+        train = zoo_train(tag, card, model, staged, steps, b)
+        train["tflop_per_s"] = flop / train["ms_per_step"] / 1e9
+        log(f"{tag} eager: {train['tflop_per_s']} TFLOP/s")
+        out[name] = {"train": train}
+        if name == "resnet":
+            loss_fell(tag, train["losses"])
+            del model
+            rep = zoo_replays(tag, card, make, staged)
+            out[name]["replays"] = rep["res"]
+            out[name]["replay_profile"] = replay_profile(tag, rep, flop)
+            del rep
+        else:
+            del model
+        del staged
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo_nmt(card: str) -> dict:
+    """nmt at the reference's defaults (batch 64, length 20, hidden and
+    embed 2048, vocab 20480, 2 layers) on the copy task, SGD, sparse CE over
+    [B, T] labels: both tables on the sparse path's scatter rule (D = 2048
+    does not divide 128), eager steps (the loss must fall), graph replays
+    bit for bit with eager steps."""
+    from dlrm_flexflow_tpu_torch import FFConfig, LossType, SGDOptimizer
+    from dlrm_flexflow_tpu_torch.models import zoo
+
+    tag, b = "[zoo-nmt]", ZOO_NMT_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 58)
+
+    def make():
+        m = zoo.nmt(batch_size=b, config=FFConfig(batch_size=b, seed=SEED + 58))
+        m.compile(SGDOptimizer(lr=ZOO_NMT_LR), LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+        return m
+
+    t0 = time.perf_counter()
+    model = make()
+    routes = [(op.name, op.kernel_route) for op in model._sparse_ops]
+    if routes != [("src_embed", False), ("dst_embed", False)]:
+        raise AssertionError(f"{tag}: the tables' update path: {routes}")
+    vocab = model.get_layer_by_name("src_embed").num_entries
+    staged = []
+    for _ in range(4):
+        src, dst = (torch.randint(0, vocab, (b, 20), generator=gen, device="cuda", dtype=torch.int32)
+                    for _ in range(2))
+        staged.append(({"src_tokens": src, "dst_tokens": dst}, dst.float()))
+    flop = step_flop(model)
+    log(f"{tag}: {sum(p.numel() for sub in model.get_parameters().values() for p in sub.values())} parameters, "
+        f"sparse tables {routes} (scatter rule), batch {b}, {flop / 1e12:.4f} TFLOP a step; "
+        f"set-up {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    train = zoo_train(tag, card, model, staged, ZOO_FALL_STEPS, b)
+    train["tflop_per_s"] = flop / train["ms_per_step"] / 1e9
+    log(f"{tag} eager: {train['tflop_per_s']} TFLOP/s")
+    loss_fell(tag, train["losses"])
+    del model
+    rep = zoo_replays(tag, card, make, staged)
+    out = {"train": train, "replays": rep["res"], "replay_profile": replay_profile(tag, rep, flop)}
+    del rep, staged
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo_cnn_on(card: str) -> dict:
+    """alexnet served at a batch of 256 under use_pallas="on" against
+    "auto" (the same weights): 4 x 256 + 100 images, K6 on the three Dense
+    layers of the head, 3 launches a chunk; the convolutions are cuDNN's
+    either way."""
+    from dlrm_flexflow_tpu_torch import FFConfig
+    from dlrm_flexflow_tpu_torch.models import zoo
+
+    tag, b = "[zoo-cnn-on] alexnet", ZOO_CNN_SERVE_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 59)
+    on, auto = (zoo.alexnet(batch_size=b, config=FFConfig(batch_size=b, seed=SEED + 59, use_pallas=up))
+                for up in ("on", "auto"))
+    on.compile()
+    auto.compile()
+    auto.set_parameters({name: on.get_weights(name) for name in on.get_parameters()})
+    n = 4 * b + 100
+    x, _ = class_images(n, tuple(on.graph.inputs[0].outputs[0].shape[1:]), gen)
+    feeds = {"image": x.cpu().numpy()}
+    del x
+    chunks = -(-n // b)
+    res, y_on, _, k6_ok = zoo_serve(card, on, auto, feeds, ZOO_K6_A_CHUNK["alexnet"] * chunks)
+    res["examples_per_s_on"] = n / res["on_predict_s"]
+    res["examples_per_s_auto"] = n / res["auto_predict_s"]
+    log(f"{tag} predict under 'on' vs 'auto': {json.dumps(res)}")
+    if not (k6_ok and res["finite"] and y_on.shape == (n, 10) and res["max_abs_err"] <= res["atol"]):
+        raise AssertionError(f"{tag}: serving under 'on': {res}")
+    del on, auto, feeds
+    torch.cuda.empty_cache()
+    return {"k6_launches": res["launches_on"]["fused_dense"], "max_abs_err": res["max_abs_err"]}
+
+
 ZOO_SMALL = {
     "mnist_mlp": dict(batch_size=64),
     "moe_mlp": dict(batch_size=64, in_dim=32, num_classes=10),
@@ -3700,6 +3918,88 @@ def phase_zoo_parity(card: str) -> None:
     log(f"[zoo-parity] dropout (rate 0.5 on a 32 -> 64 Dense's output): {json.dumps(res)}")
     if not (res["masks_alike"] and not diff and res["captured"] and res["step_entry"]):
         raise AssertionError(f"[zoo-parity] dropout: {res} {diff}")
+    zoo_parity_cnn(card, rng)
+
+
+def zoo_parity_cnn(card: str, rng) -> None:
+    """The CNNs whole, a small nmt, a ResNet bottleneck at stride 2, each
+    Inception block and a BatchNorm / Pool2D model, CUDA against the CPU
+    port from the same weights (bf16 compute): predict, then 5 SGD steps on
+    sparse CE (losses and every weight), within E2E_ATOL times the larger of
+    1 and the value's magnitude. The blocks and the BatchNorm / Pool2D model
+    end in flat, a Dense of 10 and a softmax."""
+    from dlrm_flexflow_tpu_torch import FFConfig, FFModel, LossType, PoolType, SGDOptimizer
+    from dlrm_flexflow_tpu_torch.models import zoo
+
+    def head(call, shape):
+        def build(cfg, dev):
+            m = FFModel(cfg, device=dev)
+            t = call(m, m.create_tensor([cfg.batch_size, *shape], name="image"))
+            m.softmax(m.dense(m.flat(t), 10))
+            return m
+        return build
+
+    def bn_pool(m, t):
+        t = m.conv2d(t, 8, 3, 3, 1, 1, 1, 1)
+        t = m.batch_norm(t)
+        t = m.pool2d(t, 3, 3, 2, 2, 1, 1)
+        t = m.conv2d(t, 16, 3, 3, 1, 1, 1, 1)
+        t = m.batch_norm(t, relu=False)
+        return m.pool2d(t, 3, 3, 1, 1, 1, 1, pool_type=PoolType.POOL_AVG)
+
+    cases = {
+        "mnist_cnn": (lambda cfg, dev: zoo.mnist_cnn(batch_size=16, config=cfg, device=dev), 16, 0.01),
+        "cifar10_cnn": (lambda cfg, dev: zoo.cifar10_cnn(batch_size=16, config=cfg, device=dev), 16, 0.01),
+        # vocab above the one-hot threshold: the tables on the sparse path
+        "nmt": (lambda cfg, dev: zoo.nmt(batch_size=8, src_len=6, dst_len=5, hidden_size=64, embed_size=48,
+                                         vocab_size=300, config=cfg, device=dev), 8, 0.5),
+        "bottleneck-s2": (head(lambda m, t: zoo._bottleneck(m, t, 8, 2), (16, 9, 9)), 8, 0.01),
+        "inception_a": (head(lambda m, t: zoo._inception_a(m, t, 16), (8, 7, 7)), 8, 0.01),
+        "inception_b": (head(zoo._inception_b, (8, 9, 9)), 8, 0.01),
+        "inception_c": (head(lambda m, t: zoo._inception_c(m, t, 16), (8, 7, 7)), 8, 0.01),
+        "inception_d": (head(zoo._inception_d, (8, 9, 9)), 8, 0.01),
+        "inception_e": (head(zoo._inception_e, (8, 5, 5)), 8, 0.01),
+        "batch_norm-pool2d": (head(bn_pool, (3, 16, 16)), 8, 0.01),
+    }
+    for name, (build, b, lr) in cases.items():
+        cfg = dict(batch_size=b, seed=SEED + 60, onehot_embedding_threshold=64)
+        gpu, cpu = build(FFConfig(**cfg), "cuda"), build(FFConfig(**cfg), "cpu")
+        for m in (gpu, cpu):
+            m.compile(SGDOptimizer(lr=lr), LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+        cpu.set_parameters({n: gpu.get_weights(n) for n in gpu.get_parameters()})
+        classes = gpu._out_spec.shape[-1]
+
+        def batch(n):
+            feeds = {}
+            for iop in gpu.graph.inputs:
+                shape = (n,) + tuple(iop.outputs[0].shape[1:])
+                feeds[iop.name] = (rng.integers(0, classes, shape).astype(np.int32)
+                                   if iop.outputs[0].dtype.name == "DT_INT32"
+                                   else rng.standard_normal(shape).astype(np.float32))
+            labels = (feeds["dst_tokens"] if "dst_tokens" in feeds
+                      else rng.integers(0, classes, (n, 1)).astype(np.int32))
+            return feeds, labels
+
+        feeds, _ = batch(2 * b + 3)
+        y_gpu, y_cpu = gpu.predict(feeds), cpu.predict(feeds)
+        res = {"card": card, "sparse_tables": [op.name for op in gpu._sparse_ops],
+               "predict": {"max_abs_err": float(np.abs(y_gpu - y_cpu).max()),
+                           "atol": E2E_ATOL * max(1.0, float(np.abs(y_cpu).max()))}}
+        if not (np.isfinite(y_gpu).all() and res["predict"]["max_abs_err"] <= res["predict"]["atol"]):
+            raise AssertionError(f"[zoo-parity] {name} predict: {res}")
+        errs = []
+        for _ in range(5):
+            bf, lbl = batch(b)
+            lg, lc = float(gpu.train_batch(bf, lbl)), float(cpu.train_batch(bf, lbl))
+            errs.append(abs(lg - lc) / max(1.0, abs(lc)))
+        w_err = max(float(np.abs(w - cpu.get_weights(op)[k]).max() / max(1.0, float(np.abs(w).max())))
+                    for op in gpu.get_parameters() for k, w in gpu.get_weights(op).items())
+        res["train"] = {"steps": 5, "max_loss_err": max(errs), "max_weight_err": w_err, "atol": E2E_ATOL}
+        log(f"[zoo-parity] {name} CUDA vs CPU {json.dumps(res)}")
+        if not (max(errs) <= E2E_ATOL and w_err <= E2E_ATOL):  # NaN fails
+            raise AssertionError(f"[zoo-parity] {name} training: {res}")
+        if name == "nmt" and res["sparse_tables"] != ["src_embed", "dst_embed"]:
+            raise AssertionError(f"[zoo-parity] nmt: the tables are not on the sparse path: {res}")
 
 
 def phase_zoo_fused_dense(card: str) -> dict:
@@ -3779,6 +4079,9 @@ def main() -> None:
     mesh = phase_mesh_one()
     phase_bench()
     zoo = {"moe_mlp": phase_zoo_moe(card), "candle_uno": phase_zoo_candle(card), **phase_zoo_attention(card)}
+    zoo.update(phase_zoo_cnn(card))
+    zoo["nmt"] = phase_zoo_nmt(card)
+    zoo["alexnet"].update(phase_zoo_cnn_on(card))
     phase_zoo_parity(card)
     # after the paths: run before them, these cases left about 0.5 GB
     # allocated, which showed in the paths' peak memory
@@ -3840,8 +4143,8 @@ def main() -> None:
                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
         if name == "fused_dense":
-            # the zoo's serving paths under "on" (phases 27-29): launches of
-            # each model's predict, and the zoo shapes' check (phase 31)
+            # the zoo's serving paths under "on" (phases 27-29, 32): launches of
+            # each model's predict, and the zoo shapes' check (phase 34)
             entries[-1]["zoo_launches"] = {m: zoo[m]["k6_launches"] for m in ZOO_K6_A_CHUNK}
             entries[-1]["max_abs_err"] = max(k6["max_abs_err"], k6_zoo["max_abs_err"])
     entries.append({

@@ -13,9 +13,9 @@ large tables sharded and exchanged by NCCL all-to-all, the rest
 data-parallel, the wide Dense layers column-parallel on a 2-D data x model
 mesh), checkpoints it (`training/checkpoint.py`), and carries
 weights over from the JAX package (`convert.py`). The op library's
-elementwise, shape, attention and MoE ops build the zoo's mnist_mlp,
-moe_mlp, transformer, candle_uno and bert_proxy (`models/zoo.py`), which
-train and serve on one device.
+elementwise, shape, attention, MoE, convolutional and recurrent ops build
+every model of the zoo (`models/zoo.py`: the MLPs, MoE, attention models,
+CNNs and the NMT LSTM), which train and serve on one device.
 """
 
 from .config import FFConfig, FFIterationConfig

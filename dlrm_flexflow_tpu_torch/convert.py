@@ -3,7 +3,9 @@
 Both packages keep parameters as `{op_name: {key: array}}` with the same op
 names, keys, shapes and layouts (Dense `kernel` [out, in] and `bias` [out];
 Embedding `weight` [V, D]; MultiHeadAttention `wq`, `wk`, `wv`, `wo`
-[embed, in] and `bq`..`bo` [embed]), but for the tables the JAX package keeps
+[embed, in] and `bq`..`bo` [embed]; Conv2D `kernel` [O, C / groups, kh, kw]
+and `bias` [O]; BatchNorm `scale` and `bias` [C]; LSTM `wx` [4H, E], `wh`
+[4H, H] and `bias` [4H]), but for the tables the JAX package keeps
 packed [P, 128] (row r at line r // (128 / D), lanes (r % (128 / D)) * D
 onward), which the port keeps [V, D]: `params_from_jax(..., like=)` unpacks
 them as the JAX package's `unpack_table` does. `params_from_jax` takes what the JAX package's

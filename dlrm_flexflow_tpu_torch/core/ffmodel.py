@@ -11,7 +11,7 @@ config's seq_length and the weight IO. PyTorch runs eagerly, so `compile`
 builds no step function: it makes the parameters, the optimizer state and
 the constants on the model's device and fixes the routing. The
 convolutional and recurrent verbs (`conv2d`, `pool2d`, `batch_norm`,
-`lstm`) raise NotImplementedError: they are a later slice.
+`lstm`) build the ops of `ops/conv.py` and `ops/rnn.py`.
 
 Static state that a captured train step cannot see (`set_iteration_config_
 sequence_length`, a Cache's `use_cached` through `recompile`) drops the
@@ -137,7 +137,7 @@ from ..config import FFConfig, FFIterationConfig
 from ..convert import to_torch
 from ..data import native_batcher
 from ..data.loader import DataLoader
-from ..ffconst import ActiMode, AggrMode, DataType, LossType, MetricsType, OperatorType
+from ..ffconst import ActiMode, AggrMode, DataType, LossType, MetricsType, OperatorType, PoolType
 from ..ops.dense import Dense
 from ..ops.embedding import Embedding, quantize_table_int8
 from ..ops.embedding_collection_op import EmbeddingCollection
@@ -146,9 +146,11 @@ from ..ops.kernels import resolve_use_pallas
 from ..ops.attention import MultiHeadAttention
 from ..ops.batch_matmul import BatchMatmul
 from ..ops.cache import Cache
+from ..ops.conv import BatchNorm, Conv2D, Pool2D
 from ..ops.elementwise import ElementBinary, ElementUnary
 from ..ops.moe import Aggregate, AggregateSpec, GroupBy, TopK
 from ..ops.regularizers import Dropout, Softmax
+from ..ops.rnn import LSTM
 from ..ops.shape_ops import Concat, Flat, Reshape, Reverse, Split, Transpose
 from ..parallel.host_tail import HostTailRuntime, HostTailStore, rank_block
 from ..parallel.passes import fuse_embedding_tables, offload_embedding_tails
@@ -187,12 +189,11 @@ _QUANTIZED = ("the embedding tables were quantized for serving (quantize_embeddi
               "needs the f32 master tables: compile again, or set_parameters to restore them")
 _HOST_TAIL_CHUNK = ("train_chunk: host-tail offload steps one batch at a time (the host serves and "
                     "updates the tail rows between steps); use train_batch or fit(steps_per_call=1)")
-_LATER_OPS = ("FFModel.{verb} is a later slice of the port: ROADMAP.md Queue 1 item 9b (ops/conv.py, "
-              "ops/rnn.py)")
 # the ops a mesh runs (the DLRM path); any other under compile(mesh=) raises
 _MESH_OPS = (Dense, Embedding, EmbeddingCollection, DotInteraction, Concat)
 _MESH_LATER = ("compile(mesh=) of a graph with {what}: training the op library's models on several "
-               "cards is ROADMAP.md Queue 1 item 9b, a later slice of the port")
+               "cards comes with expert parallelism (parallel/expert_parallel.py), ROADMAP.md Queue 1 "
+               "item 9b, a later slice of the port")
 QUANTIZED_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "int8": torch.int8}
 _ALIGN = 16  # bytes: each entry of a chunk's packed step buffer starts on a 16-byte boundary
 
@@ -458,17 +459,75 @@ class FFModel:
         )
         return self.graph.add_op(op).outputs[0]
 
-    def lstm(self, *args, **kwargs):
-        raise NotImplementedError(_LATER_OPS.format(verb="lstm"))
+    # --- convolution, pooling, normalization, recurrence (JAX package :165-194, :355-410)
+    def lstm(
+        self,
+        input: TensorSpec,
+        hidden_size: int,
+        initial_state=None,
+        kernel_initializer=None,
+        recurrent_initializer=None,
+        bias_initializer=None,
+        name: Optional[str] = None,
+    ):
+        """LSTM over [B, T, E] -> (sequence [B, T, H], h_T [B, H], c_T [B,
+        H]). initial_state: an optional (h0, c0) pair of [B, H] tensors,
+        e.g. an encoder's final state for a decoder layer."""
+        h0, c0 = initial_state if initial_state is not None else (None, None)
+        op = LSTM(self.graph.unique_name(name or "lstm"), input, hidden_size, h0=h0, c0=c0,
+                  kernel_initializer=kernel_initializer, recurrent_initializer=recurrent_initializer,
+                  bias_initializer=bias_initializer)
+        self.graph.add_op(op)
+        return op.outputs[0], op.outputs[1], op.outputs[2]
 
-    def conv2d(self, *args, **kwargs):
-        raise NotImplementedError(_LATER_OPS.format(verb="conv2d"))
+    def conv2d(
+        self,
+        input: TensorSpec,
+        out_channels: int,
+        kernel_h: int,
+        kernel_w: int,
+        stride_h: int = 1,
+        stride_w: int = 1,
+        padding_h: int = 0,
+        padding_w: int = 0,
+        activation=ActiMode.AC_MODE_NONE,
+        groups: int = 1,
+        use_bias: bool = True,
+        kernel_initializer=None,
+        bias_initializer=None,
+        name: Optional[str] = None,
+    ) -> TensorSpec:
+        op = Conv2D(
+            self.graph.unique_name(name or "conv2d"),
+            input, out_channels, kernel_h, kernel_w, stride_h, stride_w,
+            padding_h, padding_w, activation, groups, use_bias,
+            kernel_initializer, bias_initializer,
+        )
+        return self.graph.add_op(op).outputs[0]
 
-    def pool2d(self, *args, **kwargs):
-        raise NotImplementedError(_LATER_OPS.format(verb="pool2d"))
+    def pool2d(
+        self,
+        input: TensorSpec,
+        kernel_h: int,
+        kernel_w: int,
+        stride_h: int = 1,
+        stride_w: int = 1,
+        padding_h: int = 0,
+        padding_w: int = 0,
+        pool_type: PoolType = PoolType.POOL_MAX,
+        activation=ActiMode.AC_MODE_NONE,
+        name: Optional[str] = None,
+    ) -> TensorSpec:
+        op = Pool2D(
+            self.graph.unique_name(name or "pool2d"),
+            input, kernel_h, kernel_w, stride_h, stride_w,
+            padding_h, padding_w, pool_type, activation,
+        )
+        return self.graph.add_op(op).outputs[0]
 
-    def batch_norm(self, *args, **kwargs):
-        raise NotImplementedError(_LATER_OPS.format(verb="batch_norm"))
+    def batch_norm(self, input: TensorSpec, relu: bool = True, name: Optional[str] = None) -> TensorSpec:
+        op = BatchNorm(self.graph.unique_name(name or "batch_norm"), input, relu)
+        return self.graph.add_op(op).outputs[0]
 
     # --- MoE (JAX package :438-490)
     def top_k(self, input: TensorSpec, k: int, sorted: bool = True, name: Optional[str] = None):

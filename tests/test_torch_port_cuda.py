@@ -1247,13 +1247,15 @@ def test_index_add_rows_adds_in_one_order(cuda, dtype):
     torch.testing.assert_close(first.double(), want, rtol=tol[0], atol=tol[1])
 
 
-@pytest.mark.parametrize("name", ["moe_mlp", "transformer", "dropout"])
+@pytest.mark.parametrize("name", ["moe_mlp", "transformer", "dropout", "mnist_cnn", "nmt"])
 def test_zoo_train_chunk_replays_eager_steps_bit_for_bit(cuda, name):
     """moe_mlp (dispatch by slot index, its gradients summed over k in
-    order), a transformer and a dropout model (the step's key read from the
-    captured step's buffer) at small widths: 2 chunks of 4 graph replays
-    against 8 eager steps under deterministic algorithms, every tensor of
-    the state and every chunk's last loss bit for bit."""
+    order), a transformer, a dropout model (the step's key read from the
+    captured step's buffer), mnist_cnn (cuDNN's convolutions and pools) and
+    nmt (the LSTMs' time loops, its tables on the sparse path) at small
+    widths: 2 chunks of 4 graph replays against 8 eager steps under
+    deterministic algorithms, every tensor of the state and every chunk's
+    last loss bit for bit."""
     from dlrm_flexflow_tpu_torch.core.ffmodel import FFModel
     from dlrm_flexflow_tpu_torch.models import zoo
     from dlrm_flexflow_tpu_torch.tools.state import state_diff
@@ -1264,6 +1266,11 @@ def test_zoo_train_chunk_replays_eager_steps_bit_for_bit(cuda, name):
             m = zoo.moe_mlp(batch_size=32, in_dim=48, num_classes=10, config=cfg)
         elif name == "transformer":
             m = zoo.transformer(batch_size=4, seq_len=8, hidden=16, num_heads=2, config=FFConfig(batch_size=4))
+        elif name == "mnist_cnn":
+            m = zoo.mnist_cnn(batch_size=8, config=FFConfig(batch_size=8, seed=9))
+        elif name == "nmt":
+            m = zoo.nmt(batch_size=4, src_len=6, dst_len=5, hidden_size=32, embed_size=24, vocab_size=50,
+                        config=FFConfig(batch_size=4, seed=9, onehot_embedding_threshold=16))
         else:
             m = FFModel(cfg)
             m.dropout(m.dense(m.create_tensor([32, 48], name="x"), 16), 0.5)
@@ -1272,7 +1279,9 @@ def test_zoo_train_chunk_replays_eager_steps_bit_for_bit(cuda, name):
 
     eager, chunk = make(), make()
     rng = np.random.default_rng(3)
-    x = {iop.name: rng.standard_normal((4,) + iop.outputs[0].shape).astype(np.float32) for iop in eager.graph.inputs}
+    x = {iop.name: (rng.integers(0, 50, (4,) + iop.outputs[0].shape).astype(np.int32) if name == "nmt"
+                    else rng.standard_normal((4,) + iop.outputs[0].shape).astype(np.float32))
+         for iop in eager.graph.inputs}
     y = rng.standard_normal((4,) + tuple(eager._out_spec.shape)).astype(np.float32)
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
@@ -1296,3 +1305,33 @@ def test_dropout_mask_on_the_card_is_the_cpus(cuda):
         want = keep_mask(key, (64, 257), 0.7)
         got = keep_mask(key.to(cuda), (64, 257), 0.7)
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv2d_on_the_card_keeps_its_own_math_whatever_the_global_flags(cuda, dtype, monkeypatch):
+    """With cuDNN's TF32 on and benchmarking on globally, Conv2D's forward
+    and its gradients on the card hold to the CPU port's: in f32 within f32
+    rounding of the sums (TF32's 10-bit mantissa would miss by about 1e-3 of
+    the terms); in bf16 within one bf16 step (2^-7 of a value) of a result
+    both round once."""
+    from dlrm_flexflow_tpu_torch.ops.conv import conv2d
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", True)
+    outs = {}
+    for dev in ("cpu", cuda):
+        x = _x((8, 64, 14, 14), torch.float32, 1, dev).requires_grad_(True)
+        w = _x((32, 64, 3, 3), torch.float32, 2, dev).requires_grad_(True)
+        b = _x((32,), torch.float32, 3, dev).requires_grad_(True)
+        y = conv2d(x, w, b, (1, 1), (1, 1), 1, ActiMode.AC_MODE_NONE, dtype)
+        (y * _x(tuple(y.shape), torch.float32, 4, dev)).sum().backward()
+        outs[str(dev)] = [t.detach().cpu() for t in (y, x.grad, w.grad, b.grad)]
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.benchmark
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        big = float(want.abs().max())
+        if dtype == torch.float32:
+            # sums of up to 64 * 9 * 8 * 196 products of unit normals
+            tol = dict(rtol=1e-5, atol=1e-5 * big)
+        else:
+            tol = dict(rtol=2.0**-7, atol=2.0**-7 * big)
+        torch.testing.assert_close(got, want, **tol)

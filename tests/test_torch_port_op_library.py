@@ -463,8 +463,18 @@ def test_constants_feed_every_call_and_keep_their_dtype():
 
 
 def test_later_slice_verbs_refuse_naming_their_item():
+    """conv2d, pool2d, batch_norm and lstm build their ops since the slice
+    that ported them (tests/test_torch_port_conv_rnn.py holds them against
+    the JAX package); what stays a later slice is training them on several
+    cards: compile(mesh=) refuses a graph of them naming item 9b and expert
+    parallelism (run in a world of one in tests/test_torch_port_zoo_cnn.py)."""
+    from dlrm_flexflow_tpu_torch.core.ffmodel import _MESH_LATER
+
     m = port.FFModel(port.FFConfig(batch_size=2), device="cpu")
     x = m.create_tensor([2, 1, 4, 4], name="x")
-    for verb in ("conv2d", "pool2d", "batch_norm", "lstm"):
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            getattr(m, verb)(x, 2)
+    m.conv2d(x, 2, 3, 3, 1, 1, 1, 1)
+    m.pool2d(x, 2, 2, 2, 2)
+    m.batch_norm(x)
+    m.lstm(m.create_tensor([2, 3, 4], name="seq"), 2)
+    assert [type(op).__name__ for op in m.graph.compute_ops] == ["Conv2D", "Pool2D", "BatchNorm", "LSTM"]
+    assert "item 9b" in _MESH_LATER and "expert parallelism" in _MESH_LATER

@@ -229,14 +229,22 @@ def test_mesh_compile_refuses_the_op_librarys_graphs(world_of_one):
         m.compile(mesh=world_of_one, plan=data_parallel_plan())
 
 
-@pytest.mark.parametrize("example", ["mnist_mlp", "moe"])
+@pytest.mark.parametrize("example", ["mnist_mlp", "moe", "nmt"])
 def test_port_examples_run_a_tiny_epoch(example, capsys):
+    """Each example's epoch at batch 16 on 64 examples: finite step losses;
+    the classifiers' accuracy (nmt compiles no metric, as its reference)."""
     import importlib
+    import re
 
     mod = importlib.import_module(f"dlrm_flexflow_tpu_torch.examples.{example}")
     hist = mod.main(["--device", "cpu", "--batch-size", "16", "--epochs", "1", "--examples", "64"])
-    assert np.isfinite(hist["accuracy"]) and hist["epoch_time_s"] > 0
-    assert "epoch 0 done" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert hist["epoch_time_s"] > 0 and hist["samples"] == 64
+    assert "epoch 0 done" in out
+    losses = [float(v) for v in re.findall(r"loss=(\S+)", out)]
+    assert losses and np.isfinite(losses).all()
+    if example != "nmt":
+        assert np.isfinite(hist["accuracy"])
 
 
 def test_bert_proxy_at_its_widths_overflows_past_two_layers_in_both_packages():
