@@ -3274,6 +3274,135 @@ def mesh_one_tensor_parallel(mesh) -> dict:
     return res
 
 
+def mesh_one_pair_alike(make, staged, mesh) -> dict:
+    """Models from `make(mesh)` and `make(None)` (one seed: the same
+    weights) in a world of one: 2 eager steps each, then fresh ones with a
+    chunk of 4 `train_chunk` replays each, under deterministic algorithms;
+    every loss and every tensor of the state bit for bit."""
+    from dlrm_flexflow_tpu_torch.tools.state import state_diff, state_tensors
+
+    out = {}
+    stack, labels = chunk_stacks(staged)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for how in ("eager", "replayed"):
+            pair, losses = [make(mesh), make(None)], []
+            for m in pair:
+                got = ([m.train_batch(*staged[i]) for i in range(2)] if how == "eager"
+                       else [m.train_chunk(stack, labels)])
+                losses.append(torch.stack(got).float().cpu())
+            diff = state_diff(*pair)
+            out[how] = {"tensors": len(state_tensors(pair[0])), "differing_tensors": len(diff),
+                        "losses_bit_identical": bool(torch.equal(*losses)), "losses": losses[0].tolist(),
+                        "captured": how == "eager" or pair[0]._step_graph is not None}
+            if diff or not out[how]["losses_bit_identical"] or not out[how]["captured"]:
+                raise AssertionError(f"mesh-1: compile(mesh=) against no mesh, {how}: {out} {diff}")
+            del pair
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+def mesh_one_zoo(mesh) -> dict:
+    """compile(mesh=, plan=data_parallel_plan()) of the op library's graphs
+    in a world of one, each against the same model compiled with no mesh
+    (`mesh_one_pair_alike`): moe_mlp at its widths and batch ZOO_MOE_BATCH
+    under Adam, ResNet-50 at batch 64 under SGD, and a BatchNorm + Dropout
+    graph (conv 3 -> 32 on 32 x 32 images, BatchNorm, Dropout 0.3, Dense
+    to 10, softmax) at batch 256 under SGD."""
+    from dlrm_flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel, LossType, SGDOptimizer
+    from dlrm_flexflow_tpu_torch.models import zoo
+    from dlrm_flexflow_tpu_torch.parallel.plan import data_parallel_plan
+
+    def compiled(m, opt, msh):
+        m.compile(opt, LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY, mesh=msh,
+                  plan=data_parallel_plan() if msh is not None else None)
+        return m
+
+    def bn_dropout(b):
+        m = FFModel(FFConfig(batch_size=b, seed=SEED + 63))
+        t = m.create_tensor([b, 3, 32, 32], name="image")
+        t = m.dropout(m.batch_norm(m.conv2d(t, 32, 3, 3, 1, 1, 1, 1)), 0.3)
+        m.softmax(m.dense(m.flat(t), 10))
+        return m
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 63)
+    cases = {
+        "moe_mlp": (ZOO_MOE_BATCH, lambda msh, b: compiled(zoo.moe_mlp(
+            batch_size=b, config=FFConfig(batch_size=b, seed=SEED + 63)), AdamOptimizer(alpha=ADAM_ALPHA), msh),
+            lambda b: moe_clustered(b, gen), "input"),
+        "resnet": (ZOO_CNN_BATCH["resnet"], lambda msh, b: compiled(zoo.resnet(
+            batch_size=b, config=FFConfig(batch_size=b, seed=SEED + 63)), SGDOptimizer(lr=ZOO_CNN_LR["resnet"]), msh),
+            lambda b: class_images(b, (3, 224, 224), gen), "image"),
+        "batch_norm_dropout": (256, lambda msh, b: compiled(bn_dropout(b), SGDOptimizer(lr=0.005), msh),
+                               lambda b: class_images(b, (3, 32, 32), gen), "image"),
+    }
+    out = {}
+    for name, (b, make, data, key) in cases.items():
+        staged = [({key: x}, y) for x, y in (data(b) for _ in range(4))]
+        out[name] = {"batch": b, **mesh_one_pair_alike(lambda msh: make(msh, b), staged, mesh)}
+        del staged
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_one_global_paths(mesh) -> dict:
+    """The op library's global-batch code in a group of one, called
+    directly on the card (the models above take it only under a data axis
+    above 1): BatchNorm's two all-reduces (parallel/global_batch.py
+    `all_reduce_sum`, forward and backward) against the one-card formula
+    within f32 rounding, and MoE's arrival order with the count all-gather
+    (`preceding_counts`) equal to one card's; then `expert_parallel_ffn` at
+    N = 1 (its two all-to-alls in a group of one) against
+    `reference_moe_ffn` at moe_mlp's widths, 4 experts, 16384 tokens, f32:
+    the forward and w1's gradient within tests/test_sharding.py's bounds."""
+    from dlrm_flexflow_tpu_torch.ops.conv import batch_norm
+    from dlrm_flexflow_tpu_torch.ops.moe import dispatch_slots, moe_capacity
+    from dlrm_flexflow_tpu_torch.parallel.expert_parallel import expert_parallel_ffn, moe_gate, reference_moe_ffn
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 64)
+    x = torch.randn((256, 32, 32, 32), generator=gen, device="cuda") * 2.0 + 0.5
+    scale = torch.rand((32,), generator=gen, device="cuda") + 0.5
+    bias = torch.randn((32,), generator=gen, device="cuda")
+    w = torch.randn(x.shape, generator=gen, device="cuda")
+    res = {}
+    outs = []
+    for msh in (mesh, None):
+        leaf = x.clone().requires_grad_(True)
+        y = batch_norm(leaf, scale, bias, True, 1e-5, msh)
+        (g,) = torch.autograd.grad((y * w).sum(), [leaf])
+        outs.append((y.detach(), g))
+    # f32: the two means sum 262144 terms a channel in other orders
+    res["batch_norm"] = {"max_abs_err_y": float((outs[0][0] - outs[1][0]).abs().max()),
+                         "max_abs_err_dx": float((outs[0][1] - outs[1][1]).abs().max()),
+                         "atol": 1e-4}
+    assign = torch.randint(0, 4, (ZOO_MOE_BATCH, 2), generator=gen, device="cuda", dtype=torch.int32)
+    cap = moe_capacity(2, 4, ZOO_MOE_BATCH, 1.0)
+    res["dispatch_equal"] = bool(torch.equal(dispatch_slots(assign, 4, cap, mesh), dispatch_slots(assign, 4, cap)))
+    if max(res["batch_norm"]["max_abs_err_y"], res["batch_norm"]["max_abs_err_dx"]) > 1e-4 or not res["dispatch_equal"]:
+        raise AssertionError(f"mesh-1 global paths: {res}")
+    d, h, e, t = 784, 64, 4, ZOO_MOE_BATCH
+    xs = torch.randn((t, d), generator=gen, device="cuda")
+    gate_w = torch.randn((d, e), generator=gen, device="cuda") * 0.05
+    w1, b1 = torch.randn((e, d, h), generator=gen, device="cuda") * d**-0.5, torch.zeros((e, h), device="cuda")
+    w2, b2 = torch.randn((e, h, d), generator=gen, device="cuda") * h**-0.5, torch.zeros((e, d), device="cuda")
+    gv, ids = moe_gate(xs, gate_w, 2)
+    got = []
+    for fn in (lambda w: expert_parallel_ffn(xs, gv, ids, w, b1, w2, b2, mesh),
+               lambda w: reference_moe_ffn(xs, gv, ids, w, b1, w2, b2, shards=1)):
+        leaf = w1.clone().requires_grad_(True)
+        y = fn(leaf)
+        got.append((y.detach(), torch.autograd.grad(y.pow(2).sum(), [leaf])[0]))
+    over = [float(((a - b).abs() - rtol * b.abs()).max() / atol)
+            for (a, b), (rtol, atol) in zip(((got[0][0], got[1][0]), (got[0][1], got[1][1])), ((1e-4, 1e-5), (1e-3, 1e-4)))]
+    res["expert_parallel"] = {"experts": e, "tokens": t, "max_err_over_tol": {"out": over[0], "grad": over[1]},
+                              "bit_equal": bool(torch.equal(got[0][0], got[1][0]) and torch.equal(got[0][1], got[1][1]))}
+    if max(over) > 1.0:
+        raise AssertionError(f"mesh-1 expert_parallel_ffn at N = 1: {res}")
+    return res
+
+
 def phase_mesh_one() -> dict:
     """Phase 24: the hybrid-parallel path in an in-process NCCL world of one
     (destroyed at the end, so later phases run as before)."""
@@ -3304,6 +3433,9 @@ def phase_mesh_one() -> dict:
         log(f"[mesh-1] checkpoint shards gathered and kept {json.dumps(mesh_one_shards(mesh))}")
         log(f"[mesh-1] checkpoint and int8 serving {json.dumps(mesh_one_state(mesh))}")
         log(f"[mesh-1] tensor-parallel Dense in a group of one {json.dumps(mesh_one_tensor_parallel(mesh))}")
+        log(f"[mesh-1] the op library under compile(mesh=) against no mesh {json.dumps(mesh_one_zoo(mesh))}")
+        log(f"[mesh-1] the global-batch paths and expert parallelism in a group of one "
+            f"{json.dumps(mesh_one_global_paths(mesh))}")
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()

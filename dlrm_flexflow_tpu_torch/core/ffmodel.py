@@ -90,6 +90,19 @@ does, stages its own block of the partials (`host_tail.rank_block`), and
 takes `g_val` from the gathered global gradient, so every replica makes
 one card's update at the global batch.
 
+The op library's graphs run under a data axis above 1 too
+(parallel/global_batch.py): `compile` walks the graph once (`batch_ops`)
+and raises NotImplementedError for what the port does not compute over the
+global batch (an op that moves, reverses, concatenates, splits or
+normalises along the batch axis, a reshape whose leading dimension the axis
+does not divide, a non-row-wise op between a GroupBy and its Aggregate);
+the ops that couple rows or read their built shape (Flat, Reshape, Dropout,
+attention's dropout, BatchNorm, GroupBy, Aggregate) take the global batch's
+meaning on the rank's block, a constant whose leading dimension is the
+batch size is staged at the rank's block, and a Cache serves its block.
+config.export_strategy_task_graph_file (`--taskgraph`) raises at compile
+until the task graph's export is ported (ROADMAP.md item 10).
+
 On a 2-D ("data", "model") mesh the batch, the collection's shards and
 every collective above belong to the data axis (its data group); the
 ranks of one data index hold the same slice and the same replicas. The
@@ -152,6 +165,7 @@ from ..ops.moe import Aggregate, AggregateSpec, GroupBy, TopK
 from ..ops.regularizers import Dropout, Softmax
 from ..ops.rnn import LSTM
 from ..ops.shape_ops import Concat, Flat, Reshape, Reverse, Split, Transpose
+from ..parallel.global_batch import batch_ops as batch_ops_of
 from ..parallel.host_tail import HostTailRuntime, HostTailStore, rank_block
 from ..parallel.passes import fuse_embedding_tables, offload_embedding_tails
 from ..parallel.plan import ShardingPlan, dlrm_hybrid_plan, enable_parameter_parallel, tensor_parallel_ops
@@ -189,11 +203,9 @@ _QUANTIZED = ("the embedding tables were quantized for serving (quantize_embeddi
               "needs the f32 master tables: compile again, or set_parameters to restore them")
 _HOST_TAIL_CHUNK = ("train_chunk: host-tail offload steps one batch at a time (the host serves and "
                     "updates the tail rows between steps); use train_batch or fit(steps_per_call=1)")
-# the ops a mesh runs (the DLRM path); any other under compile(mesh=) raises
-_MESH_OPS = (Dense, Embedding, EmbeddingCollection, DotInteraction, Concat)
-_MESH_LATER = ("compile(mesh=) of a graph with {what}: training the op library's models on several "
-               "cards comes with expert parallelism (parallel/expert_parallel.py), ROADMAP.md Queue 1 "
-               "item 9b, a later slice of the port")
+_TASK_GRAPH = ("the task graph's Graphviz file (config.export_strategy_task_graph_file, --taskgraph; the "
+               "JAX package's export_task_graph) is ROADMAP.md Queue 1 item 10, a later slice of the port "
+               "(autotune and profiling)")
 QUANTIZED_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "int8": torch.int8}
 _ALIGN = 16  # bytes: each entry of a chunk's packed step buffer starts on a 16-byte boundary
 
@@ -621,11 +633,14 @@ class FFModel:
         cfg = self.config
         self._compile_args = dict(optimizer=optimizer, loss_type=loss_type, metrics=tuple(metrics), seed=seed,
                                   sparse_optimizer=sparse_optimizer, mesh=mesh, plan=plan)
-        if mesh is not None:
-            later = sorted({type(op).__name__ for op in self.graph.compute_ops if not isinstance(op, _MESH_OPS)})
-            if later or self._constant_feeds:
-                raise NotImplementedError(_MESH_LATER.format(
-                    what=f"the ops {later}" if later else f"the constants {sorted(self._constant_feeds)}"))
+        if cfg.export_strategy_task_graph_file:
+            raise NotImplementedError(_TASK_GRAPH)
+        n = mesh.data_size if mesh is not None else 1
+        # under a data axis above 1: the inputs and ops on a rank's block,
+        # after the refusals of what the port does not compute over the
+        # global batch
+        batch_ops = (batch_ops_of(self.graph, {k: v[0] for k, v in self._constant_feeds.items()},
+                                  cfg.batch_size, n) if n > 1 else frozenset())
         self.optimizer = optimizer or SGDOptimizer(
             lr=cfg.learning_rate, weight_decay=cfg.weight_decay
         )
@@ -761,14 +776,18 @@ class FFModel:
             mesh=self.mesh,
             model_parallel=frozenset(self._model_parallel),
             seq_length=self.iter_config.seq_length,
+            batch_ops=batch_ops,
         )
-        # constants (JAX package :707-719), each once, in its declared dtype
-        self._constants = {name: torch.full(dims, value, dtype=dt.to_torch(), device=self.device)
+        # constants (JAX package :707-719), each once, in its declared dtype;
+        # under a data axis above 1 one whose leading dimension is the batch
+        # size at the rank's block, as GSPMD slices it
+        self._constants = {name: torch.full(((dims[0] // n,) + dims[1:]) if name in batch_ops else dims,
+                                            value, dtype=dt.to_torch(), device=self.device)
                            for name, (dims, value, dt) in self._constant_feeds.items()}
         self._stochastic = any(op.stochastic for op in self.graph.compute_ops)
         for op in self.graph.compute_ops:
             if isinstance(op, Cache):
-                op.stage(self.device)
+                op.stage(self.device, self.mesh if op.name in batch_ops else None)
         self._metrics_total = {}
         self.reset_metrics()
         self._compiled = True
@@ -1015,7 +1034,7 @@ class FFModel:
                     continue
                 raise KeyError(f"missing feed {iop.name!r}")
             x = feeds[iop.name]
-            if mesh is not None and not iop.name.startswith(HOST_TAIL_PREFIX):
+            if iop.name in self._ctx.batch_ops and not iop.name.startswith(HOST_TAIL_PREFIX):
                 x = x[mesh.batch_slice(x.shape[0])]
             staged[iop.name] = self._to_device(x, iop.outputs[0].dtype.to_torch(),
                                                iop.name.startswith(HOST_TAIL_PREFIX))
@@ -1315,11 +1334,11 @@ class FFModel:
             raise KeyError(f"train_chunk: missing feed {missing[0]!r}")
         mesh = self._data_mesh
 
-        def local(stack):  # this rank's slice of a [K, B_global, ...] stack
-            return stack if mesh is None else stack[:, mesh.batch_slice(stack.shape[1])]
+        def local(stack, sharded=True):  # this rank's slice of a [K, B_global, ...] stack
+            return stack if mesh is None or not sharded else stack[:, mesh.batch_slice(stack.shape[1])]
 
-        entries = [(iop.name, local(stacked_feeds[iop.name]), iop.outputs[0].dtype.to_torch())
-                   for iop in fed]
+        entries = [(iop.name, local(stacked_feeds[iop.name], iop.name in self._ctx.batch_ops),
+                    iop.outputs[0].dtype.to_torch()) for iop in fed]
         entries += [("_labels", local(stacked_labels), torch.float32)]
         entries += [(key, stacked_feeds[key], torch.int32) for key in keys]
         entries += [("_scalars", self._scalar_table(self._step_count + 1, k), torch.float32)]

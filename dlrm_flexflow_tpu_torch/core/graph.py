@@ -37,12 +37,14 @@ def step_key(seed: int, step: torch.Tensor) -> torch.Tensor:
     return hash32(step ^ hash32(seed))
 
 
-def keep_mask(key: torch.Tensor, shape, keep: float) -> torch.Tensor:
+def keep_mask(key: torch.Tensor, shape, keep: float, offset: int = 0) -> torch.Tensor:
     """A bool mask of `shape`, each entry kept with probability `keep`: the
-    hash of (key, the entry's row-major index) below keep * 2^32. A
-    function of the key alone; `key` lies on the device the mask is made
-    on."""
-    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=key.device)
+    hash of (key, the entry's row-major index plus `offset`) below keep *
+    2^32. A function of the key alone; `key` lies on the device the mask
+    is made on. A rank's block of a batch-sharded tensor passes its offset
+    in the global tensor (`OpContext.row_offset`), so the blocks of N ranks
+    draw one card's mask."""
+    idx = torch.arange(offset, offset + math.prod(shape), dtype=torch.int64, device=key.device)
     return (hash32(hash32(idx) ^ key) < int(keep * 2**32)).reshape(shape)
 
 
@@ -76,6 +78,23 @@ class OpContext:
     # the step's random key (`step_key`, a 0-d int64 tensor on the device)
     # while training, else None; the JAX package's per-step PRNG key
     rng: Optional[torch.Tensor] = None
+    # under a data axis above 1, the ops that run on the rank's block of a
+    # batch-sharded input (parallel/global_batch.py `batch_ops`)
+    batch_ops: frozenset = frozenset()
+    # results shared by the ops of one execution (GroupBy's and its
+    # Aggregate's token slots); `Graph.execute` starts each with its own
+    memo: Optional[dict] = None
+
+    def block_mesh(self, op: "Op"):
+        """The mesh when `op` runs on the rank's block of a batch sharded
+        over a data axis above 1, else None."""
+        return self.mesh if op.name in self.batch_ops else None
+
+    def row_offset(self, op: "Op", volume: int) -> int:
+        """The global row-major index of the first entry of `op`'s block of
+        `volume` entries (0 on one device and for a whole tensor)."""
+        mesh = self.block_mesh(op)
+        return 0 if mesh is None else mesh.data_index * volume
 
     def op_rng(self, op: "Op") -> Optional[torch.Tensor]:
         """The key of `op` this step: the step's key with its guid folded
@@ -203,6 +222,7 @@ class Graph:
         name -> tensor. Returns the `fetch` tensors (default: the outputs
         of the final op)."""
         env: Dict[Tuple[int, int], torch.Tensor] = {}
+        ctx = dataclasses.replace(ctx, memo={})
         for iop in self.inputs:
             env[(iop.guid, 0)] = feeds[iop.name]
         for op in self.compute_ops:

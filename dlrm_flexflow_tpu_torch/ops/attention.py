@@ -33,9 +33,12 @@ def _mm(x: torch.Tensor, y: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
 
 
 def multihead_attention(q_in, k_in, v_in, params, num_heads: int, cdt: torch.dtype, bias: bool,
-                        drop_rate: float = 0.0, key: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        drop_rate: float = 0.0, key: Optional[torch.Tensor] = None,
+                        block: int = 0) -> torch.Tensor:
     """[B, Sq, Dq], [B, Sk, Dk], [B, Sk, Dv] -> [B, Sq, E] in q_in's dtype;
-    dropout on the probabilities where `key` is given and drop_rate > 0."""
+    dropout on the probabilities where `key` is given and drop_rate > 0
+    (the rows being block `block` of a batch sharded into equal blocks:
+    the mask's entry indices start at block x the probabilities' volume)."""
 
     def proj(x, w, bkey):
         y = _mm(x, params[w].t(), cdt)
@@ -51,7 +54,7 @@ def multihead_attention(q_in, k_in, v_in, params, num_heads: int, cdt: torch.dty
     scores = _mm(q, k.transpose(-1, -2), cdt) / math.sqrt(hd)
     probs = torch.softmax(scores, dim=-1)
     if key is not None and drop_rate > 0.0:
-        probs = dropout(probs, key, drop_rate)
+        probs = dropout(probs, key, drop_rate, block * probs.numel())
     out = _mm(probs, v, cdt).transpose(1, 2).reshape(b, sq, e)
     y = _mm(out, params["wo"].t(), cdt)
     if bias:
@@ -103,5 +106,6 @@ class MultiHeadAttention(Op):
     def forward(self, params, inputs, ctx):
         q_in, k_in, v_in = inputs
         key = ctx.op_rng(self) if ctx.training and self.dropout > 0.0 else None
+        mesh = ctx.block_mesh(self)
         return [multihead_attention(q_in, k_in, v_in, params, self.num_heads, ctx.compute_dtype,
-                                    self.bias, self.dropout, key)]
+                                    self.bias, self.dropout, key, 0 if mesh is None else mesh.data_index)]

@@ -42,13 +42,17 @@ class Cache(Op):
         self.use_cached: bool = False  # static: flip, then recompile
         self.cached_tensor: Optional[torch.Tensor] = None  # what forward serves, set by `stage`
 
-    def stage(self, device) -> None:
+    def stage(self, device, mesh=None) -> None:
         """Fix what forward serves until the next compile: the cached value
-        on `device` if `use_cached` and a value is cached, else the input."""
+        on `device` if `use_cached` and a value is cached, else the input.
+        With `mesh` (the op runs on a rank's block of a batch sharded over
+        its data axis) the rank's block of the cached global batch."""
         self.cached_tensor = None
         if self.use_cached and self.cached_value is not None:
-            self.cached_tensor = torch.as_tensor(
-                np.asarray(self.cached_value), dtype=self.outputs[0].dtype.to_torch()).to(device)
+            value = np.asarray(self.cached_value)
+            if mesh is not None:
+                value = value[mesh.batch_slice(value.shape[0])]
+            self.cached_tensor = torch.as_tensor(value, dtype=self.outputs[0].dtype.to_torch()).to(device)
 
     def forward(self, params, inputs, ctx):
         (x,) = inputs

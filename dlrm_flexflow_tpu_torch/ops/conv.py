@@ -28,7 +28,13 @@ included (`count_include_pad=True`); floor-mode output sizes; the
 activation after the pool. BatchNorm has no running statistics, as in the
 JAX package: it normalises by the batch's own mean and biased variance, in
 f32, in training and in `predict` alike, then scale, bias and an optional
-ReLU.
+ReLU. On a rank's block of a batch sharded over a data axis above 1 the
+statistics are the global batch's, as GSPMD reduces them in the JAX
+package: the per-channel sums all-reduced over the data group for the
+mean, then the sums of the squared deviations for the variance, each an
+all-reduce whose backward is the same all-reduce
+(parallel/global_batch.py `all_reduce_sum`): two [C] f32 all-reduces
+forward and two backward.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from ..ffconst import ActiMode, OperatorType, PoolType, as_acti_mode
 from ..core.graph import Op
 from ..core.initializers import ConstantInitializer, DefaultBiasInit, DefaultWeightInit
 from ..core.tensor import TensorSpec
+from ..parallel.global_batch import all_reduce_sum
 from .common import apply_activation
 
 
@@ -135,12 +142,22 @@ def pool2d(x: torch.Tensor, kernel, stride, padding, pool_type: PoolType, activa
     return apply_activation(y, activation).to(x.dtype)
 
 
-def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, relu: bool, eps: float) -> torch.Tensor:
+def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, relu: bool, eps: float,
+               mesh=None) -> torch.Tensor:
     """(x - mean) / sqrt(var + eps) * scale + bias over the batch's own
-    statistics per channel (biased variance), in f32; in x's dtype."""
+    statistics per channel (biased variance), in f32; in x's dtype. With
+    `mesh`, x is the rank's block of a batch sharded over its data axis,
+    and the statistics are the global batch's."""
     x32 = x.float()
-    mean = x32.mean(dim=(0, 2, 3), keepdim=True)
-    var = ((x32 - mean) ** 2).mean(dim=(0, 2, 3), keepdim=True)
+    dims = (0, 2, 3)
+    if mesh is None:
+        mean = x32.mean(dim=dims, keepdim=True)
+        var = ((x32 - mean) ** 2).mean(dim=dims, keepdim=True)
+    else:
+        count = x32.numel() // x32.shape[1] * mesh.data_size
+        group = mesh.data_group()
+        mean = all_reduce_sum(x32.sum(dim=dims, keepdim=True), group) / count
+        var = all_reduce_sum(((x32 - mean) ** 2).sum(dim=dims, keepdim=True), group) / count
     y = (x32 - mean) * torch.rsqrt(var + eps)
     y = y * scale[None, :, None, None] + bias[None, :, None, None]
     if relu:
@@ -253,4 +270,4 @@ class BatchNorm(Op):
 
     def forward(self, params, inputs, ctx):
         (x,) = inputs
-        return [batch_norm(x, params["scale"], params["bias"], self.relu, self.eps)]
+        return [batch_norm(x, params["scale"], params["bias"], self.relu, self.eps, ctx.block_mesh(self))]

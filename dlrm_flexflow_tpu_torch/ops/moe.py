@@ -23,6 +23,16 @@ k experts gets its gradient from k slots: GroupBy's backward gathers them
 per (b, j) and sums over j in order, never by float atomics, so replays and
 eager steps agree bit for bit.
 
+Under a data axis above 1 (parallel/global_batch.py) a rank holds a block
+of the batch and GroupBy keeps the capacity of the global batch it was
+built with: each token's arrival rank within its expert is its local rank
+plus the tokens of that expert on the ranks before it (one all-gather of
+the [n] counts, `preceding_counts`), so the kept and dropped tokens are one
+card's. The rank's kept tokens fill one range of each expert's global
+slots; its expert buffers hold those slots and zeros elsewhere, and its
+Aggregate reads only its own tokens. GroupBy and the Aggregate that reads
+the same assignment share one dispatch an execution (`ctx.memo`).
+
 The reference's load-balancing term is `moe_load_balance_loss`, which the
 JAX package defines and never adds to training; Aggregate's `lambda_bal` is
 kept and unused, as there.
@@ -36,6 +46,7 @@ import torch
 from ..ffconst import DataType, OperatorType
 from ..core.graph import Op
 from ..core.tensor import TensorSpec
+from ..parallel.global_batch import preceding_counts
 
 
 def moe_capacity(k: int, n: int, batch: int, alpha: float) -> int:
@@ -43,19 +54,25 @@ def moe_capacity(k: int, n: int, batch: int, alpha: float) -> int:
     return max(1, int(alpha * k / n * batch))
 
 
-def dispatch_slots(assign: torch.Tensor, n: int, capacity: int) -> torch.Tensor:
+def dispatch_slots(assign: torch.Tensor, n: int, capacity: int, mesh=None) -> torch.Tensor:
     """assign [B, K] expert ids -> [B, K] int64: token (b, j)'s row in the
     n * capacity expert rows (expert e's slot c at e * capacity + c), or
     n * capacity where it is dropped (an id outside [0, n), or past the
-    capacity in arrival order over the flattened (b, j) sequence)."""
+    capacity in arrival order over the flattened (b, j) sequence). With
+    `mesh`, assign is the rank's block of a batch sharded over its data
+    axis, and the arrival order is the global batch's."""
     b, k = assign.shape
     e = assign.reshape(-1).long()
     valid = (e >= 0) & (e < n)
     ec = e.clamp(0, n - 1)
     # [n, BK]: a scan along the last axis (along the first, n columns wide,
     # CUDA's scan took 10 ms at BK = 32768 on an H100)
-    onehot = (ec[None, :] == torch.arange(n, device=e.device)[:, None]) & valid[None, :]
-    pos = onehot.long().cumsum(1).gather(0, ec[None, :])[0] - 1  # arrival rank within expert
+    onehot = ((ec[None, :] == torch.arange(n, device=e.device)[:, None]) & valid[None, :]).long()
+    ranks = onehot.cumsum(1)
+    pos = ranks.gather(0, ec[None, :])[0] - 1  # arrival rank within expert
+    if mesh is not None:
+        before = preceding_counts(ranks[:, -1], mesh.data_size, mesh.data_index, mesh.data_group())
+        pos = pos + before[ec]
     keep = valid & (pos < capacity)
     return torch.where(keep, ec * capacity + pos, n * capacity).reshape(b, k)
 
@@ -80,10 +97,16 @@ class _Dispatch(torch.autograd.Function):
         return g[dest].sum(1), None, None
 
 
+def dispatch(data: torch.Tensor, dest: torch.Tensor, n: int, capacity: int) -> torch.Tensor:
+    """[n, capacity, D]: data's rows at their slots (`dest` from
+    `dispatch_slots`), zeros elsewhere."""
+    return _Dispatch.apply(data, dest, n * capacity).reshape(n, capacity, data.shape[1])
+
+
 def group_by(data: torch.Tensor, dest: torch.Tensor, n: int, capacity: int) -> List[torch.Tensor]:
     """n buckets [capacity, D] of data's rows at their slots (`dest` from
     `dispatch_slots`)."""
-    grouped = _Dispatch.apply(data, dest, n * capacity).reshape(n, capacity, data.shape[1])
+    grouped = dispatch(data, dest, n, capacity)
     return [grouped[e] for e in range(n)]
 
 
@@ -97,6 +120,16 @@ def aggregate(gate_preds: torch.Tensor, dest: torch.Tensor, exp_preds: Sequence[
     rows = flat[dest]  # [B, K, D]
     w = gate_preds.float() * (dest < n * cap)
     return (rows.float() * w[..., None]).sum(1).to(exp.dtype)
+
+
+def _slots(op, spec: TensorSpec, assign: torch.Tensor, ctx) -> torch.Tensor:
+    """`dispatch_slots` of the assignment `spec` (tensor `assign`) for op's
+    n and capacity, once an execution (`ctx.memo`)."""
+    key = ("dispatch", spec.owner_op.guid, spec.owner_idx, op.n, op.capacity)
+    memo = ctx.memo if ctx.memo is not None else {}
+    if key not in memo:
+        memo[key] = dispatch_slots(assign, op.n, op.capacity, ctx.block_mesh(op))
+    return memo[key]
 
 
 class TopK(Op):
@@ -138,7 +171,7 @@ class GroupBy(Op):
 
     def forward(self, params, inputs, ctx):
         data, assign = inputs
-        return group_by(data, dispatch_slots(assign, self.n, self.capacity), self.n, self.capacity)
+        return group_by(data, _slots(self, self.inputs[1], assign, ctx), self.n, self.capacity)
 
 
 class Aggregate(Op):
@@ -160,7 +193,7 @@ class Aggregate(Op):
 
     def forward(self, params, inputs, ctx):
         gate_preds, gate_assign = inputs[0], inputs[1]
-        dest = dispatch_slots(gate_assign, self.n, self.capacity)
+        dest = _slots(self, self.inputs[1], gate_assign, ctx)
         return [aggregate(gate_preds, dest, inputs[4 : 4 + self.n])]
 
 

@@ -14,6 +14,11 @@ mask and a CUDA-graph replay gives the eager step's. The JAX package draws
 `jax.random.bernoulli` from a threefry key of the same three numbers; the
 bits differ by design. With no step key (a graph executed by hand while
 training) the op's own `seed` stands in for it, as in the JAX package.
+
+Under a data axis above 1 a rank's block of a batch-sharded input hashes
+its entries' global indices (`ctx.row_offset`), so the ranks' masks put
+together are one card's (parallel/global_batch.py). The batch is always
+the leading axis there: compile refuses every op that would move it.
 """
 from __future__ import annotations
 
@@ -28,11 +33,11 @@ def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.softmax(x.float(), dim=dim).to(x.dtype)
 
 
-def dropout(x: torch.Tensor, key: torch.Tensor, rate: float) -> torch.Tensor:
+def dropout(x: torch.Tensor, key: torch.Tensor, rate: float, offset: int = 0) -> torch.Tensor:
     """x with each entry kept (and scaled by 1 / keep) where `keep_mask` of
-    `key` says, else 0, in x's dtype."""
+    `key` (at entry indices from `offset`) says, else 0, in x's dtype."""
     keep = 1.0 - rate
-    mask = keep_mask(key, tuple(x.shape), keep)
+    mask = keep_mask(key, tuple(x.shape), keep, offset)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device)).to(x.dtype)
 
 
@@ -66,4 +71,4 @@ class Dropout(Op):
         key = ctx.op_rng(self)
         if key is None:
             key = torch.tensor(hash32(self.seed), dtype=torch.int64, device=x.device)
-        return [dropout(x, key, self.rate)]
+        return [dropout(x, key, self.rate, ctx.row_offset(self, x.numel()))]

@@ -3,6 +3,10 @@
 PyTorch counterpart of `dlrm_flexflow_tpu/ops/shape_ops.py`. Transpose
 returns a strided view, as `torch.permute` does; the ops that need a
 contiguous input make it so.
+
+Flat and Reshape on a rank's block of a batch sharded over a data axis of
+N > 1 reshape it to (T0 / N, *rest), T0 the target's leading dimension
+(parallel/global_batch.py: compile checks that N divides T0).
 """
 from __future__ import annotations
 
@@ -59,8 +63,16 @@ class Flat(Op):
         self._out((input.shape[0], int(np.prod(input.shape[1:]))), input.dtype)
 
     def forward(self, params, inputs, ctx):
-        (x,) = inputs
-        return [x.reshape(self.outputs[0].shape)]
+        return [_reshape(self, inputs[0], ctx)]
+
+
+def _reshape(op: Op, x: torch.Tensor, ctx) -> torch.Tensor:
+    """x reshaped to op's output shape, or to the rank's block of it."""
+    shape = op.outputs[0].shape
+    mesh = ctx.block_mesh(op)
+    if mesh is not None:
+        shape = (shape[0] // mesh.data_size,) + tuple(shape[1:])
+    return x.reshape(shape)
 
 
 class Reshape(Op):
@@ -74,8 +86,7 @@ class Reshape(Op):
         self._out(shape, input.dtype)
 
     def forward(self, params, inputs, ctx):
-        (x,) = inputs
-        return [x.reshape(self.outputs[0].shape)]
+        return [_reshape(self, inputs[0], ctx)]
 
 
 class Transpose(Op):

@@ -5,6 +5,8 @@
         --device cpu --batch-size 256 --vocab-cap 20000 --steps 2 --hot 4096   # a rehearsal on gloo, small
     ... -m dlrm_flexflow_tpu_torch.tools.mesh_smoke --phases dp,full     # some of the checks
     ... -m dlrm_flexflow_tpu_torch.tools.mesh_smoke --phases 2d          # the (2, 2) mesh (4 ranks)
+    ... -m dlrm_flexflow_tpu_torch.tools.mesh_smoke --phases zoo,ep      # the op library, expert parallelism
+    ... --device cpu --phases zoo,ep --zoo-small --zoo-steps 2            # their rehearsal on gloo
 
 Every rank of the launcher's world runs it; rank 0 prints one line a
 check, with every rank's numbers gathered, and last `{"ok": true, ...}`.
@@ -106,17 +108,43 @@ D = 16) and a global batch of `--batch-size` (65536: 16384 a rank on 4):
                   global batches and a ragged one, 3 train steps, K3
                   launches a rank, the collectives a layer, the digests as
                   in [mesh-2d]; on (1, 4) the flat collection takes the
-                  scatter rule).
+                  scatter rule);
+  [mesh-zoo]      the op library's graphs under `data_parallel_plan()`,
+                  bf16, at 4 x chip_smoke.py's one-card batches (each card
+                  runs the batch one card ran): ResNet-50 at a global batch
+                  of 256 (224 x 224, SGD), nmt at the reference's widths at
+                  256 (SGD; both tables replicated on the scatter rule, the
+                  unpooled ids and gradients gathered), moe_mlp at 65536
+                  (Adam; the global arrival order by one all-gather of the
+                  expert counts): eager steps (ms, busy share, kernel and
+                  NCCL kernel ms a rank), every rank's state bit for bit
+                  against rank 0's, `train_chunk` replays against eager
+                  steps bit for bit, ms a step replayed, the losses of every
+                  step against one card's model (rank 0) trained from the
+                  same weights on the same global batches within
+                  ZOO_MOVE_RTOL of the loss's movement plus LOSS_ATOL,
+                  examples/s against one card; moe_mlp's `predict` under
+                  use_pallas="on", K6 launches a rank (10 a chunk);
+  [mesh-ep]       `expert_parallel_ffn` at moe_mlp's widths (D 784, H 64, top
+                  2, alpha 2, 16384 tokens a card) with 4 and 8 experts, f32
+                  and bf16: the forward and w1's gradient against
+                  `reference_moe_ffn(shards=4)` on rank 0 (`ep_tolerance`),
+                  the dropped share, ms of the forward and backward, each
+                  all-to-all's ms and GB/s alone.
 
-The weights are random, from seeds; the indices uniform, the labels noise.
+The weights are random, from seeds; the indices uniform, the labels noise
+(the zoo's data carries its class: chip_smoke.py's images and clusters,
+nmt's copy task).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -142,7 +170,7 @@ from .state import state_diff, state_tensors
 SEED = 0
 WARMUP, PROFILED = 2, 3
 DETERMINISTIC_STEPS = 8  # eager steps against chunks of 4
-PHASES = ("exchange", "train", "routed", "checkpoint", "mlperf-lite", "dp", "full", "2d")
+PHASES = ("exchange", "train", "routed", "checkpoint", "mlperf-lite", "dp", "full", "2d", "zoo", "ep")
 F32_UNIT, BF16_UNIT = 2.0**-24, 2.0**-8
 # one card's step against the mesh's: the same operations but for f32
 # summation orders, so a flipped bf16 rounding (of an activation or a
@@ -507,7 +535,6 @@ def routed_check(run: Run) -> dict:
 def host_memory_gib() -> dict:
     """This process's resident memory now (/proc/self/statm) and its peak
     so far (getrusage's ru_maxrss, KiB on Linux)."""
-    import os
     import resource
 
     with open("/proc/self/statm") as f:
@@ -1064,6 +1091,371 @@ def twod_check(run: Run, rule: str, mesh2, mesh1) -> dict:
     return res
 
 
+# ------------------------------------------------------------------ the zoo and expert parallelism
+# global batches: 4 x chip_smoke.py's one-card batches (ZOO_CNN_BATCH,
+# ZOO_NMT_BATCH, ZOO_MOE_BATCH), so each card runs the batch one card ran
+ZOO_BATCH = {"resnet": 256, "nmt": 256, "moe_mlp": 65536}
+# a rehearsal's models and batches (--zoo-small): mnist_cnn in resnet's
+# place, nmt at small widths
+ZOO_SMALL_BATCH = {"resnet": 8, "nmt": 8, "moe_mlp": 256}
+NMT_SMALL = dict(src_len=6, dst_len=5, hidden_size=32, embed_size=24, vocab_size=50)
+ZOO_LR = {"resnet": 0.02, "nmt": 2.0}  # SGD (chip_smoke.py's); moe_mlp: Adam at ZOO_ADAM
+ZOO_ADAM = 0.001
+ZOO_K6_A_CHUNK = 10  # moe_mlp's Dense layers: K6 launches a request chunk under "on", on each rank
+# a step's loss on the mesh against one card's, both in bf16 compute: each
+# rank rounds the gradients of its block's products to bf16 before the
+# all-reduce (a product's operand gradients come back in the compute
+# dtype), one card rounds the whole batch's once, so a step's update parts
+# from one card's by up to one bf16 step (2^-8) of itself; the losses then
+# part by at most 2^-8 of how far the loss has moved since the first step
+# (a first-order bound: the loss moved by the updates), doubled for the
+# rounding of the update's effect on the next activations, plus LOSS_ATOL
+# for a flipped bf16 rounding of an activation (or, in moe_mlp, a gate
+# near-tie routed to the other expert)
+ZOO_MOVE_RTOL = 2.0**-7
+
+
+def zoo_model(run: Run, name: str, b: int, mesh, use_pallas: str = "auto"):
+    """The zoo model `name` at global batch b, bf16 compute, compiled on
+    `mesh` under data_parallel_plan() (one card with mesh None)."""
+    from ..models import zoo
+
+    small = run.args.zoo_small
+    cfg = FFConfig(batch_size=b, seed=SEED + 60, compute_dtype="bfloat16", use_pallas=use_pallas)
+    if name == "resnet":
+        m = (zoo.mnist_cnn if small else zoo.resnet)(batch_size=b, config=cfg, device=run.device)
+        opt = SGDOptimizer(lr=ZOO_LR[name])
+    elif name == "nmt":
+        m = zoo.nmt(batch_size=b, config=cfg, device=run.device, **(NMT_SMALL if small else {}))
+        opt = SGDOptimizer(lr=ZOO_LR[name])
+    else:
+        m = zoo.moe_mlp(batch_size=b, num_experts=4, k=2, alpha=2.0, in_dim=784, num_classes=10, config=cfg,
+                        device=run.device)
+        opt = AdamOptimizer(alpha=ZOO_ADAM)
+    m.compile(opt, LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY, [MetricsType.METRICS_ACCURACY], mesh=mesh,
+              plan=data_parallel_plan() if mesh is not None else None)
+    return m
+
+
+def zoo_batches(run: Run, name: str, model, b: int, count: int = 4, seed: int = SEED + 61) -> list:
+    """`count` global batches on the card, the same on every rank (one
+    seed): images that carry their class, the copy task's tokens, or
+    clustered points (chip_smoke.py's data)."""
+    dev = run.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    iop = model.graph.inputs[0].outputs[0]
+    out = []
+    if name == "nmt":
+        vocab = model.get_layer_by_name("src_embed").num_entries
+        for _ in range(count):
+            src = torch.randint(0, vocab, (b, iop.shape[1]), generator=gen, device=dev, dtype=torch.int32)
+            dst = src[:, :model.graph.inputs[1].outputs[0].shape[1]].contiguous()
+            out.append(({"src_tokens": src, "dst_tokens": dst}, dst.float()))
+        return out
+    shape = tuple(iop.shape[1:])
+    centers = torch.randn((10,) + shape, generator=gen, device=dev)
+    noise = 0.5 if name == "resnet" else 0.3
+    for _ in range(count):
+        y = torch.randint(0, 10, (b,), generator=gen, device=dev)
+        x = centers[y] + noise * torch.randn((b,) + shape, generator=gen, device=dev)
+        out.append(({model.graph.inputs[0].name: x}, y[:, None].float()))
+    return out
+
+
+def zoo_train(run: Run, model, batches, steps: int) -> tuple:
+    """(losses of WARMUP + `steps` eager steps round robin, ms a timed step)."""
+    losses = [model.train_batch(*batches[i % len(batches)]) for i in range(WARMUP)]
+    run.sync()
+    t0 = time.perf_counter()
+    losses += [model.train_batch(*batches[(WARMUP + i) % len(batches)]) for i in range(steps)]
+    losses = [float(x) for x in losses]
+    return losses, (time.perf_counter() - t0) / steps * 1e3
+
+
+def zoo_replays(run: Run, name: str, b: int, batches) -> dict:
+    """Two fresh mesh models (one seed): 2 chunks of 4 `train_chunk` replays
+    (the step captured with its all-reduces, the MoE count all-gathers and
+    the replicated tables' gathers) against 8 eager steps under
+    deterministic algorithms, every loss and tensor of the rank's state bit
+    for bit; then 2 more chunks timed against as many eager steps, and a
+    profiled chunk (kernel and NCCL kernel ms a step, busy share)."""
+    eager, chunk = (zoo_model(run, name, b, run.mesh) for _ in range(2))
+    stack, labels = stacks(batches)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        losses_e = [eager.train_batch(*batches[i % 4]) for i in range(DETERMINISTIC_STEPS)]
+        losses_g = [chunk.train_chunk(stack, labels) for _ in range(DETERMINISTIC_STEPS // 4)]
+        run.sync()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = sorted(state_diff(eager, chunk))
+    same = all(torch.equal(a, b_) for a, b_ in zip(losses_e[3::4], losses_g))
+    run.sync()
+    t0 = time.perf_counter()
+    for i in range(8):
+        loss = eager.train_batch(*batches[i % 4])
+    float(loss)
+    eager_ms = (time.perf_counter() - t0) / 8 * 1e3
+    run.sync()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        loss = chunk.train_chunk(stack, labels)
+    float(loss)
+    graph_ms = (time.perf_counter() - t0) / 8 * 1e3
+    mine = {"rank": run.mesh.rank, "tensors": len(state_tensors(eager)), "differing_tensors": diff,
+            "losses_bit_identical": same, "captured": chunk._step_graph is not None or not run.cuda,
+            "eager_ms_per_step": eager_ms, "graph_ms_per_step": graph_ms, **graph_kernels(run, chunk),
+            **profile_steps(run, lambda: chunk.train_chunk(stack, labels), 4, graph_ms)}
+    mine.pop("k1_kernel_nodes", None)
+    res = {"steps": DETERMINISTIC_STEPS, "by_rank": run.gather(mine)}
+    run.check(all(not r["differing_tensors"] and r["losses_bit_identical"] and r["captured"]
+                  for r in res["by_rank"]), "replays against eager steps", res)
+    del eager, chunk
+    return res
+
+
+def zoo_serve_on(run: Run, trained, b: int) -> dict:
+    """moe_mlp `predict` of 4 global batches and a ragged part under
+    use_pallas="on" (K6 on every Dense layer of each rank's block) against
+    "auto", both on the mesh with the trained weights: K6 launches a rank,
+    the outputs alike on every rank, and the rows within chip_smoke.py's
+    E2E_ON_ATOL of "auto" (a gate near-tie that the bf16 rounding of K6's
+    outputs flips routes a row to another expert: at most 1%)."""
+    from ..ops.kernels.fused_mlp import fused_dense
+
+    on, auto = (zoo_model(run, "moe_mlp", b, run.mesh, use_pallas=u) for u in ("on", "auto"))
+    for m in (on, auto):
+        m.set_parameters({n: trained.get_weights(n) for n in trained.get_parameters()})
+    n = 4 * b + b // 8
+    gen = torch.Generator(device=run.device).manual_seed(SEED + 62)
+    x = torch.randn((n, 784), generator=gen, device=run.device).cpu().numpy()
+    fused_dense.launches = 0
+    run.sync()
+    t0 = time.perf_counter()
+    y_on = on.predict({"input": x})
+    on_s = time.perf_counter() - t0
+    k6 = fused_dense.launches
+    y_auto = auto.predict({"input": x})
+    within = np.abs(y_on - y_auto).max(axis=1) <= 2.0**-7
+    mine = {"rank": run.mesh.rank, "k6_launches": k6, "digest": device_digest([torch.from_numpy(y_on)])}
+    chunks = -(-n // b)
+    res = {"examples": n, "chunks": chunks, "on_predict_s": on_s, "examples_per_s": n / on_s,
+           "rows_within_atol": float(within.mean()), "atol": 2.0**-7,
+           "max_abs_err_within": float(np.abs(y_on - y_auto)[within].max()), "by_rank": run.gather(mine)}
+    want = ZOO_K6_A_CHUNK * chunks if run.cuda else 0
+    run.check(all(r["k6_launches"] == want and r["digest"] == res["by_rank"][0]["digest"] for r in res["by_rank"])
+              and np.isfinite(y_on).all() and y_on.shape == (n, 10) and res["rows_within_atol"] >= 0.99,
+              "moe_mlp predict under 'on'", res)
+    del on, auto
+    return res
+
+
+def zoo_check(run: Run, name: str) -> dict:
+    """One zoo model on the data axis: eager steps (ms, busy share, NCCL
+    kernel ms a step), every rank's replicated state against rank 0's bit
+    for bit, the losses of every step against one card's model trained
+    from the same weights on the same global batches (rank 0, after the
+    mesh's models are freed; then its replays), replays bit for bit, and
+    for moe_mlp serving under "on"."""
+    mesh, args = run.mesh, run.args
+    b = (ZOO_SMALL_BATCH if args.zoo_small else ZOO_BATCH)[name]
+    steps = args.zoo_steps
+    if run.cuda:
+        torch.cuda.reset_peak_memory_stats(run.device)
+    model = zoo_model(run, name, b, mesh)
+    w0 = {n: {k: v.copy() for k, v in model.get_weights(n).items()} for n in model.get_parameters()}
+    batches = zoo_batches(run, name, model, b)
+    losses, ms = zoo_train(run, model, batches, steps)
+    gb = next((op for op in model.graph.compute_ops if type(op).__name__ == "GroupBy"), None)
+    mine = {"rank": mesh.rank, "eager_ms_per_step": ms,
+            "peak_memory_gb": torch.cuda.max_memory_allocated(run.device) / 1e9 if run.cuda else "not measured (CPU)",
+            **profile_steps(run, lambda: [model.train_batch(*batches[i]) for i in range(4)], 4, ms),
+            **replicas_equal(run, model)}
+    params = sum(p.numel() for sub in model.get_parameters().values() for p in sub.values())
+    res = {"model": name, "global_batch": b, "batch_per_card": b // mesh.data_size, "parameters": params,
+           "steps": steps, "eager_ms_per_step": ms, "eager_examples_per_s": b / ms * 1e3,
+           "losses": losses, "by_rank": run.gather(mine)}
+    if gb is not None:
+        res["moe_capacity"] = gb.capacity
+        res["count_all_gather_bytes_per_step"] = mesh.data_size * gb.n * 8
+    if name == "nmt":
+        # the replicated tables' gathers a step (parallel/replicated_tables.py):
+        # each table's [B_loc, T] int32 ids and its [B_loc, T, D] f32 gradients
+        d = model.get_layer_by_name("src_embed").out_dim
+        t = sum(model.graph.inputs[i].outputs[0].shape[1] for i in range(2))
+        res["replicated_table_gather_bytes_per_step"] = {"ids": b * t * 4, "gradients": b * t * d * 4}
+    res["replicas_alike"] = not any(r["differing_from_rank_0"] for r in res["by_rank"])
+    run.check(all(np.isfinite(losses)) and res["replicas_alike"], "losses and replicas", res)
+    if name == "moe_mlp":
+        res["serve_on"] = zoo_serve_on(run, model, b)
+    del model
+    if run.cuda:
+        torch.cuda.empty_cache()
+    res["replays"] = zoo_replays(run, name, b, batches)
+    if run.cuda:
+        torch.cuda.empty_cache()
+    if mesh.rank == 0:
+        one = zoo_model(run, name, b, None)
+        for n, w in w0.items():
+            one.set_weights(n, w)
+        one_losses, one_ms = zoo_train(run_one(run), one, batches, steps)
+        moved = np.concatenate([[0.0], np.cumsum(np.abs(np.diff(one_losses)))])
+        tol = LOSS_ATOL + ZOO_MOVE_RTOL * moved
+        err = np.abs(np.asarray(losses) - np.asarray(one_losses))
+        # then one card's replays: a chunk of 4 to capture, 2 timed
+        stack, labels = stacks(batches)
+        float(one.train_chunk(stack, labels))
+        t0 = time.perf_counter()
+        for _ in range(2):
+            loss = one.train_chunk(stack, labels)
+        float(loss)
+        one_graph_ms = (time.perf_counter() - t0) / 8 * 1e3
+        graph_ms = float(np.mean([r["graph_ms_per_step"] for r in res["replays"]["by_rank"]]))
+        res["one_card"] = {"losses": one_losses, "ms_per_step": one_ms, "examples_per_s": b / one_ms * 1e3,
+                           "graph_ms_per_step": one_graph_ms, "graph_examples_per_s": b / one_graph_ms * 1e3,
+                           "max_loss_err": float(err.max()), "max_err_over_tol": float((err / tol).max()),
+                           "loss_atol": LOSS_ATOL, "move_rtol": ZOO_MOVE_RTOL}
+        # global examples/s on the mesh over one card's at the global batch
+        res["speedup_over_one_card"] = {"eager": one_ms / ms, "replayed": one_graph_ms / graph_ms}
+        del one, stack, labels
+        run.check(res["one_card"]["max_err_over_tol"] <= 1.0, "losses against one card", res)
+    if run.cuda:
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def run_one(run: Run) -> Run:
+    """A view of `run` whose sync waits for this card alone (rank 0's one-
+    card model runs while the other ranks wait at a barrier)."""
+    one = Run.__new__(Run)
+    one.__dict__.update(run.__dict__)
+    one.sync = run.sync_device
+    return one
+
+
+EP = dict(d=784, h=64, k=2, alpha=2.0, tokens=16384)  # moe_mlp's widths, 16384 tokens a card
+EP_REPS = 10
+
+
+def ep_tolerance(dtype) -> dict:
+    """{"out" | "grad": (rtol, atol, whether atol is a share of the
+    oracle's largest magnitude)} of expert_parallel_ffn against
+    reference_moe_ffn(shards=N). f32: tests/test_sharding.py's bounds (the
+    same products in other orders), but w1's atol taken of its largest
+    entry: at 16384 tokens a card an entry sums about 2^16 products that
+    cancel to a small share of their magnitudes, so a summation order
+    moves it by a share of the gradient's scale, not of the entry (the
+    sharded path adds each expert's rows in one [N * C, D] product, the
+    oracle in N). bf16: the sharded path rounds each expert's output y to
+    bf16 before the combine, which the oracle does not (the JAX package's
+    two functions differ so), and both round the combined output once: the
+    forward within 2^-8 of the largest |out| plus 2^-7 relative (one step
+    each of the two roundings); w1's gradient, whose cotangent carries the
+    same rounding, within 2^-7 relative and 2^-7 of its largest entry."""
+    if dtype == torch.float32:
+        return {"out": (1e-4, 1e-5, False), "grad": (1e-3, 1e-4, True)}
+    return {"out": (2.0**-7, 2.0**-8, True), "grad": (2.0**-7, 2.0**-7, True)}
+
+
+def ep_check(run: Run, e: int, dtype) -> dict:
+    """`expert_parallel_ffn` at moe_mlp's widths, E experts over the data
+    group: the forward and w1's gradient (of the sum of the squared
+    outputs) against `reference_moe_ffn(shards=N)` on rank 0, the dropped
+    share, ms of the forward and backward, and each all-to-all's ms and
+    GB/s (timed alone on its buffer: the bytes that leave a rank over the
+    time)."""
+    from ..parallel.expert_parallel import RANGES, _exchange, expert_parallel_ffn, moe_gate, reference_moe_ffn
+    from ..ops.moe import dispatch, dispatch_slots, moe_capacity
+
+    mesh, dev = run.mesh, run.device
+    n = mesh.data_size
+    d, h, k, alpha, t = (EP[key] for key in ("d", "h", "k", "alpha", "tokens"))
+    if run.args.zoo_small:
+        t = 64
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70 + e)
+    x = torch.randn((n * t, d), generator=gen, device=dev).to(dtype)
+    gate_w = torch.randn((d, e), generator=gen, device=dev) * 0.05
+    w1 = torch.randn((e, d, h), generator=gen, device=dev) * d**-0.5
+    b1 = torch.randn((e, h), generator=gen, device=dev) * 0.1
+    w2 = torch.randn((e, h, d), generator=gen, device=dev) * h**-0.5
+    b2 = torch.randn((e, d), generator=gen, device=dev) * 0.1
+    sl = mesh.batch_slice(n * t)
+    e_loc = e // n
+    sh = slice(mesh.data_index * e_loc, (mesh.data_index + 1) * e_loc)
+    # the gate of the global batch on every rank (rank 0's oracle reads it
+    # whole: a product of another M may round a near-tie the other way)
+    gv_all, assign_all = moe_gate(x, gate_w, k)
+    gv, assign = gv_all[sl], assign_all[sl]
+    leaf = w1[sh].clone().requires_grad_(True)
+
+    def step():
+        out = expert_parallel_ffn(x[sl], gv, assign, leaf, b1[sh], w2[sh], b2[sh], mesh, alpha=alpha)
+        (g,) = torch.autograd.grad(out.float().pow(2).sum(), [leaf])
+        return out, g
+
+    out, g = step()
+    ms = cuda_ms(run, step)
+    cap = moe_capacity(k, e, t, alpha)
+    dest = dispatch_slots(assign, e, cap)
+    dropped = torch.tensor([float((dest == e * cap).sum()), float(dest.numel())], device=dev)
+    dist.all_reduce(dropped)
+    buf = dispatch(x[sl], dest, e, cap)
+    exchange = {}
+    for name in RANGES:
+        ex_ms = cuda_ms(run, lambda: _exchange(buf, mesh.data_group(), name), reps=20)
+        sent = buf.numel() * buf.element_size() * (n - 1) / n
+        exchange[name] = {"ms": ex_ms, "bytes_per_rank": buf.numel() * buf.element_size(),
+                          "gb_per_s": sent / ex_ms / 1e6 if isinstance(ex_ms, float) else ex_ms}
+    outs = torch.empty((n * t, d), dtype=out.dtype, device=dev)
+    dist.all_gather_into_tensor(outs, out.detach().contiguous())
+    grads = torch.empty((e,) + tuple(g.shape[1:]), dtype=g.dtype, device=dev)
+    dist.all_gather_into_tensor(grads, g.contiguous())
+    res = {"experts": e, "dtype": str(dtype).replace("torch.", ""), "tokens_per_card": t, "capacity": cap,
+           "dropped_share": float(dropped[0] / dropped[1]), "fwd_bwd_ms": ms, "all_to_all": exchange}
+    if mesh.rank == 0:
+        w1_all = w1.clone().requires_grad_(True)
+        want = reference_moe_ffn(x, gv_all, assign_all, w1_all, b1, w2, b2, alpha=alpha, shards=n)
+        (want_g,) = torch.autograd.grad(want.float().pow(2).sum(), [w1_all])
+        tol = ep_tolerance(dtype)
+        over = {}
+        for key, got, ref_ in (("out", outs, want), ("grad", grads, want_g)):
+            rtol, atol, scaled = tol[key]
+            got, ref_ = got.detach().float(), ref_.detach().float()
+            if scaled:
+                atol = atol * float(ref_.abs().max())
+            over[key] = float(((got - ref_).abs() - rtol * ref_.abs()).max() / atol)
+        res.update({"max_abs_err_out": float((outs.float() - want.float()).abs().max()),
+                    "max_abs_err_grad": float((grads - want_g).abs().max()),
+                    "max_abs_out": float(want.float().abs().max()), "max_abs_grad": float(want_g.abs().max()),
+                    "max_err_over_tol": over, "tolerance": tol})
+        run.check(max(over.values()) <= 1.0, "expert_parallel_ffn against the oracle", res)
+    del x, w1, w2, out, g, outs, grads, buf
+    if run.cuda:
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def cuda_ms(run: Run, fn, reps: int = EP_REPS, warmup: int = 2):
+    """ms a call of fn over `reps` calls, by CUDA events after `warmup`
+    (every rank calls it: fn may run collectives)."""
+    if not run.cuda:
+        for _ in range(warmup):
+            fn()
+        return "not measured (CPU)"
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize(run.device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", help="cuda (NCCL), or cpu (gloo) for a rehearsal")
@@ -1074,6 +1466,9 @@ def main(argv=None) -> None:
     ap.add_argument("--hot", type=int, default=1 << 20, help="[mesh-full]: the rows a host-tail table keeps on a card")
     ap.add_argument("--full-steps", type=int, default=5, help="[mesh-full]: timed steps a rule")
     ap.add_argument("--phases", default=",".join(PHASES), help=f"a comma list of {','.join(PHASES)}")
+    ap.add_argument("--zoo-steps", type=int, default=8, help="[mesh-zoo]: timed eager steps a model")
+    ap.add_argument("--zoo-small", action="store_true",
+                    help="[mesh-zoo], [mesh-ep]: a rehearsal's sizes (mnist_cnn for resnet, nmt small, few tokens)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if set(phases) - set(PHASES):
@@ -1130,9 +1525,23 @@ def main(argv=None) -> None:
             for shape in ((2, 2), (1, 4)):
                 m = mesh2 if shape == (2, 2) else make_mesh(shape, ("data", "model"), device=args.device)
                 run.log("[mesh-2d-mlperf-lite]", mlperf_lite_check(run, m, enable_parameter_parallel=True))
+        if "zoo" in phases:
+            for name in ZOO_BATCH:
+                run.log("[mesh-zoo]", zoo_check(run, name))
+        if "ep" in phases:
+            for e in (4, 8):
+                for dtype in (torch.float32, torch.bfloat16):
+                    run.log("[mesh-ep]", ep_check(run, e, dtype))
         run.log("", {"ok": True, "devices": mesh.size, "device": str(mesh.device.type), "phases": phases})
-    finally:
-        dist.destroy_process_group()
+    except Exception:
+        # a failed rank exits at once: the group's teardown would wait for
+        # peers that wait on this rank in their next collective (the
+        # launcher then stops them)
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -463,18 +463,41 @@ def test_constants_feed_every_call_and_keep_their_dtype():
 
 
 def test_later_slice_verbs_refuse_naming_their_item():
-    """conv2d, pool2d, batch_norm and lstm build their ops since the slice
-    that ported them (tests/test_torch_port_conv_rnn.py holds them against
-    the JAX package); what stays a later slice is training them on several
-    cards: compile(mesh=) refuses a graph of them naming item 9b and expert
-    parallelism (run in a world of one in tests/test_torch_port_zoo_cnn.py)."""
-    from dlrm_flexflow_tpu_torch.core.ffmodel import _MESH_LATER
+    """conv2d, pool2d, batch_norm and lstm build their ops
+    (tests/test_torch_port_conv_rnn.py holds them against the JAX package),
+    and compile(mesh=, plan=data_parallel_plan()) takes a graph of them
+    (refused, naming item 9b, before the op library trained under a mesh;
+    tests/test_torch_port_mesh_zoo.py holds them on 4 ranks): in a world of
+    one, one SGD step equal bit for bit to the same graph's compiled with
+    no mesh."""
+    import torch.distributed as dist
 
-    m = port.FFModel(port.FFConfig(batch_size=2), device="cpu")
-    x = m.create_tensor([2, 1, 4, 4], name="x")
-    m.conv2d(x, 2, 3, 3, 1, 1, 1, 1)
-    m.pool2d(x, 2, 2, 2, 2)
-    m.batch_norm(x)
-    m.lstm(m.create_tensor([2, 3, 4], name="seq"), 2)
-    assert [type(op).__name__ for op in m.graph.compute_ops] == ["Conv2D", "Pool2D", "BatchNorm", "LSTM"]
-    assert "item 9b" in _MESH_LATER and "expert parallelism" in _MESH_LATER
+    from dlrm_flexflow_tpu_torch.launch import initialize
+    from dlrm_flexflow_tpu_torch.parallel.mesh import make_mesh
+    from dlrm_flexflow_tpu_torch.parallel.plan import data_parallel_plan
+
+    def build():
+        m = port.FFModel(port.FFConfig(batch_size=2), device="cpu")
+        x = m.create_tensor([2, 1, 4, 4], name="x")
+        t = m.batch_norm(m.pool2d(m.conv2d(x, 2, 3, 3, 1, 1, 1, 1), 2, 2, 2, 2))
+        seq, _, _ = m.lstm(m.create_tensor([2, 3, 4], name="seq"), 2)
+        m.dense(m.concat([m.flat(t), m.flat(seq)], 1), 3)
+        return m
+
+    models = [build(), build()]
+    assert [type(op).__name__ for op in models[0].graph.compute_ops] == [
+        "Conv2D", "Pool2D", "BatchNorm", "LSTM", "Flat", "Flat", "Concat", "Dense"]
+    feeds, labels = {"x": _np((2, 1, 4, 4), 1), "seq": _np((2, 3, 4), 2)}, _np((2, 3), 3)
+    assert not dist.is_initialized()
+    initialize("cpu")
+    try:
+        mesh = make_mesh(device="cpu")
+        for m, msh in zip(models, (mesh, None)):
+            m.compile(port.SGDOptimizer(lr=0.1), port.LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE, mesh=msh,
+                      plan=data_parallel_plan() if msh is not None else None)
+        assert float(models[0].train_batch(feeds, labels)) == float(models[1].train_batch(feeds, labels))
+    finally:
+        dist.destroy_process_group()
+    for name in models[1].get_parameters():
+        for k, v in models[1].get_weights(name).items():
+            np.testing.assert_array_equal(models[0].get_weights(name)[k], v)

@@ -7,7 +7,8 @@ then 3 SGD and 3 Adam steps (each step's loss, then every weight). Under
 use_pallas="on" moe_mlp's and candle_uno's rank-2 Dense layers take K6's
 plain version in the port and `dense_pallas` in the TPU interpreter in the
 JAX package (`pltpu.force_tpu_interpret_mode()`). The port's examples run a
-tiny epoch each, and compile(mesh=) of these graphs refuses.
+tiny epoch each, and compile(mesh=) of these graphs takes them in a world
+of one.
 
 Tolerances: f32 compute, so both sides sum f32 products in other orders:
 rtol 1e-5, atol 1e-6 on losses and SGD's weights; on outputs atol 1e-6
@@ -217,16 +218,33 @@ def world_of_one():
 
 
 def test_mesh_compile_refuses_the_op_librarys_graphs(world_of_one):
+    """compile(mesh=, plan=data_parallel_plan()) takes the op library's
+    graphs (refused before the op library trained under a mesh, which
+    tests/test_torch_port_mesh_zoo.py holds on 4 ranks): in a world of one,
+    moe_mlp and a graph with a batch-shaped constant each take one SGD step
+    equal bit for bit to the same model's compiled with no mesh."""
     from dlrm_flexflow_tpu_torch.parallel.plan import data_parallel_plan
 
-    _, p = _models("moe_mlp")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        p.compile(mesh=world_of_one, plan=data_parallel_plan())
-    m = port.FFModel(port.FFConfig(batch_size=4), device="cpu")
-    m.dense(m.create_tensor([4, 3], name="x"), 2)
-    m.create_constant([4, 3], 1.0, name="c")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        m.compile(mesh=world_of_one, plan=data_parallel_plan())
+    def const_graph():
+        m = port.FFModel(port.FFConfig(batch_size=4), device="cpu")
+        x = m.create_tensor([4, 3], name="x")
+        m.dense(m.add(x, m.create_constant([4, 3], 1.0, name="c")), 2)
+        return m
+
+    x = np.random.default_rng(5).standard_normal((16, 12)).astype(np.float32)
+    cases = [(lambda: _models("moe_mlp")[1], {"input": x}, np.arange(16, dtype=np.float32)[:, None] % 5, SCCE),
+             (const_graph, {"x": x[:4, :3]}, x[:4, 3:5], MSE)]
+    for build, feeds, labels, loss in cases:
+        models = [build(), build()]
+        for m, mesh in zip(models, (world_of_one, None)):
+            m.compile(port.SGDOptimizer(lr=0.1), getattr(port.LossType, loss), mesh=mesh,
+                      plan=data_parallel_plan() if mesh is not None else None)
+        assert models[0].mesh is world_of_one and models[1].mesh is None
+        l_mesh, l_one = (float(m.train_batch(feeds, labels)) for m in models)
+        assert l_mesh == l_one
+        for name in models[1].get_parameters():
+            for k, v in models[1].get_weights(name).items():
+                np.testing.assert_array_equal(models[0].get_weights(name)[k], v)
 
 
 @pytest.mark.parametrize("example", ["mnist_mlp", "moe", "nmt"])

@@ -157,9 +157,30 @@ def world_of_one():
 
 
 def test_mesh_compile_refuses_cnn_and_nmt_graphs_naming_expert_parallelism(world_of_one):
+    """compile(mesh=, plan=data_parallel_plan()) takes the convolutional and
+    recurrent graphs (refused, naming expert parallelism, before the op
+    library trained under a mesh; tests/test_torch_port_mesh_zoo.py holds
+    nmt on 4 ranks): in a world of one, mnist_cnn and nmt (its tables on
+    the sparse path) each take one SGD step equal bit for bit to the same
+    model's compiled with no mesh."""
     from dlrm_flexflow_tpu_torch.parallel.plan import data_parallel_plan
 
-    for model in (port_zoo.mnist_cnn(batch_size=4, config=port.FFConfig(batch_size=4), device="cpu"),
-                  port_zoo.nmt(config=port.FFConfig(batch_size=4), device="cpu", **NMT_SMALL)):
-        with pytest.raises(NotImplementedError, match=r"expert parallelism .*item 9b"):
-            model.compile(mesh=world_of_one, plan=data_parallel_plan())
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, 50, (4, 6)).astype(np.int32)
+    cases = [(lambda: port_zoo.mnist_cnn(batch_size=4, config=port.FFConfig(batch_size=4), device="cpu"),
+              {"image": rng.standard_normal((4, 1, 28, 28)).astype(np.float32)},
+              rng.integers(0, 10, (4, 1)).astype(np.float32)),
+             (lambda: port_zoo.nmt(config=port.FFConfig(batch_size=4, onehot_embedding_threshold=16), device="cpu",
+                                   **NMT_SMALL),
+              {"src_tokens": toks, "dst_tokens": toks[:, :5]}, toks[:, :5].astype(np.float32))]
+    for build, feeds, labels in cases:
+        models = [build(), build()]
+        for m, mesh in zip(models, (world_of_one, None)):
+            m.compile(port.SGDOptimizer(lr=0.1), port.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY, mesh=mesh,
+                      plan=data_parallel_plan() if mesh is not None else None)
+        assert models[0].mesh is world_of_one and models[1].mesh is None
+        assert [op.name for op in models[0]._sparse_ops] == [op.name for op in models[1]._sparse_ops]
+        assert float(models[0].train_batch(feeds, labels)) == float(models[1].train_batch(feeds, labels))
+        for name in models[1].get_parameters():
+            for k, v in models[1].get_weights(name).items():
+                np.testing.assert_array_equal(models[0].get_weights(name)[k], v)
