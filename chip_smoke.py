@@ -137,7 +137,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
                captured in a CUDA graph, the replay bit for bit; the
                checkpoint round trip (of the flat collection: at a data
                axis of 1 nothing is sharded) and int8 serving of the fused
-               collection at capped vocabs.
+               collection at capped vocabs; the strategy search inside
+               compile(mesh=, plan=dlrm_hybrid_plan()) with search_budget >
+               0 on the h100 preset (rank 0 calibrates this card into the
+               machine file beside the exported strategy, in a temporary
+               directory), and one step of the searched model against a
+               model compiled with no search under the plan it chose.
  25. bench   - python -m dlrm_flexflow_tpu_torch.bench --quick, as a
                subprocess: kaggle training (host-routed, graph replays), the
                same with --zipf 1.05, with --optimizer adam and with
@@ -211,9 +216,24 @@ Phases, each of which ends the run with a non-zero exit if it fails:
                beside addmm with its bound, the rounding pass's share where
                x cannot go to TMA as it lies (K = 942, 5270, 5002), and a
                moe bucket of half zero rows.
- 35. summary - a {"kernels": [...]} line (K6's entry with the zoo's
+ 35. autotune - the strategy search's machine model and per-op profiling
+               (autotune/machine.py, utils/profiling.py), in a temporary
+               directory: calibrate, calibrate_packed (K1 at the JAX
+               package's four points), calibrate_dense at kaggle's Dense
+               shapes (batch 65536) and calibrate_graph_ops (ResNet-50's
+               convolutions, nmt's LSTMs, the transformer's attention and a
+               batch-matmul) on the h100 preset, each constant printed
+               beside the limit the card sets on it; kaggle's step
+               residual (calibrate_step_residual, 8 train_chunk replays at
+               batch 65536, bf16 tables, SGD; every state tensor bit for
+               bit before and after) and `fit` of the same model under
+               config.profiling (one "[Type] name forward time" line an
+               op); mlperf-lite at 16384 under use_pallas="on" served op by
+               op (op_timing_report: K6, K5f, K4 and K3 launched),
+               export_task_graph, check_numerics and trace.
+ 36. summary - a {"kernels": [...]} line (K6's entry with the zoo's
                launches), then the last line {"ok": true, "device": {...}}.
-Around each path (4, 6, 8, 10, 11, 13, 14, 15, 18, 20, 24, 27-30 and 32) the
+Around each path (4, 6, 8, 10, 11, 13, 14, 15, 18, 20, 24, 27-30, 32 and 35) the
 kernel launch counts are zeroed just before and read just after, and must
 show every kernel of that path; phase 17 counts its replays' launches from
 the graph.
@@ -3403,6 +3423,65 @@ def mesh_one_global_paths(mesh) -> dict:
     return res
 
 
+AUTOTUNE_BUDGET = 1000  # the strategy search's budget in mesh-1 and phase 35
+AUTOTUNE_STEPS = 8  # calibrate_step_residual's replays
+
+
+def mesh_one_search(mesh) -> dict:
+    """compile(mesh=, plan=dlrm_hybrid_plan()) of kaggle at full width with
+    search_budget > 0 in a world of one: the h100 preset, calibrated on
+    this card into the machine file beside the exported strategy (both in
+    a temporary directory); the exported strategy holds the plan's
+    placement; one step against a model compiled with no search under the
+    plan the search chose: the same loss, bit for bit, and every state
+    tensor within E2E_ATOL (the one-hot tables' gradients add by float
+    atomics)."""
+    import shutil
+    import tempfile
+
+    from dlrm_flexflow_tpu_torch import FFConfig
+    from dlrm_flexflow_tpu_torch.autotune.machine import MachineSpec, physical_limits
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config, make_dlrm_model
+    from dlrm_flexflow_tpu_torch.parallel.plan import dlrm_hybrid_plan
+    from dlrm_flexflow_tpu_torch.tools.state import state_diff
+
+    cfg = kaggle_config(batch_size=TRAIN_BATCH)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_search_")
+    try:
+        strategy = f"{tmp}/strategy.json"
+        t0 = time.perf_counter()
+        searched = mesh_one_model(mesh, cfg, "sgd", search_budget=AUTOTUNE_BUDGET, export_strategy_file=strategy)
+        compile_s = time.perf_counter() - t0
+        plan, report = searched.plan, searched._search_report
+        chosen = {k: getattr(plan, k) for k in ("table_assignment", "table_split", "replicated_tables",
+                                                 "exchange", "chips_per_host")}
+        exported = json.loads(Path(strategy).read_text())
+        machine = MachineSpec.from_file(searched.config.machine_cache_path())
+        bad = [r for r in physical_limits(machine, searched.graph) if not r["ok"]]
+        if not plan.table_assignment or exported["table_assignment"] != plan.table_assignment or bad:
+            raise AssertionError(f"mesh-1 search: plan {chosen}, exported {exported}, beyond the card: {bad}")
+        given = dlrm_hybrid_plan()
+        for k, v in chosen.items():
+            setattr(given, k, v)
+        plain = make_dlrm_model(cfg, FFConfig(batch_size=TRAIN_BATCH, seed=SEED, compute_dtype="bfloat16",
+                                              table_dtype="bfloat16"), device="cuda")
+        compile_for(plain, "sgd", mesh=mesh, plan=given)
+        _, staged = kaggle_batches(searched, cfg)
+        losses = [float(searched.train_batch(*staged[0])), float(plain.train_batch(*staged[0]))]
+        diff = state_diff(searched, plain)
+        res = {"plan": chosen, "best_us": report["best_us"], "round_robin_us": report["round_robin_us"],
+               "tp_ops": report["tp_ops"], "compile_s": compile_s, "machine": {
+                   k: getattr(machine, k) for k in ("gather_gbps", "scatter_gbps", "update_pass_gbps",
+                                                    "update_ns_per_row", "update_us_per_table",
+                                                    "step_overhead_us", "dense_costs")},
+               "losses": losses, "max_state_diff": max(diff.values(), default=0.0)}
+        if losses[0] != losses[1] or res["max_state_diff"] > E2E_ATOL:
+            raise AssertionError(f"mesh-1 search: the searched step parts from the plain one: {res}")
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_mesh_one() -> dict:
     """Phase 24: the hybrid-parallel path in an in-process NCCL world of one
     (destroyed at the end, so later phases run as before)."""
@@ -3436,6 +3515,8 @@ def phase_mesh_one() -> dict:
         log(f"[mesh-1] the op library under compile(mesh=) against no mesh {json.dumps(mesh_one_zoo(mesh))}")
         log(f"[mesh-1] the global-batch paths and expert parallelism in a group of one "
             f"{json.dumps(mesh_one_global_paths(mesh))}")
+        log(f"[mesh-1] the strategy search in a world of one {json.dumps(mesh_one_search(mesh))}")
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -4179,6 +4260,176 @@ def phase_zoo_fused_dense(card: str) -> dict:
     return {"max_abs_err": max(e["max_abs_err"] for e in errs), "shapes": rows}
 
 
+# ------------------------------------------------------------------ the strategy search and profiling (phase 35)
+def autotune_graphs() -> dict:
+    """The graphs whose conv, LSTM, attention and batch-matmul ops
+    calibrate_graph_ops times, at the zoo phases' sizes: ResNet-50 at 64,
+    nmt at its defaults, the transformer at its defaults, and one
+    [64, 128, 256] x [64, 256, 128] batch-matmul."""
+    from dlrm_flexflow_tpu_torch import FFConfig, FFModel
+    from dlrm_flexflow_tpu_torch.models import zoo
+
+    bmm = FFModel(FFConfig(batch_size=64), device="cuda")
+    bmm.batch_matmul(bmm.create_tensor([64, 128, 256], name="a"), bmm.create_tensor([64, 256, 128], name="b"),
+                     name="bmm")
+    return {"resnet": zoo.resnet(batch_size=ZOO_CNN_BATCH["resnet"], device="cuda").graph,
+            "nmt": zoo.nmt(batch_size=ZOO_NMT_BATCH, device="cuda").graph,
+            "transformer": zoo.transformer(device="cuda").graph, "batch_matmul": bmm.graph}
+
+
+def autotune_calibration(tmp: str) -> tuple:
+    """The h100 machine model calibrated on this card, saved under `tmp`;
+    each constant beside the limit the card sets on it (fails beyond it);
+    the launches of the calibration (K1 must be among them)."""
+    from dlrm_flexflow_tpu_torch import FFConfig
+    from dlrm_flexflow_tpu_torch.autotune import machine as mm
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config, make_dlrm_model
+
+    counts = launch_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    times = {}
+    t0 = time.perf_counter()
+    spec = mm.calibrate(mm.preset("h100"))
+    times["calibrate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spec = mm.calibrate_packed(spec)
+    times["calibrate_packed_s"] = time.perf_counter() - t0
+    kaggle = make_dlrm_model(kaggle_config(TRAIN_BATCH), FFConfig(batch_size=TRAIN_BATCH), device="cuda").graph
+    t0 = time.perf_counter()
+    spec = mm.calibrate_dense(spec, mm.graph_dense_shapes(kaggle), batch=TRAIN_BATCH)
+    times["calibrate_dense_s"] = time.perf_counter() - t0
+    graphs = autotune_graphs()
+    t0 = time.perf_counter()
+    for g in graphs.values():
+        spec = mm.calibrate_graph_ops(spec, g)
+    times["calibrate_graph_ops_s"] = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counts.items() if fn.launches}
+    times["dispatch_latency_us"] = mm.measure_dispatch_latency() * 1e6
+    spec.save(f"{tmp}/machine.json")
+    rows = {r["name"]: r for g in [kaggle, *graphs.values()] for r in mm.physical_limits(spec, g)}
+    for r in rows.values():
+        log(f"[autotune] {r['name']} = {r['value']!r} ({'at most' if r['kind'] == 'max' else 'at least'} "
+            f"{r['limit']!r} on the card) {'ok' if r['ok'] else 'BEYOND THE CARD'}")
+    bad = [r for r in rows.values() if not r["ok"]]
+    if bad or not launches.get("row_update") or len(spec.op_costs) < 4:
+        raise AssertionError(f"autotune calibration: beyond the card {bad}, launches {launches}, "
+                             f"op costs {sorted(spec.op_costs)}")
+    log(f"[autotune] calibration {json.dumps({**times, 'launches': launches, 'constants': len(rows)})}")
+    return spec, launches
+
+
+def autotune_residual(spec) -> dict:
+    """kaggle at 65536 (bf16 tables, SGD): calibrate_step_residual through
+    train_chunk against the calibrated machine, every state tensor bit for
+    bit before and after; then `fit` of 2 batches under config.profiling,
+    one forward-time line an op before it trains."""
+    import contextlib
+    import io
+
+    from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
+    from dlrm_flexflow_tpu_torch.tools.state import state_tensors
+
+    cfg = kaggle_config(batch_size=TRAIN_BATCH)
+    model = kaggle_model(cfg, TRAIN_BATCH, SEED)
+    batches, _ = kaggle_batches(model, cfg)
+    before = {k: v.clone() for k, v in state_tensors(model).items()}
+    residual, measured, predicted = model.calibrate_step_residual(
+        *batches[0], steps=AUTOTUNE_STEPS, machine=dataclasses.replace(spec.torus_for(1)), cache_path="")
+    after = state_tensors(model)
+    differing = sorted(k for k in before if not torch.equal(before[k], after[k]))
+    res = {"steps": AUTOTUNE_STEPS, "measured_us": measured, "predicted_us": predicted, "residual": residual,
+           "differing_tensors": differing, "step_count": model._step_count}
+    log(f"[autotune] kaggle step residual {json.dumps(res)}")
+    if differing or model._step_count != 0 or not (np.isfinite(residual) and residual > 0):
+        raise AssertionError(f"calibrate_step_residual changed the model or gave no residual: {res}")
+    model.config.profiling = True
+    feeds = {k: np.concatenate([b[0][k] for b in batches[:2]]) for k in batches[0][0]}
+    labels = np.concatenate([b[1] for b in batches[:2]])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        hist = model.fit(feeds, labels, epochs=1, verbose=False)
+    lines = [ln for ln in out.getvalue().splitlines() if " forward time = " in ln]
+    for ln in lines:
+        log(f"[autotune-fit] {ln}")
+    want = [f"[{type(op).__name__}] {op.name}" for op in model.graph.compute_ops]
+    if [ln.split(" forward time")[0] for ln in lines] != want or not np.isfinite(hist["accuracy"]):
+        raise AssertionError(f"fit under profiling printed {len(lines)} lines for {len(want)} ops: {hist}")
+    res["fit"] = {"ops": len(lines), "examples_per_s": hist["throughput"]}
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def autotune_on(tmp: str) -> dict:
+    """mlperf-lite at 16384 under use_pallas="on" (serving only: the
+    forced kernels have no backward), op by op: op_timing_report (10 timed
+    calls after 2 an op) with K6, K5f, K4 and K3 launched; the rows'
+    ms summed by kernel; export_task_graph, check_numerics (clean) and
+    trace around a predict."""
+    import contextlib
+    import io
+    import os
+
+    from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
+    from dlrm_flexflow_tpu_torch.models.dlrm import mlperf_lite_config
+    from dlrm_flexflow_tpu_torch.utils import (check_numerics, export_task_graph, op_timing_report,
+                                               print_op_timings, trace)
+
+    cfg = mlperf_lite_config(batch_size=BATCH)
+    model = forced_model(cfg, BATCH, SEED)
+    feeds, _ = random_batches(cfg, BATCH, seed=SEED)
+    counts = launch_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    rows = op_timing_report(model, feeds, reps=10, warmup=2)
+    launches = {name: fn.launches for name, fn in counts.items() if fn.launches}
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        print_op_timings(rows)
+    for ln in out.getvalue().splitlines():
+        log(f"[autotune-on] {ln}")
+    kernel_of = {"Dense": "fused_dense", "DotInteraction": "dot_interaction"}
+    by_kernel = {}
+    for op, r in zip(model.graph.compute_ops, rows):
+        k = kernel_of.get(r["type"]) or ("onehot_embedding" if r["type"] == "Embedding"
+                                         and op.num_entries <= model.config.onehot_embedding_threshold
+                                         else "embedding_bag" if r["type"] == "Embedding" else r["type"])
+        by_kernel.setdefault(k, []).append(r["ms"])
+    export_task_graph(model, f"{tmp}/graph.dot")
+    dot = Path(f"{tmp}/graph.dot").read_text()
+    bad = check_numerics(model, feeds, None)
+    with trace(f"{tmp}/trace"):
+        model.predict(feeds)
+    traces = [f for _, _, fs in os.walk(f"{tmp}/trace") for f in fs if f.endswith(".pt.trace.json")]
+    res = {"ops": len(rows), "launches": launches,
+           "ms_by_kernel": {k: {"ops": len(v), "ms_sum": sum(v), "ms_mean": sum(v) / len(v)}
+                            for k, v in by_kernel.items()},
+           "dot_bytes": len(dot), "numerics": bad, "trace_files": len(traces)}
+    log(f"[autotune-on] mlperf-lite op by op under 'on' {json.dumps(res)}")
+    need = ("fused_dense", "onehot_embedding", "embedding_bag", "dot_interaction")
+    if (any(not launches.get(k) for k in need) or bad or len(traces) != 1 or not dot.startswith("digraph")
+            or any(f'"{op.name}"' not in dot for op in model.graph.compute_ops)):
+        raise AssertionError(f"autotune 'on' profiling: {res}")
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_autotune() -> dict:
+    """Phase 35 (see the module note), in a temporary directory."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    try:
+        spec, launches = autotune_calibration(tmp)
+        res = {"calibration_launches": launches, "residual": autotune_residual(spec), "on": autotune_on(tmp)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -4215,6 +4466,7 @@ def main() -> None:
     zoo["nmt"] = phase_zoo_nmt(card)
     zoo["alexnet"].update(phase_zoo_cnn_on(card))
     phase_zoo_parity(card)
+    autotune = phase_autotune()
     # after the paths: run before them, these cases left about 0.5 GB
     # allocated, which showed in the paths' peak memory
     k6 = phase_fused_dense()
@@ -4315,6 +4567,13 @@ def main() -> None:
         # f32 at the probe's shape, the wrapper's default depth 4
         **{key: k7[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     })
+    # phase 35: K1 timed by calibrate_packed, the forced kernels served op by op
+    on, cal = autotune["on"]["launches"], autotune["calibration_launches"]
+    for e in entries:
+        k1 = e["name"].startswith("row_update (a-k1")
+        n = cal.get("row_update", 0) if k1 else on.get(e["name"], 0)
+        if n:
+            e["autotune_launches"] = n
     if len(entries) != 12:
         raise AssertionError(f"{len(entries)} kernel entries, not 12")
     log(json.dumps({"kernels": entries}))

@@ -10,6 +10,7 @@ are read by later parts of the port (training, packed tables, meshes).
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 
@@ -86,6 +87,19 @@ class FFConfig:
 
             return torch.cuda.device_count()
         return self.num_nodes * self.devices_per_node
+
+    def machine_cache_path(self) -> str:
+        """The machine file the strategy search calibrates into and reads
+        back (the JAX package's `machine_cache_path`): machine_model_file,
+        else beside the exported strategy, else the port's own
+        `build/ffsim_machine_h100.json` under the checkout's ignored build
+        directory. The JAX package's TPU calibration, the root
+        `.ffsim_machine.json`, is never the port's default."""
+        if self.machine_model_file:
+            return self.machine_model_file
+        if self.export_strategy_file:
+            return self.export_strategy_file + ".machine.json"
+        return str(Path(__file__).resolve().parents[1] / "build" / "ffsim_machine_h100.json")
 
     @staticmethod
     def parse_args(argv: Optional[Sequence[str]] = None) -> "FFConfig":

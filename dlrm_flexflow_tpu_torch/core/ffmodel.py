@@ -100,8 +100,21 @@ the ops that couple rows or read their built shape (Flat, Reshape, Dropout,
 attention's dropout, BatchNorm, GroupBy, Aggregate) take the global batch's
 meaning on the rank's block, a constant whose leading dimension is the
 batch size is staged at the rank's block, and a Cache serves its block.
-config.export_strategy_task_graph_file (`--taskgraph`) raises at compile
-until the task graph's export is ported (ROADMAP.md item 10).
+
+The strategy search (config.search_budget > 0 under `compile(mesh=,
+plan=)`, the JAX package's `_run_strategy_search`, :1109-1316) runs before
+the planner pass fuses the tables: rank 0 takes the machine model (the
+"h100" preset on CUDA, "cpu_sim" on the CPU, or config.machine_model_file),
+calibrates it on its card where no machine file is given (cached at
+config.machine_cache_path()), runs the joint annealer
+(autotune/search.py `autotune_plan_joint`) and broadcasts its decisions,
+so every rank applies the same ones to its plan: the replicated tables,
+host-tail rows, table placement and splits, column-parallel Dense ops, the
+exchange and the host grouping. `compile` writes the task graph
+(config.export_strategy_task_graph_file) from rank 0, `fit` under
+config.profiling with no mesh prints each op's forward time before it
+trains (utils/profiling.py), and `calibrate_step_residual` times the
+multi-step call against the cost model's prediction.
 
 On a 2-D ("data", "model") mesh the batch, the collection's shards and
 every collective above belong to the data axis (its data group); the
@@ -194,8 +207,6 @@ HOST_TAIL_PREFIX = "_hosttail:"
 # last two only under host-tail offload)
 STEP_PHASES = ("step:build_feeds", "step:h2d_copy", "step:device_step", "step:g_val_readback",
                "step:apply_grads")
-_PROFILING = ("per-op profiling (config.profiling, utils/profiling.py) is a later slice of "
-              "the port (autotune and profiling)")
 _FORCED_TRAINING = ("training under use_pallas='on' is a later slice of the port: the JAX "
                     "package's forced Dense kernel (dense_pallas) has no gradient; use "
                     "use_pallas='auto' or 'off' to train")
@@ -203,9 +214,6 @@ _QUANTIZED = ("the embedding tables were quantized for serving (quantize_embeddi
               "needs the f32 master tables: compile again, or set_parameters to restore them")
 _HOST_TAIL_CHUNK = ("train_chunk: host-tail offload steps one batch at a time (the host serves and "
                     "updates the tail rows between steps); use train_batch or fit(steps_per_call=1)")
-_TASK_GRAPH = ("the task graph's Graphviz file (config.export_strategy_task_graph_file, --taskgraph; the "
-               "JAX package's export_task_graph) is ROADMAP.md Queue 1 item 10, a later slice of the port "
-               "(autotune and profiling)")
 QUANTIZED_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "int8": torch.int8}
 _ALIGN = 16  # bytes: each entry of a chunk's packed step buffer starts on a 16-byte boundary
 
@@ -248,6 +256,7 @@ class FFModel:
         self._embedding_layout = None  # the fused collection's layout, or None
         # column-parallel Dense ops over the mesh's model axis: {op: sharded keys}
         self._model_parallel: Dict[str, tuple] = {}
+        self._search_report: Optional[dict] = None  # the strategy search's report, at compile
 
     # ------------------------------------------------------------------ build
     def create_tensor(
@@ -633,8 +642,6 @@ class FFModel:
         cfg = self.config
         self._compile_args = dict(optimizer=optimizer, loss_type=loss_type, metrics=tuple(metrics), seed=seed,
                                   sparse_optimizer=sparse_optimizer, mesh=mesh, plan=plan)
-        if cfg.export_strategy_task_graph_file:
-            raise NotImplementedError(_TASK_GRAPH)
         n = mesh.data_size if mesh is not None else 1
         # under a data axis above 1: the inputs and ops on a rank's block,
         # after the refusals of what the port does not compute over the
@@ -663,6 +670,11 @@ class FFModel:
         ) and (isinstance(sopt, (SGDOptimizer, AdamOptimizer))
                or type(sopt) is RowWiseAdagradOptimizer)
         coll = self._plan_embeddings(mesh, plan, route_enable)
+        if cfg.export_strategy_task_graph_file and (mesh is None or mesh.rank == 0):
+            # the JAX package's :702-706, after the planner pass
+            from ..utils.profiling import export_task_graph
+
+            export_task_graph(self, cfg.export_strategy_task_graph_file)
         self.loss_type = loss_type
         mask = MetricsType.METRICS_NONE
         for m in metrics:
@@ -841,9 +853,11 @@ class FFModel:
         model axis, and the plan's specs name the Dense ops that run
         column-parallel (`tensor_parallel_ops`, over a model axis above 1).
 
-        Raises NotImplementedError, naming its ROADMAP.md item, for
-        config.search_budget > 0 (the strategy search), and for a parameter
-        spec of another form than the column-parallel Dense one."""
+        config.search_budget > 0 with no table assignment in the plan runs
+        the strategy search (`_run_strategy_search`) before the column-
+        parallel specs and host-tail offload, as the JAX package does.
+        Raises NotImplementedError for a parameter spec of another form
+        than the column-parallel Dense one."""
         cfg = self.config
         existing = next((op for op in self.graph.compute_ops if isinstance(op, EmbeddingCollection)), None)
         self.mesh, self.plan = mesh, plan
@@ -867,9 +881,8 @@ class FFModel:
         if plan.chips_per_host is None and cfg.chips_per_host:
             # a data index spans the model axis's cards of a host
             plan.chips_per_host = max(1, cfg.chips_per_host // mesh.model_size)
-        if cfg.search_budget > 0:
-            raise NotImplementedError("compile(mesh=): the strategy search (config.search_budget > 0) is "
-                                      "ROADMAP.md Queue 1 item 10, a later slice of the port")
+        if cfg.search_budget > 0 and plan.table_assignment is None:
+            self._run_strategy_search(mesh, plan)
         if cfg.enable_parameter_parallel and "model" in mesh.axis_names:
             enable_parameter_parallel(plan, self.graph)
         tp = tensor_parallel_ops(plan, self.graph, mesh.axis_names)
@@ -896,6 +909,107 @@ class FFModel:
         if cfg.export_strategy_file and mesh.rank == 0:
             plan.save(cfg.export_strategy_file)
         return self._bind_collection(existing, n, shard)
+
+    # ------------------------------------------------------------------ the strategy search
+    def _search_machine(self, mesh):
+        """The machine model of the search (the JAX package's :1113-1150):
+        config.machine_model_file, else the "h100" preset on CUDA and
+        "cpu_sim" on the CPU with config's simulator knobs; the mesh's
+        cards as one NVSwitch host ("h100") or one torus; on CUDA with no
+        machine file, calibrated on this card (cached at
+        config.machine_cache_path())."""
+        import os
+
+        from ..autotune import machine as mm
+
+        cfg, n = self.config, mesh.data_size
+        if cfg.machine_model_file:
+            machine = mm.MachineSpec.from_file(cfg.machine_model_file)
+            machine.num_chips = n
+        else:
+            local = int(os.environ.get("LOCAL_WORLD_SIZE", mesh.size))
+            machine = mm.preset("h100" if self.device.type == "cuda" else "cpu_sim", num_chips=n,
+                                chips_per_host=min(n, local))
+            machine.segment_bytes = float(cfg.simulator_segment_size)
+            machine.max_segments = float(cfg.simulator_max_num_segments)
+        if cfg.search_overlap_backward_update:
+            machine.overlap_backward_update = 1.0
+        if machine.ici_axis_x <= 0 and machine.ici_domain <= 0:
+            machine = machine.nvswitch_for(n) if machine.name == "h100" else machine.torus_for(n)
+        if "model" in mesh.axis_names and machine.model_axis <= 1:
+            machine.model_axis = int(mesh.model_size)
+        if not cfg.machine_model_file and self.device.type == "cuda":
+            cache = cfg.machine_cache_path()
+            machine = mm.calibrate_or_cached(machine, cache, self.device)
+            shapes = mm.graph_dense_shapes(self.graph)
+            if any(f"{a}x{b}" not in machine.dense_costs for a, b in shapes):
+                machine = mm.calibrate_dense(machine, shapes, device=self.device)
+                machine.save(cache)
+            if any(mm.op_cost_sig(o) not in machine.op_costs for o in mm.measurable_graph_ops(self.graph)):
+                machine = mm.calibrate_graph_ops(machine, self.graph, device=self.device)
+                machine.save(cache)
+            print(f"[autotune] machine model calibrated (cache: {cache})")
+        return machine
+
+    def _run_strategy_search(self, mesh, plan: ShardingPlan) -> None:
+        """The JAX package's `_run_strategy_search` (:1109-1316) in one
+        process a card: rank 0 makes the machine model and runs
+        `autotune_plan_joint`; its (owner, cost, report, machine) goes to
+        every rank in one `broadcast_object_list`, so every rank applies
+        the same decisions to its plan whatever its own card would have
+        timed; only rank 0 calibrates and writes the machine file."""
+        from ..autotune.search import autotune_plan_joint
+
+        cfg = self.config
+        found = None
+        if mesh.rank == 0:
+            machine = self._search_machine(mesh)
+            sopt = self.sparse_optimizer or self.optimizer
+            osf = 1.0 if sopt.sparse_init((2, 2), torch.device("cpu")) is not None else 0.0
+            # row splits are exact only under SUM pooling (partial sums)
+            sum_only = all(getattr(op, "aggr", AggrMode.AGGR_MODE_SUM) is AggrMode.AGGR_MODE_SUM
+                           for op in self.graph.compute_ops if op.op_type is OperatorType.OP_EMBEDDING)
+            half = cfg.compute_dtype in ("bfloat16", "float16")
+            owner, cost_us, report = autotune_plan_joint(
+                self.graph, machine, cfg.batch_size, budget=cfg.search_budget, alpha=cfg.search_alpha,
+                seed=cfg.seed, opt_state_factor=osf, allow_splits=sum_only,
+                min_vocab=cfg.onehot_embedding_threshold, exchange_dtype_bytes=2.0 if half else 4.0,
+                enable_propagation=cfg.enable_propagation, host_tail_hot=cfg.host_tail_threshold or (1 << 20),
+                table_dtype_bytes=2.0 if cfg.table_dtype == "bfloat16" else 4.0)
+            found = (owner, cost_us, report, dataclasses.asdict(machine))
+        if mesh.size > 1:
+            box = [found]
+            dist.broadcast_object_list(box, src=0)
+            found = box[0]
+        owner, cost_us, report, machine = found
+        report = report or {}
+        n = mesh.data_size
+        if report.get("replicated_tables") is not None:
+            plan.replicated_tables = report["replicated_tables"]
+        tails = report.get("host_tail_rows")
+        if tails and any(tails) and plan.host_tail_rows is None:
+            # the search's table order is the graph's Embedding order only
+            # before fusion
+            if len(tails) == sum(1 for o in self.graph.compute_ops if isinstance(o, Embedding)):
+                plan.host_tail_rows = tails
+        if owner:
+            plan.table_assignment = owner
+            split = report.get("table_split")
+            if split and any(s > 1 for s in split):
+                plan.table_split = split
+            tp_ops = set(report.get("tp_ops", []))
+            if tp_ops and "model" in mesh.axis_names:
+                enable_parameter_parallel(plan, self.graph, min_out_dim=2, only=tp_ops)
+            if report.get("exchange") and plan.exchange == "dense":
+                plan.exchange = report["exchange"]
+            dom = machine["ici_domain"] or n
+            if plan.chips_per_host is None and machine["hierarchical_a2a"] > 0 and 1 < dom < n:
+                plan.chips_per_host = int(dom)
+        self._search_report = report
+        if report and mesh.rank == 0:
+            print(f"[autotune] predicted step {cost_us * (machine['step_residual'] or 1.0):.1f}us "
+                  f"(model {cost_us:.1f}us x residual {machine['step_residual']:.2f}; round-robin "
+                  f"{report['round_robin_us']:.1f}us, {report['improvement']:.2f}x)")
 
     def _bind_collection(self, coll, num_shards: int, shard):
         if coll is not None and (coll.layout.num_shards != num_shards or coll.shard != shard):
@@ -1369,6 +1483,76 @@ class FFModel:
             self._advance(done)
         return loss.clone()
 
+    def calibrate_step_residual(self, feeds, labels, steps: int = 8, machine=None, cache_path: str = ""):
+        """The measured step against the cost model's, over the whole step
+        (the JAX package's `calibrate_step_residual`, :1807-1890): `steps`
+        copies of one batch, staged on the device beforehand, go through
+        `train_chunk` twice (the first builds and captures the step on
+        CUDA), and the second is timed (CUDA events on CUDA, perf_counter
+        on the CPU). The model is left as it was: its parameters, optimizer
+        state, metric totals and step count are copied before and written
+        back in place after (so a captured step stays valid). The
+        prediction is `autotune_plan_joint`'s at budget 1 on `machine`
+        (default: the machine file at `cache_path` or
+        config.machine_cache_path(), else the "h100" preset on CUDA and
+        "cpu_sim" on the CPU; one card). Stores measured / predicted as the
+        machine's `step_residual` and saves the machine to the cache path.
+        Returns (residual, measured_us, predicted_us)."""
+        import os
+
+        from ..autotune.machine import MachineSpec, preset
+        from ..autotune.search import autotune_plan_joint
+        from ..tools.state import state_tensors
+
+        self._require_trainable()
+        if self._host_tail is not None:
+            raise RuntimeError(_HOST_TAIL_CHUNK)
+        if machine is None:
+            cache_path = cache_path or self.config.machine_cache_path()
+            machine = (MachineSpec.from_file(cache_path) if os.path.exists(cache_path)
+                       else preset("h100" if self.device.type == "cuda" else "cpu_sim"))
+            machine = machine.torus_for(1)
+        labels = np.asarray(labels)
+        stacked = {}
+        for iop in self.graph.inputs:
+            if iop.name in feeds:
+                v = np.asarray(feeds[iop.name])
+                stacked[iop.name] = torch.as_tensor(np.ascontiguousarray(np.broadcast_to(v, (steps,) + v.shape)),
+                                                    dtype=iop.outputs[0].dtype.to_torch()).to(self.device)
+        slabels = torch.as_tensor(np.ascontiguousarray(np.broadcast_to(labels, (steps,) + labels.shape)),
+                                  dtype=torch.float32).to(self.device)
+        state = list(state_tensors(self).values())
+        saved = [t.clone() for t in state]
+        step_count = self._step_count
+        try:
+            self.train_chunk(stacked, slabels)
+            if self.device.type == "cuda":
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                self.train_chunk(stacked, slabels)
+                end.record()
+                torch.cuda.synchronize(self.device)
+                measured_us = start.elapsed_time(end) * 1e3 / steps
+            else:
+                t0 = time.perf_counter()
+                self.train_chunk(stacked, slabels)
+                measured_us = (time.perf_counter() - t0) * 1e6 / steps
+        finally:
+            with torch.no_grad():
+                for t, v in zip(state, saved):
+                    t.copy_(v)
+            self._advance(step_count - self._step_count)
+        half = self.config.compute_dtype in ("bfloat16", "float16")
+        _, pred_us, _ = autotune_plan_joint(
+            self.graph, machine, self.config.batch_size, budget=1, min_vocab=self.config.onehot_embedding_threshold,
+            exchange_dtype_bytes=2.0 if half else 4.0,
+            table_dtype_bytes=2.0 if self.config.table_dtype == "bfloat16" else 4.0)
+        residual = measured_us / max(pred_us, 1e-9)
+        machine.step_residual = residual
+        if cache_path:
+            machine.save(cache_path)
+        return residual, measured_us, pred_us
+
     # ------------------------------------------------------------------ host routing
     def compute_routes(self, feeds: Dict[str, Any]) -> Dict[str, np.ndarray]:
         """The sorted update stream of each row-update-route table, computed
@@ -1490,8 +1674,6 @@ class FFModel:
         (`stacked_epoch`; the tail of an epoch is a shorter stack), as the
         JAX package does; K = 1 steps one batch per `train_batch` call."""
         self._require_trainable()
-        if self.config.profiling:
-            raise NotImplementedError(_PROFILING)
         epochs = epochs or self.config.epochs
         bs = batch_size or self.config.batch_size
         loader = DataLoader(feeds, labels, bs, shuffle=shuffle, seed=self.config.seed)
@@ -1501,6 +1683,13 @@ class FFModel:
         warm_time = None
         for cb in callbacks:
             cb.on_train_begin(self)
+        if self.config.profiling and self.mesh is None:
+            # the reference's per-op "[Linear] forward time = ..." lines (the
+            # JAX package's :1575-1580), on the first batch
+            from ..utils.profiling import op_timing_report, print_op_timings
+
+            first, _ = next(iter(loader.epoch()))
+            print_op_timings(op_timing_report(self, first, reps=3, warmup=1))
         stop = False
         for epoch in range(epochs):
             for cb in callbacks:

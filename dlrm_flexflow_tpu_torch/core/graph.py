@@ -84,6 +84,9 @@ class OpContext:
     # results shared by the ops of one execution (GroupBy's and its
     # Aggregate's token slots); `Graph.execute` starts each with its own
     memo: Optional[dict] = None
+    # when a dict, `Graph.execute` records every op's outputs in it under
+    # "{op}:{i}" (the per-op report and the NaN sweep, utils/profiling.py)
+    taps: Optional[Dict[str, torch.Tensor]] = None
 
     def block_mesh(self, op: "Op"):
         """The mesh when `op` runs on the rank's block of a batch sharded
@@ -155,6 +158,21 @@ class Op:
         return {
             p.key: p.initializer(generator, p.shape, p.dtype.to_torch(), device)
             for p in self.params
+        }
+
+    def cost_stats(self) -> Dict[str, float]:
+        """Analytic cost of one forward at the built shapes: flops, bytes
+        moved and parameter bytes, the inputs of the strategy search's cost
+        model (autotune/search.py), the task-graph export and the per-op
+        report (utils/profiling.py). This default is an elementwise pass over
+        the outputs; ops with products override it. Every op gives the JAX
+        package's floats, computed in the same order."""
+        out_elems = sum(t.volume for t in self.outputs)
+        in_elems = sum(t.volume for t in self.inputs)
+        return {
+            "flops": float(out_elems),
+            "bytes": 4.0 * float(in_elems + out_elems),
+            "param_bytes": 4.0 * sum(p.volume for p in self.params),
         }
 
     def __repr__(self) -> str:  # pragma: no cover - debug aid
@@ -231,6 +249,9 @@ class Graph:
             else:
                 xs = [env[(t.owner_op.guid, t.owner_idx)] for t in op.inputs]
                 ys = op.forward(params.get(op.name, {}), xs, ctx)
+            if ctx.taps is not None:
+                for i, y in enumerate(ys):
+                    ctx.taps[f"{op.name}:{i}"] = y
             for i, y in enumerate(ys):
                 env[(op.guid, i)] = y
         if fetch is None:

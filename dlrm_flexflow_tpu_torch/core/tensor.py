@@ -48,3 +48,7 @@ class ParameterSpec:
     dtype: DataType = DataType.DT_FLOAT
     initializer: Optional[object] = None
     owner_op: Optional[object] = None
+
+    @property
+    def volume(self) -> int:
+        return int(np.prod(self.shape)) if self.shape else 1

@@ -109,3 +109,16 @@ class MultiHeadAttention(Op):
         mesh = ctx.block_mesh(self)
         return [multihead_attention(q_in, k_in, v_in, params, self.num_heads, ctx.compute_dtype,
                                     self.bias, self.dropout, key, 0 if mesh is None else mesh.data_index)]
+
+    def cost_stats(self):
+        b, sq, dq = self.inputs[0].shape
+        sk = self.inputs[1].shape[1]
+        e = self.embed_dim
+        proj = 2.0 * b * (sq * dq * e + sk * self.inputs[1].shape[2] * e + sk * self.inputs[2].shape[2] * e
+                          + sq * e * e)
+        attn = 2.0 * b * self.num_heads * sq * sk * self.head_dim * 2
+        return {
+            "flops": proj + attn,
+            "bytes": 4.0 * (self.inputs[0].volume + self.outputs[0].volume),
+            "param_bytes": 4.0 * sum(p.volume for p in self.params),
+        }

@@ -63,3 +63,16 @@ class BatchMatmul(Op):
         if y.shape[-2:] != (m, n):
             y = F.pad(y, (0, n - y.shape[-1], 0, m - y.shape[-2]))
         return [y]
+
+    def cost_stats(self):
+        a, b = self.inputs
+        batch = 1
+        for d in a.shape[:-2]:
+            batch *= d
+        m, k = a.shape[-2], a.shape[-1]
+        n = b.shape[-1]
+        return {
+            "flops": 2.0 * batch * m * k * n,
+            "bytes": 4.0 * batch * (m * k + k * n + m * n),
+            "param_bytes": 0.0,
+        }

@@ -93,3 +93,13 @@ class Dense(Op):
         if tp:
             y = gather_out(y, mesh.model_size, mesh.model_index, mesh.model_group())
         return [y]
+
+    def cost_stats(self):
+        batch_elems = 1
+        for d in self.inputs[0].shape[:-1]:
+            batch_elems *= d
+        return {
+            "flops": 2.0 * batch_elems * self.in_dim * self.out_dim,
+            "bytes": 4.0 * (batch_elems * self.in_dim + batch_elems * self.out_dim + self.in_dim * self.out_dim),
+            "param_bytes": 4.0 * (self.in_dim + 1) * self.out_dim,
+        }

@@ -328,3 +328,12 @@ class Embedding(Op):
         if st is not None and self.kernel_route and st.dim() == 3:
             st = {"m": st[0], "v": st[1]}
         return st
+
+    def cost_stats(self):
+        lookups = self.inputs[0].volume
+        row_bytes = 4.0 * self.out_dim
+        return {
+            "flops": float(lookups * self.out_dim),
+            "bytes": row_bytes * lookups * 2.0 + 4.0 * lookups,
+            "param_bytes": 4.0 * self.num_entries * self.out_dim,
+        }

@@ -63,3 +63,12 @@ class DotInteraction(Op):
         else:
             out = dot_interaction(stacked, self.self_interaction, ctx.compute_dtype)
         return [out.to(inputs[0].dtype)]
+
+    def cost_stats(self):
+        b, d = self.inputs[0].shape
+        f = len(self.inputs)
+        return {
+            "flops": 2.0 * b * f * f * d,
+            "bytes": 4.0 * (b * f * d + b * self.outputs[0].shape[1]),
+            "param_bytes": 0.0,
+        }

@@ -7,6 +7,7 @@
     ... -m dlrm_flexflow_tpu_torch.tools.mesh_smoke --phases 2d          # the (2, 2) mesh (4 ranks)
     ... -m dlrm_flexflow_tpu_torch.tools.mesh_smoke --phases zoo,ep      # the op library, expert parallelism
     ... --device cpu --phases zoo,ep --zoo-small --zoo-steps 2            # their rehearsal on gloo
+    ... -m dlrm_flexflow_tpu_torch.tools.mesh_smoke --phases search      # the strategy search
 
 Every rank of the launcher's world runs it; rank 0 prints one line a
 check, with every rank's numbers gathered, and last `{"ok": true, ...}`.
@@ -130,7 +131,18 @@ D = 16) and a global batch of `--batch-size` (65536: 16384 a rank on 4):
                   and bf16: the forward and w1's gradient against
                   `reference_moe_ffn(shards=4)` on rank 0 (`ep_tolerance`),
                   the dropped share, ms of the forward and backward, each
-                  all-to-all's ms and GB/s alone.
+                  all-to-all's ms and GB/s alone;
+  [mesh-search]   kaggle under `--search-budget` (config.search_budget):
+                  rank 0 calibrates its card into the machine file beside
+                  the exported strategy (a temporary directory) and
+                  searches, every rank takes the broadcast plan (checked by
+                  digest); the searched and the default `dlrm_hybrid_plan()`
+                  models from the same weights: 4 eager steps each (every
+                  loss within LOSS_ATOL of the default plan's), then 20
+                  `train_chunk` replays each, ms a step; each plan's
+                  predicted step (the cost model's, times the one-card step
+                  residual that rank 0 measures with
+                  `calibrate_step_residual`) against its measured ms.
 
 The weights are random, from seeds; the indices uniform, the labels noise
 (the zoo's data carries its class: chip_smoke.py's images and clusters,
@@ -141,8 +153,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -170,7 +184,7 @@ from .state import state_diff, state_tensors
 SEED = 0
 WARMUP, PROFILED = 2, 3
 DETERMINISTIC_STEPS = 8  # eager steps against chunks of 4
-PHASES = ("exchange", "train", "routed", "checkpoint", "mlperf-lite", "dp", "full", "2d", "zoo", "ep")
+PHASES = ("exchange", "train", "routed", "checkpoint", "mlperf-lite", "dp", "full", "2d", "zoo", "ep", "search")
 F32_UNIT, BF16_UNIT = 2.0**-24, 2.0**-8
 # one card's step against the mesh's: the same operations but for f32
 # summation orders, so a flipped bf16 rounding (of an activation or a
@@ -1456,6 +1470,124 @@ def cuda_ms(run: Run, fn, reps: int = EP_REPS, warmup: int = 2):
     return start.elapsed_time(end) / reps
 
 
+# ------------------------------------------------------------------ the strategy search
+SEARCH_FIELDS = ("table_assignment", "table_split", "replicated_tables", "exchange", "chips_per_host",
+                 "host_tail_rows", "hash_rows", "packed_pool")
+SEARCH_REPLAYS = 20
+
+
+def plan_digest(plan) -> str:
+    import hashlib
+
+    doc = json.dumps({k: getattr(plan, k) for k in SEARCH_FIELDS}, sort_keys=True, default=str)
+    return hashlib.sha256(doc.encode()).hexdigest()[:16]
+
+
+def replays_ms(run: Run, model, stack, labels) -> float:
+    """ms a step of SEARCH_REPLAYS `train_chunk` steps (chunks of 4) after
+    one capturing chunk."""
+    model.train_chunk(stack, labels)
+    run.sync()
+    t0 = time.perf_counter()
+    for _ in range(SEARCH_REPLAYS // 4):
+        loss = model.train_chunk(stack, labels)
+    float(loss)
+    return (time.perf_counter() - t0) / SEARCH_REPLAYS * 1e3
+
+
+def default_prediction(cfg, default, machine) -> float:
+    """The cost model's step (us) for the default plan's decisions: the
+    fused tables at the default layout's owners, the others replicated, no
+    split, no tensor parallelism, the dense exchange, on the search's
+    machine and the unfused graph the search scores."""
+    from ..autotune import bindings
+    from ..autotune.search import graph_to_cost_spec_v2
+
+    graph = make_dlrm_model(cfg, FFConfig(batch_size=cfg.batch_size), device="cpu").graph
+    half = default.config.compute_dtype in ("bfloat16", "float16")
+    ops, names, _, nd, _, _, op_edges = graph_to_cost_spec_v2(
+        graph, cfg.batch_size, 2.0 if half else 4.0, dense_costs=machine.dense_costs,
+        host_tail_hot=default.config.host_tail_threshold or (1 << 20), op_costs=machine.op_costs,
+        table_dtype_bytes=2.0 if default.config.table_dtype == "bfloat16" else 4.0)
+    coll = default._op("embedding_collection")
+    owner_of = dict(zip(coll.table_names, coll.layout.owner))
+    owner = [owner_of.get(n, 0) for n in names]
+    mode = [0 if n in owner_of else 1 for n in names]
+    return bindings.simulate2(machine.to_native(), ops, owner, [1] * len(names), mode, [1] * nd, 0.0,
+                              op_edges=op_edges)
+
+
+def search_check(run: Run) -> dict:
+    mesh, dev, args = run.mesh, run.device, run.args
+    b = args.batch_size
+    cfg = kaggle_config(batch_size=b)
+    cfg.embedding_size = [min(v, args.vocab_cap) for v in cfg.embedding_size]
+    box = [tempfile.mkdtemp(prefix="mesh_smoke_search_") if mesh.rank == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    strategy = f"{box[0]}/strategy.json"
+    try:
+        t0 = time.perf_counter()
+        searched = kaggle_model(run, cfg, "sgd", mesh, search_budget=args.search_budget,
+                                export_strategy_file=strategy)
+        compile_s = time.perf_counter() - t0
+        default = kaggle_model(run, cfg, "sgd", mesh)
+        digests = run.gather(plan_digest(searched.plan))
+        report = searched._search_report
+        res = {"global_batch": b, "budget": args.search_budget, "compile_s": compile_s,
+               "plan": {k: getattr(searched.plan, k) for k in SEARCH_FIELDS}, "plan_digest_by_rank": digests,
+               "default_plan": {k: getattr(default.plan, k) for k in SEARCH_FIELDS},
+               "report": {k: report[k] for k in ("best_us", "round_robin_us", "improvement", "tp_ops", "exchange",
+                                                  "breakdown")}}
+        run.check(len(set(digests)) == 1 and bool(searched.plan.table_assignment), "one plan on every rank", res)
+        # the searched model starts from the default one's weights
+        coll = default._op("embedding_collection")
+        for name in coll.table_names + [n for n in default.get_parameters() if n != coll.name]:
+            searched.set_weights(name, default.get_weights(name))
+        batches = staged_batches(cfg, b, dev, SEED + 21)
+        losses = {"searched": [], "default": []}
+        for i in range(4):
+            for tag, m in (("searched", searched), ("default", default)):
+                losses[tag].append(float(m.train_batch(*batches[i])))
+        res["losses"] = losses
+        res["max_loss_err"] = max(abs(x - y) for x, y in zip(losses["searched"], losses["default"]))
+        res["loss_atol"] = LOSS_ATOL
+        run.check(res["max_loss_err"] <= LOSS_ATOL and all(np.isfinite(losses["searched"])), "losses", res)
+        stack, labels = stacks(batches)
+        res["replays_ms_per_step"] = {"searched": replays_ms(run, searched, stack, labels),
+                                      "default": replays_ms(run, default, stack, labels)}
+        res["replays_ms_by_rank"] = run.gather(res["replays_ms_per_step"])
+        if mesh.rank == 0:
+            machine = searched._search_machine(mesh)
+            one = kaggle_model(run, cfg, "sgd", None)
+            feeds, lbl = random_batches(cfg, b, seed=SEED + 21, learnable=False)
+            # on the card the machine file the search calibrated (in the
+            # temporary directory); on the CPU its cpu_sim machine, unsaved
+            residual, one_us, one_pred = one.calibrate_step_residual(
+                feeds, lbl, steps=8, machine=None if run.cuda else machine.torus_for(1),
+                cache_path=searched.config.machine_cache_path() if run.cuda else "")
+            del one
+            pred = {"searched": report["best_us"], "default": default_prediction(cfg, default, machine)}
+            res["one_card"] = {"measured_us": one_us, "predicted_us": one_pred, "residual": residual}
+            res["predicted_ms_per_step"] = {k: v * residual / 1e3 for k, v in pred.items()}
+            res["model_us"] = pred
+            res["predicted_over_measured"] = {k: res["predicted_ms_per_step"][k] / res["replays_ms_per_step"][k]
+                                              for k in pred}
+            if run.cuda:
+                from ..autotune.machine import physical_limits
+
+                bad = [r for r in physical_limits(machine, searched.graph) if not r["ok"]]
+                res["constants_beyond_the_card"] = bad
+                run.check(not bad, "calibrated constants", res)
+        del searched, default, batches
+        if run.cuda:
+            torch.cuda.empty_cache()
+        dist.barrier()
+        return res
+    finally:
+        if mesh.rank == 0:
+            shutil.rmtree(box[0], ignore_errors=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", help="cuda (NCCL), or cpu (gloo) for a rehearsal")
@@ -1467,6 +1599,7 @@ def main(argv=None) -> None:
     ap.add_argument("--full-steps", type=int, default=5, help="[mesh-full]: timed steps a rule")
     ap.add_argument("--phases", default=",".join(PHASES), help=f"a comma list of {','.join(PHASES)}")
     ap.add_argument("--zoo-steps", type=int, default=8, help="[mesh-zoo]: timed eager steps a model")
+    ap.add_argument("--search-budget", type=int, default=2000, help="[mesh-search]: config.search_budget")
     ap.add_argument("--zoo-small", action="store_true",
                     help="[mesh-zoo], [mesh-ep]: a rehearsal's sizes (mnist_cnn for resnet, nmt small, few tokens)")
     args = ap.parse_args(argv)
@@ -1532,6 +1665,8 @@ def main(argv=None) -> None:
             for e in (4, 8):
                 for dtype in (torch.float32, torch.bfloat16):
                     run.log("[mesh-ep]", ep_check(run, e, dtype))
+        if "search" in phases:
+            run.log("[mesh-search]", search_check(run))
         run.log("", {"ok": True, "devices": mesh.size, "device": str(mesh.device.type), "phases": phases})
     except Exception:
         # a failed rank exits at once: the group's teardown would wait for

@@ -1522,6 +1522,78 @@ def test_strategy_files_with_model_specs_load_in_either_package(tmp_path):
         port_plan.tensor_parallel_ops(bad, port_model.graph, ("data", "model"))
 
 
+# ------------------------------------------------------------------ the strategy search
+
+
+SEARCH_FF = dict(search_budget=300, onehot_embedding_threshold=100)
+SEARCH_PLAN = ("table_assignment", "table_split", "replicated_tables", "exchange", "chips_per_host",
+               "host_tail_rows", "hash_rows")
+
+
+def test_search_under_the_mesh_gives_every_rank_the_jax_plan(workers, jmesh):
+    """config.search_budget > 0 under compile(mesh=) on 4 ranks: rank 0
+    runs the search on the cpu_sim machine (the JAX package's choice on a
+    CPU mesh, as a 2 x 2 torus with 4 chips a host) and broadcasts its
+    decisions; every rank's plan equals the plan the JAX package's compile
+    sets on its 4-device mesh for the same graph, seed and budget, field
+    for field, and so do the predicted costs (exact: the same floats reach
+    the same native core). Each rank then trains a step to the same
+    loss."""
+    jm = _jax_dlrm(GRAFT, DP_SGD, "hybrid", jmesh, **SEARCH_FF)
+    want = {k: getattr(jm.plan, k) for k in SEARCH_PLAN}
+    feeds, labels = ref_synthetic.random_batches(ref_dlrm.DLRMConfig(**GRAFT), GRAFT["batch_size"], seed=3)
+    got = workers.run("""
+        cfg = pdlrm.DLRMConfig(**args[0][0])
+        m = pdlrm.make_dlrm_model(cfg, port.FFConfig(batch_size=cfg.batch_size, compute_dtype="float32",
+                                                     **args[1]), device="cpu")
+        m.compile(getattr(port, args[0][1][0])(**args[0][1][1]), port.LossType.LOSS_BINARY_CROSSENTROPY,
+                  [port.MetricsType.METRICS_ACCURACY], mesh=make_mesh(device="cpu"), plan=dlrm_hybrid_plan())
+        rep = m._search_report
+        loss = float(m.train_batch(*args[2]))
+        result = ({k: getattr(m.plan, k) for k in args[3]}, rep["best_us"], rep["round_robin_us"], loss)
+    """, ((GRAFT, DP_SGD), SEARCH_FF, (feeds, labels), SEARCH_PLAN))
+    assert want["table_assignment"], "the JAX search placed no table"
+    for plan, best, rr, loss in got:
+        assert plan == want
+        assert (best, rr) == (jm._search_report["best_us"], jm._search_report["round_robin_us"])
+        assert np.isfinite(loss) and loss == got[0][3]
+
+
+def _jax_cli(argv):
+    import runpy
+
+    old = sys.argv
+    sys.argv = ["dlrm.py"] + argv
+    try:
+        return runpy.run_path(str(REPO / "examples" / "dlrm.py"), run_name="__main__")
+    finally:
+        sys.argv = old
+
+
+CLI = ["-e", "1", "-b", "64", "--data-size", "256", "--arch-embedding-size", "40000-200-30000-64",
+       "--arch-sparse-feature-size", "8", "--arch-mlp-bot", "13-16-8", "--arch-mlp-top", "40-16-1"]
+
+
+def test_dlrm_example_searches_exports_and_imports_under_the_launcher(tmp_path):
+    """tests/test_cli_integration.py's workflow on the port: the port's
+    examples/dlrm.py on 4 gloo ranks under the launcher with `--budget 300
+    --export` writes a strategy with a table placement, equal to the one
+    the JAX package's examples/dlrm.py exports on a 4-device mesh from the
+    same flags; a second run starts from it with `--import`, and every rank
+    prints THROUGHPUT."""
+    strategy, jax_strategy = tmp_path / "strategy.json", tmp_path / "jax_strategy.json"
+    args = ["--nproc-per-node", "4", "-m", "dlrm_flexflow_tpu_torch.examples.dlrm", "--device", "cpu", "--mesh", "4"]
+    res = _launch(args + ["--budget", "300", "--export", str(strategy)] + CLI, REPO)
+    assert res.returncode == 0, res.stderr[-3000:]
+    doc = json.loads(strategy.read_text())
+    assert doc.get("table_assignment"), "the search exported no placement"
+    _jax_cli(CLI + ["--mesh", "4", "--budget", "300", "--export", str(jax_strategy)])
+    assert doc == json.loads(jax_strategy.read_text())
+    res = _launch(args + ["--import", str(strategy)] + CLI, REPO)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.count("THROUGHPUT = ") == 4
+
+
 # ------------------------------------------------------------------ a data axis of 1, in this process
 
 
@@ -1582,15 +1654,25 @@ def test_data_axis_of_one_is_the_flat_collection_off_the_kernel_route(world_of_o
 
 @pytest.mark.parametrize("what", ["search", "param-specs", "parameter-parallel"])
 def test_mesh_compile_refuses_later_slices(world_of_one, what):
-    """The strategy search is a later slice (item 10). On a 1-D mesh a spec
-    naming the "model" axis it lacks raises ValueError, and
+    """The strategy search (config.search_budget > 0) runs in a world of
+    one: it sets the plan's table assignment (every table on rank 0) and
+    its report, and a model compiled with no search under the plan it
+    chose takes the same step, bit for bit. On a 1-D mesh a spec naming
+    the "model" axis it lacks raises ValueError, and
     enable_parameter_parallel does nothing, as in the JAX package (no
     "model" axis: no specs, the model trains as without it)."""
     from dlrm_flexflow_tpu_torch.parallel.plan import OpShardSpec
 
     if what == "search":
-        with pytest.raises(NotImplementedError, match="item 10"):
-            _port_model(world_of_one, {}, search_budget=10)
+        searched = _port_model(world_of_one, {}, search_budget=10)
+        plan = searched.plan
+        assert plan.table_assignment and set(plan.table_assignment) == {0}
+        assert searched._search_report["best_us"] > 0
+        chosen = {k: getattr(plan, k) for k in ("table_assignment", "table_split", "replicated_tables",
+                                                 "exchange", "chips_per_host")}
+        plain = _port_model(world_of_one, chosen)
+        feeds, labels = ref_synthetic.random_batches(ref_dlrm.DLRMConfig(**GRAFT), 32, seed=4)
+        assert float(searched.train_batch(feeds, labels)) == float(plain.train_batch(feeds, labels))
     elif what == "param-specs":
         with pytest.raises(ValueError, match="lacks"):
             _port_model(world_of_one, {"op_specs": {"bot_mlp_0": OpShardSpec(param_specs={"kernel": ["model", None]})}})

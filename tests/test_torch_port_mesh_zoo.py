@@ -375,17 +375,21 @@ def test_mesh_compile_takes_every_zoo_model():
         assert not ops & experts and (name != "moe_mlp" or len(experts) == 12), name
 
 
-def test_taskgraph_raises_naming_item_10():
-    """config.export_strategy_task_graph_file (--taskgraph), which the JAX
-    package writes a Graphviz file to, raises at compile until item 10
-    ports export_task_graph."""
-    cfg = port.FFConfig(batch_size=4)
-    assert cfg.update_from_args(["--taskgraph", "graph.dot"]) == []
-    assert cfg.export_strategy_task_graph_file == "graph.dot"
-    m = port.FFModel(cfg, device="cpu")
-    m.dense(m.create_tensor([4, 3], name="x"), 2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        m.compile()
+def test_taskgraph_raises_naming_item_10(tmp_path):
+    """config.export_strategy_task_graph_file (--taskgraph): compile writes
+    the Graphviz file, byte for byte the JAX package's for the same graph
+    (the name is kept from the slice that refused it)."""
+    got, want = tmp_path / "port.dot", tmp_path / "jax.dot"
+    cfg = port.FFConfig(batch_size=8)
+    assert cfg.update_from_args(["--taskgraph", str(got)]) == []
+    assert cfg.export_strategy_task_graph_file == str(got)
+    m = conv_graph(port, 0.25, device="cpu")
+    m.config.export_strategy_task_graph_file = cfg.export_strategy_task_graph_file
+    m.compile()
+    j = conv_graph(ref, 0.25)
+    j.config.export_strategy_task_graph_file = str(want)
+    j.compile()
+    assert got.read_bytes() == want.read_bytes() and got.read_text().startswith("digraph")
 
 
 # ------------------------------------------------------------------ expert parallelism

@@ -587,16 +587,22 @@ def test_ported_sparse_optimizers_train_on_the_kernel_route(what):
 
 
 @pytest.mark.parametrize("what", ["profiling"])
-def test_unported_training_features_raise_with_their_slice(what):
+def test_unported_training_features_raise_with_their_slice(what, capsys):
+    """`fit` under config.profiling (the name is kept from the slice that
+    refused it) prints one "[Type] name forward time = ...ms" line an op
+    before it trains, as the JAX package's does, and then trains."""
     ffkw = dict(batch_size=32, onehot_embedding_threshold=100, packed_tables="on")
     opt = port.SGDOptimizer(lr=0.1)
     if what == "profiling":
         ffkw["profiling"] = True
     m = port_dlrm.make_dlrm_model(_tiny(port_dlrm), port.FFConfig(**ffkw), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        m.compile(opt, port.LossType.LOSS_BINARY_CROSSENTROPY)
-        feeds, labels = ref_synthetic.random_batches(_tiny(ref_dlrm), 64, seed=1)
-        m.fit(feeds, labels, verbose=False)
+    m.compile(opt, port.LossType.LOSS_BINARY_CROSSENTROPY)
+    feeds, labels = ref_synthetic.random_batches(_tiny(ref_dlrm), 64, seed=1)
+    hist = m.fit(feeds, labels, verbose=False)
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if " forward time = " in ln]
+    assert [ln.split(" forward time")[0] for ln in lines] == [
+        f"[{type(op).__name__}] {op.name}" for op in m.graph.compute_ops]
+    assert np.isfinite(hist["epoch_time_s"]) and hist["samples"] == 64
 
 
 def test_dense_momentum_sgd_without_sparse_tables_matches_reference():
