@@ -231,9 +231,33 @@ Phases, each of which ends the run with a non-zero exit if it fails:
                op); mlperf-lite at 16384 under use_pallas="on" served op by
                op (op_timing_report: K6, K5f, K4 and K3 launched),
                export_task_graph, check_numerics and trace.
- 36. summary - a {"kernels": [...]} line (K6's entry with the zoo's
-               launches), then the last line {"ok": true, "device": {...}}.
-Around each path (4, 6, 8, 10, 11, 13, 14, 15, 18, 20, 24, 27-30, 32 and 35) the
+ 36. frontends - the model-import frontends (frontends/) through the
+               entry points a user calls, after phase 35 and before the
+               kernel checks: a Keras Sequential mnist_mlp (784-512-512-10)
+               trained by Model.fit at 64 for 3 epochs of load_mnist's
+               surrogate past VerifyMetrics("accuracy", 0.9), bit for bit
+               with zoo.mnist_mlp given its weights, served at 16384 under
+               "on" (K6: 3 a request) against "auto"; a Keras functional
+               cifar10_cnn with the zoo model's op types and parameter
+               shapes, bit for bit with it, a few Model.fit epochs on
+               load_cifar10 with the loss falling; AlexNet as an nn.Module
+               traced by torch_to_ir, through save_ir / load_ir, applied
+               in f32 against the module's own forward (TF32 off) within
+               the bound of its f32 sums, served at 256 under "on" (K6: 3 a
+               chunk); the port's examples/import_models.py torch tour;
+               a duck-typed ONNX cifar10_cnn (Split / Concat, Reshape to
+               -1) bit for bit with the zoo's; a duck-typed tf.keras
+               Sequential (channels-first conv stem, mnist_mlp's widths)
+               through from_tf_keras and load_tf_weights against a plain
+               f32 computation of its arrays; a Keras model of a 7424-row
+               and a 2,000,000-row table (D = 128) and 13 dense features
+               into Dense 256 and Dense 1, served at 16384 under "on"
+               (K5f, K4 and two K6 a request) against "auto". The card has
+               no tensorflow and no onnx: those models come as stand-ins.
+ 37. summary - a {"kernels": [...]} line (K6's entry with the zoo's
+               launches; K6's, K4's and K5f's with the frontends'), then
+               the last line {"ok": true, "device": {...}}.
+Around each path (4, 6, 8, 10, 11, 13, 14, 15, 18, 20, 24, 27-30, 32, 35 and 36) the
 kernel launch counts are zeroed just before and read just after, and must
 show every kernel of that path; phase 17 counts its replays' launches from
 the graph.
@@ -4430,6 +4454,450 @@ def phase_autotune() -> dict:
     return res
 
 
+FRONTENDS_BATCH = 64  # Model.fit's batch, the zoo's default
+FRONTENDS_SERVE = 16384  # the Keras models' serving batch
+FRONTENDS_CHUNKS = 2  # full requests each Keras model serves under "on"
+FRONTENDS_MNIST_N = 10000  # load_mnist's surrogate at its default size
+FRONTENDS_CIFAR_N = 2048  # load_cifar10's surrogate: 32 batches an epoch
+FRONTENDS_CIFAR_EPOCHS = 6
+FRONTENDS_TABLES = (7424, 2_000_000)  # K5f's and K4's chip shapes, D = 128
+# the f32 sums of a layer's outputs: C * kh * kw for a convolution, the
+# input width for a Linear / Dense
+ALEXNET_SUM_LENGTHS = (3 * 121, 64 * 25, 192 * 9, 384 * 9, 256 * 9, 9216, 4096, 4096)
+TF_STAND_IN_SUM_LENGTHS = (9, 1568, 512, 512)
+
+
+def f32_sum_atol(lengths) -> float:
+    """Two f32 computations that sum a layer's n products in other orders
+    (cuDNN's convolution against the port's, cuBLAS against a plain
+    matmul) are each within n * 2^-24 of the exact sum, relative to the sum
+    of the terms' magnitudes, so within 2 n 2^-24 of each other; to first
+    order the layers' differences add. With inputs, activations and
+    weights of unit order or less (the terms' magnitudes sum to about the
+    output's scale), the outputs' tolerance is 2 * (sum of n) * 2^-24."""
+    return 2.0 * sum(lengths) * F32_UNIT
+
+
+def counted(fn) -> tuple:
+    """fn()'s result and the kernel launches it made, the counts zeroed
+    just before and read just after."""
+    counts = launch_counts()
+    for c in counts.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: c.launches for name, c in counts.items() if c.launches}
+
+
+def timed_forward(ff, feeds: dict) -> tuple:
+    """A warm forward of `feeds`: its output, examples/s by the host's clock
+    to a synchronize, and the kernel launches it made."""
+    ff.forward(feeds)
+    t0 = time.perf_counter()
+    out, launches = counted(lambda: ff.forward(feeds))
+    return out, next(iter(feeds.values())).shape[0] / (time.perf_counter() - t0), launches
+
+
+def keras_serve(tag: str, card: str, on, auto, chunks: list, want: dict) -> dict:
+    """Keras `predict` of each full request under "on" (launches counted)
+    and under "auto" with the same weights, each after a warm-up request:
+    the launches under "on" exactly `want`, none under "auto", the outputs
+    within E2E_ON_ATOL."""
+    on.predict(chunks[0])
+    auto.predict(chunks[0])
+    t0 = time.perf_counter()
+    y_on, launches = counted(lambda: [on.predict(c) for c in chunks])
+    on_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    y_auto, auto_launches = counted(lambda: [auto.predict(c) for c in chunks])
+    auto_s = time.perf_counter() - t0
+    y_on, y_auto = np.concatenate(y_on), np.concatenate(y_auto)
+    n = y_on.shape[0]
+    res = {"card": card, "examples": n, "launches_on": launches, "launches_auto": auto_launches,
+           "examples_per_s_on": n / on_s, "examples_per_s_auto": n / auto_s,
+           "max_abs_err": float(np.abs(y_on - y_auto).max()), "atol": E2E_ON_ATOL,
+           "finite": bool(np.isfinite(y_on).all() and np.isfinite(y_auto).all())}
+    log(f"{tag} served under 'on' vs 'auto': {json.dumps(res)}")
+    if launches != want or auto_launches or not res["finite"] or not res["max_abs_err"] <= E2E_ON_ATOL:
+        raise AssertionError(f"{tag}: serving under 'on', want launches {want}: {res}")
+    return res
+
+
+def frontends_mnist(card: str) -> dict:
+    """The Keras Sequential mnist_mlp (the zoo's widths) trained by
+    Model.fit past VerifyMetrics("accuracy", 0.9), bit for bit with
+    zoo.mnist_mlp given its weights, then served under "on"."""
+    from dlrm_flexflow_tpu_torch import FFConfig
+    from dlrm_flexflow_tpu_torch.frontends import datasets, keras as K
+    from dlrm_flexflow_tpu_torch.models import zoo
+    from dlrm_flexflow_tpu_torch.training.callbacks import VerifyMetrics
+
+    tag, b = "[frontends] keras mnist_mlp", FRONTENDS_BATCH
+
+    def build(batch, **cfg):  # the zoo's op names, so its weights carry by name
+        m = K.Sequential([K.Dense(512, activation="relu", name="dense"),
+                          K.Dense(512, activation="relu", name="dense_1"),
+                          K.Dense(10, name="dense_2"), K.Softmax(name="softmax")])
+        m.compile(optimizer="sgd", loss="categorical_crossentropy", metrics=["accuracy"], input_shape=[784],
+                  config=FFConfig(batch_size=batch, seed=SEED + 61, **cfg))
+        return m
+
+    (xtr, ytr), _ = datasets.load_mnist(synthetic_n=FRONTENDS_MNIST_N)
+    x = xtr.reshape(len(xtr), 784).astype(np.float32) / 255.0
+    y = datasets.to_categorical(ytr, 10)
+    model = build(b)
+    hist, launches = counted(lambda: model.fit(x, y, epochs=3, verbose=False,
+                                               callbacks=[VerifyMetrics("accuracy", 0.9)]))
+    ref = zoo.mnist_mlp(batch_size=b, config=FFConfig(batch_size=b, seed=SEED + 61))
+    ref.compile()
+    ref.set_parameters(model.ffmodel.get_parameters())
+    got, want = model.predict(x[:b]), ref.forward({"image": x[:b]}).cpu().numpy()
+    res = {"card": card, "epochs": 3, "batch": b, "examples_per_s": hist["throughput"],
+           "first_epoch_time_s": hist["first_epoch_time_s"], "accuracy": hist["accuracy"], "launches": launches,
+           "bit_identical_to_zoo": bool(np.array_equal(got, want)), "max_abs_err": float(np.abs(got - want).max())}
+    log(f"{tag} fit {json.dumps(res)}")
+    if launches or not res["bit_identical_to_zoo"]:
+        raise AssertionError(f"{tag}: a kernel launched under 'auto', or the forward differs from the zoo's: {res}")
+    on, auto = build(FRONTENDS_SERVE, use_pallas="on"), build(FRONTENDS_SERVE)
+    for m in (on, auto):
+        m.ffmodel.set_parameters(model.ffmodel.get_parameters())
+    chunks = np.split(np.resize(x, (FRONTENDS_CHUNKS * FRONTENDS_SERVE, 784)), FRONTENDS_CHUNKS)
+    res["serve"] = keras_serve(tag, card, on, auto, chunks,
+                               {"fused_dense": ZOO_K6_A_CHUNK["mnist_mlp"] * FRONTENDS_CHUNKS})
+    return res
+
+
+def carry_by_order(model, ref) -> None:
+    """ref's weights into `model`, op by op in graph order over the ops that
+    have parameters, whose shapes must be equal."""
+    mine, theirs = ([op.name for op in m.graph.compute_ops if op.name in m.get_parameters()] for m in (model, ref))
+    shapes = [[{k: tuple(v.shape) for k, v in m.get_parameters()[n].items()} for n in ns]
+              for m, ns in ((model, mine), (ref, theirs))]
+    if shapes[0] != shapes[1]:
+        raise AssertionError(f"parameter shapes {shapes[0]} differ from {shapes[1]}")
+    model.set_parameters({n: ref.get_parameters()[t] for n, t in zip(mine, theirs)})
+
+
+def frontends_cifar(card: str) -> dict:
+    """The Keras functional cifar10_cnn (the zoo's widths): the zoo
+    model's op types and parameter shapes, bit for bit with it given its
+    weights; then Model.fit epochs at 64 on load_cifar10, the loss
+    falling."""
+    from dlrm_flexflow_tpu_torch import FFConfig
+    from dlrm_flexflow_tpu_torch.frontends import datasets, keras as K
+    from dlrm_flexflow_tpu_torch.models import zoo
+    from dlrm_flexflow_tpu_torch.training.callbacks import Callback
+
+    tag, b = "[frontends] keras cifar10_cnn", FRONTENDS_BATCH
+    img = K.Input([3, 32, 32])
+    t = img
+    for i, filters in enumerate((32, 32, 0, 64, 64, 0)):
+        layer = (K.Conv2D(filters, 3, padding="same", activation="relu", name=f"conv{i}") if filters
+                 else K.MaxPooling2D(2, name=f"pool{i}"))
+        t = layer(t)
+    t = K.Dense(512, activation="relu", name="fc1")(K.Flatten(name="flat")(t))
+    model = K.Model(img, K.Softmax(name="probs")(K.Dense(10, name="fc2")(t)))
+    model.compile(optimizer="sgd", loss="categorical_crossentropy", metrics=["accuracy", "categorical_crossentropy"],
+                  config=FFConfig(batch_size=b, seed=SEED + 62))
+    ref = zoo.cifar10_cnn(batch_size=b, config=FFConfig(batch_size=b, seed=SEED + 62))
+    ref.compile()
+    kinds = [type(op).__name__ for op in model.ffmodel.graph.compute_ops]
+    if kinds != [type(op).__name__ for op in ref.graph.compute_ops]:
+        raise AssertionError(f"{tag}: op types {kinds} differ from zoo.cifar10_cnn's")
+    carry_by_order(model.ffmodel, ref)
+    (xtr, ytr), _ = datasets.load_cifar10(synthetic_n=FRONTENDS_CIFAR_N)
+    x = xtr.astype(np.float32) / 255.0
+    y = datasets.to_categorical(ytr, 10)
+    got, want = model.predict(x[:b]), ref.forward({"image": x[:b]}).cpu().numpy()
+
+    class EpochLosses(Callback):
+        def __init__(self):
+            self.losses = []
+
+        def on_epoch_end(self, m, epoch, metrics):
+            self.losses.append(metrics["cce"])
+            return False
+
+    rec = EpochLosses()
+    hist, launches = counted(lambda: model.fit(x, y, epochs=FRONTENDS_CIFAR_EPOCHS, verbose=False, callbacks=[rec]))
+    res = {"card": card, "ops": kinds, "bit_identical_to_zoo": bool(np.array_equal(got, want)),
+           "max_abs_err": float(np.abs(got - want).max()), "epochs": FRONTENDS_CIFAR_EPOCHS, "steps": FRONTENDS_CIFAR_EPOCHS * (FRONTENDS_CIFAR_N // b),
+           "examples_per_s": hist["throughput"], "epoch_cce": rec.losses, "launches": launches}
+    log(f"{tag} {json.dumps(res)}")
+    if launches or not res["bit_identical_to_zoo"]:
+        raise AssertionError(f"{tag}: a kernel launched under 'auto', or the forward differs from the zoo's: {res}")
+    loss_fell(tag, rec.losses, cycle=2)
+    return res
+
+
+class AlexNet(torch.nn.Module):
+    """zoo.alexnet's layers as a torch module (229 x 229 input, 10 classes)."""
+
+    def __init__(self):
+        super().__init__()
+        nn = torch.nn
+        self.conv1, self.conv2 = nn.Conv2d(3, 64, 11, 4, 2), nn.Conv2d(64, 192, 5, 1, 2)
+        self.conv3, self.conv4 = nn.Conv2d(192, 384, 3, 1, 1), nn.Conv2d(384, 256, 3, 1, 1)
+        self.conv5 = nn.Conv2d(256, 256, 3, 1, 1)
+        self.pool, self.relu, self.flat = nn.MaxPool2d(3, 2), nn.ReLU(), nn.Flatten()
+        self.fc1, self.fc2, self.fc3 = nn.Linear(9216, 4096), nn.Linear(4096, 4096), nn.Linear(4096, 10)
+        self.softmax = nn.Softmax(dim=1)
+
+    def forward(self, x):
+        r = self.relu
+        x = self.pool(r(self.conv2(self.pool(r(self.conv1(x))))))
+        x = self.pool(r(self.conv5(r(self.conv4(r(self.conv3(x)))))))
+        return self.softmax(self.fc3(r(self.fc2(r(self.fc1(self.flat(x)))))))
+
+
+def no_tf32(fn):
+    """fn() with TF32 off for cuBLAS and cuDNN, restored after."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def frontends_torch_fx(card: str) -> dict:
+    """AlexNet traced by torch_to_ir, through save_ir and load_ir, applied
+    on the card in f32 and held against the module's own forward with the
+    imported weights; served at 256 under "on" (K6 on the three Linear
+    layers) against "auto"; then the port's examples/import_models.py
+    torch tour."""
+    import tempfile
+
+    from dlrm_flexflow_tpu_torch import FFConfig, FFModel
+    from dlrm_flexflow_tpu_torch.examples import import_models
+    from dlrm_flexflow_tpu_torch.frontends.torch_fx import PyTorchModel, load_ir, save_ir, torch_to_ir
+
+    tag, b = "[frontends] torch.fx alexnet", ZOO_CNN_BATCH["alexnet"]
+    module = AlexNet()
+    ir = torch_to_ir(module)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fx_") as tmp:
+        save_ir(ir, f"{tmp}/alexnet.ff")
+        loaded = load_ir(f"{tmp}/alexnet.ff")
+    if [n.to_line() for n in loaded] != [n.to_line() for n in ir]:
+        raise AssertionError(f"{tag}: the IR file did not load back as written")
+
+    def imported(batch, **cfg):
+        ff = FFModel(FFConfig(batch_size=batch, seed=SEED + 63, **cfg))
+        PyTorchModel(loaded).apply(ff, [ff.create_tensor([batch, 3, 229, 229], name="x")])
+        ff.compile()
+        return ff
+
+    ff = imported(b, compute_dtype="float32")
+    params = ff.get_parameters()
+    module = module.cuda().eval()
+    with torch.no_grad():
+        for name, sub in params.items():
+            getattr(module, name).weight.copy_(sub["kernel"])
+            getattr(module, name).bias.copy_(sub["bias"])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 63)
+    x = torch.randn((b, 3, 229, 229), generator=gen, device="cuda")
+    got, rate, launches = timed_forward(ff, {"x": x})
+    want = no_tf32(lambda: module(x))
+    atol = f32_sum_atol(ALEXNET_SUM_LENGTHS)
+    res = {"card": card, "nodes": len(ir), "batch": b, "examples_per_s_f32": rate, "launches": launches,
+           "max_abs_err": float((got - want).abs().max()), "atol": atol, "finite": bool(torch.isfinite(got).all()),
+           "out_range": [float(want.min()), float(want.max())]}
+    log(f"{tag} f32 against the module's own forward: {json.dumps(res)}")
+    if launches or not (res["finite"] and res["max_abs_err"] <= atol):
+        raise AssertionError(f"{tag}: {res}")
+    sb = ZOO_CNN_SERVE_BATCH
+    on, auto = imported(sb, use_pallas="on"), imported(sb)
+    for m in (on, auto):
+        m.set_parameters(params)
+    n = 4 * sb + 100
+    feeds = {"x": torch.randn((n, 3, 229, 229), generator=gen, device="cuda").cpu().numpy()}
+    serve, y_on, _, k6_ok = zoo_serve(card, on, auto, feeds, ZOO_K6_A_CHUNK["alexnet"] * -(-n // sb))
+    serve["examples_per_s_on"] = n / serve["on_predict_s"]
+    serve["examples_per_s_auto"] = n / serve["auto_predict_s"]
+    log(f"{tag} served under 'on' vs 'auto': {json.dumps(serve)}")
+    if not (k6_ok and serve["finite"] and y_on.shape == (n, 10) and serve["max_abs_err"] <= serve["atol"]):
+        raise AssertionError(f"{tag}: serving under 'on': {serve}")
+    res["serve"] = serve
+    tour = import_models.main(["--tours", "torch"])["torch"]
+    log(f"[frontends] examples/import_models.py torch tour: {json.dumps({'shape': tour['shape'], **tour['history']})}")
+    if tour["shape"] != (8, 4) or not math.isfinite(tour["history"]["accuracy"]):
+        raise AssertionError(f"[frontends] the torch tour: {tour}")
+    return res
+
+
+def onnx_cifar10_cnn(rng):
+    """A duck-typed ONNX ModelProto of cifar10_cnn: Conv and Relu pairs, two
+    MaxPools, Flatten, a Split / Concat pair, a Reshape to [0, -1], Gemm
+    (transB) and Relu, Gemm, Softmax; initializers drawn from `rng`."""
+    from types import SimpleNamespace as NS
+
+    def init(name, *shape):
+        return NS(name=name, array=rng.standard_normal(shape).astype(np.float32))
+
+    def node(op, ins, outs, **attrs):
+        return NS(op_type=op, input=ins, output=outs,
+                  attribute=[NS(name=k, ints=v) if isinstance(v, list) else NS(name=k, i=v)
+                             for k, v in attrs.items()])
+
+    inits, nodes, t = [], [], "image"
+    for i, step in enumerate(((3, 32), (32, 32), None, (32, 64), (64, 64), None)):
+        if step is None:
+            nodes.append(node("MaxPool", [t], [f"p{i}"], kernel_shape=[2, 2], strides=[2, 2]))
+            t = f"p{i}"
+            continue
+        cin, cout = step
+        inits += [init(f"w{i}", cout, cin, 3, 3), init(f"b{i}", cout)]
+        nodes += [node("Conv", [t, f"w{i}", f"b{i}"], [f"c{i}"], kernel_shape=[3, 3], pads=[1, 1, 1, 1]),
+                  node("Relu", [f"c{i}"], [f"r{i}"])]
+        t = f"r{i}"
+    inits += [NS(name="shape", array=np.array([0, -1], np.int64)), init("fw1", 512, 4096), init("fb1", 512),
+              init("fw2", 10, 512), init("fb2", 10)]
+    nodes += [node("Flatten", [t], ["f"]),
+              node("Split", ["f"], ["s1", "s2"], axis=1, split=[2048, 2048]),
+              node("Concat", ["s1", "s2"], ["cat"], axis=1),
+              node("Reshape", ["cat", "shape"], ["rs"]),
+              node("Gemm", ["rs", "fw1", "fb1"], ["fc1"], transB=1),
+              node("Relu", ["fc1"], ["fc1r"]),
+              node("Gemm", ["fc1r", "fw2", "fb2"], ["fc2"], transB=1),
+              node("Softmax", ["fc2"], ["probs"])]
+    return NS(graph=NS(node=nodes, initializer=inits, output=[NS(name="probs")]))
+
+
+def frontends_onnx(card: str, rng) -> dict:
+    """The ONNX stand-in of cifar10_cnn applied on the card: the zoo
+    model's parameter shapes, and its forward bit for bit with the zoo's
+    given its weights."""
+    from dlrm_flexflow_tpu_torch import FFConfig, FFModel
+    from dlrm_flexflow_tpu_torch.frontends.onnx import ONNXModel
+    from dlrm_flexflow_tpu_torch.models import zoo
+
+    tag, b = "[frontends] onnx cifar10_cnn", FRONTENDS_BATCH
+    proto = onnx_cifar10_cnn(rng)
+    ff = FFModel(FFConfig(batch_size=b, seed=SEED + 64))
+    out = ONNXModel(proto).apply(ff, {"image": ff.create_tensor([b, 3, 32, 32], name="image")})
+    ff.compile()
+    ref = zoo.cifar10_cnn(batch_size=b, config=FFConfig(batch_size=b, seed=SEED + 64))
+    ref.compile()
+    carry_by_order(ff, ref)
+    x = rng.random((b, 3, 32, 32), dtype=np.float32)
+    got, rate, launches = timed_forward(ff, {"image": x})
+    want = ref.forward({"image": x})
+    res = {"card": card, "nodes": len(proto.graph.node), "op_types": sorted({n.op_type for n in proto.graph.node}),
+           "out_shape": list(out.shape), "examples_per_s": rate, "launches": launches,
+           "bit_identical_to_zoo": bool(torch.equal(got, want)), "max_abs_err": float((got - want).abs().max())}
+    log(f"{tag} {json.dumps(res)}")
+    if launches or not res["bit_identical_to_zoo"] or tuple(got.shape) != (b, 10):
+        raise AssertionError(f"{tag}: {res}")
+    return res
+
+
+def tf_stand_in(rng):
+    """A duck-typed tf.keras Sequential (what from_tf_keras reads: layers
+    whose class names are tf's, `name`, get_config() and get_weights() in
+    tf's layouts, HWIO and [in, out]): a channels-first conv stem, then
+    mnist_mlp's widths."""
+    from types import SimpleNamespace as NS
+
+    def layer(kind, name, config, *shapes):
+        weights = [(rng.standard_normal(s) / math.sqrt(np.prod(s[:-1]) if len(s) > 1 else 1)).astype(np.float32)
+                   for s in shapes]
+        return type(kind, (), {"name": name, "get_config": lambda self: dict(config),
+                               "get_weights": lambda self: list(weights)})()
+
+    layers = [
+        layer("InputLayer", "input", {}),
+        layer("Conv2D", "conv", {"filters": 8, "kernel_size": (3, 3), "strides": (1, 1), "padding": "same",
+                                 "data_format": "channels_first", "activation": "relu", "use_bias": True},
+              (3, 3, 1, 8), (8,)),
+        layer("MaxPooling2D", "pool", {"pool_size": (2, 2), "strides": (2, 2), "padding": "valid"}),
+        layer("Flatten", "flat", {}),
+        layer("Dense", "dense", {"units": 512, "activation": "relu"}, (1568, 512), (512,)),
+        layer("Dense", "dense_1", {"units": 512, "activation": "relu"}, (512, 512), (512,)),
+        layer("Dense", "dense_2", {"units": 10, "activation": "softmax"}, (512, 10), (10,)),
+    ]
+    return NS(layers=layers, inputs=[NS(shape=(None, 1, 28, 28))])
+
+
+def frontends_tf(card: str, rng) -> dict:
+    """from_tf_keras and load_tf_weights of the stand-in on the card (f32),
+    held against a plain f32 computation from its arrays (TF32 off)."""
+    from dlrm_flexflow_tpu_torch import FFConfig
+    from dlrm_flexflow_tpu_torch.frontends.tf_keras import from_tf_keras, load_tf_weights
+
+    tag, b = "[frontends] tf.keras stand-in", FRONTENDS_BATCH
+    model = tf_stand_in(rng)
+    ff, in_name = from_tf_keras(model, batch_size=b, config=FFConfig(batch_size=b, compute_dtype="float32"))
+    ff.compile()
+    updated = load_tf_weights(ff, model, ff._tf_weight_transfer[1])
+    x = rng.standard_normal((b, 1, 28, 28)).astype(np.float32)
+    got, rate, launches = timed_forward(ff, {in_name: x})
+    w = {lay.name: [torch.from_numpy(a).cuda() for a in lay.get_weights()] for lay in model.layers}
+    F = torch.nn.functional
+
+    def plain():
+        t = torch.relu(F.conv2d(torch.from_numpy(x).cuda(), w["conv"][0].permute(3, 2, 0, 1), w["conv"][1], padding=1))
+        t = F.max_pool2d(t, 2).flatten(1)
+        t = torch.relu(torch.relu(t @ w["dense"][0] + w["dense"][1]) @ w["dense_1"][0] + w["dense_1"][1])
+        return torch.softmax(t @ w["dense_2"][0] + w["dense_2"][1], dim=1)
+
+    want = no_tf32(plain)
+    atol = f32_sum_atol(TF_STAND_IN_SUM_LENGTHS)
+    res = {"card": card, "ops_updated": updated, "examples_per_s": rate, "launches": launches,
+           "max_abs_err": float((got - want).abs().max()), "atol": atol}
+    log(f"{tag} against its arrays computed plainly: {json.dumps(res)}")
+    if launches or updated != 4 or not res["max_abs_err"] <= atol:
+        raise AssertionError(f"{tag}: {res}")
+    return res
+
+
+def frontends_embedding(card: str, rng) -> dict:
+    """A Keras functional model of two Embedding tables (7424 and 2,000,000
+    rows, D = 128, one id a row) and 13 dense features, concatenated into
+    Dense 256 relu and Dense 1 sigmoid, served at 16384 under "on"
+    (packed_tables="off": the large table off the row-update route):
+    K5f, K4 and two K6 a request, against "auto"."""
+    from dlrm_flexflow_tpu_torch import FFConfig
+    from dlrm_flexflow_tpu_torch.ffconst import DataType
+    from dlrm_flexflow_tpu_torch.frontends import keras as K
+
+    tag, small, large = "[frontends] keras embedding model", *FRONTENDS_TABLES
+
+    def build(**cfg):
+        a, b, dense = K.Input([1], DataType.DT_INT64), K.Input([1], DataType.DT_INT64), K.Input([13])
+        h = K.Concatenate(axis=1, name="cat")([K.Embedding(small, 128, aggr="sum", name="small")(a),
+                                               K.Embedding(large, 128, aggr="sum", name="large")(b), dense])
+        h = K.Dense(256, activation="relu", name="h")(h)
+        m = K.Model([a, b, dense], K.Dense(1, activation="sigmoid", name="out")(h))
+        m.compile(loss="binary_crossentropy", config=FFConfig(batch_size=FRONTENDS_SERVE, seed=SEED + 65,
+                                                              packed_tables="off", **cfg))
+        return m
+
+    on = build(use_pallas="on")
+    auto = build()
+    auto.ffmodel.set_parameters(on.ffmodel.get_parameters())
+    n = FRONTENDS_SERVE
+    chunks = [[rng.integers(0, small, (n, 1)), rng.integers(0, large, (n, 1)),
+               rng.standard_normal((n, 13)).astype(np.float32)] for _ in range(FRONTENDS_CHUNKS)]
+    want = {"fused_dense": 2 * FRONTENDS_CHUNKS, "onehot_embedding": FRONTENDS_CHUNKS,
+            "embedding_bag": FRONTENDS_CHUNKS}
+    return keras_serve(tag, card, on, auto, chunks, want)
+
+
+def phase_frontends(card: str) -> dict:
+    """Phase 36 (see the module note): the model-import frontends on the
+    card, through the entry points a user calls."""
+    rng = np.random.default_rng(SEED + 60)
+    out = {"mnist": frontends_mnist(card), "cifar": frontends_cifar(card), "torch_fx": frontends_torch_fx(card),
+           "onnx": frontends_onnx(card, rng), "tf": frontends_tf(card, rng),
+           "embedding": frontends_embedding(card, rng)}
+    torch.cuda.empty_cache()
+    out["launches_on"] = {"mnist_mlp": out["mnist"]["serve"]["launches_on"],
+                          "alexnet": out["torch_fx"]["serve"]["launches_on"],
+                          "embedding_model": out["embedding"]["launches_on"]}
+    return out
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -4467,6 +4935,7 @@ def main() -> None:
     zoo["alexnet"].update(phase_zoo_cnn_on(card))
     phase_zoo_parity(card)
     autotune = phase_autotune()
+    frontends = phase_frontends(card)
     # after the paths: run before them, these cases left about 0.5 GB
     # allocated, which showed in the paths' peak memory
     k6 = phase_fused_dense()
@@ -4531,6 +5000,8 @@ def main() -> None:
             # each model's predict, and the zoo shapes' check (phase 34)
             entries[-1]["zoo_launches"] = {m: zoo[m]["k6_launches"] for m in ZOO_K6_A_CHUNK}
             entries[-1]["max_abs_err"] = max(k6["max_abs_err"], k6_zoo["max_abs_err"])
+        # the imported models served under "on" (phase 36), by model
+        entries[-1]["frontends_launches"] = {m: n[name] for m, n in frontends["launches_on"].items() if name in n}
     entries.append({
         "name": "onehot_embedding_backward",
         "route": "cuda",

@@ -15,7 +15,10 @@ mesh), checkpoints it (`training/checkpoint.py`), and carries
 weights over from the JAX package (`convert.py`). The op library's
 elementwise, shape, attention, MoE, convolutional and recurrent ops build
 every model of the zoo (`models/zoo.py`: the MLPs, MoE, attention models,
-CNNs and the NMT LSTM), which train and serve on one device.
+CNNs and the NMT LSTM), which train and serve on one device. The
+model-import frontends (`frontends/`: the Keras facade, torch.fx, ONNX,
+tf.keras and the Keras datasets) build models from other frameworks'
+descriptions, importing none of tensorflow, keras or onnx.
 """
 
 from .config import FFConfig, FFIterationConfig
