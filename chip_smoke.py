@@ -1177,7 +1177,8 @@ def train_profile(model, staged, ms_per_step: float, steps: int = PROFILED_STEPS
             model.train_batch(*staged[i % len(staged)])
         torch.cuda.synchronize()
     rows = prof.key_averages()
-    device = [e for e in rows if e.device_type == DeviceType.CUDA and e.key not in STEP_PHASES]
+    device = [e for e in rows if e.device_type == DeviceType.CUDA and e.key not in STEP_PHASES
+              and not getattr(e, "is_user_annotation", False)]  # the port's ranges mirrored on the card
     copies = [e for e in device if e.key.startswith(("Memcpy", "Memset"))]
     kernels = [e for e in device if e not in copies]
     spans = {e.key: e.device_time_total / 1e3 / steps for e in rows
@@ -2121,7 +2122,8 @@ def chunk_profile(model, stack, labels, ms_per_step: float) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         float(model.train_chunk(stack, labels))
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]  # not the spans mirrored on the card
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / int(labels.shape[0])
     if busy == 0.0:
         return {"kernel_ms_per_step": "not measured (the profiler saw no device time in the replays)"}
@@ -2131,11 +2133,12 @@ def chunk_profile(model, stack, labels, ms_per_step: float) -> dict:
 def graph_launches(model, replays: int) -> dict:
     """The kernels one captured train step holds (tools/graph_nodes.py) and
     the row-update wrapper launches `replays` replays make: the row-update
-    kernel nodes over the kernels a wrapper launch runs (2; AdaGrad 4)."""
+    kernel nodes over the kernels a wrapper launch runs (2; AdaGrad 4). The
+    step's phase stamps are counted apart ("phase_stamp", 8)."""
     from dlrm_flexflow_tpu_torch import RowWiseAdagradOptimizer
-    from dlrm_flexflow_tpu_torch.tools.graph_nodes import node_counts
+    from dlrm_flexflow_tpu_torch.tools.graph_nodes import node_counts, stamps_apart
 
-    nodes = node_counts(model._step_graph.graph, kernel_names=True)
+    nodes = stamps_apart(node_counts(model._step_graph.graph, kernel_names=True))
     row = sum(n for name, n in nodes["kernels"].items() if "row_update" in name)
     per_launch = 4 if type(model.sparse_optimizer) is RowWiseAdagradOptimizer else 2
     return {"nodes": {k: v for k, v in nodes.items() if k != "kernels"},
@@ -2922,7 +2925,7 @@ def mesh_one_chunk(mesh, rule: str) -> dict:
     eager steps against 2 chunks of 4 on fresh models, which must leave
     every tensor of the state and every loss bit for bit the same."""
     from dlrm_flexflow_tpu_torch.models.dlrm import kaggle_config
-    from dlrm_flexflow_tpu_torch.tools.graph_nodes import node_counts
+    from dlrm_flexflow_tpu_torch.tools.graph_nodes import node_counts, stamps_apart
     from dlrm_flexflow_tpu_torch.tools.state import state_diff, state_tensors
 
     cfg = kaggle_config(batch_size=TRAIN_BATCH)
@@ -2944,7 +2947,8 @@ def mesh_one_chunk(mesh, rule: str) -> dict:
         loss_g = chunk.train_chunk(stack, labels)
     float(loss_g)
     graph_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
-    nodes = node_counts(chunk._step_graph.graph)
+    nodes = stamps_apart(node_counts(chunk._step_graph.graph, kernel_names=True))
+    nodes.pop("kernels")
     res = {"rule": rule, "eager_ms_per_step": eager_ms, "graph_ms_per_step": graph_ms,
            "graph_examples_per_s": TRAIN_BATCH / graph_ms * 1e3, "graph_nodes": nodes,
            "eager_loss": float(loss_e), "graph_loss": float(loss_g)}

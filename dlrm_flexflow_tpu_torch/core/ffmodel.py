@@ -157,7 +157,6 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from ..config import FFConfig, FFIterationConfig
 from ..convert import to_torch
@@ -193,6 +192,7 @@ from ..training.optimizer import (
     SGDOptimizer,
 )
 from ..training.sparse_engine import apply_sparse_updates
+from ..utils.profiling import capturing, span, step_phases
 from .graph import Graph, InputOp, OpContext, step_key
 from .tensor import TensorSpec
 
@@ -203,8 +203,9 @@ ROUTE_FIELDS = ("rows", "order")
 # a data axis > 1 also "_hosttail:<op>:gpos", the global batch's pos staged
 # beside the rank's block (no graph input)
 HOST_TAIL_PREFIX = "_hosttail:"
-# the eager train step's phases, in order, as torch.profiler ranges (the
-# last two only under host-tail offload)
+# the eager train step's host phases, in order, as spans (utils/profiling.py:
+# host totals, and torch.profiler ranges while a profiler records; the last
+# two only under host-tail offload)
 STEP_PHASES = ("step:build_feeds", "step:h2d_copy", "step:device_step", "step:g_val_readback",
                "step:apply_grads")
 _FORCED_TRAINING = ("training under use_pallas='on' is a later slice of the port: the JAX "
@@ -1181,9 +1182,10 @@ class FFModel:
                                   rng=self._step_key(None) if training else None)
         feeds = self._host_tail_feeds(feeds, train=False)
         with torch.inference_mode():
-            (out,) = self.graph.execute(
-                self._params, self._stage(feeds), ctx, fetch=[self._out_spec]
-            )
+            with span("forward:stage"):
+                staged = self._stage(feeds)
+            with span("forward:execute"):
+                (out,) = self.graph.execute(self._params, staged, ctx, fetch=[self._out_spec])
         return out
 
     def train_batch(self, feeds: Dict[str, Any], labels) -> torch.Tensor:
@@ -1214,18 +1216,18 @@ class FFModel:
     def _eager_step(self, feeds, labels, routes) -> torch.Tensor:
         """Stage one batch and this step's scalars (one small copy), run the
         step, count it; under host-tail offload, the host's half around it.
-        Each phase is a `torch.profiler` range named in `STEP_PHASES`."""
-        with record_function("step:build_feeds"):
+        Each phase is a span named in `STEP_PHASES`."""
+        with span("step:build_feeds"):
             feeds = self._host_tail_feeds(feeds, train=True)
-        with record_function("step:h2d_copy"):
+        with span("step:h2d_copy"):
             scalars = self._step_scalars()
             staged, labels = self._stage(feeds), self._stage_labels(labels)
-        with record_function("step:device_step"):
+        with span("step:device_step"):
             loss, g_host = self._step(staged, labels, routes, scalars)
         if self._host_tail is not None:
-            with record_function("step:g_val_readback"):
+            with span("step:g_val_readback"):
                 g_val, rate = self._host_tail_readback(g_host, scalars)
-            with record_function("step:apply_grads"):
+            with span("step:apply_grads"):
                 self._host_tail.apply_grads(g_val, rate)
         self._advance(1)
         return loss
@@ -1247,7 +1249,8 @@ class FFModel:
             step = torch.tensor(self._step_count, dtype=torch.int64, device=self.device)
         return step_key(self.config.seed, step)
 
-    def _step(self, staged, labels, routes, scalars, grad_inputs: Sequence[str] = (), step=None) -> tuple:
+    def _step(self, staged, labels, routes, scalars, grad_inputs: Sequence[str] = (), step=None,
+              timed: bool = True) -> tuple:
         """The device work of one train step on staged tensors: `routes`
         None or {op: (rows_sorted, order)}, `scalars` this step's
         `_scalar_table` row on the device. Reads no host state that changes
@@ -1266,15 +1269,22 @@ class FFModel:
         axis > 1 the gathered global gradient at the global pos), and the
         gradient of each input named in `grad_inputs` (autograd on leaves
         that require grad; training/host_offload.py). `step`: the step count
-        on the device where random ops need it (`_step_key`)."""
+        on the device where random ops need it (`_step_key`).
+
+        Each phase of `utils/profiling.py` `PHASES` is a block whose end is
+        stamped on the device (`step_phases`; a captured step stamps at
+        every replay); `timed` false stamps nothing (the warm-up before a
+        capture). The host tail's gather after the row updates is in no
+        phase."""
         opt = self.optimizer
         sparse_ops = self._sparse_ops
         sparse_names = {op.name for op in sparse_ops}
         ctx = dataclasses.replace(self._ctx, training=True, rng=self._step_key(step))
+        phase = step_phases(self.device, timed)
 
         sparse_xs: Dict[str, List[torch.Tensor]] = {}
         overrides: Dict[str, List[torch.Tensor]] = {}
-        with torch.no_grad():
+        with phase("phase:lookup"), torch.no_grad():
             for op in sparse_ops:
                 xs = [staged[t.owner_op.name] for t in op.inputs]
                 sparse_xs[op.name] = xs
@@ -1292,40 +1302,44 @@ class FFModel:
         inputs = {name: staged[name].detach().requires_grad_(True) for name in grad_inputs}
         staged = {**staged, **inputs}
         ctx.overrides = overrides
-        (logits,) = self.graph.execute(leaves, staged, ctx, fetch=[self._out_spec])
-        loss, loss_out = self._loss_and_metrics(logits, labels)
+        with phase("phase:forward"):
+            (logits,) = self.graph.execute(leaves, staged, ctx, fetch=[self._out_spec])
+        with phase("phase:loss"):
+            loss, loss_out = self._loss_and_metrics(logits, labels)
         flat_leaves = [p for sub in leaves.values() for p in sub.values()]
         flat_over = [y for op in sparse_ops for y in overrides[op.name]]
-        grads = torch.autograd.grad(
-            loss, flat_leaves + flat_over + list(inputs.values()), allow_unused=True,
-            materialize_grads=True,
-        )
+        with phase("phase:backward"):
+            grads = torch.autograd.grad(
+                loss, flat_leaves + flat_over + list(inputs.values()), allow_unused=True,
+                materialize_grads=True,
+            )
         it = iter(grads)
         g_dense = {name: {k: next(it) for k in sub} for name, sub in leaves.items()}
         g_over = {op.name: [next(it) for _ in overrides[op.name]] for op in sparse_ops}
         aux = {name: next(it) for name in inputs}
 
         mesh = self._data_mesh
-        self._reduce_dense_grads(g_dense)
+        with phase("phase:dense_reduce"):
+            self._reduce_dense_grads(g_dense)
         dense_params = {name: self._params[name] for name in g_dense}
-        if sparse_ops:
-            st = self._opt_state
-            dstate = self._dense_update(g_dense, st["dense"], dense_params, scalars)
-            lr = self._sparse_rate(dstate, scalars)
-            sstates, rest = st["sparse"], sparse_ops
-            replicated = [op for op in sparse_ops if not isinstance(op, EmbeddingCollection)]
-            if mesh is not None and replicated:
-                sstates, g_global = replicated_sparse_update(
-                    replicated, self._params, sparse_xs, g_over, self.sparse_optimizer, sstates, ctx,
-                    lr=lr, routes=routes)
-                g_over = {**g_over, **g_global}
-                rest, routes = [op for op in sparse_ops if op not in replicated], None
-            if rest:
-                sstates = apply_sparse_updates(rest, self._params, sparse_xs, g_over, self.sparse_optimizer,
-                                               sstates, ctx, lr=lr, routes=routes)
-            self._opt_state = {"dense": dstate, "sparse": sstates}
-        else:
-            self._opt_state = self._dense_update(g_dense, self._opt_state, dense_params, scalars)
+        st = self._opt_state
+        with phase("phase:dense_update"):
+            dstate = self._dense_update(g_dense, st["dense"] if sparse_ops else st, dense_params, scalars)
+        with phase("phase:sparse_update"):
+            if sparse_ops:
+                lr = self._sparse_rate(dstate, scalars)
+                sstates, rest = st["sparse"], sparse_ops
+                replicated = [op for op in sparse_ops if not isinstance(op, EmbeddingCollection)]
+                if mesh is not None and replicated:
+                    sstates, g_global = replicated_sparse_update(
+                        replicated, self._params, sparse_xs, g_over, self.sparse_optimizer, sstates, ctx,
+                        lr=lr, routes=routes)
+                    g_over = {**g_over, **g_global}
+                    rest, routes = [op for op in sparse_ops if op not in replicated], None
+                if rest:
+                    sstates = apply_sparse_updates(rest, self._params, sparse_xs, g_over,
+                                                   self.sparse_optimizer, sstates, ctx, lr=lr, routes=routes)
+        self._opt_state = {"dense": dstate, "sparse": sstates} if sparse_ops else dstate
         if self._host_tail is not None:
             suffix = "gpos" if mesh is not None else "pos"
             for name in self._host_tail.entries:
@@ -1425,7 +1439,12 @@ class FFModel:
         step holds the step's collectives: the exchange's all-to-alls, the
         dense gradients' all-reduce and the loss-and-metrics all-reduce,
         each run once, in the same order on every rank, by the eager first
-        step, which makes the NCCL communicators before the capture."""
+        step, which makes the NCCL communicators before the capture.
+
+        Spans on CUDA (utils/profiling.py): `train_chunk:stage` (the stacks to
+        the card, and each step's copy into the static buffer),
+        `train_chunk:capture` (the warm-up step and the capture: its count
+        is the captures made) and `train_chunk:replay` (the loop of steps)."""
         self._require_trainable()
         if self._host_tail is not None:
             raise RuntimeError(_HOST_TAIL_CHUNK)
@@ -1466,19 +1485,23 @@ class FFModel:
             graph = self._step_graph = _StepGraph(self.device, plan, route_ops if keys else [],
                                                   {n: c for n, c in self._constants.items()
                                                    if n not in stacked_feeds})
-        stacks = graph.stage(entries, k)
+        with span("train_chunk:stage"):
+            stacks = graph.stage(entries, k)
         done = 0
         try:
-            for i in range(k):
-                graph.static.copy_(stacks[i])
-                if graph.graph is None:
-                    loss = graph.warm_up(self)
-                    done += 1
-                    graph.capture(self)
-                else:
-                    graph.graph.replay()
-                    loss = graph.loss
-                    done += 1
+            with span("train_chunk:replay"):
+                for i in range(k):
+                    with span("train_chunk:stage"):
+                        graph.static.copy_(stacks[i])
+                    if graph.graph is None:
+                        with span("train_chunk:capture"):
+                            loss = graph.warm_up(self)
+                            done += 1
+                            graph.capture(self)
+                    else:
+                        graph.graph.replay()
+                        loss = graph.loss
+                        done += 1
         finally:
             self._advance(done)
         return loss.clone()
@@ -1567,7 +1590,11 @@ class FFModel:
         place of the JAX package's pack fields (`enc`, `starts`).
 
         A device tensor among the index feeds is copied to the host first,
-        which waits for the device."""
+        which waits for the device. Each call is one `routes` span."""
+        with span("routes"):
+            return self._compute_routes(feeds)
+
+    def _compute_routes(self, feeds: Dict[str, Any]) -> Dict[str, np.ndarray]:
         self._require_compiled()
         by_k: Dict[int, List] = {}
         for op in self._sparse_ops:
@@ -1799,7 +1826,17 @@ class FFModel:
         chunks of the compiled batch size; the last partial chunk is padded
         by repeating its final row, then trimmed. Under a mesh every rank
         is given all the examples, serves its slice of each chunk, and
-        returns them all (an all-gather a chunk over the data group)."""
+        returns them all (an all-gather a chunk over the data group).
+
+        Spans (utils/profiling.py): `predict` a call (numbered under a
+        profiler), `forward:stage` and `forward:execute` a chunk (`forward`),
+        `predict:readback` a chunk's copy to the host; the rest of the
+        call's time, `predict`'s self time, is the chunking, padding and
+        concatenation (and under a mesh the gather)."""
+        with span("predict", numbered=True):
+            return self._predict(feeds, batch_size)
+
+    def _predict(self, feeds: Dict[str, np.ndarray], batch_size: Optional[int]) -> np.ndarray:
         self._require_compiled()
         bs = batch_size or self.config.batch_size
         n = next(iter(feeds.values())).shape[0]
@@ -1821,7 +1858,8 @@ class FFModel:
                                     dtype=y.dtype, device=y.device)
                 dist.all_gather_into_tensor(parts, y.contiguous(), group=mesh.data_group())
                 y = parts
-            outs.append(y[:m].float().cpu().numpy())
+            with span("predict:readback"):
+                outs.append(y[:m].float().cpu().numpy())
         return np.concatenate(outs, axis=0)
 
     # ------------------------------------------------------------------ state IO
@@ -2092,7 +2130,7 @@ class _StepGraph:
         side = torch.cuda.Stream(dev)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            loss, _ = model._step(*self._args(), step=self.views.get("_step"))
+            loss, _ = model._step(*self._args(), step=self.views.get("_step"), timed=False)
         current.wait_stream(side)
         loss.record_stream(current)
         return loss
@@ -2105,7 +2143,7 @@ class _StepGraph:
         # thread_local: under a mesh the process group's watchdog thread
         # queries its work's events during the capture, which the default
         # global mode refuses; one mode on every device count
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with capturing(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self.loss, _ = model._step(*self._args(), step=self.views.get("_step"))
         graph.instantiate()
         self.graph = graph

@@ -15,6 +15,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from ..ffconst import DataType, OperatorType
+from ..utils.profiling import op_range
 from .tensor import ParameterSpec, TensorSpec
 
 
@@ -201,6 +202,7 @@ class Graph:
         self.inputs: List[InputOp] = []
         self._names: Dict[str, int] = {}
         self._next_guid = 1000  # the JAX package's guid base
+        self._ranges: Dict[int, str] = {}  # guid -> "op:<name>", the op's profiler range, made once
 
     def unique_name(self, base: str) -> str:
         n = self._names.get(base, 0)
@@ -238,8 +240,10 @@ class Graph:
     ) -> List[torch.Tensor]:
         """Topological interpretation of the graph. `feeds` maps input-op
         name -> tensor. Returns the `fetch` tensors (default: the outputs
-        of the final op)."""
+        of the final op). Under a running profiler each op's forward is a
+        range `op:<name>` (utils/profiling.py `op_range`)."""
         env: Dict[Tuple[int, int], torch.Tensor] = {}
+        ranges = self._ranges
         ctx = dataclasses.replace(ctx, memo={})
         for iop in self.inputs:
             env[(iop.guid, 0)] = feeds[iop.name]
@@ -248,7 +252,9 @@ class Graph:
                 ys = list(ctx.overrides[op.name])
             else:
                 xs = [env[(t.owner_op.guid, t.owner_idx)] for t in op.inputs]
-                ys = op.forward(params.get(op.name, {}), xs, ctx)
+                name = ranges.get(op.guid) or ranges.setdefault(op.guid, f"op:{op.name}")
+                with op_range(name):
+                    ys = op.forward(params.get(op.name, {}), xs, ctx)
             if ctx.taps is not None:
                 for i, y in enumerate(ys):
                     ctx.taps[f"{op.name}:{i}"] = y

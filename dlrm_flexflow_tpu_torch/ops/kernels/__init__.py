@@ -21,6 +21,8 @@ tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
   - row_gather.py       : the forward-gather probe's row gather (K7,
                           replaces `_dma_gather_kernel`,
                           scripts/bench_gather_probe.py)
+  - phase_stamp.py      : the train step's device phase stamp (no TPU
+                          counterpart: utils/profiling.py `step_phases`)
 
 Routing mirrors the JAX package: FFConfig.use_pallas ->
 resolve_use_pallas() -> OpContext.use_pallas, read per op.

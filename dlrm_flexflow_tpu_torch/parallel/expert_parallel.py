@@ -36,13 +36,14 @@ from typing import Tuple
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from ..ffconst import ActiMode
 from ..ops.common import apply_activation
 from ..ops.moe import aggregate, dispatch, dispatch_slots, moe_capacity
+from ..utils.profiling import span
 
-# the profiler ranges of the two all-to-alls (tools/mesh_smoke.py times them)
+# the spans of the two all-to-alls, profiler ranges while a profiler records
+# (tools/mesh_smoke.py times them)
 RANGES = ("expert_parallel:dispatch", "expert_parallel:combine")
 
 
@@ -77,7 +78,7 @@ class _AllToAll(torch.autograd.Function):
 def _exchange(x: torch.Tensor, group, name: str) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
-    with record_function(name):
+    with span(name):
         dist.all_to_all_single(out, x, group=group)
     return out
 

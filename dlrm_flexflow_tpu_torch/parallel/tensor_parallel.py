@@ -22,17 +22,19 @@ the model axis is moved behind the batch. Each collective has a static
 size, so a train step captured in a CUDA graph holds them
 (`FFModel.train_chunk`). `group` is a process group of the model axis
 (`Mesh.model_group()`; None: the default group, when the model axis is the
-world). Each collective runs inside a `torch.profiler` range named in
-`RANGES`, whose device time is the model group's NCCL time in a profile
-(tools/mesh_smoke.py).
+world). Each collective runs inside a span named in `RANGES`
+(utils/profiling.py: host totals, and a `torch.profiler` range while a
+profiler records), whose device time is the model group's NCCL time in a
+profile (tools/mesh_smoke.py).
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
-# the profiler ranges of the model group's collectives
+from ..utils.profiling import span
+
+# the spans of the model group's collectives
 RANGES = ("tensor_parallel:all_gather", "tensor_parallel:all_reduce")
 
 
@@ -45,7 +47,7 @@ class _CopyIn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        with record_function(RANGES[1]):
+        with span(RANGES[1]):
             dist.all_reduce(g, group=ctx.group)
         return g, None
 
@@ -57,7 +59,7 @@ class _GatherOut(torch.autograd.Function):
         lead = tuple(y.shape[:-1])
         flat = y.reshape(-1, ctx.cols).contiguous()
         parts = flat.new_empty((size * flat.shape[0], ctx.cols))
-        with record_function(RANGES[0]):
+        with span(RANGES[0]):
             dist.all_gather_into_tensor(parts, flat, group=group)
         out = parts.reshape(size, flat.shape[0], ctx.cols).permute(1, 0, 2)
         return out.reshape(lead + (size * ctx.cols,))

@@ -3,6 +3,7 @@
     from dlrm_flexflow_tpu_torch.tools.graph_nodes import graph_nodes, node_counts
     graph_nodes(lambda: fn(x))  # -> {"kernel": 2}
     node_counts(model._step_graph.graph, kernel_names=True)  # a captured train step
+    stamps_apart(node_counts(model._step_graph.graph, kernel_names=True))
 
 A profiler's activity records can come back short of a call's launches; a
 captured graph holds one node for each kernel, copy and memset the call
@@ -11,7 +12,9 @@ once before it captures it (a first call may build or set up what capture
 refuses) and never replays it. `node_counts` reads a graph captured with
 `keep_graph=True` (as `FFModel.train_chunk` captures its step); with
 `kernel_names` it also counts the kernel nodes by function name (libcuda's
-`cuGraphKernelNodeGetParams_v2` and `cuFuncGetName`).
+`cuGraphKernelNodeGetParams_v2` and `cuFuncGetName`). A captured train step
+also holds the phase stamps (`utils/profiling.py` `step_phases`, one kernel
+node a stamp, 8 a step), which `stamps_apart` counts apart by name.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import functools
 
 import torch
 
+STAMP_KERNEL = "phase_stamp_kernel"  # csrc/phase_stamp.cu
 # CUgraphNodeType, cuda.h
 NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
               6: "wait_event", 7: "event_record", 8: "ext_semas_signal", 9: "ext_semas_wait",
@@ -86,6 +90,17 @@ def node_counts(graph: torch.cuda.CUDAGraph, kernel_names: bool = False) -> dict
     if kernel_names:
         counts["kernels"] = names
     return counts
+
+
+def stamps_apart(counts: dict) -> dict:
+    """`node_counts(..., kernel_names=True)` with the phase stamps' kernel
+    nodes counted apart: "kernel" and "kernels" without them, and
+    "phase_stamp" their number."""
+    names = counts["kernels"]
+    n = sum(v for k, v in names.items() if STAMP_KERNEL in k)
+    out = dict(counts, phase_stamp=n, kernels={k: v for k, v in names.items() if STAMP_KERNEL not in k})
+    out["kernel"] = counts.get("kernel", 0) - n
+    return out
 
 
 def _kernel_name(lib, node) -> str:

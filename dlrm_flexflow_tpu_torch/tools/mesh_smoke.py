@@ -340,12 +340,12 @@ def staged_batches(cfg, b: int, dev, seed: int, zipf: float = 0.0) -> list:
 def graph_kernels(run: Run, model) -> dict:
     """The kernel nodes of the model's captured step (tools/graph_nodes.py):
     K1's (a row-update launch runs 2 kernels under SGD and Adam) and
-    NCCL's."""
+    NCCL's; the step's phase stamps counted apart ("phase_stamp", 8)."""
     if not run.cuda:
         return {"k1_kernel_nodes": "not measured (CPU: no graph)"}
-    from .graph_nodes import node_counts
+    from .graph_nodes import node_counts, stamps_apart
 
-    nodes = node_counts(model._step_graph.graph, kernel_names=True)
+    nodes = stamps_apart(node_counts(model._step_graph.graph, kernel_names=True))
     return {"nodes": {k: v for k, v in nodes.items() if k != "kernels"},
             "k1_kernel_nodes": sum(n for name, n in nodes["kernels"].items() if "row_update" in name),
             "nccl_kernel_nodes": sum(n for name, n in nodes["kernels"].items() if "nccl" in name.lower())}
@@ -366,7 +366,8 @@ def profile_steps(run: Run, fn, steps: int, ms_per_step: float) -> dict:
         fn()
         torch.cuda.synchronize(run.device)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-               and not e.key.startswith(("Memcpy", "Memset", "step:", "nccl:"))]
+               and not e.key.startswith(("Memcpy", "Memset", "step:", "nccl:"))
+               and not getattr(e, "is_user_annotation", False)]  # the port's ranges mirrored on the card
     per_step = {e.key: e.self_device_time_total / 1e3 / steps for e in kernels}
     nccl = sum(v for k, v in per_step.items() if k.startswith("ncclDevKernel"))
     busy = sum(per_step.values()) - nccl
@@ -778,7 +779,8 @@ def step_phases(run: Run, model, batches, steps: int) -> dict:
                                     "device_span_ms": spans.get(e.key, "not measured")}
               for e in rows if e.device_type == DeviceType.CPU and e.key in STEP_PHASES}
     kernels = [e for e in rows if e.device_type == DeviceType.CUDA and e.key not in STEP_PHASES
-               and not e.key.startswith(("Memcpy", "Memset", "nccl:"))]
+               and not e.key.startswith(("Memcpy", "Memset", "nccl:"))
+               and not getattr(e, "is_user_annotation", False)]
     nccl = sum(e.self_device_time_total for e in kernels if e.key.startswith("ncclDevKernel")) / 1e3 / steps
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps - nccl
     return {"phases": phases, "kernel_ms_per_step": busy, "nccl_kernel_ms_per_step": nccl}
@@ -1013,7 +1015,8 @@ def nccl_by_group(run: Run, model, batches, steps: int) -> dict:
         if e.key in RANGES:
             ranges[e.key] = max(ranges.get(e.key, 0.0), e.device_time_total / 1e3 / steps)
     kernels = [e for e in rows if e.device_type == DeviceType.CUDA and e.key not in RANGES
-               and not e.key.startswith(("Memcpy", "Memset", "nccl:", "step:"))]
+               and not e.key.startswith(("Memcpy", "Memset", "nccl:", "step:"))
+               and not getattr(e, "is_user_annotation", False)]
     by_kind = {}
     for e in kernels:
         if e.key.startswith("ncclDevKernel"):

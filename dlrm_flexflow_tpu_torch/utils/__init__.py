@@ -5,5 +5,7 @@ from .profiling import (  # noqa: F401
     log_shardings,
     op_timing_report,
     print_op_timings,
+    reset_spans,
+    span_totals,
     trace,
 )

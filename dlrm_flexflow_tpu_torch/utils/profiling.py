@@ -13,7 +13,30 @@ PyTorch counterpart of `dlrm_flexflow_tpu/utils/profiling.py`:
   log_shardings     one row a parameter: this rank's shape, device and the
                     plan's placement of it (the port keeps a rank's tensors,
                     where the JAX package prints a NamedSharding);
-  check_numerics    the ops whose outputs hold a NaN or an Inf.
+  check_numerics    the ops whose outputs hold a NaN or an Inf;
+  span              a named host span: its count, host and self seconds
+                    added to a process-wide registry, always, and under a
+                    running profiler also a `record_function` range;
+  op_range          a range under a running profiler only, with no totals
+                    (the op loop's `op:<name>`: a gap in the trace names its
+                    op);
+  step_phases       the train step's device phase stamps (`PHASES`): a
+                    one-thread kernel reads the card's %globaltimer at each
+                    phase boundary and adds the time since the last stamp to
+                    a device accumulator, in the step's stream order, so a
+                    captured step's replays time their phases with no host
+                    read; on the CPU the same boundaries read
+                    `perf_counter_ns`;
+  span_totals       the registry and the phase totals as a plain dict;
+  reset_spans       empties both.
+
+Names of the spans, ranges and phases are part of the interface (PERF.md,
+section 3, lists each with its reader). Spans are opened from one thread at
+a time. A span opened inside `capturing()` (the block in which the port
+captures its train step in a CUDA graph) adds nothing to the totals: the
+replays do that work, not the host. The block is the port's own flag, not a
+query of the stream's capture state, which costs microseconds a call on the
+card's host.
 """
 from __future__ import annotations
 
@@ -23,6 +46,7 @@ import time
 from typing import Dict, List
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 def _tapped_pass(model, feeds) -> tuple:
@@ -158,3 +182,223 @@ def check_numerics(model, feeds, labels) -> Dict[str, str]:
         elif torch.isinf(v).any():
             bad[k] = "inf"
     return bad
+
+
+# ------------------------------------------------------------------ spans and phases
+_now = time.perf_counter_ns
+_SPANS: Dict[str, "_Span"] = {}  # name -> its totals, one object a name
+_TOP = None  # the innermost open span
+_NO_RANGE = contextlib.nullcontext()
+_CAPTURES = 0  # the `capturing()` blocks open now
+
+
+class _Span:
+    """One span name's totals and its open call: `span(name)` hands out the
+    same object each call, so a span makes no object. A name opened inside
+    itself gets an object of its own that adds to the name's totals
+    (`into`)."""
+
+    __slots__ = ("name", "numbered", "into", "count", "ns", "self_ns", "parent", "first_ns", "t0", "up",
+                 "range")
+
+    def __init__(self, name: str, numbered: bool, into: "_Span" = None):
+        self.name, self.numbered, self.into = name, numbered, into if into is not None else self
+        self.count = self.ns = self.self_ns = self.first_ns = self.t0 = 0
+        self.parent = None
+
+    def __enter__(self) -> "_Span":
+        global _TOP
+        if _autograd_profiler._is_profiler_enabled:
+            self.range = torch.profiler.record_function(self.name,
+                                                        str(self.into.count) if self.numbered else None)
+            self.range.__enter__()
+        else:
+            self.range = None
+        self.up, _TOP = _TOP, self
+        self.t0 = _now()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        global _TOP
+        dt = _now() - self.t0
+        self.t0 = 0
+        _TOP = up = self.up
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        if _CAPTURES:
+            return False
+        if up is not None:
+            up.into.self_ns -= dt  # a parent's self time is its time less its children's
+        e = self.into
+        if not e.count:
+            e.first_ns, e.parent = dt, (up.name if up is not None else None)
+        e.count += 1
+        e.ns += dt
+        e.self_ns += dt
+        return False
+
+
+def span(name: str, numbered: bool = False) -> _Span:
+    """A host span `name` around a block: its count, host seconds and self
+    seconds (less its child spans') go to the registry, and its first call's
+    host seconds apart (a process's one-time set-up, such as a kernel's
+    build, lands there); while a profiler records (torch.profiler sets
+    `_is_profiler_enabled`) it is also a `record_function` range on the
+    trace's clock. With `numbered` (fixed by a name's first span), the
+    range's args are the call's sequence number (the span's count before
+    it), so the ranges of one call share an identifier. With no profiler it
+    costs two clock reads and a few attribute updates."""
+    s = _SPANS.get(name)
+    if s is None:
+        s = _SPANS[name] = _Span(name, numbered)
+    elif s.t0:  # open: the name nests in itself
+        s = _Span(name, s.numbered, into=s)
+    return s
+
+
+def op_range(name: str):
+    """A `record_function` range `name` while a profiler records; otherwise
+    nothing. Keeps no totals."""
+    return torch.profiler.record_function(name) if _autograd_profiler._is_profiler_enabled else _NO_RANGE
+
+
+@contextlib.contextmanager
+def capturing():
+    """The block in which the port captures a step in a CUDA graph: spans
+    opened in it add nothing to the totals."""
+    global _CAPTURES
+    _CAPTURES += 1
+    try:
+        yield
+    finally:
+        _CAPTURES -= 1
+
+
+# the train step's phases, in order (FFModel._step)
+PHASES = ("phase:lookup", "phase:forward", "phase:loss", "phase:backward", "phase:dense_reduce",
+          "phase:dense_update", "phase:sparse_update")
+
+
+class _PhaseClock:
+    """One device's phase totals, [ns of each phase, count of each phase,
+    the last stamp's time] as int64: on CUDA a device tensor that the stamp
+    kernel updates, on the CPU a list that `perf_counter_ns` updates."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        n = 2 * len(PHASES) + 1
+        if self.cuda:
+            from ..ops.kernels.phase_stamp import stamper
+
+            self.acc = torch.zeros(n, dtype=torch.int64, device=device)
+            self._launch = stamper(self.acc, len(PHASES))  # checked and bound once
+        else:
+            self.acc = [0] * n
+
+    def stamp(self, slot: int) -> None:
+        """The time since the last stamp added to phase `slot`; slot -1 (a
+        step's first stamp) only sets the time."""
+        if self.cuda:
+            self._launch(slot)
+            return
+        now, acc, n = _now(), self.acc, len(PHASES)
+        if slot >= 0:
+            acc[slot] += now - acc[-1]
+            acc[n + slot] += 1
+        acc[-1] = now
+
+    def read(self) -> List[int]:
+        if not self.cuda:
+            return list(self.acc)
+        torch.cuda.synchronize(self.device)
+        return self.acc.tolist()
+
+    def reset(self) -> None:
+        if self.cuda:
+            self.acc.zero_()
+        else:
+            self.acc[:] = [0] * len(self.acc)
+
+
+_CLOCKS: Dict[str, _PhaseClock] = {}
+
+
+def _clock(device: torch.device) -> _PhaseClock:
+    """The device's phase clock, made on first use (a model's first step,
+    eager); it outlives every model."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = str(device)
+    if key not in _CLOCKS:
+        if _CAPTURES:  # a capture would record the fill and replay it
+            raise RuntimeError("the phase clock is made outside a CUDA graph capture: run the step once first")
+        _CLOCKS[key] = _PhaseClock(device)
+    return _CLOCKS[key]
+
+
+class _Phase:
+    __slots__ = ("steps", "slot", "range")
+
+    def __init__(self, steps: "_StepPhases", name: str):
+        self.steps, self.slot = steps, PHASES.index(name)
+
+    def __enter__(self):
+        self.range = op_range(PHASES[self.slot])
+        self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.range.__exit__(*exc)
+        if self.steps.clock is not None:
+            self.steps.clock.stamp(self.slot)
+        return False
+
+
+class _StepPhases:
+    def __init__(self, device: torch.device, timed: bool):
+        clock = _clock(device)  # made by the first step, eager, whether it is timed or not
+        self.clock = clock if timed else None
+        if self.clock is not None:
+            self.clock.stamp(-1)
+
+    def __call__(self, name: str) -> _Phase:
+        return _Phase(self, name)
+
+
+def step_phases(device: torch.device, timed: bool = True) -> _StepPhases:
+    """The phase boundaries of one train step on `device`: stamps the step's
+    start; `phases(name)` is a block whose end stamps phase `name` (one of
+    `PHASES`), and which under a running profiler is also a range. With
+    `timed` false nothing is stamped (a warm-up step, whose first kernel
+    loads and library set-up are not the step's work)."""
+    return _StepPhases(device, timed)
+
+
+def span_totals() -> Dict[str, Dict[str, object]]:
+    """The registry as a plain dict: each host span's {count, host_s,
+    self_s, parent, first_s}, then each phase stamped since the last reset
+    as {count, device_s}, summed over this process's devices (on CUDA after
+    a synchronisation: a replay's stamps land when it has run)."""
+    out: Dict[str, Dict[str, object]] = {
+        name: {"count": s.count, "host_s": s.ns / 1e9, "self_s": s.self_ns / 1e9, "parent": s.parent,
+               "first_s": s.first_ns / 1e9}
+        for name, s in _SPANS.items() if s.count}
+    n = len(PHASES)
+    for clock in _CLOCKS.values():
+        acc = clock.read()
+        for i, name in enumerate(PHASES):
+            if acc[n + i]:
+                entry = out.setdefault(name, {"count": 0, "device_s": 0.0})
+                entry["count"] += acc[n + i]
+                entry["device_s"] += acc[i] / 1e9
+    return out
+
+
+def reset_spans() -> None:
+    """Empties the registry and zeroes every device's phase totals in place
+    (a captured step keeps stamping into the same accumulator)."""
+    _SPANS.clear()
+    for clock in _CLOCKS.values():
+        clock.reset()

@@ -7,6 +7,9 @@ run it without the JAX test configuration:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
 """
 
+import json
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -860,7 +863,7 @@ def test_train_chunk_graph_replays_equal_eager_steps_bit_for_bit(cuda, rule, hos
     same: parameters, optimizer state, metric totals and losses bit for bit
     (deterministic algorithms keep the one-hot lookups' index_add_ in one
     order on both); the captured step holds the row-update kernels."""
-    from dlrm_flexflow_tpu_torch.tools.graph_nodes import node_counts
+    from dlrm_flexflow_tpu_torch.tools.graph_nodes import node_counts, stamps_apart
 
     bs = 512
     cfg, eager = _capped_kaggle(bs, rule, cuda, host_routing=host_routing)
@@ -903,6 +906,7 @@ def test_train_chunk_graph_replays_equal_eager_steps_bit_for_bit(cuda, rule, hos
     per_launch = 4 if rule == "adagrad" else 2
     assert row == per_launch * 10, nodes["kernels"]
     assert "host" not in nodes  # no host callback: the step never waits for the host
+    assert stamps_apart(nodes)["phase_stamp"] == 8  # the step's start and its seven phases
 
 
 def _replays_against_eager(cuda, make, bs, seed):
@@ -1335,3 +1339,247 @@ def test_conv2d_on_the_card_keeps_its_own_math_whatever_the_global_flags(cuda, d
         else:
             tol = dict(rtol=2.0**-7, atol=2.0**-7 * big)
         torch.testing.assert_close(got, want, **tol)
+
+
+# ------------------------------------------------------------------ spans and phase stamps
+def _stamped_body(acc, a, out, reps=(2, 4, 6)):
+    from dlrm_flexflow_tpu_torch.ops.kernels.phase_stamp import stamper
+
+    stamp = stamper(acc, len(reps))
+    stamp(-1)
+    for slot, n in enumerate(reps):
+        for _ in range(n):
+            torch.mm(a, a, out=out)
+        stamp(slot)
+
+
+def test_phase_stamps_captured_in_a_graph_agree_with_cuda_events(cuda):
+    """Three phases of 2, 4 and 6 products, stamped and captured, replayed
+    50 times: each phase counts 50, and the phases' total is the replays'
+    time by CUDA events within 2% (the gaps between replays are outside
+    every phase); the phases stand 2 : 4 : 6 within 5%."""
+    acc = torch.zeros(7, dtype=torch.int64, device=cuda)
+    a = torch.randn(2048, 2048, device=cuda)
+    out = torch.empty_like(a)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _stamped_body(acc, a, out)  # builds the kernel, sets up cuBLAS
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _stamped_body(acc, a, out)
+    acc.zero_()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(50):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    got = acc.tolist()
+    assert got[3:6] == [50, 50, 50]
+    phases_ms = [ns / 1e6 for ns in got[:3]]
+    events_ms = start.elapsed_time(end)
+    assert abs(sum(phases_ms) - events_ms) <= 0.02 * events_ms, (phases_ms, events_ms)
+    for ms, n in zip(phases_ms, (2, 4, 6)):
+        assert ms / sum(phases_ms) == pytest.approx(n / 12, rel=0.05), phases_ms
+
+
+def test_captured_kaggle_step_phases_sum_to_the_replayed_step_time(cuda):
+    """The seven phases of a captured kaggle-shaped step at batch 65536,
+    over 20 replays of device-resident stacks, sum to within 3% of the
+    replayed step's time by CUDA events (what lies outside them: each
+    step's copy into the static buffer and the gaps between replays)."""
+    from dlrm_flexflow_tpu_torch.utils.profiling import PHASES, reset_spans, span_totals
+
+    bs, k = 65536, 4
+    cfg, m = _capped_kaggle(bs, "sgd", cuda)
+    feeds, labels = random_batches(cfg, k * bs, seed=21)
+    stack = {n: torch.as_tensor(v.reshape((k, bs) + v.shape[1:])).to(cuda) for n, v in feeds.items()}
+    slabels = torch.as_tensor(labels.reshape(k, bs)).to(cuda)
+    m.train_chunk(stack, slabels)  # the warm-up, the capture and 3 replays
+    torch.cuda.synchronize()
+    reset_spans()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        m.train_chunk(stack, slabels)
+    end.record()
+    torch.cuda.synchronize()
+    tot = span_totals()
+    assert [tot[p]["count"] for p in PHASES] == [5 * k] * len(PHASES)
+    step_ms = start.elapsed_time(end) / (5 * k)
+    phases_ms = {p: 1e3 * tot[p]["device_s"] / (5 * k) for p in PHASES}
+    assert abs(sum(phases_ms.values()) - step_ms) <= 0.03 * step_ms, (phases_ms, step_ms)
+    assert all(v > 0 for v in phases_ms.values()), phases_ms
+    assert tot["train_chunk:replay"]["count"] == 5 and "train_chunk:capture" not in tot
+
+
+def test_train_chunk_captures_once_a_layout_and_spans_under_capture_add_nothing(cuda):
+    """Two chunks of one layout: one `train_chunk:capture`, every step but
+    the warm-up stamped; a span opened inside the port's capture block adds
+    no total."""
+    from dlrm_flexflow_tpu_torch.utils.profiling import PHASES, capturing, reset_spans, span, span_totals
+
+    bs, k = 512, 4
+    cfg, m = _capped_kaggle(bs, "sgd", cuda)
+    feeds, labels = random_batches(cfg, k * bs, seed=22)
+    stack = {n: v.reshape((k, bs) + v.shape[1:]) for n, v in feeds.items()}
+    reset_spans()
+    m.train_chunk(stack, labels.reshape(k, bs))
+    m.train_chunk(stack, labels.reshape(k, bs))
+    tot = span_totals()
+    assert tot["train_chunk:capture"]["count"] == 1 and tot["train_chunk:replay"]["count"] == 2
+    assert tot["train_chunk:capture"]["parent"] == "train_chunk:replay"
+    assert [tot[p]["count"] for p in PHASES] == [2 * k - 1] * len(PHASES)
+    a = torch.randn(64, 64, device=cuda)
+    torch.mm(a, a)
+    graph = torch.cuda.CUDAGraph()
+    with capturing(), torch.cuda.graph(graph):  # as _StepGraph.capture
+        with span("captured"):
+            torch.mm(a, a)
+    assert "captured" not in span_totals()
+
+
+def _replay_ms(graph, n):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _host_us(fn, n=20_000, reps=15):
+    """The least of `reps` timings of `n` calls, in us a call."""
+    for _ in range(1000):
+        fn()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / n * 1e6)
+    return best
+
+
+def test_tracing_costs_on_the_card_and_its_host(cuda):
+    """What the port's tracing costs, printed as one JSON line (`-s` shows
+    it):
+    - host us with no profiler on: a span and an op range, against the
+      floor of a `with` that does nothing, the least a timed block costs
+      (two clock reads and two sums), and the raw `record_function` range
+      the spans replaced (a span under a quarter of it);
+    - %globaltimer's resolution, the greatest common divisor of the times
+      between two stamps in a replayed graph: at most 1 us;
+    - the 8 stamp nodes of a captured kaggle step at batch 65536, against
+      the same step captured unstamped (`_step(timed=False)`), replayed in
+      turn: at most 0.5% of the step, the budget;
+    - the host cost of an eager step's phase machinery: 8 stamps and 7
+      phase blocks (an eager step at batch 512 takes about 20 ms of host
+      time, whose spread hides it end to end)."""
+    from torch.profiler import record_function
+
+    from dlrm_flexflow_tpu_torch.ops.kernels.phase_stamp import stamper
+    from dlrm_flexflow_tpu_torch.utils.profiling import PHASES, op_range, reset_spans, span, step_phases
+
+    class Bare:
+        __slots__ = ()
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    class Timed:
+        __slots__ = ("t0", "ns", "count")
+
+        def __init__(self):
+            self.ns = self.count = 0
+
+        def __enter__(self):
+            self.t0 = time.perf_counter_ns()
+            return self
+
+        def __exit__(self, *exc):
+            self.ns += time.perf_counter_ns() - self.t0
+            self.count += 1
+            return False
+
+    timed = Timed()
+
+    def a_timed():
+        with timed:
+            pass
+
+    def a_span():
+        with span("cost:span"):
+            pass
+
+    def a_range():
+        with op_range("cost:op_range"):
+            pass
+
+    def a_raw():
+        with record_function("cost:raw"):
+            pass
+
+    def a_bare():
+        with Bare():
+            pass
+
+    host = {"span_us": _host_us(a_span), "op_range_us": _host_us(a_range), "bare_with_us": _host_us(a_bare),
+            "timed_floor_us": _host_us(a_timed), "record_function_us": _host_us(a_raw, n=2000)}
+    reset_spans()
+
+    acc = torch.zeros(3, dtype=torch.int64, device=cuda)
+    stamp = stamper(acc, 1)
+    stamp(-1)
+    torch.cuda.synchronize()
+    pair = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(pair):
+        stamp(-1)
+        stamp(0)
+    deltas = []
+    for _ in range(300):
+        acc.zero_()
+        pair.replay()
+        deltas.append(int(acc[0]))
+    step = int(np.gcd.reduce(deltas))  # the timer's resolution: every delta is a multiple of it
+
+    bs, k = 65536, 4
+    cfg, m = _capped_kaggle(bs, "sgd", cuda)
+    feeds, labels = random_batches(cfg, k * bs, seed=23)
+    stack = {n: torch.as_tensor(v.reshape((k, bs) + v.shape[1:])).to(cuda) for n, v in feeds.items()}
+    m.train_chunk(stack, torch.as_tensor(labels.reshape(k, bs)).to(cuda))
+    g = m._step_graph
+    bare = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(bare, capture_error_mode="thread_local"):
+        m._step(*g._args(), step=g.views.get("_step"), timed=False)
+    stamped_ms, bare_ms = [], []
+    for _ in range(4):  # stamped, bare, bare, stamped
+        stamped_ms.append(_replay_ms(g.graph, 30))
+        bare_ms += [_replay_ms(bare, 30), _replay_ms(bare, 30)]
+        stamped_ms.append(_replay_ms(g.graph, 30))
+    graph_us = 1e3 * (np.median(stamped_ms) - np.median(bare_ms))
+    del m, g, bare, stack
+
+    def eager_phases():  # an eager step's phase machinery: its start and seven phases stamped
+        phase = step_phases(cuda)
+        for name in PHASES:
+            with phase(name):
+                pass
+
+    step_phases(cuda, timed=False)  # the phase clock, made as a first step makes it
+    eager_us = _host_us(eager_phases, n=500, reps=9)
+    torch.cuda.synchronize()
+    reset_spans()
+    out = {**host, "globaltimer_step_ns": step, "stamp_pair_min_ns": min(deltas),
+           "graph_step_ms": float(np.median(bare_ms)), "graph_stamps_us": float(graph_us),
+           "eager_phases_us": eager_us}
+    print(f"tracing costs: {json.dumps(out)}")
+    assert host["span_us"] < host["record_function_us"] / 4, out
+    assert 0 < step <= 1000 and min(deltas) > 0, out
+    assert graph_us <= 0.005 * 1e3 * np.median(bare_ms), out
