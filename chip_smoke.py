@@ -31,8 +31,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
   8. train   - trains the kaggle DLRM at full width (26 tables, 33,762,577
                rows, 10 of them on the row-update kernel route in bf16,
                bf16 compute, SGD, batch 65536) through make_dlrm_model ->
-               compile -> train_batch: 3 warm-up and 20 timed steps; then
-               5 steps under torch.profiler (kernel time per step, the
+               compile -> train_batch: 3 warm-up and 20 timed steps (each of
+               the 7 Dense layers on the bf16 route of ops/dense.py forward
+               and backward, one cotangent split each, no f32 product);
+               then 5 steps under torch.profiler (kernel time per step, the
                device's busy share) and one step's time by phase.
   9. train parity - kaggle widths with vocabs capped at 20000: 5 SGD steps
                on CUDA against the CPU from the same weights.
@@ -71,7 +73,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
                both ways, kernel time and busy share, the row-update
                launches counted from the graph's kernel nodes times the
                replays (tools/graph_nodes.py; the Python counts see no
-               replay); then 20 eager steps against 5 chunks under
+               replay), 7 cotangent-split nodes; then 20 eager steps against 5 chunks under
                deterministic algorithms, bit for bit in every loss and every
                tensor of the state. fit-chunk: one fit(steps_per_call=4)
                epoch with finite history.
@@ -172,7 +174,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
                kernel (K7) bit for bit
                at the probe's shape in f32 and bf16 at every depth, at a
                ragged K, on the narrow [1000000, 16] table, at widths of 5
-               and 6 chunks, with indices < 0 and >= P, twice.
+               and 6 chunks, with indices < 0 and >= P, twice; the Dense
+               backward's cotangent split (csrc/bf16_split.cu) at kaggle's 7
+               cotangents [65536, N], bit for bit against its plain version
+               and timed beside it.
  27. zoo-moe  - models/zoo.py's moe_mlp at its default widths (784 in, 4
                experts, top 2, alpha 2.0, 64-wide gate and experts, 10
                classes), batch 16384, on examples/moe.py's clustered data:
@@ -255,7 +260,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
                (K5f, K4 and two K6 a request) against "auto". The card has
                no tensorflow and no onnx: those models come as stand-ins.
  37. summary - a {"kernels": [...]} line (K6's entry with the zoo's
-               launches; K6's, K4's and K5f's with the frontends'), then
+               launches; K6's, K4's and K5f's with the frontends'; the
+               cotangent split's with phase 8's launches and phase 17's
+               kernel nodes), then
                the last line {"ok": true, "device": {...}}.
 Around each path (4, 6, 8, 10, 11, 13, 14, 15, 18, 20, 24, 27-30, 32, 35 and 36) the
 kernel launch counts are zeroed just before and read just after, and must
@@ -283,6 +290,9 @@ BATCH = 16384
 TRAIN_BATCH = 65536
 TRAIN_WARMUP, TRAIN_STEPS, PROFILED_STEPS = 3, 20, 5
 KAGGLE_BIG_TABLES = 10  # kaggle tables with more than 8192 rows
+# the output widths of kaggle's 7 Dense layers (bottom 13-512-256-64-16, top
+# 432-512-256-1): each backward splits a [batch, N] cotangent once
+KAGGLE_DENSE_NS = [512, 256, 64, 16, 512, 256, 1]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
@@ -825,6 +835,16 @@ def launch_counts() -> dict:
             "row_update_adagrad": row_update_adagrad, "row_gather": row_gather}
 
 
+def dense_route() -> dict:
+    """The Dense products' route counters (ops/dense.py): bf16 forwards and
+    backwards, f32 products on the card, cotangent-split launches."""
+    from dlrm_flexflow_tpu_torch.ops.dense import Bf16Product, dense
+    from dlrm_flexflow_tpu_torch.ops.kernels.bf16_split import split_bf16x3
+
+    return {"bf16_forwards": Bf16Product.forwards, "bf16_backwards": Bf16Product.backwards,
+            "f32_products": dense.f32_products, "split_launches": split_bf16x3.launches}
+
+
 def phase_path() -> int:
     from dlrm_flexflow_tpu_torch import FFConfig, LossType, MetricsType
     from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
@@ -1127,12 +1147,14 @@ def phase_train(rule: str = "sgd") -> tuple:
     counts = launch_counts()
     for fn in counts.values():
         fn.launches = 0
+    route0 = dense_route()
     t0 = time.perf_counter()
     for i in range(TRAIN_STEPS):
         loss = model.train_batch(*staged[i % 4])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counts.items()}
+    route = {k: v - route0[k] for k, v in dense_route().items()}
 
     losses.append(float(loss))
     # one launch per kernel-route table and step; kaggle's cat interaction
@@ -1140,11 +1162,14 @@ def phase_train(rule: str = "sgd") -> tuple:
     want = {**{name: 0 for name in counts}, RULE_WRAPPER[rule]: TRAIN_STEPS * KAGGLE_BIG_TABLES}
     if launches != want:
         raise AssertionError(f"the train path launched {launches}, not {want}")
+    layers = TRAIN_STEPS * len(KAGGLE_DENSE_NS)
+    if route != {"bf16_forwards": layers, "bf16_backwards": layers, "f32_products": 0, "split_launches": layers}:
+        raise AssertionError(f"the train path's Dense layers took {route}, not the bf16 route {layers} times")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"train losses not finite: {losses}")
     res = {
         "steps": TRAIN_STEPS, "seconds": dt, "examples_per_s": TRAIN_STEPS * TRAIN_BATCH / dt,
-        "ms_per_step": dt / TRAIN_STEPS * 1e3, "launches": launches,
+        "ms_per_step": dt / TRAIN_STEPS * 1e3, "launches": launches, "dense_route": route,
         "first_loss": losses[0], "last_loss": losses[-1], "metrics": model.get_metrics(),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
@@ -1155,7 +1180,7 @@ def phase_train(rule: str = "sgd") -> tuple:
         f"{json.dumps(train_breakdown(model, *staged[0]))}")
     del model, staged
     torch.cuda.empty_cache()
-    return launches[RULE_WRAPPER[rule]], res["ms_per_step"]
+    return launches[RULE_WRAPPER[rule]], res["ms_per_step"], route["split_launches"]
 
 
 def train_profile(model, staged, ms_per_step: float, steps: int = PROFILED_STEPS,
@@ -1927,6 +1952,40 @@ def phase_gather() -> dict:
             **{k: f32[k] for k in ("plain_ms", "library_ms", "bound_ms", "bound_by")}}
 
 
+def phase_bf16_split() -> dict:
+    """The Dense backward's cotangent split (csrc/bf16_split.cu) at each of
+    kaggle's cotangents [65536, N]: bit for bit against its plain version,
+    hi + mid + lo equal to g, then the kernel and the plain version timed
+    (20 calls in one CUDA graph) beside the bound (4 bytes read and 6
+    written an element, the padding's zeros too); their sums over a step's
+    7 layers. Returns the largest shape's row with the step's sums beside it."""
+    from dlrm_flexflow_tpu_torch.ops.kernels.bf16_split import split_bf16x3, split_bf16x3_reference
+    from dlrm_flexflow_tpu_torch.ops.kernels.fused_mlp import padded_k
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    rows, err = {}, 0.0
+    for n in sorted(set(KAGGLE_DENSE_NS), reverse=True):
+        g = torch.randn((TRAIN_BATCH, n), generator=gen, device="cuda")
+        np_ = padded_k(n)
+        got, want = split_bf16x3(g, np_), split_bf16x3_reference(g, np_)
+        parts = got.float().view(TRAIN_BATCH, 3, np_)[:, :, :n]
+        exact = torch.equal((parts[:, 0] + parts[:, 1]) + parts[:, 2], g)
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)) or not exact:
+            raise AssertionError(f"bf16_split at [{TRAIN_BATCH}, {n}]: kernel differs from its plain version "
+                                 f"or the parts do not sum to g ({exact})")
+        rows[n] = {"ms": graph_ms(lambda: split_bf16x3(g, np_)),
+                   "plain_ms": graph_ms(lambda: split_bf16x3_reference(g, np_)),
+                   "bound_ms": TRAIN_BATCH * (4 * n + 6 * np_) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        del g, got, want, parts
+    step = {key: sum(rows[n][key] for n in KAGGLE_DENSE_NS) for key in ("ms", "plain_ms", "bound_ms")}
+    res = {"shapes": {f"{TRAIN_BATCH}x{n}": r for n, r in rows.items()},
+           "step": step, "max_abs_err": err, "bit_identical_to_plain": True}
+    log(f"[kernels] bf16_split: {json.dumps(res)}")
+    torch.cuda.empty_cache()
+    return {**rows[max(KAGGLE_DENSE_NS)], "max_abs_err": err, "step": step}
+
+
 def phase_gather_probe() -> int:
     """The forward-gather probe's port at its defaults with a few steps:
     every variant's launches (K7: 10 a step in each of its 8 variants, K4:
@@ -2141,9 +2200,10 @@ def graph_launches(model, replays: int) -> dict:
     nodes = stamps_apart(node_counts(model._step_graph.graph, kernel_names=True))
     row = sum(n for name, n in nodes["kernels"].items() if "row_update" in name)
     per_launch = 4 if type(model.sparse_optimizer) is RowWiseAdagradOptimizer else 2
+    split = sum(n for name, n in nodes["kernels"].items() if "split_bf16x3" in name)
     return {"nodes": {k: v for k, v in nodes.items() if k != "kernels"},
             "distinct_kernels": len(nodes["kernels"]), "row_update_kernel_nodes": row,
-            "row_update_launches": row // per_launch * replays}
+            "row_update_launches": row // per_launch * replays, "split_kernel_nodes": split}
 
 
 def phase_train_chunk(rule: str = "sgd", host_routing: bool = False) -> dict:
@@ -2208,6 +2268,9 @@ def phase_train_chunk(rule: str = "sgd", host_routing: bool = False) -> dict:
     log(f"{tag} eager device kernels: {json.dumps(train_profile(eager, staged, eager_ms))}")
     log(f"{tag} graph device kernels: {json.dumps(chunk_profile(chunk, stack, labels, graph_ms))}")
     want_row = TRAIN_STEPS * KAGGLE_BIG_TABLES
+    if nodes["split_kernel_nodes"] != len(KAGGLE_DENSE_NS):
+        raise AssertionError(f"{tag}: the graph held {nodes['split_kernel_nodes']} cotangent-split nodes, "
+                             f"not {len(KAGGLE_DENSE_NS)}")
     if nodes["row_update_launches"] != want_row or python_launches:
         raise AssertionError(f"{tag}: the graph held {nodes} row-update kernel nodes, "
                              f"{nodes['row_update_launches']} launches in {TRAIN_STEPS} replays, not "
@@ -4911,9 +4974,9 @@ def main() -> None:
     phase_parity()
     on_launches = phase_path_on()
     phase_parity_on()
-    train_launches, train_ms = phase_train()
+    train_launches, train_ms, split_launches = phase_train()
     phase_train_parity()
-    adam_launches, _ = phase_train("adam")
+    adam_launches, _, _ = phase_train("adam")
     optim_launches = {"adam": adam_launches, **phase_train_optims()}
     for rule in ("momentum", "nesterov", "adam", "adam+adagrad"):
         phase_train_parity(rule)
@@ -4921,7 +4984,7 @@ def main() -> None:
     k7_launches = phase_gather_probe()
     phase_train_host(train_ms)
     phase_train_parity_host()
-    phase_train_chunk("sgd")
+    split_nodes = phase_train_chunk("sgd")["graph"]["split_kernel_nodes"]
     phase_train_chunk("adam")
     phase_train_chunk("sgd", host_routing=True)
     phase_fit_chunk()
@@ -4948,6 +5011,7 @@ def main() -> None:
     k5b = phase_onehot_backward()
     modes = phase_optim_kernels()
     k7 = phase_gather()
+    split = phase_bf16_split()
     kernel = {
         "name": "dot_interaction",
         "route": "cuda",
@@ -5034,6 +5098,22 @@ def main() -> None:
             **{key: c[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
     entries.append({
+        "name": "split_bf16x3",
+        "route": "cuda",
+        "source": "dlrm_flexflow_tpu_torch/csrc/bf16_split.cu",
+        "replaces": "none: no TPU counterpart (the Dense backward's cotangent split)",
+        # the 7 kaggle Dense backwards of phase 8's 20 eager steps, counted
+        # by the wrapper, and the split's kernel nodes in phase 17's
+        # captured step
+        "launches": split_launches,
+        "graph_kernel_nodes": split_nodes,
+        # at kaggle's largest cotangent [65536, 512]; "step" sums the 7
+        "max_abs_err": split["max_abs_err"],
+        **{key: split[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,  # no one PyTorch call splits an f32 into three bf16 parts
+        "step": split["step"],
+    })
+    entries.append({
         "name": "row_gather",
         "route": "cuda",
         "source": "dlrm_flexflow_tpu_torch/csrc/row_gather.cu",
@@ -5049,8 +5129,8 @@ def main() -> None:
         n = cal.get("row_update", 0) if k1 else on.get(e["name"], 0)
         if n:
             e["autotune_launches"] = n
-    if len(entries) != 12:
-        raise AssertionError(f"{len(entries)} kernel entries, not 12")
+    if len(entries) != 13:
+        raise AssertionError(f"{len(entries)} kernel entries, not 13")
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

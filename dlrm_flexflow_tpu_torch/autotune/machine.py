@@ -322,8 +322,8 @@ def calibrate_packed(spec: MachineSpec, dim: int = 16, vocab: int = 1_000_000, r
 
 def calibrate_dense(spec: MachineSpec, shapes, batch: int = 16384, repeats: int = 20, device="cuda",
                     compute_dtype: torch.dtype = torch.bfloat16) -> MachineSpec:
-    """Forward and backward of `ops/dense.py`'s product (ReLU, the
-    compute dtype's operands multiplied in f32) at each (in, out) of
+    """Forward and backward of `ops/dense.py`'s product (ReLU; under a
+    bf16 compute dtype on CUDA the tensor-core route) at each (in, out) of
     `shapes` not yet in dense_costs, stored as (t_fwd + t_bwd) / 3 us per
     example."""
     from ..ffconst import ActiMode
@@ -424,10 +424,12 @@ def physical_limits(spec: MachineSpec, graph=None, hbm_gbps: float = H100_HBM_GB
     """Each calibrated constant beside the limit that one card sets on it:
     no rate above the memory's, no measured cost below its shape's
     roofline (the larger of its flops over the peak of the type it runs in
-    and its bytes over the memory rate). Conv2D multiplies bf16 operands on
-    the tensor cores; Dense, batch-matmul, attention and the LSTM multiply
-    f32 (operands rounded to the compute dtype) on the CUDA cores, unless
-    TF32 products are allowed, where the bf16 peak bounds them too. Rows of
+    and its bytes over the memory rate). Conv2D and Dense (calibrated under
+    a bf16 compute dtype, `ops/dense.py` `Bf16Product`) multiply bf16
+    operands on the tensor cores; batch-matmul, attention and the LSTM
+    multiply f32 (operands rounded to the compute dtype) on the CUDA cores,
+    unless TF32 products are allowed, where the bf16 peak bounds them too.
+    Rows of
     {"name", "value", "limit", "kind": "max" | "min", "ok"}."""
     rows = []
 
@@ -448,7 +450,7 @@ def physical_limits(spec: MachineSpec, graph=None, hbm_gbps: float = H100_HBM_GB
     f32_peak = bf16_tflops if torch.backends.cuda.matmul.allow_tf32 else f32_tflops
     for key, us in spec.dense_costs.items():
         di, do = (int(v) for v in key.split("x"))
-        floor = max(3 * 2.0 * di * do / (f32_peak * 1e12), 2 * 4.0 * (di + do) / (hbm_gbps * 1e9)) / 3 * 1e6
+        floor = max(3 * 2.0 * di * do / (bf16_tflops * 1e12), 2 * 4.0 * (di + do) / (hbm_gbps * 1e9)) / 3 * 1e6
         add(f"dense_costs[{key}]", us, floor, "min")
     ops = {op_cost_sig(op): op for op in measurable_graph_ops(graph)} if graph is not None else {}
     for sig, us in spec.op_costs.items():

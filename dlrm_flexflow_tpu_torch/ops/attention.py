@@ -6,8 +6,9 @@ v and output projections (`wq`, `wk`, `wv`, `wo`, each [embed, in]; `bq` ..
 a softmax in f32, dropout on the probabilities while training, the heads
 joined and projected. Every product takes its operands rounded to the
 compute dtype and multiplies them in f32 (the JAX package's
-`preferred_element_type=f32` einsums, as `ops/dense.py` does; full-f32
-matmuls on CUDA); the probabilities are rounded to the compute dtype before
+`preferred_element_type=f32` einsums; full-f32 matmuls on CUDA, where
+`ops/dense.py` instead sends bf16-compute products to the tensor cores
+through `Bf16Product`); the probabilities are rounded to the compute dtype before
 the product with v, and the output is cast to the query's dtype. The
 products stay plain `torch.matmul`, as the JAX package leaves them to XLA:
 `F.scaled_dot_product_attention` would round elsewhere. `add_bias_kv` and

@@ -23,6 +23,9 @@ tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
                           scripts/bench_gather_probe.py)
   - phase_stamp.py      : the train step's device phase stamp (no TPU
                           counterpart: utils/profiling.py `step_phases`)
+  - bf16_split.py       : the exact three-way bf16 split of the Dense
+                          backward's f32 cotangent (no TPU counterpart:
+                          ops/dense.py `Bf16Product`)
 
 Routing mirrors the JAX package: FFConfig.use_pallas ->
 resolve_use_pallas() -> OpContext.use_pallas, read per op.

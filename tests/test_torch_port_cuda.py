@@ -1583,3 +1583,119 @@ def test_tracing_costs_on_the_card_and_its_host(cuda):
     assert host["span_us"] < host["record_function_us"] / 4, out
     assert 0 < step <= 1000 and min(deltas) > 0, out
     assert graph_us <= 0.005 * 1e3 * np.median(bare_ms), out
+
+
+# ------------------------------------------------------------------ the Dense products' bf16 route
+
+# kaggle's seven Dense layers, (K, N): the bottom MLP 13-512-256-64-16, the top 432-512-256-1
+KAGGLE_DENSE = {"bot0": (13, 512), "bot1": (512, 256), "bot2": (256, 64), "bot3": (64, 16),
+                "top0": (432, 512), "top1": (512, 256), "top2": (256, 1)}
+
+
+def _bf16_bits_alike(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """bf16 tensors equal bit for bit, NaN matching NaN (the kernel's
+    rounding gives the canonical 0x7FFF, PyTorch's cast 0x7FC0)."""
+    nan = torch.isnan(a.float())
+    return torch.equal(nan, torch.isnan(b.float())) and torch.equal(a.view(torch.int16)[~nan], b.view(torch.int16)[~nan])
+
+
+@pytest.mark.parametrize("m, n, offset", [(65536, 512, 0), (65536, 16, 0), (65536, 1, 0), (1000, 13, 0),
+                                          (333, 64, 1), (4, 16, 0)])
+def test_bf16_split_kernel_matches_plain_version_bit_for_bit(cuda, m, n, offset):
+    """csrc/bf16_split.cu against its plain version: N a multiple of 8
+    takes the 8-wide path, N = 1 and 13 the one-value path with the
+    padding's zeros, a base 4 bytes off 16-byte alignment (offset 1) the
+    one-value path too; the last case holds infinities, NaN, subnormals
+    and values past bf16's largest."""
+    from dlrm_flexflow_tpu_torch.ops.kernels.bf16_split import split_bf16x3, split_bf16x3_reference
+    from dlrm_flexflow_tpu_torch.ops.kernels.fused_mlp import padded_k
+
+    flat = _x((m * n + offset,), torch.float32, m + n, cuda)
+    g = flat[offset:].view(m, n)
+    if m == 4:
+        special = torch.tensor([float("inf"), -float("inf"), float("nan"), 3.4e38, -3.39e38, 1e-40, -1e-45,
+                                2.0**-126, 0.0, -0.0, 1.0, 1 + 2.0**-23, 2.0**-110, 2.0**-120, 6e4, -7.5],
+                               device=cuda)
+        g = g.clone()
+        g[:2] = special.view(1, 16)
+    before = split_bf16x3.launches
+    got = split_bf16x3(g, padded_k(n))
+    assert split_bf16x3.launches == before + 1
+    want = split_bf16x3_reference(g, padded_k(n))
+    torch.cuda.synchronize()
+    assert got.shape == (m, 3 * padded_k(n)) and _bf16_bits_alike(got, want)
+
+
+@pytest.mark.parametrize("layer", list(KAGGLE_DENSE))
+def test_bf16_route_matches_the_f32_products_at_kaggle_layers(cuda, layer):
+    """`Bf16Product` on the card (bf16 operands on the tensor cores, f32
+    sums and results; the cotangent split in three) against the plain f32
+    products of the same bf16-rounded operands (TF32 off) at M = 65536, a
+    cotangent with ReLU's zeros. Both sides sum the same exact products in
+    another order. The plain f32 sum is within n u sum|terms| of the exact
+    one; the tensor cores add a product block's terms aligned to the
+    largest and truncated, within 2 n u sum|terms| (the split's 3N or 3M
+    terms for the gradients): hence 7 n u sum|terms| for a gradient (n =
+    N, M) and 3 K u for the forward. The gradients are rounded to bf16 on
+    both sides, so where that gap crosses a rounding boundary they part by
+    one bf16 step more. The share of gradient elements that differ at all:
+    two f32 sums of M = 65536 terms part by about u sqrt(M) of their value,
+    so about 2 u sqrt(M) / 2^-8, 0.7%, of the kernel gradient's elements
+    can round apart (read on an H100: dX 0.0004-0.06%, dW 0-0.60%);
+    bounded at 2%."""
+    from dlrm_flexflow_tpu_torch.ops.dense import Bf16Product
+
+    k, n = KAGGLE_DENSE[layer]
+    m, u = 65536, 2.0**-24
+    gen = torch.Generator(device=cuda).manual_seed(k * 1000 + n)
+    x = torch.randn((m, k), generator=gen, device=cuda)
+    w = torch.randn((n, k), generator=gen, device=cuda) * (2.0 / k) ** 0.5
+    g = torch.relu(torch.randn((m, n), generator=gen, device=cuda)) * 1e-3
+    xr, wr = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    before = (Bf16Product.forwards, Bf16Product.backwards)
+    y = Bf16Product.apply(xr, wr)
+    dx, dw = torch.autograd.grad(y, (xr, wr), g)
+    assert (Bf16Product.forwards, Bf16Product.backwards) == (before[0] + 1, before[1] + 1)
+    xp = x.detach().requires_grad_(True)
+    wp = w.detach().requires_grad_(True)
+    yp = torch.matmul(xp.to(torch.bfloat16).float(), wp.to(torch.bfloat16).float().t())
+    dxp, dwp = torch.autograd.grad(yp, (xp, wp), g)
+    torch.cuda.synchronize()
+    xa, wa, ga = x.to(torch.bfloat16).float().abs(), w.to(torch.bfloat16).float().abs(), g.abs()
+    assert y.dtype == torch.float32 and y.shape == (m, n)
+    assert bool(((y - yp).abs() <= 3 * k * u * (xa @ wa.t())).all())
+    shares = {}
+    for name, a, c, bound in (("dx", dx, dxp, 7 * n * u * (ga @ wa)), ("dw", dw, dwp, 7 * m * u * (ga.t() @ xa))):
+        step = torch.ldexp(torch.ones_like(a), (torch.frexp(torch.maximum(a.abs(), c.abs())).exponent - 8).clamp(min=-133))
+        gap = (a - c).abs()
+        assert bool((gap <= bound + step).all()), (name, float((gap / (bound + step)).max()))
+        shares[name] = float((a != c).float().mean())
+    print(f"bf16 route {layer}: {json.dumps(shares)}")
+    assert max(shares.values()) <= 0.02, shares
+
+
+def test_kaggle_step_takes_the_bf16_route(cuda):
+    """One eager kaggle step under a bf16 compute dtype: each of the 7 Dense
+    layers runs `Bf16Product` forward and backward, with one split launch
+    each (the first layer too: its kernel's gradient) and no f32 product;
+    the captured step of `train_chunk` holds 7 split kernel nodes and no
+    f32 SIMT GEMM (cuBLAS `sgemm` or `f32f32_f32f32` kernels)."""
+    from dlrm_flexflow_tpu_torch.ops.dense import Bf16Product, dense
+    from dlrm_flexflow_tpu_torch.ops.kernels.bf16_split import split_bf16x3
+    from dlrm_flexflow_tpu_torch.tools.graph_nodes import node_counts
+
+    def counters():
+        return (Bf16Product.forwards, Bf16Product.backwards, dense.f32_products, split_bf16x3.launches)
+
+    bs = 512
+    cfg, m = _capped_kaggle(bs, "sgd", cuda)
+    feeds, labels = random_batches(cfg, 4 * bs, seed=23)
+    before = counters()
+    m.train_batch({k: v[:bs] for k, v in feeds.items()}, labels[:bs])
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(before, counters())) == (7, 7, 0, 7)
+    stack = {k: v.reshape((4, bs) + v.shape[1:]) for k, v in feeds.items()}
+    m.train_chunk(stack, labels.reshape(4, bs))
+    kernels = node_counts(m._step_graph.graph, kernel_names=True)["kernels"]
+    assert sum(c for name, c in kernels.items() if "split_bf16x3" in name) == 7, kernels
+    assert not [name for name in kernels if "sgemm" in name or "f32f32_f32f32" in name], kernels
