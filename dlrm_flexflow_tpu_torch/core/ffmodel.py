@@ -3,7 +3,8 @@
 PyTorch counterpart of `dlrm_flexflow_tpu/core/ffmodel.py`: the graph
 verbs (`create_tensor`, `create_constant`, `dense`, `embedding`,
 `dot_interaction`, the shape, elementwise, softmax, dropout, batch_matmul,
-attention and MoE verbs, `cache`), the graph's introspection, `compile`
+attention and MoE verbs, `cache`, and `cross_network`, which the JAX
+package lacks), the graph's introspection, `compile`
 (parameters, optimizer state and kernel routing), `recompile`,
 `train_batch`, `train_chunk`, `fit`, `eval_batch`, `evaluate`, `forward`,
 `predict`, `quantize_embeddings`, the learning rate, the iteration
@@ -172,6 +173,7 @@ from ..ops.attention import MultiHeadAttention
 from ..ops.batch_matmul import BatchMatmul
 from ..ops.cache import Cache
 from ..ops.conv import BatchNorm, Conv2D, Pool2D
+from ..ops.cross import LowRankCrossNet
 from ..ops.elementwise import ElementBinary, ElementUnary
 from ..ops.moe import Aggregate, AggregateSpec, GroupBy, TopK
 from ..ops.regularizers import Dropout, Softmax
@@ -192,7 +194,7 @@ from ..training.optimizer import (
     SGDOptimizer,
 )
 from ..training.sparse_engine import apply_sparse_updates
-from ..utils.profiling import capturing, span, step_phases
+from ..utils.profiling import add_counts, capturing, span, step_phases
 from .graph import Graph, InputOp, OpContext, step_key
 from .tensor import TensorSpec
 
@@ -322,6 +324,13 @@ class FFModel:
         op = DotInteraction(
             self.graph.unique_name(name or "dot_interaction"), inputs, self_interaction
         )
+        return self.graph.add_op(op).outputs[0]
+
+    def cross_network(self, input: TensorSpec, num_layers: int, rank: int,
+                      name: Optional[str] = None) -> TensorSpec:
+        """DCN-V2's low-rank cross network over input [B, d]
+        (`ops/cross.py`): `num_layers` layers of rank `rank`."""
+        op = LowRankCrossNet(self.graph.unique_name(name or "cross"), input, num_layers, rank)
         return self.graph.add_op(op).outputs[0]
 
     def concat(
@@ -683,15 +692,6 @@ class FFModel:
         self.metrics_mask = mask
         self._out_spec = self.graph.compute_ops[-1].outputs[0]
         self._binary_acc = self._out_spec.shape[-1] == 1  # DLRM 0.5-threshold accuracy
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(cfg.seed if seed is None else seed)
-        with torch.no_grad():
-            params = self.graph.init_params(gen, self.device)
-            # a column-parallel Dense draws its kernel and bias whole (so
-            # every later draw is one card's) and keeps its row block
-            for name, keys in self._model_parallel.items():
-                for k in keys:
-                    params[name][k] = row_block(params[name][k], self.mesh.model_size, self.mesh.model_index)
         use_pallas = cfg.use_pallas
         if not resolve_use_pallas(use_pallas, self.device):
             use_pallas = "off"
@@ -739,9 +739,6 @@ class FFModel:
                 op.kernel_route = True
                 if cfg.table_dtype != "float32":
                     op.table_dtype = DataType(cfg.table_dtype).to_torch()
-                    params[op.name] = {
-                        **params[op.name], "weight": params[op.name]["weight"].to(op.table_dtype)
-                    }
         # bf16 pool storage (JAX package :871-893): on the kernel route
         # under a data axis > 1 only, where the row-update kernel adds each
         # step's f32 sums into it once; the flat collection's scatter would
@@ -750,8 +747,11 @@ class FFModel:
             coll.table_dtype = None
             if cfg.table_dtype == "bfloat16" and coll.sharded and coll.layout.packed_pool:
                 coll.table_dtype = torch.bfloat16
-                params[coll.name] = {"pool": params[coll.name]["pool"].to(torch.bfloat16)}
         self._sparse_ops = sparse_ops
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(cfg.seed if seed is None else seed)
+        with torch.no_grad():
+            params = self.graph.init_params(gen, self.device, keep=self._kept_params)
 
         # the JAX package keeps a mid-band table packed [P, 128], and its
         # dense row-wise AdaGrad keeps one accumulator per 128-lane line of it
@@ -804,6 +804,19 @@ class FFModel:
         self._metrics_total = {}
         self.reset_metrics()
         self._compiled = True
+
+    def _kept_params(self, op, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """An op's parameters as drawn (f32, whole) turned into what the
+        model keeps, before the next op draws: a column-parallel Dense's
+        row block (it draws its kernel and bias whole, so every later draw
+        is one card's), a table or pool in its storage dtype."""
+        for k in self._model_parallel.get(op.name, ()):
+            params[k] = row_block(params[k], self.mesh.model_size, self.mesh.model_index)
+        dtype = getattr(op, "table_dtype", None)
+        if dtype is not None:
+            key = "pool" if isinstance(op, EmbeddingCollection) else "weight"
+            params[key] = params[key].to(dtype)
+        return params
 
     def _onehot_packed_eligible(self, op) -> bool:
         """The JAX package's mid-band selection (`_onehot_packed_eligible`,
@@ -1279,8 +1292,8 @@ class FFModel:
         opt = self.optimizer
         sparse_ops = self._sparse_ops
         sparse_names = {op.name for op in sparse_ops}
-        ctx = dataclasses.replace(self._ctx, training=True, rng=self._step_key(step))
         phase = step_phases(self.device, timed)
+        ctx = dataclasses.replace(self._ctx, training=True, rng=self._step_key(step), phases=phase)
 
         sparse_xs: Dict[str, List[torch.Tensor]] = {}
         overrides: Dict[str, List[torch.Tensor]] = {}
@@ -1500,6 +1513,7 @@ class FFModel:
                             graph.capture(self)
                     else:
                         graph.graph.replay()
+                        add_counts(graph.counts)
                         loss = graph.loss
                         done += 1
         finally:
@@ -2092,6 +2106,7 @@ class _StepGraph:
         self.route_ops = route_ops
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.loss: Optional[torch.Tensor] = None
+        self.counts: Dict[str, int] = {}
 
     @staticmethod
     def plan(entries, k: int) -> tuple:
@@ -2143,8 +2158,9 @@ class _StepGraph:
         # thread_local: under a mesh the process group's watchdog thread
         # queries its work's events during the capture, which the default
         # global mode refuses; one mode on every device count
-        with capturing(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with capturing() as counts, torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self.loss, _ = model._step(*self._args(), step=self.views.get("_step"))
+        self.counts = counts  # the step's counters, added at each replay
         graph.instantiate()
         self.graph = graph
 

@@ -88,6 +88,10 @@ class OpContext:
     # when a dict, `Graph.execute` records every op's outputs in it under
     # "{op}:{i}" (the per-op report and the NaN sweep, utils/profiling.py)
     taps: Optional[Dict[str, torch.Tensor]] = None
+    # the train step's phase boundaries (utils/profiling.py `step_phases`)
+    # inside a train step, where an op may cut a sub-phase out of the
+    # step's phases; None elsewhere
+    phases: Optional[object] = None
 
     def block_mesh(self, op: "Op"):
         """The mesh when `op` runs on the rank's block of a batch sharded
@@ -222,14 +226,19 @@ class Graph:
         return [op for op in self.ops if not isinstance(op, InputOp)]
 
     def init_params(
-        self, generator: torch.Generator, device: torch.device
+        self, generator: torch.Generator, device: torch.device, keep=None
     ) -> Dict[str, Dict[str, torch.Tensor]]:
-        """Draws every op's params from one generator, in graph order."""
-        return {
-            op.name: op.init_params(generator, device)
-            for op in self.compute_ops
-            if op.params
-        }
+        """Draws every op's params from one generator, in graph order.
+        `keep(op, params)`, if given, turns each op's draw into what is kept
+        (a table in its storage dtype) before the next op draws, so the
+        draws hold at most one op's params as drawn beside the kept ones
+        and draw the same bits as without it."""
+        out = {}
+        for op in self.compute_ops:
+            if op.params:
+                drawn = op.init_params(generator, device)
+                out[op.name] = keep(op, drawn) if keep is not None else drawn
+        return out
 
     def execute(
         self,

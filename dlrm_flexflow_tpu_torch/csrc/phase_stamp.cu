@@ -12,22 +12,22 @@
 
 namespace {
 
-__global__ void phase_stamp_kernel(long long* acc, int slot, int phases) {
+__global__ void phase_stamp_kernel(long long* acc, int slot, int phases, int counted) {
   unsigned long long now;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
   const long long t = static_cast<long long>(now);
   if (slot >= 0) {
     acc[slot] += t - acc[2 * phases];
-    acc[phases + slot] += 1;
+    acc[phases + slot] += counted;
   }
   acc[2 * phases] = t;
 }
 
 }  // namespace
 
-extern "C" int phase_stamp(void* acc, int slot, int phases, void* stream) {
+extern "C" int phase_stamp(void* acc, int slot, int phases, int counted, void* stream) {
   phase_stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<long long*>(acc), slot,
-                                                                    phases);
+                                                                    phases, counted);
   return static_cast<int>(cudaGetLastError());
 }
 

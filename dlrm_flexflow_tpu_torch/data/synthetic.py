@@ -43,11 +43,11 @@ def random_batches(
     w = rng.normal(0.0, 1.0, size=(n_dense,)).astype(np.float32)
     if learnable:
         logit += dense @ w / np.sqrt(n_dense)
-    for i, vocab in enumerate(cfg.embedding_size):
+    for i, (vocab, bag) in enumerate(zip(cfg.embedding_size, cfg.bag_sizes())):
         if zipf > 0:
-            idx = zipf_indices(rng, vocab, (num_samples, cfg.embedding_bag_size), zipf)
+            idx = zipf_indices(rng, vocab, (num_samples, bag), zipf)
         else:
-            idx = rng.integers(0, vocab, size=(num_samples, cfg.embedding_bag_size))
+            idx = rng.integers(0, vocab, size=(num_samples, bag))
         feeds[f"sparse_{i}"] = idx.astype(np.int64)
         if learnable:
             # rows in the lowest decile of each table push the logit up

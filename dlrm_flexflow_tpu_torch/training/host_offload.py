@@ -93,7 +93,7 @@ def build_host_offload_dlrm(
     x = create_mlp(model, dense_in, dlrm.mlp_bot, dlrm.sigmoid_bot, "bot_mlp")
     host_map: Dict[str, Tuple[HostEmbeddingTable, str]] = {}
     ly: List = []
-    for i, vocab in enumerate(dlrm.embedding_size):
+    for i, (vocab, bag) in enumerate(zip(dlrm.embedding_size, dlrm.bag_sizes())):
         sparse_name = f"sparse_{i}"
         if vocab > offload_threshold:
             name = f"host_emb_{i}"
@@ -101,11 +101,11 @@ def build_host_offload_dlrm(
             host_map[name] = (HostEmbeddingTable(vocab, dlrm.sparse_feature_size, seed=1000 + i),
                               sparse_name)
         else:
-            s = model.create_tensor([bs, dlrm.embedding_bag_size], dtype=DataType.DT_INT64,
+            s = model.create_tensor([bs, bag], dtype=DataType.DT_INT64,
                                     name=sparse_name)
             ly.append(model.embedding(s, vocab, dlrm.sparse_feature_size,
                                       aggr=AggrMode.AGGR_MODE_SUM, name=f"emb_{i}"))
-    z = interact_features(model, x, ly, dlrm.arch_interaction_op)
+    z = interact_features(model, x, ly, dlrm.arch_interaction_op, dlrm.dcn_num_layers, dlrm.dcn_low_rank_dim)
     if z.shape[1] != dlrm.mlp_top[0]:
         raise ValueError(f"the interaction gives {z.shape[1]}, mlp_top starts at {dlrm.mlp_top[0]}")
     create_mlp(model, z, dlrm.mlp_top, dlrm.sigmoid_top, "top_mlp")

@@ -11,6 +11,9 @@ passes each route table's sorted stream (`routes`) and the group is not
 sorted on the device. Every other table goes to `op.sparse_update`, the
 optimizer's scatter rule.
 
+Each call counts the ids its kernel route takes (`ROW_UPDATE_IDS`,
+utils/profiling.py `count`; a captured step counts at each replay).
+
 The two routes round differently, as in the JAX package: the kernel route
 rounds each stream entry (-lr * g for SGD) to bf16 before it sums them in
 f32; the scatter route adds f32 deltas.
@@ -28,7 +31,11 @@ from ..ops.kernels.row_update import (
     row_update_adam,
     row_update_momentum,
 )
+from ..utils.profiling import count
 from .optimizer import AdamOptimizer, RowWiseAdagradOptimizer, SGDOptimizer
+
+# the counter of the ids (padding included) a step's row-update kernels take
+ROW_UPDATE_IDS = "row_update:ids"
 
 
 def _expand(src: torch.Tensor, h: int) -> torch.Tensor:
@@ -79,6 +86,7 @@ def apply_sparse_updates(
     for op in kernel_ops:
         rows, src, h = bag_row_src(sparse_xs[op.name][0], g_over[op.name][0], op.aggr, op.num_entries)
         groups.setdefault((int(rows.shape[0]), op.out_dim), []).append((op, rows, src.contiguous(), h))
+    count(ROW_UPDATE_IDS, sum(k * len(items) for (k, _), items in groups.items()))
     for items in groups.values():
         kernel_route_update(
             opt, [params[op.name]["weight"] for op, *_ in items], [sstates[op.name] for op, *_ in items],

@@ -20,15 +20,20 @@ PyTorch counterpart of `dlrm_flexflow_tpu/utils/profiling.py`:
   op_range          a range under a running profiler only, with no totals
                     (the op loop's `op:<name>`: a gap in the trace names its
                     op);
-  step_phases       the train step's device phase stamps (`PHASES`): a
-                    one-thread kernel reads the card's %globaltimer at each
-                    phase boundary and adds the time since the last stamp to
-                    a device accumulator, in the step's stream order, so a
+  step_phases       the train step's device phase stamps (`PHASES`, and the
+                    `SUB_PHASES` that an op cuts out of one): a one-thread
+                    kernel reads the card's %globaltimer at each phase
+                    boundary and adds the time since the last stamp to a
+                    device accumulator, in the step's stream order, so a
                     captured step's replays time their phases with no host
                     read; on the CPU the same boundaries read
                     `perf_counter_ns`;
-  span_totals       the registry and the phase totals as a plain dict;
-  reset_spans       empties both.
+  count             a named counter of the work a step hands a layer (the
+                    row update's ids): added once a call, and once a replay
+                    where the call was captured;
+  span_totals       the registry, the counters and the phase totals as a
+                    plain dict;
+  reset_spans       empties them.
 
 Names of the spans, ranges and phases are part of the interface (PERF.md,
 section 3, lists each with its reader). Spans are opened from one thread at
@@ -189,7 +194,8 @@ _now = time.perf_counter_ns
 _SPANS: Dict[str, "_Span"] = {}  # name -> its totals, one object a name
 _TOP = None  # the innermost open span
 _NO_RANGE = contextlib.nullcontext()
-_CAPTURES = 0  # the `capturing()` blocks open now
+_COUNTERS: Dict[str, List[int]] = {}  # name -> [calls, total]
+_CAPTURES: List[Dict[str, int]] = []  # the open `capturing()` blocks, each its counts
 
 
 class _Span:
@@ -265,18 +271,44 @@ def op_range(name: str):
 @contextlib.contextmanager
 def capturing():
     """The block in which the port captures a step in a CUDA graph: spans
-    opened in it add nothing to the totals."""
-    global _CAPTURES
-    _CAPTURES += 1
+    opened in it add nothing to the totals. Yields a dict that collects the
+    block's `count` calls, which the graph's owner adds at each replay
+    (`add_counts`)."""
+    _CAPTURES.append({})
     try:
-        yield
+        yield _CAPTURES[-1]
     finally:
-        _CAPTURES -= 1
+        _CAPTURES.pop()
+
+
+def count(name: str, n: int) -> None:
+    """Add `n` to counter `name` (one call more); inside `capturing()` to
+    the block's dict instead, for the replays to add."""
+    if _CAPTURES:
+        block = _CAPTURES[-1]
+        block[name] = block.get(name, 0) + int(n)
+        return
+    c = _COUNTERS.get(name)
+    if c is None:
+        c = _COUNTERS[name] = [0, 0]
+    c[0] += 1
+    c[1] += int(n)
+
+
+def add_counts(counts: Dict[str, int]) -> None:
+    """One replay of a captured block's counts (`capturing()`'s dict)."""
+    for name, n in counts.items():
+        count(name, n)
 
 
 # the train step's phases, in order (FFModel._step)
 PHASES = ("phase:lookup", "phase:forward", "phase:loss", "phase:backward", "phase:dense_reduce",
           "phase:dense_update", "phase:sparse_update")
+# blocks that an op cuts out of the step's forward and backward
+# (`_StepPhases.cut`): the time between the sub-phase's start and end is the
+# sub-phase's, and the phase around it keeps the rest and one count a step
+SUB_PHASES = ("phase:cross_forward", "phase:cross_backward")
+_SLOTS = PHASES + SUB_PHASES
 
 
 class _PhaseClock:
@@ -287,25 +319,26 @@ class _PhaseClock:
     def __init__(self, device: torch.device):
         self.device = device
         self.cuda = device.type == "cuda"
-        n = 2 * len(PHASES) + 1
+        n = 2 * len(_SLOTS) + 1
         if self.cuda:
             from ..ops.kernels.phase_stamp import stamper
 
             self.acc = torch.zeros(n, dtype=torch.int64, device=device)
-            self._launch = stamper(self.acc, len(PHASES))  # checked and bound once
+            self._launch = stamper(self.acc, len(_SLOTS))  # checked and bound once
         else:
             self.acc = [0] * n
 
-    def stamp(self, slot: int) -> None:
-        """The time since the last stamp added to phase `slot`; slot -1 (a
-        step's first stamp) only sets the time."""
+    def stamp(self, slot: int, counted: bool = True) -> None:
+        """The time since the last stamp added to phase `slot`, and one to
+        its count unless `counted` is false; slot -1 (a step's first stamp)
+        only sets the time."""
         if self.cuda:
-            self._launch(slot)
+            self._launch(slot, counted)
             return
-        now, acc, n = _now(), self.acc, len(PHASES)
+        now, acc, n = _now(), self.acc, len(_SLOTS)
         if slot >= 0:
             acc[slot] += now - acc[-1]
-            acc[n + slot] += 1
+            acc[n + slot] += int(counted)
         acc[-1] = now
 
     def read(self) -> List[int]:
@@ -356,6 +389,21 @@ class _Phase:
         return False
 
 
+class _StampOnBackward(torch.autograd.Function):
+    """The identity, whose backward stamps (`stamp()`) when the gradient of
+    its output is whole, before passing it on."""
+
+    @staticmethod
+    def forward(ctx, x, stamp):
+        ctx.stamp = stamp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.stamp()
+        return g, None
+
+
 class _StepPhases:
     def __init__(self, device: torch.device, timed: bool):
         clock = _clock(device)  # made by the first step, eager, whether it is timed or not
@@ -366,29 +414,52 @@ class _StepPhases:
     def __call__(self, name: str) -> _Phase:
         return _Phase(self, name)
 
+    def cut(self, name: str, x, body):
+        """`body(x)`, run inside `phase:forward`, as the sub-phase
+        `phase:<name>_forward`: the forward's time up to here is stamped
+        uncounted, and the sub-phase at its end. Its backward is
+        `phase:<name>_backward`, cut out of `phase:backward` alike: autograd
+        stamps the backward (uncounted) when the gradient of `body`'s output
+        is whole, and the sub-phase when that of `x` is. `x` and the output
+        are single tensors."""
+        if self.clock is None:
+            return body(x)
+        clock, forward, backward = self.clock, _SLOTS.index("phase:forward"), _SLOTS.index("phase:backward")
+        inner, inner_back = _SLOTS.index(f"phase:{name}_forward"), _SLOTS.index(f"phase:{name}_backward")
+        clock.stamp(forward, counted=False)
+        x = _StampOnBackward.apply(x, lambda: clock.stamp(inner_back))
+        with op_range(_SLOTS[inner]):
+            y = body(x)
+        clock.stamp(inner)
+        return _StampOnBackward.apply(y, lambda: clock.stamp(backward, counted=False))
+
 
 def step_phases(device: torch.device, timed: bool = True) -> _StepPhases:
     """The phase boundaries of one train step on `device`: stamps the step's
     start; `phases(name)` is a block whose end stamps phase `name` (one of
-    `PHASES`), and which under a running profiler is also a range. With
-    `timed` false nothing is stamped (a warm-up step, whose first kernel
-    loads and library set-up are not the step's work)."""
+    `PHASES`), and which under a running profiler is also a range;
+    `phases.cut(...)` cuts a sub-phase (`SUB_PHASES`) out of one, forward
+    and backward. With `timed` false nothing is stamped (a warm-up step,
+    whose first kernel loads and library set-up are not the step's work)."""
     return _StepPhases(device, timed)
 
 
 def span_totals() -> Dict[str, Dict[str, object]]:
     """The registry as a plain dict: each host span's {count, host_s,
-    self_s, parent, first_s}, then each phase stamped since the last reset
-    as {count, device_s}, summed over this process's devices (on CUDA after
-    a synchronisation: a replay's stamps land when it has run)."""
+    self_s, parent, first_s}, each counter's {count, total} (its calls and
+    the sum of what they added), then each phase and sub-phase stamped since
+    the last reset as {count, device_s}, summed over this process's devices
+    (on CUDA after a synchronisation: a replay's stamps land when it has
+    run)."""
     out: Dict[str, Dict[str, object]] = {
         name: {"count": s.count, "host_s": s.ns / 1e9, "self_s": s.self_ns / 1e9, "parent": s.parent,
                "first_s": s.first_ns / 1e9}
         for name, s in _SPANS.items() if s.count}
-    n = len(PHASES)
+    out.update({name: {"count": c, "total": t} for name, (c, t) in _COUNTERS.items()})
+    n = len(_SLOTS)
     for clock in _CLOCKS.values():
         acc = clock.read()
-        for i, name in enumerate(PHASES):
+        for i, name in enumerate(_SLOTS):
             if acc[n + i]:
                 entry = out.setdefault(name, {"count": 0, "device_s": 0.0})
                 entry["count"] += acc[n + i]
@@ -397,8 +468,10 @@ def span_totals() -> Dict[str, Dict[str, object]]:
 
 
 def reset_spans() -> None:
-    """Empties the registry and zeroes every device's phase totals in place
-    (a captured step keeps stamping into the same accumulator)."""
+    """Empties the registry and the counters and zeroes every device's phase
+    totals in place (a captured step keeps stamping into the same
+    accumulator)."""
     _SPANS.clear()
+    _COUNTERS.clear()
     for clock in _CLOCKS.values():
         clock.reset()

@@ -1415,6 +1415,46 @@ def test_captured_kaggle_step_phases_sum_to_the_replayed_step_time(cuda):
     assert tot["train_chunk:replay"]["count"] == 5 and "train_chunk:capture" not in tot
 
 
+def test_captured_dcn_step_cuts_the_cross_phases_and_counts_row_update_ids(cuda):
+    """A DCN model (three cross layers of rank 512 over a 3456-wide x0, a
+    bag size a table) captured and replayed: each phase and both cross
+    sub-phases count one a replayed step; all of them sum to within 3% of
+    the replayed step's time by CUDA events; the cross network's stamps
+    are inside the graph (its sub-phases read more than zero); the row
+    update's id counter adds B x the route tables' bags at every step,
+    the captured ones included."""
+    from dlrm_flexflow_tpu_torch.models.dlrm import DLRMConfig
+    from dlrm_flexflow_tpu_torch.training.sparse_engine import ROW_UPDATE_IDS
+    from dlrm_flexflow_tpu_torch.utils.profiling import PHASES, SUB_PHASES, reset_spans, span_totals
+
+    bs, k = 16384, 4
+    bags = [3, 1, 100, 2] + [1] * 22
+    cfg = DLRMConfig(sparse_feature_size=128, embedding_size=[200_000, 10_000, 300_000, 50] + [7000] * 22,
+                     embedding_bag_size=bags, mlp_bot=[13, 512, 256, 128], mlp_top=[3456, 1024, 1024, 512, 256, 1],
+                     arch_interaction_op="dcn", batch_size=bs, dcn_num_layers=3, dcn_low_rank_dim=512)
+    m = make_dlrm_model(cfg, FFConfig(batch_size=bs, compute_dtype="bfloat16", table_dtype="bfloat16"), device=cuda)
+    m.compile(SGDOptimizer(lr=0.01), LossType.LOSS_BINARY_CROSSENTROPY, [MetricsType.METRICS_ACCURACY])
+    feeds, labels = random_batches(cfg, k * bs, seed=24, zipf=1.05)
+    stack = {n: torch.as_tensor(v.reshape((k, bs) + v.shape[1:])).to(cuda) for n, v in feeds.items()}
+    slabels = torch.as_tensor(labels.reshape(k, bs)).to(cuda)
+    m.train_chunk(stack, slabels)  # the warm-up, the capture and 3 replays
+    torch.cuda.synchronize()
+    reset_spans()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        m.train_chunk(stack, slabels)
+    end.record()
+    torch.cuda.synchronize()
+    tot = span_totals()
+    assert [tot[p]["count"] for p in PHASES + SUB_PHASES] == [3 * k] * (len(PHASES) + len(SUB_PHASES))
+    step_ms = start.elapsed_time(end) / (3 * k)
+    phases_ms = {p: 1e3 * tot[p]["device_s"] / (3 * k) for p in PHASES + SUB_PHASES}
+    assert abs(sum(phases_ms.values()) - step_ms) <= 0.03 * step_ms, (phases_ms, step_ms)
+    assert all(v > 0 for v in phases_ms.values()), phases_ms
+    assert tot[ROW_UPDATE_IDS] == {"count": 3 * k, "total": 3 * k * bs * (3 + 1 + 100)}
+
+
 def test_train_chunk_captures_once_a_layout_and_spans_under_capture_add_nothing(cuda):
     """Two chunks of one layout: one `train_chunk:capture`, every step but
     the warm-up stamped; a span opened inside the port's capture block adds

@@ -11,6 +11,7 @@ the callbacks (tests/test_services.py:70-113) and the Criteo readers
 (tests/test_data.py:53, :63 and :140) against the JAX package's. The f16
 kernels and an int8 `predict` on the card are in tests/test_torch_port_cuda.py.
 """
+import dataclasses
 import json
 
 import numpy as np
@@ -285,7 +286,9 @@ def test_adam_checkpoint_roundtrip_on_each_route(tmp_path, route):
         m.compile(port.AdamOptimizer(alpha=0.02), port.LossType.LOSS_BINARY_CROSSENTROPY, [])
         return m
 
-    feeds, labels = ref_synthetic.random_batches(ref_dlrm.DLRMConfig(**{**vars(cfg)}), 32 * 3, seed=13)
+    shared = {f.name for f in dataclasses.fields(ref_dlrm.DLRMConfig)}  # the port's adds the "dcn" fields
+    feeds, labels = ref_synthetic.random_batches(
+        ref_dlrm.DLRMConfig(**{k: v for k, v in vars(cfg).items() if k in shared}), 32 * 3, seed=13)
     model = make()
     st = model._opt_state["sparse"]["table_0"]
     assert (set(st) == {"m", "v"}) if route == "kernel" else tuple(st.shape) == (2, 500, 16)
