@@ -177,7 +177,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
                and 6 chunks, with indices < 0 and >= P, twice; the Dense
                backward's cotangent split (csrc/bf16_split.cu) at kaggle's 7
                cotangents [65536, N], bit for bit against its plain version
-               and timed beside it.
+               and timed beside it; the DCN-V2 cross network's epilogue
+               (csrc/cross_epilogue.cu) at DCNv2's [65536, 3456]: forward,
+               backward and fold against their plain versions, each and a
+               step's seven launches timed beside the plain versions and
+               the bound, and the launches and kernel nodes of a DCN
+               model's eager and captured steps.
  27. zoo-moe  - models/zoo.py's moe_mlp at its default widths (784 in, 4
                experts, top 2, alpha 2.0, 64-wide gate and experts, 10
                classes), batch 16384, on examples/moe.py's clustered data:
@@ -262,7 +267,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
  37. summary - a {"kernels": [...]} line (K6's entry with the zoo's
                launches; K6's, K4's and K5f's with the frontends'; the
                cotangent split's with phase 8's launches and phase 17's
-               kernel nodes), then
+               kernel nodes; the cross epilogue's with its DCN steps'), then
                the last line {"ok": true, "device": {...}}.
 Around each path (4, 6, 8, 10, 11, 13, 14, 15, 18, 20, 24, 27-30, 32, 35 and 36) the
 kernel launch counts are zeroed just before and read just after, and must
@@ -1984,6 +1989,180 @@ def phase_bf16_split() -> dict:
     log(f"[kernels] bf16_split: {json.dumps(res)}")
     torch.cuda.empty_cache()
     return {**rows[max(KAGGLE_DENSE_NS)], "max_abs_err": err, "step": step}
+
+
+CROSS_DIM, CROSS_RANK, CROSS_LAYERS = 3456, 512, 3  # DLRM-DCNv2's x0 width (27 x 128), rank, layers
+
+
+def cross_launches() -> tuple:
+    from dlrm_flexflow_tpu_torch.ops.kernels.cross_epilogue import cross_backward, cross_fold, cross_forward
+
+    return cross_forward.launches, cross_backward.launches, cross_fold.launches
+
+
+def cross_main_path() -> dict:
+    """A DCN model at DLRM-DCNv2's widths with small tables and batch 8192:
+    the epilogue's launches in one eager step (3 forward, 3 backward, 1
+    fold) and its kernel nodes in the captured step of `train_chunk` (3
+    forward, 3 backward, 3 bias sums, 1 fold)."""
+    from dlrm_flexflow_tpu_torch import FFConfig, LossType, SGDOptimizer
+    from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
+    from dlrm_flexflow_tpu_torch.models.dlrm import DLRMConfig, make_dlrm_model
+    from dlrm_flexflow_tpu_torch.tools.graph_nodes import node_counts
+
+    bs, k = 8192, 2
+    cfg = DLRMConfig(sparse_feature_size=128, embedding_size=[20_000] * 26, embedding_bag_size=[2] * 26,
+                     mlp_bot=[13, 512, 256, 128], mlp_top=[CROSS_DIM, 1024, 1024, 512, 256, 1],
+                     arch_interaction_op="dcn", batch_size=bs, dcn_num_layers=CROSS_LAYERS,
+                     dcn_low_rank_dim=CROSS_RANK)
+    m = make_dlrm_model(cfg, FFConfig(batch_size=bs, compute_dtype="bfloat16", table_dtype="bfloat16"),
+                        device="cuda")
+    m.compile(SGDOptimizer(lr=0.01), LossType.LOSS_BINARY_CROSSENTROPY)
+    feeds, labels = random_batches(cfg, k * bs, seed=SEED + 25)
+    before = cross_launches()
+    m.train_batch({n: v[:bs] for n, v in feeds.items()}, labels[:bs])
+    torch.cuda.synchronize()
+    launches = [b - a for a, b in zip(before, cross_launches())]
+    m.train_chunk({n: v.reshape((k, bs) + v.shape[1:]) for n, v in feeds.items()}, labels.reshape(k, bs))
+    kernels = node_counts(m._step_graph.graph, kernel_names=True)["kernels"]
+    nodes = {kind: sum(c for name, c in kernels.items() if f"cross_{kind}_kernel" in name)
+             for kind in ("forward", "backward", "bias_sum", "fold")}
+    if launches != [CROSS_LAYERS, CROSS_LAYERS, 1] or nodes != {"forward": 3, "backward": 3, "bias_sum": 3, "fold": 1}:
+        raise AssertionError(f"cross epilogue: eager launches {launches}, captured kernel nodes {nodes}")
+    del m
+    torch.cuda.empty_cache()
+    return {"step_launches": dict(zip(("forward", "backward", "fold"), launches)), "graph_kernel_nodes": nodes}
+
+
+CROSS_KINDS = (("products", ("nvjet", "gemm", "xmma", "cutlass", "sm90", "splitkreduce")), ("epilogue", ("cross_",)),
+               ("split", ("split_bf16x3",)), ("casts and copies", ("copy",)), ("reductions", ("reduce",)),
+               ("elementwise", ("elementwise",)))
+
+
+def cross_network_by_kind(reps: int = 10) -> dict:
+    """The whole cross network at DLRM-DCNv2's shape ([65536, 3456] x0, 3
+    layers of rank 512, bf16 compute), forward and backward (autograd.grad
+    to x0 and every parameter), eager: `FusedCrossNet` against `_layers`
+    (each product through `dense`, PyTorch's passes between them), each
+    timed by CUDA events and its kernels' device ms a call summed by kind
+    (`CROSS_KINDS`, by name) from torch.profiler."""
+    from dlrm_flexflow_tpu_torch.core.tensor import TensorSpec
+    from dlrm_flexflow_tpu_torch.ops.cross import LowRankCrossNet
+
+    m, d, r = TRAIN_BATCH, CROSS_DIM, CROSS_RANK
+    op = LowRankCrossNet("cross", TensorSpec((m, d)), CROSS_LAYERS, r)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    params = {}
+    for layer in range(CROSS_LAYERS):
+        params[f"v_kernel_{layer}"] = torch.randn((r, d), generator=gen, device="cuda") * (2.0 / (d + r)) ** 0.5
+        params[f"w_kernel_{layer}"] = torch.randn((d, r), generator=gen, device="cuda") * (2.0 / (d + r)) ** 0.5
+        params[f"bias_{layer}"] = torch.randn((d,), generator=gen, device="cuda") * 0.02
+    params = {k: t.requires_grad_(True) for k, t in params.items()}
+    x0 = torch.randn((m, d), generator=gen, device="cuda").requires_grad_(True)
+    g = torch.randn((m, d), generator=gen, device="cuda")
+    leaves = [x0, *params.values()]
+    res = {}
+    for name, body in (("fused", lambda: op._fused(params, x0)),
+                       ("layers", lambda: op._layers(params, x0, torch.bfloat16))):
+        def call(body=body):
+            torch.autograd.grad(body(), leaves, g)
+
+        kinds = {kind: 0.0 for kind, _ in CROSS_KINDS + (("other", ()),)}
+        for kname, k in cuda_kernels_of(call, reps).items():
+            kind = next((kind for kind, marks in CROSS_KINDS if any(mk in kname.lower() for mk in marks)), "other")
+            kinds[kind] += k["a_call"] * k["us"] / 1e3
+        res[name] = {"ms": cuda_ms(call, reps=reps), "kernel_ms_by_kind": kinds}
+    del op, params, x0, g, leaves
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_cross_epilogue() -> dict:
+    """The DCN-V2 cross network's epilogue (csrc/cross_epilogue.cu) at
+    DLRM-DCNv2's [65536, 3456]: the forward, the backward (a lower layer's:
+    dxv added, x0's gradient added to) and the fold against their plain
+    versions (G, the split parts, x0's gradient and the fold bit for bit,
+    x_{l+1} within one f32 rounding of the product and one of the sum, b's
+    gradient within its depth of f32 roundings of the exact column sums and
+    bit for bit over two calls); each, and a step's seven launches in the
+    main path's order, timed (20 in one CUDA graph) beside the plain versions and the bound
+    (f32 bytes: forward 3 read and 1 written a value and the bf16 copy's 2;
+    backward 5 read, 2 written and the split's 6; fold 3 read, 1 written;
+    the last layer's forward writes no copy, its backward reads no dxv and
+    no gx0 and writes no G); then `cross_network_by_kind` and
+    `cross_main_path`. Returns the step's row with each kernel's beside it."""
+    from dlrm_flexflow_tpu_torch.ops.kernels import cross_epilogue as ce
+
+    m, d = TRAIN_BATCH, CROSS_DIM
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    g, dxv, p, x0, x = (torch.randn((m, d), generator=gen, device="cuda") for _ in range(5))
+    bias = torch.randn((d,), generator=gen, device="cuda")
+    gx0, g_out, x_out = torch.randn_like(x0), torch.empty_like(x0), torch.empty_like(x0)
+    want, _ = ce.cross_forward_reference(p, bias, x0, x, False)
+    got, xb = ce.cross_forward(p, bias, x0, x, True)
+    def f32_step(t):
+        return torch.ldexp(torch.ones_like(t), torch.frexp(t).exponent - 24)
+
+    # one rounding of the product (where one side fuses the multiply-add) and one of the sum
+    fwd_ok = (bool(((got - want).abs() <= f32_step(want) + f32_step(x0 * (p + bias))).all())
+              and torch.equal(xb, got.to(torch.bfloat16)))
+    fwd_exact = torch.equal(got, want)
+    gx0_want = gx0.clone()
+    g_want, g3_want, _ = ce.cross_backward_reference(g, dxv, p, bias, x0, gx0_want, False)
+    gx0_got = gx0.clone()
+    g_got, g3, db = ce.cross_backward(g, dxv, p, bias, x0, gx0_got, False, g_out=g_out)
+    _, _, db_again = ce.cross_backward(g, dxv, p, bias, x0, gx0.clone(), False, g_out=torch.empty_like(g))
+    folded_want = ce.cross_fold_reference(gx0_want.clone(), g_want, dxv)
+    folded = ce.cross_fold(gx0_got.clone(), g_got, dxv)
+    torch.cuda.synchronize()
+    bwd_ok = (torch.equal(g_got, g_want) and torch.equal(g3.view(torch.int16), g3_want.view(torch.int16))
+              and torch.equal(gx0_got, gx0_want) and torch.equal(db_again, db) and torch.equal(folded, folded_want))
+    # b's gradient against the exact (f64) column sums, within its depth of f32 roundings
+    terms = (g_want * x0).double()
+    db_gap = float(((db.double() - terms.sum(0)).abs() / terms.abs().sum(0)).max())
+    db_bound = ce.bias_grad_depth(m) * 2.0**-24
+    if not (fwd_ok and bwd_ok) or db_gap > db_bound:
+        raise AssertionError(f"cross epilogue: forward within a rounding {fwd_ok}, backward and fold bit for bit "
+                             f"{bwd_ok}, bias gap over the column sums {db_gap} (bound {db_bound})")
+    del terms
+    del got, xb, g_want, g3_want, g3, folded_want, folded
+
+    def bound(read: int, written: int) -> float:  # bytes a value
+        return m * d * (read + written) / HBM_BYTES_PER_S * 1e3
+
+    def step_epilogue(fwd, bwd, fold):
+        """A step's epilogue in the main path's order: three forwards (the
+        last with no copy), three backwards (the first with no dxv), the fold."""
+        x1, _ = fwd(p, bias, x0, x, True, out=x_out)
+        fwd(p, bias, x0, x1, True, out=x1)
+        fwd(p, bias, x0, x1, False, out=x1)
+        big, _, _ = bwd(g, None, p, bias, x0, gx0, True)
+        big, _, _ = bwd(big, dxv, p, bias, x0, gx0, False, g_out=g_out)
+        big, _, _ = bwd(big, dxv, p, bias, x0, gx0, False, g_out=big)
+        fold(gx0, big, dxv)
+
+    rows = {
+        "forward": {"ms": graph_ms(lambda: ce.cross_forward(p, bias, x0, x, True, out=x_out)),
+                    "plain_ms": graph_ms(lambda: ce.cross_forward_reference(p, bias, x0, x, True, out=x_out)),
+                    "bound_ms": bound(12, 6)},
+        "backward": {"ms": graph_ms(lambda: ce.cross_backward(g, dxv, p, bias, x0, gx0, False, g_out=g_out)),
+                     "plain_ms": graph_ms(lambda: ce.cross_backward_reference(g, dxv, p, bias, x0, gx0, False,
+                                                                              g_out=g_out)),
+                     "bound_ms": bound(20, 14)},
+        "fold": {"ms": graph_ms(lambda: ce.cross_fold(gx0, g, dxv)),
+                 "plain_ms": graph_ms(lambda: ce.cross_fold_reference(gx0, g, dxv)), "bound_ms": bound(12, 4)},
+        "step": {"ms": graph_ms(lambda: step_epilogue(ce.cross_forward, ce.cross_backward, ce.cross_fold), reps=5),
+                 "plain_ms": graph_ms(lambda: step_epilogue(ce.cross_forward_reference, ce.cross_backward_reference,
+                                                            ce.cross_fold_reference), reps=5),
+                 "bound_ms": bound(2 * 18 + 16 + 22 + 2 * 34 + 16, 0)},
+    }
+    del g, dxv, p, x0, x, gx0, g_out, x_out
+    torch.cuda.empty_cache()
+    res = {"shape": f"{m}x{d}", **rows, "forward_bit_identical_to_addcmul": fwd_exact,
+           "bias_gap_over_column_sums": db_gap, "bias_gap_bound": db_bound, "network": cross_network_by_kind(),
+           **cross_main_path()}
+    log(f"[kernels] cross_epilogue: {json.dumps(res)}")
+    return res
 
 
 def phase_gather_probe() -> int:
@@ -5012,6 +5191,7 @@ def main() -> None:
     modes = phase_optim_kernels()
     k7 = phase_gather()
     split = phase_bf16_split()
+    cross = phase_cross_epilogue()
     kernel = {
         "name": "dot_interaction",
         "route": "cuda",
@@ -5114,6 +5294,20 @@ def main() -> None:
         "step": split["step"],
     })
     entries.append({
+        "name": "cross_epilogue",
+        "route": "cuda",
+        "source": "dlrm_flexflow_tpu_torch/csrc/cross_epilogue.cu",
+        "replaces": "none: no TPU counterpart (the DCN-V2 cross network's f32 epilogue, forward and backward)",
+        # a DCN step's launches at DCNv2's widths, eager, and its captured step's kernel nodes
+        "launches": cross["step_launches"],
+        "graph_kernel_nodes": cross["graph_kernel_nodes"],
+        # a step's seven launches at [65536, 3456]; each kernel's row beside
+        **{key: cross["step"][key] for key in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes",
+        "library_ms": None,  # no one PyTorch call makes x_{l+1} with its bf16 copy, or G with its split
+        **{kind: cross[kind] for kind in ("forward", "backward", "fold")},
+    })
+    entries.append({
         "name": "row_gather",
         "route": "cuda",
         "source": "dlrm_flexflow_tpu_torch/csrc/row_gather.cu",
@@ -5129,8 +5323,8 @@ def main() -> None:
         n = cal.get("row_update", 0) if k1 else on.get(e["name"], 0)
         if n:
             e["autotune_launches"] = n
-    if len(entries) != 13:
-        raise AssertionError(f"{len(entries)} kernel entries, not 13")
+    if len(entries) != 14:
+        raise AssertionError(f"{len(entries)} kernel entries, not 14")
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -26,6 +26,9 @@ tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
   - bf16_split.py       : the exact three-way bf16 split of the Dense
                           backward's f32 cotangent (no TPU counterpart:
                           ops/dense.py `Bf16Product`)
+  - cross_epilogue.py   : the DCN-V2 cross network's f32 epilogue, forward
+                          and backward, one pass a layer each way (no TPU
+                          counterpart: ops/cross.py `FusedCrossNet`)
 
 Routing mirrors the JAX package: FFConfig.use_pallas ->
 resolve_use_pallas() -> OpContext.use_pallas, read per op.

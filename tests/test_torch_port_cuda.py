@@ -1422,8 +1422,13 @@ def test_captured_dcn_step_cuts_the_cross_phases_and_counts_row_update_ids(cuda)
     the replayed step's time by CUDA events; the cross network's stamps
     are inside the graph (its sub-phases read more than zero); the row
     update's id counter adds B x the route tables' bags at every step,
-    the captured ones included."""
+    the captured ones included; the fused cross network counts its 3
+    layers at every step (`cross:fused_layers`), and its forward and
+    backward, captured and replayed, give the eager calls' gradients bit for
+    bit (3 forward, 3 backward and 1 fold launch a step)."""
     from dlrm_flexflow_tpu_torch.models.dlrm import DLRMConfig
+    from dlrm_flexflow_tpu_torch.ops.cross import FUSED_LAYERS
+    from dlrm_flexflow_tpu_torch.ops.kernels.cross_epilogue import cross_backward, cross_fold, cross_forward
     from dlrm_flexflow_tpu_torch.training.sparse_engine import ROW_UPDATE_IDS
     from dlrm_flexflow_tpu_torch.utils.profiling import PHASES, SUB_PHASES, reset_spans, span_totals
 
@@ -1453,6 +1458,35 @@ def test_captured_dcn_step_cuts_the_cross_phases_and_counts_row_update_ids(cuda)
     assert abs(sum(phases_ms.values()) - step_ms) <= 0.03 * step_ms, (phases_ms, step_ms)
     assert all(v > 0 for v in phases_ms.values()), phases_ms
     assert tot[ROW_UPDATE_IDS] == {"count": 3 * k, "total": 3 * k * bs * (3 + 1 + 100)}
+    assert tot[FUSED_LAYERS] == {"count": 3 * k, "total": 3 * 3 * k}
+
+    # the fused network's forward and backward captured in a CUDA graph and
+    # replayed, against the same calls made eagerly: bit for bit
+    op = m._op("cross")
+    params = {key: t.detach().requires_grad_(True) for key, t in m._params["cross"].items()}
+    flat = [params[f"{key}_{layer}"] for layer in range(3) for key in ("v_kernel", "w_kernel", "bias")]
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    x0 = torch.randn((bs, op.dim), generator=gen, device=cuda).requires_grad_(True)
+    g = torch.randn((bs, op.dim), generator=gen, device=cuda)
+
+    def fused_step():
+        return torch.autograd.grad(op._fused(params, x0), [x0] + flat, g)
+
+    before = (cross_forward.launches, cross_backward.launches, cross_fold.launches)
+    eager = fused_step()
+    assert (cross_forward.launches, cross_backward.launches, cross_fold.launches) == tuple(
+        n + a for n, a in zip(before, (3, 3, 1)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fused_step()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(captured, eager))
 
 
 def test_train_chunk_captures_once_a_layout_and_spans_under_capture_add_nothing(cuda):
@@ -1739,3 +1773,86 @@ def test_kaggle_step_takes_the_bf16_route(cuda):
     kernels = node_counts(m._step_graph.graph, kernel_names=True)["kernels"]
     assert sum(c for name, c in kernels.items() if "split_bf16x3" in name) == 7, kernels
     assert not [name for name in kernels if "sgemm" in name or "f32f32_f32f32" in name], kernels
+
+
+# ------------------------------------------------------------------ the cross network's epilogue
+
+CROSS_M, CROSS_D = 65536, 3456  # DCNv2's batch and x0 width (27 x 128); its rank 512 is the products'
+
+
+def _f32_step(t: torch.Tensor) -> torch.Tensor:
+    return torch.ldexp(torch.ones_like(t), torch.frexp(t).exponent - 24)
+
+
+def _within_one_rounding(a: torch.Tensor, b: torch.Tensor, product: torch.Tensor) -> bool:
+    """f32 sums a and b of one product and one addend that part by at most
+    the product's rounding, when one side rounds it and the other fuses it
+    into the add, and one rounding of the sum."""
+    return bool(((a - b).abs() <= _f32_step(b) + _f32_step(product)).all())
+
+
+def test_cross_forward_kernel_matches_plain_version(cuda):
+    """`cross_forward` at DCNv2's [65536, 3456] against its plain version:
+    x_{l+1} within one f32 rounding of the product and one of the sum
+    (the kernel fuses the multiply-add, as PyTorch's `addcmul` does: then
+    they are equal), the bf16 copy the rounding of the kernel's own
+    x_{l+1} bit for bit, in place over x too; no copy for the last layer."""
+    from dlrm_flexflow_tpu_torch.ops.kernels.cross_epilogue import cross_forward, cross_forward_reference
+
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    p, x0, x = (torch.randn((CROSS_M, CROSS_D), generator=gen, device=cuda) for _ in range(3))
+    bias = torch.randn((CROSS_D,), generator=gen, device=cuda)
+    want, _ = cross_forward_reference(p, bias, x0, x, False)
+    before = cross_forward.launches
+    got, xb = cross_forward(p, bias, x0, x, True)
+    assert cross_forward.launches == before + 1
+    assert _within_one_rounding(got, want, x0 * (p + bias))
+    assert torch.equal(xb.view(torch.int16), got.to(torch.bfloat16).view(torch.int16))
+    same, none = cross_forward(p, bias, x0, x, False, out=x)
+    torch.cuda.synchronize()
+    assert same.data_ptr() == x.data_ptr() and none is None and torch.equal(same, got)
+    print(f"cross_forward bit-identical to addcmul: {torch.equal(got, want)}")
+
+
+@pytest.mark.parametrize("first, with_dxv", [(True, False), (False, True)])
+def test_cross_backward_kernel_matches_plain_version(cuda, first, with_dxv):
+    """`cross_backward` at [65536, 3456] against its plain version: the
+    last layer (first: no dxv, x0's gradient set) and a lower one (dxv
+    rounded to bf16 and added to G, x0's gradient added to, G written over
+    g_in): G, the three split parts and x0's running gradient bit for bit;
+    b's gradient within its sum's bound of the exact column sums of G x0
+    (taken in f64): the kernel's depth of f32 additions (`bias_grad_depth`,
+    296 at M = 65536) times 2^-24 times the column sums of |G x0|, about a
+    twentieth of a typical 256-row block's sum, so a lost block fails it; and bit
+    for bit the same over two calls; then `cross_fold` bit for bit."""
+    from dlrm_flexflow_tpu_torch.ops.kernels.cross_epilogue import (
+        bias_grad_depth, cross_backward, cross_backward_reference, cross_fold, cross_fold_reference)
+
+    gen = torch.Generator(device=cuda).manual_seed(32 + int(first))
+    g_in, dxv, p, x0, gx0 = (torch.randn((CROSS_M, CROSS_D), generator=gen, device=cuda) for _ in range(5))
+    dxv = dxv if with_dxv else None
+    bias = torch.randn((CROSS_D,), generator=gen, device=cuda)
+    gx0_want = gx0.clone()
+    g_want, g3_want, _ = cross_backward_reference(g_in, dxv, p, bias, x0, gx0_want, first)
+    g_in_copy = g_in.clone()
+    before = cross_backward.launches
+    g, g3, db = cross_backward(g_in, dxv, p, bias, x0, gx0, first, g_out=g_in if with_dxv else None)
+    assert cross_backward.launches == before + 1
+    torch.cuda.synchronize()
+    assert g.data_ptr() == g_in.data_ptr() and torch.equal(g, g_want)
+    assert torch.equal(g3.view(torch.int16), g3_want.view(torch.int16))
+    assert torch.equal(gx0, gx0_want)
+    terms = (g_want * x0).double()
+    bound = bias_grad_depth(CROSS_M) * 2.0**-24 * terms.abs().sum(0)
+    gap = (db.double() - terms.sum(0)).abs()
+    assert bool((gap <= bound).all()), float((gap / bound).max())
+    _, _, again = cross_backward(g_in_copy, dxv, p, bias, x0, gx0.clone(), first, g_out=g_in_copy.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(again, db)
+    if with_dxv:
+        folded_want = cross_fold_reference(gx0.clone(), g, dxv)
+        before = cross_fold.launches
+        folded = cross_fold(gx0, g, dxv)
+        torch.cuda.synchronize()
+        assert cross_fold.launches == before + 1 and folded.data_ptr() == gx0.data_ptr()
+        assert torch.equal(folded, folded_want)

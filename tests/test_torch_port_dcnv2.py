@@ -2,9 +2,11 @@
 interaction (`models/dlrm.py`, `ops/cross.py`) held against the benchmark's
 plain reference (`benchmark/reference/dcnv2.py`) on the same seeded
 weights; the tables drawn one at a time in their storage dtype
-(`FFModel.compile`) with the bits of a draw of every parameter in f32; and
-the cross network's sub-phases and the row update's id counter
-(`utils/profiling.py`)."""
+(`FFModel.compile`) with the bits of a draw of every parameter in f32; the
+cross network's sub-phases and the row update's id counter
+(`utils/profiling.py`); and the fused cross network's plain versions
+(`ops/cross.py` `FusedCrossNet`, `ops/kernels/cross_epilogue.py`) against
+`_layers` under autograd."""
 import math
 
 import numpy as np
@@ -14,8 +16,11 @@ import torch
 import dlrm_flexflow_tpu_torch as port
 from benchmark.reference import dcnv2 as ref
 from benchmark.weights import draw
+from dlrm_flexflow_tpu_torch.core.tensor import TensorSpec
 from dlrm_flexflow_tpu_torch.data.synthetic import random_batches
 from dlrm_flexflow_tpu_torch.models import dlrm as pdlrm
+from dlrm_flexflow_tpu_torch.ops import cross as cross_mod
+from dlrm_flexflow_tpu_torch.ops.kernels.bf16_split import split_bf16x3_reference
 from dlrm_flexflow_tpu_torch.training.sparse_engine import ROW_UPDATE_IDS
 from dlrm_flexflow_tpu_torch.utils.profiling import SUB_PHASES, reset_spans, span_totals
 
@@ -130,6 +135,7 @@ def test_cross_phases_and_row_update_ids_on_the_cpu():
     for name in SUB_PHASES + ("phase:forward", "phase:backward"):
         assert tot[name]["count"] == 3 and tot[name]["device_s"] > 0, name
     assert tot[ROW_UPDATE_IDS] == {"count": 3, "total": 3 * BATCH * (BAGS[1] + BAGS[3])}
+    assert cross_mod.FUSED_LAYERS not in tot  # the CPU keeps `_layers`
     flat = pdlrm.DLRMConfig(sparse_feature_size=8, embedding_size=[100, 20000], mlp_bot=[4, 8],
                             mlp_top=[24, 1], batch_size=BATCH)
     m = pdlrm.make_dlrm_model(flat, port.FFConfig(batch_size=BATCH, packed_tables="on"), device="cpu")
@@ -155,3 +161,110 @@ def test_dcnv2_config_is_mlperfs_shape():
         pdlrm.DLRMConfig(embedding_size=[10, 10], embedding_bag_size=[1, 2, 3])
     with pytest.raises(ValueError, match="bottom MLP must end"):
         pdlrm.DLRMConfig(sparse_feature_size=16, mlp_bot=[13, 8], arch_interaction_op="dcn")
+
+
+def _cross(d: int, r: int, layers: int = 3, batch: int = 128, seed: int = 3):
+    """A cross network op at [batch, d], rank r, its parameters, x0 and an
+    output cotangent, drawn from `seed`."""
+    op = cross_mod.LowRankCrossNet("cross", TensorSpec((batch, d)), layers, r)
+    gen = torch.Generator().manual_seed(seed)
+    scale = (2.0 / (d + r)) ** 0.5
+    params = {}
+    for layer in range(layers):
+        params[f"v_kernel_{layer}"] = torch.randn(r, d, generator=gen) * scale
+        params[f"w_kernel_{layer}"] = torch.randn(d, r, generator=gen) * scale
+        params[f"bias_{layer}"] = torch.randn(d, generator=gen) * 0.1
+    return op, params, torch.randn(batch, d, generator=gen), torch.randn(batch, d, generator=gen)
+
+
+def _leaves(params, x0):
+    return x0.clone().requires_grad_(True), {k: v.clone().requires_grad_(True) for k, v in params.items()}
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_fused_cross_plain_versions_reproduce_layers(monkeypatch, seed):
+    """`FusedCrossNet` on the CPU (the epilogue's plain versions, f32
+    products of the bf16 operands) against `_layers` under autograd at
+    d = 48, r = 16, 3 layers, bf16 compute. The forward runs the same
+    operations: x_{l+1} (the saved bf16 copies and the output) and the
+    saved u = p + b equal bit for bit. The backward sums exact products in
+    another order (the split's three parts) and x0's gradient over the
+    layers in another order; a sum that lands on the other side of a bf16
+    rounding moves a rounded element by one bf16 step, at most 2^-7 of the
+    tensor's largest magnitude, and two layers' can add: x0's, V's, W's and
+    b's gradients and the sum of G3's parts agree within 2^-6 of their
+    largest magnitude; the last layer's G3 (its G is the incoming
+    cotangent on both sides) equals the split of autograd's bit for bit."""
+    op, params, x0, g = _cross(48, 16, seed=seed)
+    layers, d = op.num_layers, op.dim
+    xr, pr = _leaves(params, x0)
+    ys, real_dense = [], cross_mod.dense
+
+    def keep_sum(x, kernel, bias, act, cdt):  # u = W v + b of each layer, its gradient retained
+        y = real_dense(x, kernel, bias, act, cdt)
+        if bias is not None:
+            y.retain_grad()
+            ys.append(y)
+        return y
+
+    monkeypatch.setattr(cross_mod, "dense", keep_sum)
+    want = op._layers(pr, xr, torch.bfloat16)
+    monkeypatch.setattr(cross_mod, "dense", real_dense)
+    want.backward(g)
+    xs = [x0]
+    for y in ys:
+        xs.append(torch.addcmul(xs[-1], x0, y.detach()))
+    assert torch.equal(xs[-1], want.detach())
+
+    xf, pf = _leaves(params, x0)
+    steps, real_backward = [], cross_mod.cross_backward
+
+    def keep_steps(*args, **kw):
+        out = real_backward(*args, **kw)
+        steps.append([t.clone() for t in out])
+        return out
+
+    monkeypatch.setattr(cross_mod, "cross_backward", keep_steps)
+    got = op._fused(pf, xf)
+    saved = got.grad_fn.saved_tensors
+    got.backward(g)
+    assert torch.equal(got.detach(), want.detach())
+    for layer in range(layers):
+        xb, vb, p = saved[1 + 5 * layer:4 + 5 * layer]
+        assert torch.equal(xb, xs[layer].to(torch.bfloat16)), layer
+        assert torch.equal(p + params[f"bias_{layer}"], ys[layer].detach()), layer
+
+    def close(a, b, name):
+        gap = float((a - b).abs().max()) / float(b.abs().max())
+        assert gap <= 2.0**-6, (name, gap)
+
+    assert len(steps) == layers
+    for (_, g3, bias_grad), layer in zip(steps, reversed(range(layers))):
+        split = split_bf16x3_reference(ys[layer].grad, d)
+        if layer == layers - 1:
+            assert torch.equal(g3.view(torch.int16), split.view(torch.int16))
+        close(g3.float().view(-1, 3, d).sum(1), split.float().view(-1, 3, d).sum(1), f"G3 {layer}")
+        close(bias_grad, pr[f"bias_{layer}"].grad, f"bias {layer} (the kernel's sum)")
+    close(xf.grad, xr.grad, "x0")
+    for key in params:
+        close(pf[key].grad, pr[key].grad, key)
+
+
+def test_fused_cross_takes_cuda_bf16_and_widths_of_8():
+    """The op takes `FusedCrossNet` only on CUDA under a bf16 compute dtype
+    with d and r multiples of 8; d = 44 or r = 12 keep `_layers`, as do the
+    CPU and an f32 compute dtype. The CPU forward runs `_layers` and counts
+    no fused layer; the epilogue's wrappers refuse a d not a multiple of 8."""
+    cuda, bf16 = torch.device("cuda"), torch.bfloat16
+    op, params, x0, _ = _cross(48, 16)
+    assert op.takes_fused(cuda, bf16)
+    assert not op.takes_fused(cuda, torch.float32) and not op.takes_fused(torch.device("cpu"), bf16)
+    assert not _cross(44, 16)[0].takes_fused(cuda, bf16) and not _cross(48, 12)[0].takes_fused(cuda, bf16)
+    ctx = type("Ctx", (), {"compute_dtype": bf16, "phases": None})()
+    reset_spans()
+    (y,) = op.forward(params, [x0], ctx)
+    assert torch.equal(y, op._layers(params, x0, bf16))
+    assert cross_mod.FUSED_LAYERS not in span_totals()
+    op44, params44, x44, _ = _cross(44, 16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        op44._fused(params44, x44)

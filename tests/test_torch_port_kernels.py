@@ -113,8 +113,8 @@ def test_kernel_build_needs_nvcc():
     """Where nvcc exists the kernel builds; where it does not, the build
     raises rather than falling back."""
     names = _build.kernel_names()
-    assert names == ["bf16_split", "dot_interaction", "embedding_bag", "fused_mlp", "onehot_embedding",
-                     "phase_stamp", "row_gather", "row_update"]
+    assert names == ["bf16_split", "cross_epilogue", "dot_interaction", "embedding_bag", "fused_mlp",
+                     "onehot_embedding", "phase_stamp", "row_gather", "row_update"]
     try:
         _build.nvcc_path()
     except RuntimeError:
